@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.  Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits nonzero):
+
+1. setup   — torch version, device name, ``nvidia-smi`` name and power
+             limit; TF32 off; build the three CUDA kernels from
+             ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel).
+2. kernels — at the full-width round (N = 32 clients, k_n in {3, 4},
+             T = 30 tasks, d = 1,327,140, the LoRA task-vector size of
+             ViT-B/32 at rank 16 on attn/wq, attn/wo and mlp/down): each
+             kernel against its plain PyTorch version on the same inputs,
+             then timed (median of CUDA-event-timed launches) beside its
+             plain version and its bound; one whole round with kernels
+             against the same round with the plain versions.
+3. round   — three rounds of ``MaTUStrategy.aggregate`` at that width;
+             round r+1 starts from ``task_init`` (the downlink, modulated)
+             plus a seeded perturbation in place of local training.  Every
+             kernel's launch count must rise every round.  One more round
+             runs under ``torch.profiler`` (device busy time, idle share,
+             the ops that take the most device time).
+4. app     — the quickstart (6 tasks in 3 groups, 9 clients,
+             ``MLPBackbone(32, hidden=64, lora_rank=8)``) through
+             ``FedSimulator`` for 3 rounds with MaTU and FedAvg.
+5. summary — a ``kernels:`` line, one JSON line with every kernel's
+             numbers, and the last line ``{"ok": true, "device": …}``.
+
+The script needs a CUDA device and the rest of the repository: without
+either it exits nonzero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+N, K_MAX, T, D = 32, 4, 30, 1_327_140
+SEED = 0
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and fp32 outside the
+# tensor cores — the table's only scalar-ALU rate, used for the integer
+# popcount work too
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+REPS = 25
+RTOL = 1e-5
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` CUDA-event-timed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(statistics.median(times))
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and ops
+    over the scalar peak."""
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S
+    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
+
+
+def max_abs(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def check_close(torch, name, got, want, rtol=RTOL, atol=0.0) -> float:
+    err = max_abs(torch, got, want)
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: kernel vs plain max |err| {err} "
+                             f"beyond rtol {rtol}, atol {atol}")
+    return err
+
+
+def check_equal(torch, name, got, want) -> None:
+    if not torch.equal(got, want):
+        n_bad = int((got != want).sum())
+        raise AssertionError(f"{name}: kernel vs plain differ in {n_bad} "
+                             f"entries (must be identical)")
+
+
+def bf16_bits(torch, x):
+    return x.contiguous().view(torch.int16)
+
+
+def setup(torch):
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"device: {torch.cuda.get_device_name(0)} "
+        f"(count {torch.cuda.device_count()})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build, ops
+    secs = build.timed_build(ops.KERNELS)
+    log(f"built {len(ops.KERNELS)} kernels in {secs:.2f} s")
+    for src, text in sorted(build.BUILD_LOG.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+    return card
+
+
+def make_round_inputs(torch, dev):
+    """Full-width round inputs from a seeded generator on the card:
+    (task_vectors (N, K, D) fp32 zero-padded, valid, slot_tasks,
+    slot_sizes, ks)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ks = 3 + (torch.rand(N, generator=g, device=dev) < 0.5).long()
+    valid = torch.arange(K_MAX, device=dev)[None, :] < ks[:, None]
+    tv = torch.randn((N, K_MAX, D), generator=g, device=dev) \
+        * valid[:, :, None]
+    tasks = torch.full((N, K_MAX), T, dtype=torch.int32, device=dev)
+    for i in range(N):
+        k = int(ks[i])
+        perm = torch.randperm(T, generator=g, device=dev)[:k]
+        tasks[i, :k] = torch.sort(perm).values.to(torch.int32)
+    sizes = torch.randint(10, 200, (N, K_MAX), generator=g, device=dev)
+    sizes = (sizes * valid).float()
+    return tv, valid, tasks, sizes, [int(k) for k in ks.tolist()]
+
+
+def kernel_phase(torch, dev):
+    from repro_torch.core.engine import (EngineConfig, RoundEngine,
+                                         pack_from_slots)
+    from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ops,
+                                     sign_sim)
+
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
+    n_valid = sum(ks)
+    w = bitpack.packed_width(D)
+    rows = {}
+
+    # -- fused_unify_packed: client upload construction -------------------
+    got = fused_unify.fused_unify_packed_cuda(tv, valid)
+    want = fused_unify.plain(tv, valid)
+    torch.cuda.synchronize()
+    check_equal(torch, "fused_unify words", got[1], want[1])
+    check_equal(torch, "fused_unify unified (bf16 bits)",
+                bf16_bits(torch, got[0]), bf16_bits(torch, want[0]))
+    err = max(check_close(torch, "fused_unify num", got[2], want[2]),
+              check_close(torch, "fused_unify den", got[3], want[3]))
+    ms = time_ms(torch, lambda: fused_unify.fused_unify_packed_cuda(tv, valid))
+    plain_ms = time_ms(torch, lambda: fused_unify.plain(tv, valid), reps=5)
+    # valid slot rows and the valid flags read; unified, words, num and
+    # den written (the per-block partials are the kernel's own scratch)
+    n_bytes = (n_valid * D * 4 + N * K_MAX + N * D * 2 + N * K_MAX * w * 4
+               + 2 * N * K_MAX * 4)
+    b_ms, b_by = bound(n_bytes, 10 * n_valid * D)
+    rows["fused_unify_packed"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/fused_unify.cu",
+        replaces="src/repro/kernels/fused_unify.py:124", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, check="words, bf16 bits identical; num/den "
+        f"rtol {RTOL} (max |err| {err})")
+    log(f"fused_unify_packed (upload, B={N} K={K_MAX} d={D}, {n_valid} "
+        f"valid slots): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); max|err| {err}")
+
+    # -- the round's dense inputs -----------------------------------------
+    uni, words, lams = ops.fused_unify_packed(tv, valid)
+    words_d, lams_d, member_d, sizes_d = ops.slots_to_dense_packed(
+        words, lams, sizes, valid, tasks, T)
+    memf = member_d.float()
+    gam = sizes_d * memf
+    gam = gam / torch.clamp(gam.sum(0, keepdim=True), min=1e-12)
+    n_member_rows = int(member_d.sum())
+
+    # -- masked_agg_batched_packed ----------------------------------------
+    args = (uni, words_d, lams_d, gam, member_d, D, 0.4)
+    got = masked_agg.masked_agg_batched_packed_cuda(*args)
+    want = masked_agg.plain(*args)
+    torch.cuda.synchronize()
+    check_equal(torch, "masked_agg alpha_num", got[1], want[1])
+    err = check_close(torch, "masked_agg tau_hat", got[0], want[0],
+                      atol=1e-6)
+    tau_hats = got[0]
+    ms = time_ms(torch, lambda: masked_agg.masked_agg_batched_packed_cuda(
+        *args))
+    plain_ms = time_ms(torch, lambda: masked_agg.plain(*args), reps=5)
+    n_bytes = (N * D * 2 + n_member_rows * w * 4 + 2 * N * T * 4
+               + 2 * T * D * 4)
+    b_ms, b_by = bound(n_bytes, 8 * n_member_rows * D)
+    rows["masked_agg_batched_packed"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/masked_agg.cu",
+        replaces="src/repro/kernels/masked_agg.py:139", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, check=f"alpha_num identical; tau_hat rtol {RTOL}, "
+        f"atol 1e-06 (max |err| {err})")
+    log(f"masked_agg_batched_packed (N={N} T={T} d={D}, {n_member_rows} "
+        f"member rows): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); max|err| {err}")
+
+    # -- sign_sim_packed --------------------------------------------------
+    pos, nz = bitpack.sign_planes(tau_hats)
+    got = sign_sim.sign_sim_packed_cuda(pos, nz)
+    want = sign_sim.plain(pos, nz)
+    torch.cuda.synchronize()
+    check_equal(torch, "sign_sim dots", got, want)
+    sgn = torch.sign(tau_hats)
+    lib = sgn @ sgn.T
+    check_equal(torch, "sign_sim dots vs sgn @ sgn.T", got, lib)
+    ms = time_ms(torch, lambda: sign_sim.sign_sim_packed_cuda(pos, nz))
+    plain_ms = time_ms(torch, lambda: sign_sim.plain(pos, nz), reps=5)
+    lib_ms = time_ms(torch, lambda: torch.sign(tau_hats)
+                     @ torch.sign(tau_hats).T)
+    b_ms, b_by = bound(2 * T * w * 4 + T * T * 4,
+                       6 * (T * (T + 1) // 2) * w)
+    rows["sign_sim_packed"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sign_sim.cu",
+        replaces="src/repro/kernels/sign_sim.py:70", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, check="dots identical (and equal to the fp32 "
+        "sgn @ sgn.T)")
+    log(f"sign_sim_packed (T={T} w={w}): {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, library sign@sign.T {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+
+    # -- one whole round: kernels vs plain versions -----------------------
+    engine = RoundEngine(EngineConfig(n_tasks=T), device=dev)
+    cids = list(range(N))
+    tids = [tasks[i, :ks[i]].tolist() for i in range(N)]
+    packed = pack_from_slots(cids, tids, uni, words, lams, tasks, valid,
+                             sizes, T, d=D)
+    out_k = engine.run_packed(packed)
+    out_p = engine.run_packed(packed, mode="ref")
+    torch.cuda.synchronize()
+    check_equal(torch, "round alpha_num", out_k.alpha_num, out_p.alpha_num)
+    check_equal(torch, "round n_held", out_k.n_held, out_p.n_held)
+    check_equal(torch, "round similarity", out_k.similarity,
+                out_p.similarity)
+    check_close(torch, "round task_vectors", out_k.task_vectors,
+                out_p.task_vectors, atol=1e-6)
+    bits_k = bitpack.unpack_bits(out_k.down_masks, D)
+    bits_p = bitpack.unpack_bits(out_p.down_masks, D)
+    valid_bits = valid[:, :, None].expand_as(bits_k)
+    agree = float((bits_k == bits_p)[valid_bits].float().mean())
+    if agree < 0.99999:
+        raise AssertionError(f"round downlink mask bits agree on {agree}")
+    ulp = (bf16_bits(torch, out_k.down_unified).int()
+           - bf16_bits(torch, out_p.down_unified).int()).abs().max()
+    if int(ulp) > 1:
+        raise AssertionError(f"round downlink bf16 differ by {int(ulp)} ulp")
+    if not torch.isfinite(out_k.task_vectors).all():
+        raise AssertionError("round task vectors not finite")
+    log(f"round kernels vs plain: downlink bits agree {agree}, bf16 max "
+        f"ulp {int(ulp)}, task vectors max|err| "
+        f"{max_abs(torch, out_k.task_vectors, out_p.task_vectors)}")
+
+    # -- fused_unify_packed: downlink re-unification ----------------------
+    tvs_slots = out_k.task_vectors[torch.clamp(tasks.long(), max=T - 1)]
+    got = fused_unify.fused_unify_packed_cuda(tvs_slots, valid)
+    want = fused_unify.plain(tvs_slots, valid)
+    torch.cuda.synchronize()
+    check_equal(torch, "downlink words", got[1], want[1])
+    check_equal(torch, "downlink bf16 bits", bf16_bits(torch, got[0]),
+                bf16_bits(torch, want[0]))
+    err = max(check_close(torch, "downlink num", got[2], want[2]),
+              check_close(torch, "downlink den", got[3], want[3]))
+    rows["fused_unify_packed"]["max_abs_err"] = max(
+        rows["fused_unify_packed"]["max_abs_err"], err)
+    ms_down = time_ms(torch, lambda: fused_unify.fused_unify_packed_cuda(
+        tvs_slots, valid))
+    log(f"fused_unify_packed (downlink, same shape): {ms_down:.4f} ms; "
+        f"max|err| {err}")
+    del tv, tvs_slots, out_k, out_p, bits_k, bits_p, packed
+    torch.cuda.empty_cache()
+    return rows
+
+
+def round_phase(torch, dev):
+    from repro_torch.fed.strategies import MaTUStrategy, Upload
+    from repro_torch.kernels import ops
+
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
+    tids = [tasks[i, :ks[i]].tolist() for i in range(N)]
+    szs = [sizes[i, :ks[i]].tolist() for i in range(N)]
+    uploads = [Upload(i, tids[i], tv[i, :ks[i]].clone(), szs[i])
+               for i in range(N)]
+    del tv
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    strat = MaTUStrategy(T, D, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for r in range(3):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strat.aggregate(uploads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = ops.launch_counts()
+        rose = {k: after[k] - before[k] for k in after}
+        if min(rose.values()) < 1:
+            raise AssertionError(f"round {r}: a kernel was not launched: "
+                                 f"{rose}")
+        tv_out = strat.server.last_task_vectors
+        if not torch.isfinite(tv_out).all() or tv_out.shape != (T, D):
+            raise AssertionError(f"round {r}: bad task vectors")
+        log(f"round {r}: wall {1e3 * wall:.2f} ms, uplink "
+            f"{strat.uplink_bits(uploads)} bits, downlink "
+            f"{strat.downlink_bits()} bits, launches {rose}")
+        uploads = [Upload(u.client_id, u.task_ids, torch.stack(
+            [strat.task_init(u.client_id, t) for t in u.task_ids])
+            + 0.1 * torch.randn((len(u.task_ids), D), generator=g,
+                                device=dev), u.data_sizes) for u in uploads]
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    log(f"round phase: peak device memory {peak / 2**30:.3f} GiB, "
+        f"launches {counts}")
+    profile_round(torch, strat, uploads)
+    del uploads, strat
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_round(torch, strat, uploads, top: int = 8) -> None:
+    """One more full-width round under ``torch.profiler``: the summed
+    device time of its kernels and copies against the host wall time
+    (the idle share), and the ops that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        strat.aggregate(uploads)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    log(f"profiled round: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+            f"{e.key[:90]}")
+
+
+def app_phase(torch, dev):
+    import numpy as np
+    from repro_torch.data.dirichlet import dirichlet_split
+    from repro_torch.data.synthetic import make_constellation
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.fed.strategies import FedAvgStrategy, MaTUStrategy
+    from repro_torch.fed.testbed import MLPBackbone
+    from repro_torch.kernels import ops
+
+    n_tasks = 6
+    con = make_constellation(n_tasks=n_tasks, n_groups=3, feat_dim=32,
+                             n_classes=8, conflict_pairs=[(0, 1)], seed=0)
+    split = dirichlet_split(n_clients=9, n_tasks=n_tasks, n_classes=8,
+                            zeta_t=0.5, tasks_per_client=2, seed=0)
+    bb = MLPBackbone(32, hidden=64, lora_rank=8)
+    cfg = FedConfig(rounds=3, local_steps=25, lr=1e-2, eval_every=1, seed=0)
+    counts = {}
+    for name, cls in [("matu", MaTUStrategy), ("fedavg", FedAvgStrategy)]:
+        ops.reset_launch_counts()
+        strat = cls(n_tasks, bb.d, device=dev)
+        t0 = time.perf_counter()
+        hist = FedSimulator(cfg, con, split, bb, strat, device=dev).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        for r, acc in zip(hist.rounds, hist.mean_acc):
+            log(f"app {name} round {r}: mean acc {acc:.4f}")
+        if not all(0.0 <= a <= 1.0 for a in hist.mean_acc):
+            raise AssertionError(f"app {name}: accuracy out of range")
+        log(f"app {name}: {wall:.2f} s for {cfg.rounds} rounds, uplink "
+            f"{hist.uplink_bits_per_round} bits, launches {counts[name]}")
+        if name == "matu":
+            if min(counts[name].values()) < cfg.rounds:
+                raise AssertionError(f"app matu: kernels not launched every "
+                                     f"round: {counts[name]}")
+            s = strat.server.last_similarity.cpu().numpy()
+            groups = [con.group_of(t) for t in range(n_tasks)]
+            pairs = [(a, b) for a in range(n_tasks)
+                     for b in range(a + 1, n_tasks)]
+            same = np.mean([s[a, b] for a, b in pairs
+                            if groups[a] == groups[b]])
+            cross = np.mean([s[a, b] for a, b in pairs
+                             if groups[a] != groups[b]])
+            log(f"app matu: within-group S {same:.4f}, cross-group S "
+                f"{cross:.4f}")
+            if not same > cross:
+                raise AssertionError("app matu: within-group S is not above "
+                                     "cross-group S")
+    return counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    setup(torch)
+    log("== kernel phase ==")
+    rows = kernel_phase(torch, dev)
+    log("== round phase ==")
+    round_counts = round_phase(torch, dev)
+    log("== app phase ==")
+    app_counts = app_phase(torch, dev)
+    kernels = []
+    for name, row in rows.items():
+        check = row.pop("check")
+        kernels.append(dict(name=name, launches=round_counts[name],
+                            app_launches=app_counts["matu"][name], **row))
+        row["check"] = check
+    log("kernels: " + "; ".join(
+        f"{k['name']} launches={k['launches']} (app {k['app_launches']}) "
+        f"check=pass [{rows[k['name']]['check']}]" for k in kernels))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the MaTU reproduction (``repro``).
+
+Same subpackage layout as the JAX package, so every module has an
+obvious twin: ``kernels`` (bit-packed wire layout, plain versions, the
+hand-written CUDA kernels and their dispatch), ``core`` (unify, client
+wire types, round engine, server), ``common`` (device choice, task-vector
+layout manifest), ``data``, ``optim`` and ``fed`` (local training,
+strategies, simulator).
+
+The port imports torch, numpy and the standard library only.  Every
+entry point takes ``device=`` and defaults to ``"cuda"``; without a card
+that default raises instead of running on the CPU.  Tensors on the CPU
+take each kernel's plain PyTorch version, CUDA tensors take the kernel.
+"""

@@ -1,0 +1,192 @@
+"""Dispatch layer over the port's kernels — the only entry point the
+round engine (``repro_torch.core.engine``) uses for Eq. 2–7 math.
+
+Dispatch follows the tensors' device: CPU tensors take each kernel's
+plain PyTorch version, CUDA tensors take the hand-written kernel (or
+raise).  ``mode="ref"`` runs the plain versions on any device; it exists
+so that tests and ``chip_smoke.py`` can hold the kernels against them.
+No environment variable changes what the main path runs.
+
+The (T, T)-sized Eq. 6–7 ops (top-κ filter, cross-task combine) have no
+kernel in either package: a (T, T) top-k and a (T, T)·(T, d) product
+stay plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ref,
+                                 sign_sim)
+
+MODES = (None, "ref")
+KERNELS = (fused_unify.KERNEL, masked_agg.KERNEL, sign_sim.KERNEL)
+
+
+def _plain(mode: Optional[str]) -> bool:
+    if mode not in MODES:
+        raise ValueError(f"unknown dispatch mode {mode!r}; expected one of "
+                         f"{MODES} (None = by device)")
+    return mode == "ref"
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last reset, by kernel name."""
+    return {k.name: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def fused_unify_raw(task_vectors: torch.Tensor, valid: torch.Tensor, *,
+                    mode: Optional[str] = None):
+    """Division-free fused unify: (unified bf16, mask words, num, den)."""
+    if _plain(mode):
+        return fused_unify.plain(task_vectors, valid)
+    return fused_unify.fused_unify_packed(task_vectors, valid)
+
+
+def fused_unify_packed(task_vectors: torch.Tensor, valid: torch.Tensor, *,
+                       eps: float = 1e-12, mode: Optional[str] = None):
+    """Batched unify + task masks + λ in the wire format: task_vectors
+    (B, K, d) fp32/bf16, valid (B, K) bool -> (unified (B, d) bf16,
+    mask_words (B, K, ceil(d/32)) int32, lams (B, K) fp32).  Mask bits
+    and λ are decided on fp32 values before the bf16 rounding."""
+    uni, words, num, den = fused_unify_raw(task_vectors, valid, mode=mode)
+    return uni, words, num / torch.clamp(den, min=eps)
+
+
+def masked_agg_batched_packed(unified, mask_words, lams, gammas, members,
+                              d: int, *, rho: float = 0.4,
+                              mode: Optional[str] = None):
+    """Whole-round Eq. 3 + Eq. 4 over packed (N, T, ceil(d/32)) words:
+    returns (tau_hats (T, d) fp32, alpha_num (T, d) fp32)."""
+    if _plain(mode):
+        return masked_agg.plain(unified, mask_words, lams, gammas, members,
+                                d, rho)
+    return masked_agg.masked_agg_batched_packed(unified, mask_words, lams,
+                                                gammas, members, d, rho)
+
+
+def sign_sim_packed(pos: torch.Tensor, nz: torch.Tensor, d: int, *,
+                    mode: Optional[str] = None) -> torch.Tensor:
+    """Eq. 5 similarity S = ½(dots/d + 1) from packed sign planes; ``d``
+    is the unpacked feature count."""
+    if _plain(mode):
+        dots = sign_sim.plain(pos, nz)
+    else:
+        dots = sign_sim.sign_sim_packed(pos, nz)
+    return 0.5 * (dots / d + 1.0)
+
+
+def topk_weights(sim: torch.Tensor, *, eps: float = 0.5,
+                 kappa: int = 3) -> torch.Tensor:
+    """Eq. 6 top-κ neighbourhood weights."""
+    return ref.topk_weights_ref(sim, eps, kappa)
+
+
+def cross_task_combine(tau_hats: torch.Tensor, m_hats: torch.Tensor,
+                       sim_weights: torch.Tensor):
+    """Eq. 6 + Eq. 7: returns (task_vectors, tau_tildes)."""
+    return ref.cross_task_combine_ref(tau_hats, m_hats, sim_weights)
+
+
+def _scatter_slots(values: torch.Tensor, slot_tasks: torch.Tensor,
+                   n_tasks: int) -> torch.Tensor:
+    """(N, K, ...) slot values -> contiguous (N, T, ...) by slot task
+    id; ids >= ``n_tasks`` (the sentinel) land in one extra trailing row
+    that is dropped."""
+    n, k = slot_tasks.shape
+    tail = tuple(values.shape[2:])
+    flat = torch.zeros((n * n_tasks + 1,) + tail, dtype=values.dtype,
+                       device=values.device)
+    tasks = slot_tasks.long()
+    rows = torch.arange(n, device=values.device)[:, None]
+    idx = torch.where(tasks < n_tasks, rows * n_tasks + tasks, n * n_tasks)
+    flat[idx.reshape(-1)] = values.reshape((n * k,) + tail)
+    return flat[:n * n_tasks].reshape((n, n_tasks) + tail)
+
+
+def _slot_scalars_to_dense(slot_lams, slot_sizes, slot_valid, slot_tasks,
+                           n_tasks: int):
+    """Scatter the per-slot scalars to the dense (N, T) layout: (lams,
+    members, sizes)."""
+    lams_d = _scatter_slots(torch.where(slot_valid, slot_lams.float(), 0.0),
+                            slot_tasks, n_tasks)
+    member_d = _scatter_slots(slot_valid, slot_tasks, n_tasks)
+    sizes_d = _scatter_slots(torch.where(slot_valid, slot_sizes.float(), 0.0),
+                             slot_tasks, n_tasks)
+    return lams_d, member_d, sizes_d
+
+
+def slots_to_dense_packed(slot_mask_words, slot_lams, slot_sizes, slot_valid,
+                          slot_tasks, n_tasks: int):
+    """Scatter slot-packed round tensors to the dense per-task layout the
+    kernels consume: ((N, T, ceil(d/32)) int32 words, (N, T) lams /
+    members / sizes).  Sentinel task ids (== n_tasks) are dropped."""
+    words = torch.where(slot_valid[:, :, None], slot_mask_words,
+                        torch.zeros((), dtype=torch.int32,
+                                    device=slot_mask_words.device))
+    words_d = _scatter_slots(words, slot_tasks, n_tasks)
+    lams_d, member_d, sizes_d = _slot_scalars_to_dense(
+        slot_lams, slot_sizes, slot_valid, slot_tasks, n_tasks)
+    return words_d, lams_d, member_d, sizes_d
+
+
+def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
+                            slot_valid, slot_tasks, n_tasks: int, d: int, *,
+                            rho: float = 0.4, eps: float = 0.5,
+                            kappa: int = 3, cross_task: bool = True,
+                            uniform_cross: bool = False,
+                            lam_eps: float = 1e-12,
+                            mode: Optional[str] = None):
+    """The full MaTU server round over wire-format slot uploads.
+
+    Layout: ``unified`` (N, d) bf16; ``slot_mask_words`` (N, K,
+    ceil(d/32)) int32 packed masks; ``slot_lams`` / ``slot_sizes`` /
+    ``slot_valid`` (N, K); ``slot_tasks`` (N, K) with the sentinel
+    ``n_tasks`` in invalid slots.  The composition is the JAX package's
+    packed kernel path: scatter to the dense layout, Eq. 3+4 masked
+    aggregation, Eq. 5 popcount dots, Eq. 6+7 in plain torch, then the
+    downlink re-unification of every client's fresh task vectors.
+
+    Returns (task_vectors (T, d) fp32, tau_hats (T, d) fp32, alpha_num
+    (T, d) uint8, n_held (T,) fp32, similarity (T, T), down_unified
+    (N, d) bf16, down_mask_words (N, K, ceil(d/32)) int32, down_lams
+    (N, K)).  Tasks nobody holds give τ̂ = 0, alpha_num = 0 and are
+    masked out of the similarity.
+    """
+    if unified.shape[-1] != d:
+        raise ValueError(f"unified width {unified.shape[-1]} != d={d}")
+    words_d, lams_d, member_d, sizes_d = slots_to_dense_packed(
+        slot_mask_words, slot_lams, slot_sizes, slot_valid, slot_tasks,
+        n_tasks)
+    memf = member_d.float()
+    gam = sizes_d * memf
+    gam = gam / torch.clamp(torch.sum(gam, dim=0, keepdim=True), min=1e-12)
+    tau_hats, a_num = masked_agg_batched_packed(
+        unified, words_d, lams_d, gam, member_d, d, rho=rho, mode=mode)
+    n_t = torch.sum(memf, dim=0)
+    held = n_t > 0
+    heldf = held.float()
+    alpha = a_num / torch.clamp(n_t, min=1.0)[:, None]
+    m_hats = torch.where(alpha >= rho, 1.0, alpha)
+
+    pos, nz = bitpack.sign_planes(tau_hats)
+    sim = (sign_sim_packed(pos, nz, d, mode=mode)
+           * heldf[None, :] * heldf[:, None])
+    weights = ref.cross_weights_ref(sim, held, eps=eps, kappa=kappa,
+                                    cross_task=cross_task,
+                                    uniform_cross=uniform_cross)
+    task_vectors, _tau_tildes = ref.cross_task_combine_ref(tau_hats, m_hats,
+                                                           weights)
+    # sentinel slot ids are clamped; the valid mask zeroes their output
+    tvs_slots = task_vectors[torch.clamp(slot_tasks.long(), max=n_tasks - 1)]
+    uni, dwords, num, den = fused_unify_raw(tvs_slots, slot_valid, mode=mode)
+    a_u8 = a_num.to(ref.alpha_dtype(slot_valid.shape[0]))
+    return (task_vectors, tau_hats, a_u8, n_t, sim, uni, dwords,
+            num / torch.clamp(den, min=lam_eps))

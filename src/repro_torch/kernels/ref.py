@@ -1,0 +1,192 @@
+"""Plain PyTorch versions of the round's kernels (the reference semantics).
+
+Each hand-written CUDA kernel in this package computes one of the
+functions below; the kernel module names its plain version, the CPU
+path runs it, and ``chip_smoke.py`` holds the kernel against it on the
+card.  The plain versions fix the same summation order as their kernels
+(the λ block tree, ascending client order in Eq. 4), so kernel and
+plain version agree bit for bit on the same device.
+
+Against the JAX package (``repro.kernels.ref`` and the Pallas kernels):
+mask words, sign votes and Eq. 5 dots are bit-identical; λ and the fp32
+vectors agree to fp32 accumulation tolerance, because the in-block and
+client-axis summation orders differ.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import bitpack
+
+# Fixed block grid of the λ numerator/denominator reductions over d: one
+# partial sum per LAMBDA_BLOCK consecutive coordinates, combined by a
+# power-of-two binary tree over the block index (``_tree_total``).  One
+# block is 8 packed words, so block alignment implies word alignment.
+LAMBDA_BLOCK = 256
+_WARP = 32
+assert LAMBDA_BLOCK % bitpack.WORD_BITS == 0
+
+
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def _halve(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum a power-of-two axis by repeated halving: element i pairs with
+    i + n/2 — the order of a CUDA ``__shfl_down_sync`` tree."""
+    while p.shape[dim] > 1:
+        half = p.shape[dim] // 2
+        p = p.narrow(dim, 0, half) + p.narrow(dim, half, half)
+    return p.squeeze(dim)
+
+
+def _block_partials(x: torch.Tensor) -> torch.Tensor:
+    """(..., c) -> (..., c // LAMBDA_BLOCK) per-block partial sums (c a
+    multiple of LAMBDA_BLOCK).  In-block order is the fused-unify
+    kernel's: a shuffle tree over the 32 lanes of each warp, then a
+    halving tree over the block's 8 warps."""
+    s = x.shape
+    p = x.reshape(s[:-1] + (s[-1] // LAMBDA_BLOCK, LAMBDA_BLOCK // _WARP,
+                            _WARP))
+    return _halve(_halve(p, -1), -1)
+
+
+def _tree_total(p: torch.Tensor) -> torch.Tensor:
+    """(..., L) -> (...,): canonical binary-tree sum pairing (2i, 2i+1)
+    at every level after zero-padding L to a power of two."""
+    L = p.shape[-1]
+    Lp = next_pow2(L)
+    if Lp != L:
+        p = torch.nn.functional.pad(p, (0, Lp - L))
+    while p.shape[-1] > 1:
+        p = p[..., 0::2] + p[..., 1::2]
+    return p[..., 0]
+
+
+def _unify_block(x: torch.Tensor, vf: torch.Tensor):
+    """Eq. 2 + modulators on a (…, K, c) block; vf (…, K) float {0, 1};
+    c a multiple of LAMBDA_BLOCK.  Returns (tau (…, c), mask (…, K, c)
+    bool, num partials, den partials) with the partials on the λ grid.
+    The slot sum runs k = 0, 1, … in order, as in the kernel."""
+    xm = x * vf[..., None]
+    s = xm[..., 0, :]
+    for k in range(1, xm.shape[-2]):
+        s = s + xm[..., k, :]
+    sigma = torch.sign(s)
+    aligned = (xm * sigma[..., None, :]) > 0
+    mu = torch.amax(torch.where(aligned, xm.abs(), 0.0), dim=-2)
+    tau = sigma * mu
+    mask = ((x * tau[..., None, :]) > 0) & (vf[..., None] > 0)
+    num = _block_partials(xm.abs())
+    den = _block_partials(torch.where(mask, tau.abs()[..., None, :], 0.0))
+    return tau, mask, num, den
+
+
+def fused_unify_packed_ref(task_vectors: torch.Tensor, valid: torch.Tensor):
+    """Fused unify + task masks + λ num/den, batched over clients, in the
+    uplink wire format.
+
+    task_vectors (B, K, d) fp32/bf16; valid (B, K) bool.  Compute is
+    fp32; mask bits and λ num/den are decided on the fp32 values before
+    the unified vector is rounded to bf16.  Returns (unified (B, d)
+    bf16, mask_words (B, K, ceil(d/32)) int32, num (B, K), den (B, K));
+    invalid slots give zero mask rows and num = den = 0.
+    """
+    b, k, d = task_vectors.shape
+    pad = (-d) % LAMBDA_BLOCK
+    x = task_vectors.float()
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    tau, mask, num_p, den_p = _unify_block(x, valid.float())
+    return (tau[:, :d].to(torch.bfloat16), bitpack.pack_bits(mask[..., :d]),
+            _tree_total(num_p), _tree_total(den_p))
+
+
+def alpha_dtype(n: int) -> torch.dtype:
+    """Narrowest dtype holding the Eq. 3 agreement numerator
+    |Σ_n sgn(m ⊙ τ_n)| ≤ n (an exact small integer)."""
+    return torch.uint8 if n <= 255 else torch.int32
+
+
+def masked_agg_batched_packed_ref(unified: torch.Tensor,
+                                  mask_words: torch.Tensor,
+                                  lams: torch.Tensor, gammas: torch.Tensor,
+                                  members: torch.Tensor, d: int,
+                                  rho: float):
+    """Whole-round Eq. 3 + Eq. 4 over packed (N, T, ceil(d/32)) mask
+    words.
+
+    unified (N, d) bf16/fp32; lams/gammas/members (N, T).  Sign votes
+    are bit(m & pos) − bit(m & neg) with (pos, neg) the sign of
+    ``unified``; a_num = |Σ_n member·votes|; m̂ = 1 if a_num/N_t ≥ ρ
+    else a_num/N_t; τ̂ = m̂ · Σ_n γλ·u·(bit(m&pos) + bit(m&neg)).  The
+    client sum runs in ascending n, one fp32 rounding per product and
+    per add — the order of the CUDA kernel.  Returns (tau_hats (T, d)
+    fp32, alpha_num (T, d) fp32).
+    """
+    n, t = members.shape
+    u = unified.float()
+    mem = members.float()
+    gl = gammas.float() * lams.float()
+    votes = torch.zeros((t, d), dtype=torch.float32, device=u.device)
+    acc = torch.zeros_like(votes)
+    for i in range(n):
+        m = bitpack.unpack_bits(mask_words[i], d)           # (T, d)
+        sp = (m & (u[i] > 0)).float()
+        sn = (m & (u[i] < 0)).float()
+        votes = votes + mem[i, :, None] * (sp - sn)
+        acc = acc + gl[i, :, None] * (u[i] * (sp + sn))
+    a_num = votes.abs()
+    alpha = a_num / torch.clamp(mem.sum(0), min=1.0)[:, None]
+    m_hat = torch.where(alpha >= rho, 1.0, alpha)
+    return acc * m_hat, a_num
+
+
+def sign_sim_packed_ref(pos: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
+    """Eq. 5 raw sign dots (T, T) fp32 (exact integers) from (pos, nz)
+    bit-planes; the caller normalises by the unpacked d."""
+    return bitpack.packed_sign_dots(pos, nz).float()
+
+
+def cross_weights_ref(sim: torch.Tensor, held: torch.Tensor, *, eps: float,
+                      kappa: int, cross_task: bool,
+                      uniform_cross: bool) -> torch.Tensor:
+    """Eq. 6 neighbourhood weights from the held-masked similarity."""
+    heldf = held.to(sim.dtype)
+    if not cross_task:
+        return torch.zeros_like(sim)
+    if uniform_cross:
+        t = sim.shape[0]
+        eye = torch.eye(t, dtype=sim.dtype, device=sim.device)
+        w = (1.0 - eye) * heldf[None, :] * heldf[:, None]
+        return w / torch.clamp(torch.sum(w, 1, keepdim=True), min=1.0)
+    return topk_weights_ref(sim, eps, kappa)
+
+
+def topk_weights_ref(sim: torch.Tensor, eps: float, kappa: int) -> torch.Tensor:
+    """Eq. 6 top-κ neighbourhood Z^t as a (T, T) weight matrix.  Only the
+    κ-th value is used (as a threshold), so tie order never matters."""
+    t = sim.shape[0]
+    eye = torch.eye(t, dtype=sim.dtype, device=sim.device)
+    offdiag = sim * (1.0 - eye)
+    eligible = torch.where(offdiag > eps, offdiag, 0.0)
+    k = min(kappa, t - 1) if t > 1 else 0
+    if k == 0:
+        return torch.zeros_like(sim)
+    vals, _ = torch.topk(eligible, k, dim=-1)
+    thresh = vals[:, -1:]
+    keep = (eligible >= thresh) & (eligible > 0)
+    return torch.where(keep, eligible, 0.0)
+
+
+def cross_task_combine_ref(tau_hats: torch.Tensor, m_hats: torch.Tensor,
+                           sim_weights: torch.Tensor):
+    """Eq. 6 + Eq. 7: normalised cross-task mix, then the overview's
+    averaging.  Returns (task_vectors (T, d), tau_tildes (T, d))."""
+    total = torch.sum(sim_weights, dim=1, keepdim=True)
+    norm_w = sim_weights / torch.clamp(total, min=1e-12)
+    tau_tildes = m_hats * (norm_w @ tau_hats)
+    has = (total > 0).to(tau_hats.dtype)
+    task_vectors = (tau_hats + tau_tildes * has) / (1.0 + has)
+    return task_vectors, tau_tildes
