@@ -7,9 +7,11 @@ NVIDIA GPU.  Run from the repository root, with no arguments:
 Phases (any failure raises and the script exits nonzero):
 
 1. setup   — torch version, device name, ``nvidia-smi`` name and power
-             limit; TF32 off; build the three CUDA kernels from
-             ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel).
-2. kernels — at the full-width round (N = 32 clients, k_n in {3, 4},
+             limit; TF32 off; build the seven CUDA kernels from the three
+             sources in ``src/repro_torch/kernels/csrc`` (one nvcc each,
+             in parallel).
+2. kernels — the packed-wire kernels at the full-width round (N = 32
+             clients, k_n in {3, 4},
              T = 30 tasks, d = 1,327,140, the LoRA task-vector size of
              ViT-B/32 at rank 16 on attn/wq, attn/wo and mlp/down): each
              kernel against its plain PyTorch version on the same inputs,
@@ -18,14 +20,23 @@ Phases (any failure raises and the script exits nonzero):
              against the same round with the plain versions.
 3. round   — three rounds of ``MaTUStrategy.aggregate`` at that width;
              round r+1 starts from ``task_init`` (the downlink, modulated)
-             plus a seeded perturbation in place of local training.  Every
-             kernel's launch count must rise every round.  One more round
-             runs under ``torch.profiler`` (device busy time, idle share,
-             the ops that take the most device time).
-4. app     — the quickstart (6 tasks in 3 groups, 9 clients,
+             plus a seeded perturbation in place of local training.  Each
+             packed-path kernel's launch count must rise every round.  One
+             more round runs under ``torch.profiler`` (device busy time,
+             idle share, the ops that take the most device time).
+4. bool    — the bool/fp32 A/B layout at the same width, on bf16-valued
+             task vectors: each of its kernels (``fused_unify``,
+             ``masked_agg_batched``, ``sign_sim``, and ``unify`` for one
+             client of K = 4) against its plain version, bitwise, and
+             timed; one bool round through the entry points
+             (``batched_client_unify(packed=False)`` → ``pack_from_slots``
+             → ``RoundEngine.run_packed`` → ``downlinks``) with its launch
+             counts, against the same round with the plain versions and
+             against the packed round, bit for bit.
+5. app     — the quickstart (6 tasks in 3 groups, 9 clients,
              ``MLPBackbone(32, hidden=64, lora_rank=8)``) through
              ``FedSimulator`` for 3 rounds with MaTU and FedAvg.
-5. summary — a ``kernels:`` line, one JSON line with every kernel's
+6. summary — a ``kernels:`` line, one JSON line with every kernel's
              numbers, and the last line ``{"ok": true, "device": …}``.
 
 The script needs a CUDA device and the rest of the repository: without
@@ -317,7 +328,7 @@ def round_phase(torch, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         after = ops.launch_counts()
-        rose = {k: after[k] - before[k] for k in after}
+        rose = {k: after[k] - before[k] for k in ops.PACKED_ROUND_KERNELS}
         if min(rose.values()) < 1:
             raise AssertionError(f"round {r}: a kernel was not launched: "
                                  f"{rose}")
@@ -363,6 +374,187 @@ def profile_round(torch, strat, uploads, top: int = 8) -> None:
             f"{e.key[:90]}")
 
 
+def bool_phase(torch, dev):
+    """The bool/fp32 A/B layout at full width: each kernel against its
+    plain version, then one bool round through the entry points (its
+    launch counts read around it), held against the plain round and the
+    packed round bit for bit.  Returns (rows, launches by kernel)."""
+    from repro_torch.core.engine import (EngineConfig, RoundEngine,
+                                         batched_client_unify,
+                                         pack_from_slots)
+    from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ops,
+                                     sign_sim)
+
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
+    # bf16-valued task vectors: unify elects one of them per coordinate,
+    # so the fp32 unified vectors equal the packed round's bf16 ones
+    tv = tv.to(torch.bfloat16).float()
+    n_valid = sum(ks)
+    rows = {}
+
+    def row(name, source, replaces, got, want, ms, plain_ms, n_bytes, n_ops,
+            library_ms=None):
+        b_ms, b_by = bound(n_bytes, n_ops)
+        err = max(max_abs(torch, a, b) for a, b in zip(got, want))
+        rows[name] = dict(
+            route="cuda", source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            check="every output identical to the plain version")
+        log(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})"
+            + ("" if library_ms is None else f", library {library_ms:.4f} ms")
+            + f"; max|err| {err}")
+
+    def same(name, got, want):
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, want)):
+            check_equal(torch, f"{name} output {i}", a, b)
+
+    # -- fused_unify (bool): client upload construction -------------------
+    got = fused_unify.fused_unify_cuda(tv, valid)
+    want = fused_unify.plain_bool(tv, valid)
+    same("fused_unify", got, want)
+    row("fused_unify", "fused_unify.cu", "src/repro/kernels/fused_unify.py:60",
+        got, want,
+        time_ms(torch, lambda: fused_unify.fused_unify_cuda(tv, valid)),
+        time_ms(torch, lambda: fused_unify.plain_bool(tv, valid), reps=5),
+        # valid slot rows and flags read; fp32 unified, mask bytes, num
+        # and den written
+        n_valid * D * 4 + N * K_MAX + N * D * 4 + N * K_MAX * D
+        + 2 * N * K_MAX * 4, 10 * n_valid * D)
+
+    # -- unify: one client of the most slots ------------------------------
+    k1 = max(ks)
+    x1 = tv[ks.index(k1), :k1]
+    got = (fused_unify.unify_cuda(x1),)
+    want = (fused_unify.plain_unify(x1),)
+    same("unify", got, want)
+    row("unify", "fused_unify.cu", "src/repro/kernels/unify.py:37", got, want,
+        time_ms(torch, lambda: fused_unify.unify_cuda(x1)),
+        time_ms(torch, lambda: fused_unify.plain_unify(x1), reps=5),
+        k1 * D * 4 + D * 4, 4 * k1 * D)
+    log(f"  (unify at K={k1}, d={D})")
+
+    # -- masked_agg_batched (bool) ----------------------------------------
+    uni, masks, lams = ops.fused_unify(tv, valid)
+    masks_d, lams_d, member_d, sizes_d = ops.slots_to_dense(
+        masks, lams, sizes, valid, tasks, T)
+    memf = member_d.float()
+    gam = sizes_d * memf
+    gam = gam / torch.clamp(gam.sum(0, keepdim=True), min=1e-12)
+    n_member_rows = int(member_d.sum())
+    args = (uni, masks_d, lams_d, gam, member_d, 0.4)
+    got = masked_agg.masked_agg_batched_cuda(*args)
+    want = masked_agg.plain_bool(*args)
+    same("masked_agg_batched", got, want)
+    tau_hats = got[0]
+    row("masked_agg_batched", "masked_agg.cu",
+        "src/repro/kernels/masked_agg.py:67", got, want,
+        time_ms(torch, lambda: masked_agg.masked_agg_batched_cuda(*args)),
+        time_ms(torch, lambda: masked_agg.plain_bool(*args), reps=5),
+        # unified once, the member mask rows, the (N, T) scalars; tau_hat
+        # and m_hat written
+        N * D * 4 + n_member_rows * D + 3 * N * T * 4 + 2 * T * D * 4,
+        8 * n_member_rows * D)
+    log(f"  ({n_member_rows} member rows)")
+    del masks_d, args
+
+    # -- sign_sim (dense) -------------------------------------------------
+    got = (sign_sim.sign_sim_cuda(tau_hats),)
+    want = (sign_sim.plain_dense(tau_hats),)
+    same("sign_sim", got, want)
+    check_equal(torch, "sign_sim vs the popcount form", got[0],
+                ops.sign_sim_packed(*bitpack.sign_planes(tau_hats), D))
+    row("sign_sim", "sign_sim.cu", "src/repro/kernels/sign_sim.py:37", got,
+        want, time_ms(torch, lambda: sign_sim.sign_sim_cuda(tau_hats)),
+        time_ms(torch, lambda: sign_sim.plain_dense(tau_hats), reps=5),
+        T * D * 4 + T * T * 4, 2 * (T * (T + 1) // 2) * D,
+        library_ms=time_ms(torch, lambda: torch.sign(tau_hats)
+                           @ torch.sign(tau_hats).T))
+    del uni, masks, lams, tau_hats, got, want
+
+    # -- one bool round through the entry points --------------------------
+    engine = RoundEngine(EngineConfig(n_tasks=T), device=dev)
+    cids = list(range(N))
+    tids = [tasks[i, :ks[i]].tolist() for i in range(N)]
+
+    def bool_round(mode=None):
+        uni, masks, lams = batched_client_unify(tv, valid, packed=False,
+                                                device=dev, mode=mode)
+        batch = pack_from_slots(cids, tids, uni, masks, lams, tasks, valid,
+                                sizes, T, d=D)
+        out = engine.run_packed(batch, mode=mode)
+        return (uni, masks, lams), batch, out, engine.downlinks(batch, out)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    up_b, batch_b, out_b, downs_b = bool_round()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want_counts = {"fused_unify": 2, "masked_agg_batched": 1, "sign_sim": 1}
+    if any(counts[k] != v for k, v in want_counts.items()) or any(
+            counts[k] for k in ops.PACKED_ROUND_KERNELS):
+        raise AssertionError(f"bool round launches {counts}, expected "
+                             f"{want_counts} and no packed-path kernel")
+    if not torch.isfinite(out_b.task_vectors).all() or \
+            out_b.task_vectors.shape != (T, D) or len(downs_b) != N:
+        raise AssertionError("bool round: bad task vectors or downlinks")
+    log(f"bool round: wall {1e3 * wall:.2f} ms (first), peak device memory "
+        f"{peak / 2**30:.3f} GiB, uplink {batch_b.wire_bits()} bits (paper "
+        f"accounting), launches { {k: counts[k] for k in want_counts} }")
+
+    # kernels against the plain versions, whole round
+    up_r, _, out_r, _ = bool_round(mode="ref")
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(up_b, up_r)):
+        check_equal(torch, f"bool upload {i} kernels vs plain", a, b)
+    for f in out_b._fields:
+        a, b = getattr(out_b, f), getattr(out_r, f)
+        if isinstance(a, torch.Tensor):
+            check_equal(torch, f"bool round {f} kernels vs plain", a, b)
+    del out_r, up_r
+
+    # the packed round on the same task vectors, bit for bit
+    uni_p, words_p, lams_p = batched_client_unify(tv, valid, device=dev)
+    batch_p = pack_from_slots(cids, tids, uni_p, words_p, lams_p, tasks,
+                              valid, sizes, T, d=D)
+    out_p = engine.run_packed(batch_p)
+    torch.cuda.synchronize()
+    pairs = [
+        ("upload masks", bitpack.pack_bits(up_b[1]), words_p),
+        ("upload bf16 unified", bf16_bits(torch, up_b[0].to(torch.bfloat16)),
+         bf16_bits(torch, uni_p)),
+        ("upload lambda", up_b[2], lams_p),
+        ("m_hat", out_b.m_hats, out_p.m_hats),
+        ("similarity", out_b.similarity, out_p.similarity),
+        ("tau_hat", out_b.tau_hats, out_p.tau_hats),
+        ("task vectors", out_b.task_vectors, out_p.task_vectors),
+        ("downlink masks", bitpack.pack_bits(out_b.down_masks),
+         out_p.down_masks),
+        ("downlink lambda", out_b.down_lams, out_p.down_lams),
+        ("downlink bf16 unified",
+         bf16_bits(torch, out_b.down_unified.to(torch.bfloat16)),
+         bf16_bits(torch, out_p.down_unified))]
+    for name, a, b in pairs:
+        check_equal(torch, f"bool vs packed round: {name}", a, b)
+    log(f"bool round: identical to the plain round and to the packed round "
+        f"({len(pairs)} outputs); packed uplink {batch_p.wire_bits()} bits")
+
+    # unify has no round path: its entry point, driven once
+    ops.reset_launch_counts()
+    u1 = ops.unify(x1)
+    counts["unify"] = ops.launch_counts()["unify"]
+    check_equal(torch, "ops.unify", u1, fused_unify.plain_unify(x1))
+    del tv, batch_b, out_b, batch_p, out_p, up_b, downs_b
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
 def app_phase(torch, dev):
     import numpy as np
     from repro_torch.data.dirichlet import dirichlet_split
@@ -395,7 +587,8 @@ def app_phase(torch, dev):
         log(f"app {name}: {wall:.2f} s for {cfg.rounds} rounds, uplink "
             f"{hist.uplink_bits_per_round} bits, launches {counts[name]}")
         if name == "matu":
-            if min(counts[name].values()) < cfg.rounds:
+            if min(counts[name][k] for k in ops.PACKED_ROUND_KERNELS) \
+                    < cfg.rounds:
                 raise AssertionError(f"app matu: kernels not launched every "
                                      f"round: {counts[name]}")
             s = strat.server.last_similarity.cpu().numpy()
@@ -432,17 +625,28 @@ def main() -> int:
     rows = kernel_phase(torch, dev)
     log("== round phase ==")
     round_counts = round_phase(torch, dev)
+    log("== bool phase ==")
+    bool_rows, bool_counts = bool_phase(torch, dev)
     log("== app phase ==")
     app_counts = app_phase(torch, dev)
-    kernels = []
-    for name, row in rows.items():
-        check = row.pop("check")
-        kernels.append(dict(name=name, launches=round_counts[name],
-                            app_launches=app_counts["matu"][name], **row))
-        row["check"] = check
+    kernels, checks = [], {}
+    for name, row in list(rows.items()) + list(bool_rows.items()):
+        checks[name] = row.pop("check")
+        packed = name in rows
+        kernels.append(dict(
+            name=name, launches=(round_counts if packed else bool_counts)[name],
+            path=("packed round (round phase, 3 rounds)" if packed
+                  else "ops.unify, once" if name == "unify"
+                  else "bool round (bool phase, 1 round)"),
+            app_launches=app_counts["matu"][name], **row))
+    def fmt(x):
+        return "none" if x is None else f"{x:.4f}"
     log("kernels: " + "; ".join(
-        f"{k['name']} launches={k['launches']} (app {k['app_launches']}) "
-        f"check=pass [{rows[k['name']]['check']}]" for k in kernels))
+        f"{k['name']} launches={k['launches']} ({k['path']}; app "
+        f"{k['app_launches']}) check=pass ms={fmt(k['ms'])} "
+        f"bound_ms={fmt(k['bound_ms'])} plain_ms={fmt(k['plain_ms'])} "
+        f"library_ms={fmt(k['library_ms'])} [{checks[k['name']]}]"
+        for k in kernels))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,44 @@
-// Whole-round Eq. 3 + Eq. 4 over packed mask words, every task in one launch.
+// Whole-round Eq. 3 + Eq. 4, every task in one launch, over packed mask
+// words or dense byte masks.
 //
-// Replaces the TPU kernel src/repro/kernels/masked_agg.py::
-// masked_agg_batched_packed_pallas.  Per task t and coordinate j, over the
-// member clients n (ascending):
-//   votes  = sum_n mem * (bit(m & pos) - bit(m & neg)),   a_num = |votes|
+// Replaces two TPU kernels of src/repro/kernels/masked_agg.py:
+//  * masked_agg_batched_packed_pallas (masks as (N, T, ceil(d/32)) words;
+//    outputs tau_hat and the agreement numerator a_num)
+//    -> masked_agg_packed_launch;
+//  * masked_agg_batched_pallas (the bool/fp32 A/B layout: masks as
+//    (N, T, d) bytes of a torch.bool tensor; outputs tau_hat and m_hat)
+//    -> masked_agg_launch.
+// Per task t and coordinate j, over the member clients n (ascending):
+//   votes  = sum_n mem * (m & pos - m & neg),   a_num = |votes|
 //   m_hat  = 1 if a_num / N_t >= rho else a_num / N_t
-//   tau    = m_hat * sum_n (gamma*lambda)_n * u_nj * (bit(m & pos) + bit(m & neg))
+//   tau    = m_hat * sum_n (gamma*lambda)_n * u_nj * (m & pos + m & neg)
 // where (pos, neg) is the sign of the unified vector u_n and N_t the member
-// count.  Outputs tau_hat (T, d) fp32 and a_num (T, d) fp32 (exact integers).
+// count (a member with zero data weight still counts).  Outputs are fp32;
+// a_num holds exact integers.
 //
 // What bounds it on the H100: device-memory bytes (a handful of flops per
 // loaded value).  Design against that:
-//  * rows with members[n, t] == 0 are skipped — their words are zero and
-//    their gamma is zero, so they add nothing.  The TPU kernel's BlockSpec
-//    streams all N unified rows for every task; at N = 32, T = 30 and
-//    d = 1.3M that is ~2.5 GB a round against ~0.3 GB for the member rows.
+//  * rows with members[n, t] == 0 are skipped — their masks are zero and
+//    their gamma is zero, so they add nothing.  The TPU kernels' BlockSpecs
+//    stream all N unified rows for every task; at N = 32, T = 30 and
+//    d = 1.3M that is ~2.5 GB a round (and for the dense layout 5.1 GB of
+//    fp32-cast masks) against ~0.3 GB for the member rows.
 //    Each block builds task t's member list once (a warp ballot, ascending
 //    n, in shared memory) and walks only those rows;
 //  * one thread per coordinate: a warp's unified loads are one coalesced
-//    access and all 32 lanes share one mask word (a broadcast load); each
-//    thread issues the loads of 4 member rows for 4 coordinates before any
-//    use, so 16 of them are in flight together;
-//  * pos/neg come from the sign of the bf16 unified value in-register, so
-//    no separate sign-plane pass over u is needed;
+//    access; packed, all 32 lanes share one mask word (a broadcast load);
+//    dense, a warp reads 32 consecutive mask bytes (one sector).  The mask
+//    bytes are read as they are: no fp32 copy of the masks is ever made.
+//    Each thread issues the loads of 4 member rows for 4 coordinates before
+//    any use, so 16 of them are in flight together;
+//  * pos/neg come from the sign of the unified value in-register, so no
+//    separate sign-plane pass over u is needed;
 //  * a few resident waves of blocks walk the coordinate blocks, task the
 //    fastest grid axis: the T blocks of one d-range run side by side, so a
 //    unified tile is re-read from L2, not from device memory;
 //  * sums use __fadd_rn/__fmul_rn: no FMA contraction, the rounding of the
-//    plain version in ref.masked_agg_batched_packed_ref, bit for bit.
+//    plain version in ref._masked_agg, bit for bit.  Both layouts share it,
+//    so tau_hat is bitwise equal across them on the same mask bits.
 #include "launch.cuh"
 
 namespace {
@@ -37,15 +48,15 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int UNROLL = 4;                // member rows loaded together
 constexpr int GROUPS = 4;                // coordinate blocks per pass
 
-template <typename T>
+// PACKED: masks are uint32 words and out2 gets a_num; else masks are
+// 0/1 bytes and out2 gets m_hat.
+template <typename T, bool PACKED>
 __global__ void __launch_bounds__(BLOCK)
-masked_agg_packed_kernel(const T* __restrict__ unified,
-                         const uint32_t* __restrict__ words,
-                         const float* __restrict__ gl,
-                         const float* __restrict__ mem, int N, int T_,
-                         long long d, long long n_words, float rho,
-                         float* __restrict__ tau_out,
-                         float* __restrict__ anum_out) {
+masked_agg_kernel(const T* __restrict__ unified,
+                  const void* __restrict__ masks,
+                  const float* __restrict__ gl, const float* __restrict__ mem,
+                  int N, int T_, long long d, long long n_words, float rho,
+                  float* __restrict__ tau_out, float* __restrict__ out2) {
   // the member rows of task t, ascending: index, member weight, gamma*lambda
   extern __shared__ float smem[];
   int* s_idx = reinterpret_cast<int*>(smem);
@@ -104,7 +115,12 @@ masked_agg_packed_kernel(const T* __restrict__ unified,
           w[q][c] = 0u;
           u[q][c] = 0.f;
           if (i0 + q < count && jc[c] < d) {
-            w[q][c] = words[(n * T_ + t) * n_words + (jc[c] >> 5)];
+            if constexpr (PACKED)
+              w[q][c] = static_cast<const uint32_t*>(
+                  masks)[(n * T_ + t) * n_words + (jc[c] >> 5)];
+            else
+              w[q][c] = static_cast<const uint8_t*>(
+                  masks)[(n * T_ + t) * d + jc[c]];
             u[q][c] = to_f32(unified[n * d + jc[c]]);
           }
         }
@@ -116,7 +132,11 @@ masked_agg_packed_kernel(const T* __restrict__ unified,
           const float g = s_gl[i0 + q];
 #pragma unroll
           for (int c = 0; c < GROUPS; ++c) {
-            const bool set = (w[q][c] >> (jc[c] & 31)) & 1u;
+            bool set;
+            if constexpr (PACKED)
+              set = (w[q][c] >> (jc[c] & 31)) & 1u;
+            else
+              set = w[q][c] != 0u;
             const float sp = (set && u[q][c] > 0.f) ? 1.f : 0.f;
             const float sn = (set && u[q][c] < 0.f) ? 1.f : 0.f;
             votes[c] = __fadd_rn(votes[c], __fmul_rn(m, sp - sn));
@@ -133,21 +153,15 @@ masked_agg_packed_kernel(const T* __restrict__ unified,
       const float alpha = __fdiv_rn(a_num, n_t1);
       const float m_hat = alpha >= rho ? 1.f : alpha;
       tau_out[(long long)t * d + jc[c]] = __fmul_rn(acc[c], m_hat);
-      anum_out[(long long)t * d + jc[c]] = a_num;
+      out2[(long long)t * d + jc[c]] = PACKED ? a_num : m_hat;
     }
   }
 }
 
-}  // namespace
-
-// unified (N, d) fp32 (u_bf16 = 0) or bf16 (u_bf16 = 1); words (N, T,
-// ceil(d/32)) uint32; gl = gamma * lambda and mem (N, T) fp32.  Outputs
-// tau_out and anum_out (T, d) fp32.  Returns cudaGetLastError().
-extern "C" int masked_agg_packed_launch(const void* unified, int u_bf16,
-                                        const void* words, const void* gl,
-                                        const void* mem, int N, int T_,
-                                        long long d, float rho, void* tau_out,
-                                        void* anum_out, void* stream) {
+template <bool PACKED>
+int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
+           const void* mem, int N, int T_, long long d, float rho,
+           void* tau_out, void* out2, void* stream) {
   // 3 * N words of dynamic shared memory plus the static ones stay under
   // the 48 KB a block gets without opting in
   if (N < 1 || N > 4000 || T_ < 1 || T_ > 65535 || d < 1)
@@ -165,18 +179,42 @@ extern "C" int masked_agg_packed_launch(const void* unified, int u_bf16,
   const dim3 grid(static_cast<unsigned>(T_), static_cast<unsigned>(gy));
   const size_t smem = 3ull * N * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* w = static_cast<const uint32_t*>(words);
   auto* g = static_cast<const float*>(gl);
   auto* m = static_cast<const float*>(mem);
   auto* to = static_cast<float*>(tau_out);
-  auto* ao = static_cast<float*>(anum_out);
+  auto* o2 = static_cast<float*>(out2);
   if (u_bf16)
-    masked_agg_packed_kernel<__nv_bfloat16><<<grid, BLOCK, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(unified), w, g, m, N, T_, d,
-        n_words, rho, to, ao);
+    masked_agg_kernel<__nv_bfloat16, PACKED><<<grid, BLOCK, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(unified), masks, g, m, N, T_, d,
+        n_words, rho, to, o2);
   else
-    masked_agg_packed_kernel<float><<<grid, BLOCK, smem, s>>>(
-        static_cast<const float*>(unified), w, g, m, N, T_, d, n_words, rho,
-        to, ao);
+    masked_agg_kernel<float, PACKED><<<grid, BLOCK, smem, s>>>(
+        static_cast<const float*>(unified), masks, g, m, N, T_, d, n_words,
+        rho, to, o2);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// unified (N, d) fp32 (u_bf16 = 0) or bf16 (u_bf16 = 1); words (N, T,
+// ceil(d/32)) uint32; gl = gamma * lambda and mem (N, T) fp32.  Outputs
+// tau_out and anum_out (T, d) fp32.  Returns cudaGetLastError().
+extern "C" int masked_agg_packed_launch(const void* unified, int u_bf16,
+                                        const void* words, const void* gl,
+                                        const void* mem, int N, int T_,
+                                        long long d, float rho, void* tau_out,
+                                        void* anum_out, void* stream) {
+  return launch<true>(unified, u_bf16, words, gl, mem, N, T_, d, rho, tau_out,
+                      anum_out, stream);
+}
+
+// The bool/fp32 layout: masks (N, T, d) uint8 holding 0 or 1 (a torch.bool
+// tensor); outputs tau_out and mhat_out (T, d) fp32.
+extern "C" int masked_agg_launch(const void* unified, int u_bf16,
+                                 const void* masks, const void* gl,
+                                 const void* mem, int N, int T_, long long d,
+                                 float rho, void* tau_out, void* mhat_out,
+                                 void* stream) {
+  return launch<false>(unified, u_bf16, masks, gl, mem, N, T_, d, rho,
+                       tau_out, mhat_out, stream);
 }

@@ -1,13 +1,22 @@
-"""Fused unify + task masks + λ scalers (Eq. 2 + §3.2 modulators) in the
-packed wire format, batched over clients.
+"""Fused unify + task masks + λ scalers (Eq. 2 + §3.2 modulators),
+batched over clients, in either output layout; and Eq. 2 alone.
 
-CUDA twin of the JAX package's ``fused_unify_packed_pallas``
-(``csrc/fused_unify.cu`` holds the kernel and its design note).  It runs
-at both ends of the wire: the clients' upload construction and the
-server's downlink re-unification.  Its plain version is
-:func:`repro_torch.kernels.ref.fused_unify_packed_ref`, which fixes the
-same in-block and block-tree summation order, so kernel and plain
-version agree bit for bit.
+CUDA twins of three JAX kernels (``csrc/fused_unify.cu`` holds the
+kernels and their design note):
+
+* ``fused_unify_packed`` ↔ ``fused_unify_packed_pallas``: the packed
+  wire layout (bf16 unified, int32 mask words);
+* ``fused_unify`` ↔ ``fused_unify_pallas``: the bool/fp32 A/B layout
+  (fp32 unified, bool masks);
+* ``unify`` ↔ ``unify_pallas``: Eq. 2 for one client, (K, d) → (d,).
+
+The fused kernels run at both ends of the wire: the clients' upload
+construction and the server's downlink re-unification.  Their plain
+versions (:func:`repro_torch.kernels.ref.fused_unify_packed_ref`,
+:func:`~repro_torch.kernels.ref.fused_unify_ref`,
+:func:`~repro_torch.kernels.ref.unify_ref`) fix the same in-block and
+block-tree summation order, so kernel and plain version agree bit for
+bit, and λ is bitwise the same in both layouts.
 """
 
 from __future__ import annotations
@@ -22,11 +31,19 @@ from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 KMAX = 16          # slots a lane keeps in registers (csrc/fused_unify.cu)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_FUSED_ARGS = [_P, _I, _P, _I, _I, _LL, _P, _P, _P, _P, _LL, _P]
 KERNEL = CudaKernel("fused_unify_packed", "fused_unify.cu",
-                    "fused_unify_packed_launch",
-                    [_P, _I, _P, _I, _I, _LL, _P, _P, _P, _P, _LL, _P])
+                    "fused_unify_packed_launch", _FUSED_ARGS)
+KERNEL_BOOL = CudaKernel("fused_unify", "fused_unify.cu",
+                         "fused_unify_launch", _FUSED_ARGS)
+KERNEL_UNIFY = CudaKernel("unify", "fused_unify.cu", "unify_launch",
+                          [_P, _I, _I, _LL, _P, _P])
 
 plain = ref.fused_unify_packed_ref
+plain_bool = ref.fused_unify_ref
+plain_unify = ref.unify_ref
+
+_IN_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fused_unify_packed(task_vectors: torch.Tensor, valid: torch.Tensor):
@@ -39,10 +56,46 @@ def fused_unify_packed(task_vectors: torch.Tensor, valid: torch.Tensor):
     return fused_unify_packed_cuda(task_vectors, valid)
 
 
-def fused_unify_packed_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
-    """The kernel path of :func:`fused_unify_packed` (CUDA tensors only)."""
-    require_cuda(task_vectors, "task_vectors", (torch.float32, torch.bfloat16),
-                 3)
+def fused_unify(task_vectors: torch.Tensor, valid: torch.Tensor):
+    """The bool/fp32 layout: (unified (B, d) fp32, masks (B, K, d) bool,
+    num (B, K), den (B, K)) from the same inputs as
+    :func:`fused_unify_packed`.  CPU tensors take the plain version;
+    CUDA tensors take the kernel."""
+    if task_vectors.device.type == "cpu":
+        return plain_bool(task_vectors, valid)
+    return fused_unify_cuda(task_vectors, valid)
+
+
+def unify(task_vectors: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 for one client: (K, d) fp32/bf16 → (d,) fp32, any K ≥ 1.
+    CPU tensors take the plain version; CUDA tensors take the kernel."""
+    if task_vectors.device.type == "cpu":
+        return plain_unify(task_vectors)
+    return unify_cuda(task_vectors)
+
+
+def _launch_fused(kernel: CudaKernel, task_vectors: torch.Tensor,
+                  valid: torch.Tensor, uni: torch.Tensor,
+                  masks: torch.Tensor):
+    """Check the inputs, launch ``kernel`` into ``uni`` / ``masks`` and
+    return (num, den) from its λ block partials."""
+    b, k, d = task_vectors.shape
+    dev = task_vectors.device
+    # num and den partials side by side, each row already zero-padded to
+    # the tree's power-of-two length: one tree over both
+    n_pad = ref.next_pow2(-(-d // ref.LAMBDA_BLOCK))
+    parts = torch.zeros((2, b, k, n_pad), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        kernel.launch(task_vectors.data_ptr(),
+                      int(task_vectors.dtype == torch.bfloat16),
+                      valid.data_ptr(), b, k, d, uni.data_ptr(),
+                      masks.data_ptr(), parts[0].data_ptr(),
+                      parts[1].data_ptr(), n_pad, stream_handle(task_vectors))
+    return ref._tree_total(parts)
+
+
+def _check_fused(task_vectors: torch.Tensor, valid: torch.Tensor, name: str):
+    require_cuda(task_vectors, "task_vectors", _IN_DTYPES, 3)
     b, k, d = task_vectors.shape
     require_cuda(valid, "valid", (torch.bool,), 2)
     if tuple(valid.shape) != (b, k) or valid.device != task_vectors.device:
@@ -50,21 +103,42 @@ def fused_unify_packed_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
                          f"not match task_vectors {(b, k)} on "
                          f"{task_vectors.device}")
     if not 1 <= k <= KMAX or not 1 <= b <= 65535 or d < 1:
-        raise ValueError(f"fused_unify_packed takes 1 <= K <= {KMAX}, "
-                         f"1 <= B <= 65535 and d >= 1; got {(b, k, d)}")
+        raise ValueError(f"{name} takes 1 <= K <= {KMAX}, 1 <= B <= 65535 "
+                         f"and d >= 1; got {(b, k, d)}")
+    return b, k, d
+
+
+def fused_unify_packed_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
+    """The kernel path of :func:`fused_unify_packed` (CUDA tensors only)."""
+    b, k, d = _check_fused(task_vectors, valid, "fused_unify_packed")
     dev = task_vectors.device
     uni = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
     words = torch.empty((b, k, bitpack.packed_width(d)), dtype=torch.int32,
                         device=dev)
-    # num and den partials side by side, each row already zero-padded to
-    # the tree's power-of-two length: one tree over both
-    n_pad = ref.next_pow2(-(-d // ref.LAMBDA_BLOCK))
-    parts = torch.zeros((2, b, k, n_pad), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        KERNEL.launch(task_vectors.data_ptr(),
-                      int(task_vectors.dtype == torch.bfloat16),
-                      valid.data_ptr(), b, k, d, uni.data_ptr(),
-                      words.data_ptr(), parts[0].data_ptr(),
-                      parts[1].data_ptr(), n_pad, stream_handle(task_vectors))
-    num, den = ref._tree_total(parts)
+    num, den = _launch_fused(KERNEL, task_vectors, valid, uni, words)
     return uni, words, num, den
+
+
+def fused_unify_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
+    """The kernel path of :func:`fused_unify` (CUDA tensors only); the
+    kernel writes 0/1 bytes straight into the bool mask tensor."""
+    b, k, d = _check_fused(task_vectors, valid, "fused_unify")
+    dev = task_vectors.device
+    uni = torch.empty((b, d), dtype=torch.float32, device=dev)
+    masks = torch.empty((b, k, d), dtype=torch.bool, device=dev)
+    num, den = _launch_fused(KERNEL_BOOL, task_vectors, valid, uni, masks)
+    return uni, masks, num, den
+
+
+def unify_cuda(task_vectors: torch.Tensor) -> torch.Tensor:
+    """The kernel path of :func:`unify` (CUDA tensors only)."""
+    require_cuda(task_vectors, "task_vectors", _IN_DTYPES, 2)
+    k, d = task_vectors.shape
+    if k < 1 or d < 1:
+        raise ValueError(f"unify takes K >= 1 and d >= 1, got {(k, d)}")
+    out = torch.empty((d,), dtype=torch.float32, device=task_vectors.device)
+    with torch.cuda.device(task_vectors.device):
+        KERNEL_UNIFY.launch(task_vectors.data_ptr(),
+                            int(task_vectors.dtype == torch.bfloat16), k, d,
+                            out.data_ptr(), stream_handle(task_vectors))
+    return out

@@ -1,11 +1,15 @@
-"""Whole-round Eq. 3 + Eq. 4 (agreement numerator + task merge) over
-packed mask words, every task in one launch.
+"""Whole-round Eq. 3 + Eq. 4 (agreement + task merge), every task in one
+launch, over packed mask words or dense bool masks.
 
-CUDA twin of the JAX package's ``masked_agg_batched_packed_pallas``
-(``csrc/masked_agg.cu`` holds the kernel and its design note).  Its
-plain version is :func:`repro_torch.kernels.ref.
-masked_agg_batched_packed_ref`, which sums the clients in the kernel's
-order with the kernel's roundings, so the two agree bit for bit.
+CUDA twins of the JAX package's ``masked_agg_batched_packed_pallas``
+(``masked_agg_batched_packed``: outputs τ̂ and the agreement numerator)
+and ``masked_agg_batched_pallas`` (``masked_agg_batched``, the bool/fp32
+A/B layout: outputs τ̂ and m̂); ``csrc/masked_agg.cu`` holds the kernels
+and their design note.  Their plain versions
+(:func:`repro_torch.kernels.ref.masked_agg_batched_packed_ref`,
+:func:`~repro_torch.kernels.ref.masked_agg_batched_ref`) sum the clients
+in the kernels' order with the kernels' roundings, so kernel and plain
+version agree bit for bit, and τ̂ is bitwise the same in both layouts.
 """
 
 from __future__ import annotations
@@ -18,11 +22,14 @@ from repro_torch.kernels import bitpack, ref
 from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGS = [_P, _I, _P, _P, _P, _I, _I, _LL, _F, _P, _P, _P]
 KERNEL = CudaKernel("masked_agg_batched_packed", "masked_agg.cu",
-                    "masked_agg_packed_launch",
-                    [_P, _I, _P, _P, _P, _I, _I, _LL, _F, _P, _P, _P])
+                    "masked_agg_packed_launch", _ARGS)
+KERNEL_BOOL = CudaKernel("masked_agg_batched", "masked_agg.cu",
+                         "masked_agg_launch", _ARGS)
 
 plain = ref.masked_agg_batched_packed_ref
+plain_bool = ref.masked_agg_batched_ref
 
 MAX_N = 4000       # member list of one task in shared memory (< 48 KB)
 
@@ -41,18 +48,25 @@ def masked_agg_batched_packed(unified, mask_words, lams, gammas, members,
                                           members, d, rho)
 
 
-def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
-                                   d: int, rho: float):
-    """The kernel path of :func:`masked_agg_batched_packed`."""
-    require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
-    require_cuda(mask_words, "mask_words", (torch.int32,), 3)
-    n, t, w = mask_words.shape
-    if tuple(unified.shape) != (n, d) or w != bitpack.packed_width(d):
-        raise ValueError(f"unified {tuple(unified.shape)} / mask_words "
-                         f"{tuple(mask_words.shape)} do not fit N={n}, d={d}")
+def masked_agg_batched(unified, masks, lams, gammas, members, rho: float):
+    """The bool/fp32 layout: (tau_hats (T, d) fp32, m_hats (T, d) fp32)
+    from unified (N, d) fp32/bf16, masks (N, T, d) bool and lams /
+    gammas / members (N, T), with the same zero-row contract as
+    :func:`masked_agg_batched_packed`.  CPU tensors take the plain
+    version; CUDA tensors take the kernel."""
+    if unified.device.type == "cpu":
+        return plain_bool(unified, masks, lams, gammas, members, rho)
+    return masked_agg_batched_cuda(unified, masks, lams, gammas, members, rho)
+
+
+def _launch(kernel: CudaKernel, unified, masks, lams, gammas, members,
+            n: int, t: int, d: int, rho: float):
+    if tuple(unified.shape) != (n, d):
+        raise ValueError(f"unified {tuple(unified.shape)} does not fit "
+                         f"N={n}, d={d}")
     if not 1 <= t <= 65535 or not 1 <= n <= MAX_N:
-        raise ValueError(f"masked_agg_batched_packed takes 1 <= T <= 65535 "
-                         f"and 1 <= N <= {MAX_N}, got T={t}, N={n}")
+        raise ValueError(f"{kernel.name} takes 1 <= T <= 65535 and "
+                         f"1 <= N <= {MAX_N}, got T={t}, N={n}")
     gl = (gammas.float() * lams.float()).contiguous()
     mem = members.float().contiguous()
     for name, x in (("gamma*lambda", gl), ("members", mem)):
@@ -61,10 +75,34 @@ def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
             raise ValueError(f"{name} {tuple(x.shape)} != {(n, t)}")
     dev = unified.device
     tau = torch.empty((t, d), dtype=torch.float32, device=dev)
-    a_num = torch.empty_like(tau)
+    out2 = torch.empty_like(tau)
     with torch.cuda.device(dev):
-        KERNEL.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
-                      mask_words.data_ptr(), gl.data_ptr(), mem.data_ptr(),
-                      n, t, d, float(rho), tau.data_ptr(), a_num.data_ptr(),
+        kernel.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
+                      masks.data_ptr(), gl.data_ptr(), mem.data_ptr(), n, t,
+                      d, float(rho), tau.data_ptr(), out2.data_ptr(),
                       stream_handle(unified))
-    return tau, a_num
+    return tau, out2
+
+
+def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
+                                   d: int, rho: float):
+    """The kernel path of :func:`masked_agg_batched_packed`."""
+    require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
+    require_cuda(mask_words, "mask_words", (torch.int32,), 3)
+    n, t, w = mask_words.shape
+    if w != bitpack.packed_width(d):
+        raise ValueError(f"mask_words {tuple(mask_words.shape)} do not fit "
+                         f"d={d}")
+    return _launch(KERNEL, unified, mask_words, lams, gammas, members, n, t,
+                   d, rho)
+
+
+def masked_agg_batched_cuda(unified, masks, lams, gammas, members,
+                            rho: float):
+    """The kernel path of :func:`masked_agg_batched`; the kernel reads the
+    bool masks' bytes as they are (no fp32 copy)."""
+    require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
+    require_cuda(masks, "masks", (torch.bool,), 3)
+    n, t, d = masks.shape
+    return _launch(KERNEL_BOOL, unified, masks, lams, gammas, members, n, t,
+                   d, rho)

@@ -18,11 +18,17 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ref,
-                                 sign_sim)
+from repro_torch.kernels import bitpack, ref
+from repro_torch.kernels import fused_unify as _fu
+from repro_torch.kernels import masked_agg as _ma
+from repro_torch.kernels import sign_sim as _ss
 
 MODES = (None, "ref")
-KERNELS = (fused_unify.KERNEL, masked_agg.KERNEL, sign_sim.KERNEL)
+KERNELS = (_fu.KERNEL, _ma.KERNEL, _ss.KERNEL,
+           _fu.KERNEL_BOOL, _ma.KERNEL_BOOL,
+           _ss.KERNEL_DENSE, _fu.KERNEL_UNIFY)
+# the kernels the packed round launches, by name
+PACKED_ROUND_KERNELS = tuple(k.name for k in KERNELS[:3])
 
 
 def _plain(mode: Optional[str]) -> bool:
@@ -42,12 +48,38 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-def fused_unify_raw(task_vectors: torch.Tensor, valid: torch.Tensor, *,
-                    mode: Optional[str] = None):
-    """Division-free fused unify: (unified bf16, mask words, num, den)."""
+def unify(task_vectors: torch.Tensor, *,
+          mode: Optional[str] = None) -> torch.Tensor:
+    """(K, d) -> (d,) fp32 task unification (Eq. 2)."""
     if _plain(mode):
-        return fused_unify.plain(task_vectors, valid)
-    return fused_unify.fused_unify_packed(task_vectors, valid)
+        return _fu.plain_unify(task_vectors)
+    return _fu.unify(task_vectors)
+
+
+def fused_unify_raw(task_vectors: torch.Tensor, valid: torch.Tensor, *,
+                    packed: bool = True, mode: Optional[str] = None):
+    """Division-free fused unify: (unified, masks, num, den) — bf16
+    unified and int32 mask words when ``packed``, else fp32 unified and
+    bool masks."""
+    if packed:
+        if _plain(mode):
+            return _fu.plain(task_vectors, valid)
+        return _fu.fused_unify_packed(task_vectors, valid)
+    if _plain(mode):
+        return _fu.plain_bool(task_vectors, valid)
+    return _fu.fused_unify(task_vectors, valid)
+
+
+def fused_unify(task_vectors: torch.Tensor, valid: torch.Tensor, *,
+                eps: float = 1e-12, mode: Optional[str] = None):
+    """Batched unify + task masks + λ in the bool/fp32 layout:
+    task_vectors (B, K, d) fp32/bf16, valid (B, K) bool -> (unified
+    (B, d) fp32, masks (B, K, d) bool, lams (B, K) fp32).  Row b equals
+    ``unify_with_modulators`` on the valid slots of client b; invalid
+    slots give zero mask rows and λ = 0."""
+    uni, masks, num, den = fused_unify_raw(task_vectors, valid, packed=False,
+                                           mode=mode)
+    return uni, masks, num / torch.clamp(den, min=eps)
 
 
 def fused_unify_packed(task_vectors: torch.Tensor, valid: torch.Tensor, *,
@@ -66,10 +98,26 @@ def masked_agg_batched_packed(unified, mask_words, lams, gammas, members,
     """Whole-round Eq. 3 + Eq. 4 over packed (N, T, ceil(d/32)) words:
     returns (tau_hats (T, d) fp32, alpha_num (T, d) fp32)."""
     if _plain(mode):
-        return masked_agg.plain(unified, mask_words, lams, gammas, members,
-                                d, rho)
-    return masked_agg.masked_agg_batched_packed(unified, mask_words, lams,
-                                                gammas, members, d, rho)
+        return _ma.plain(unified, mask_words, lams, gammas, members, d, rho)
+    return _ma.masked_agg_batched_packed(unified, mask_words, lams, gammas,
+                                         members, d, rho)
+
+
+def masked_agg_batched(unified, masks, lams, gammas, members, *,
+                       rho: float = 0.4, mode: Optional[str] = None):
+    """Whole-round Eq. 3 + Eq. 4 over dense (N, T, d) bool masks:
+    returns (tau_hats (T, d) fp32, m_hats (T, d) fp32)."""
+    if _plain(mode):
+        return _ma.plain_bool(unified, masks, lams, gammas, members, rho)
+    return _ma.masked_agg_batched(unified, masks, lams, gammas, members, rho)
+
+
+def sign_sim(tau_hats: torch.Tensor, *,
+             mode: Optional[str] = None) -> torch.Tensor:
+    """Eq. 5 similarity S = ½(sgn(τ̂)·sgn(τ̂)ᵀ/d + 1) from dense (T, d)."""
+    if _plain(mode):
+        return _ss.plain_dense(tau_hats)
+    return _ss.sign_sim(tau_hats)
 
 
 def sign_sim_packed(pos: torch.Tensor, nz: torch.Tensor, d: int, *,
@@ -77,10 +125,10 @@ def sign_sim_packed(pos: torch.Tensor, nz: torch.Tensor, d: int, *,
     """Eq. 5 similarity S = ½(dots/d + 1) from packed sign planes; ``d``
     is the unpacked feature count."""
     if _plain(mode):
-        dots = sign_sim.plain(pos, nz)
+        dots = _ss.plain(pos, nz)
     else:
-        dots = sign_sim.sign_sim_packed(pos, nz)
-    return 0.5 * (dots / d + 1.0)
+        dots = _ss.sign_sim_packed(pos, nz)
+    return ref.sim_from_dots(dots, d)
 
 
 def topk_weights(sim: torch.Tensor, *, eps: float = 0.5,
@@ -93,6 +141,18 @@ def cross_task_combine(tau_hats: torch.Tensor, m_hats: torch.Tensor,
                        sim_weights: torch.Tensor):
     """Eq. 6 + Eq. 7: returns (task_vectors, tau_tildes)."""
     return ref.cross_task_combine_ref(tau_hats, m_hats, sim_weights)
+
+
+def pack_masks(masks: torch.Tensor) -> torch.Tensor:
+    """(..., d) bool -> (..., ceil(d/32)) int32 words, LSB-first: the wire
+    layout of ``repro_torch.kernels.bitpack``."""
+    return bitpack.pack_bits(masks)
+
+
+def unpack_masks(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Inverse of :func:`pack_masks`: (..., ceil(d/32)) words -> (..., d)
+    bool."""
+    return bitpack.unpack_bits(words, d)
 
 
 def _scatter_slots(values: torch.Tensor, slot_tasks: torch.Tensor,
@@ -123,6 +183,18 @@ def _slot_scalars_to_dense(slot_lams, slot_sizes, slot_valid, slot_tasks,
     return lams_d, member_d, sizes_d
 
 
+def slots_to_dense(slot_masks, slot_lams, slot_sizes, slot_valid,
+                   slot_tasks, n_tasks: int):
+    """Scatter slot round tensors to the dense per-task layout of the
+    bool/fp32 kernels: ((N, T, d) bool masks, (N, T) lams / members /
+    sizes).  Sentinel task ids (== n_tasks) are dropped."""
+    masks = slot_masks & slot_valid[:, :, None]
+    masks_d = _scatter_slots(masks, slot_tasks, n_tasks)
+    lams_d, member_d, sizes_d = _slot_scalars_to_dense(
+        slot_lams, slot_sizes, slot_valid, slot_tasks, n_tasks)
+    return masks_d, lams_d, member_d, sizes_d
+
+
 def slots_to_dense_packed(slot_mask_words, slot_lams, slot_sizes, slot_valid,
                           slot_tasks, n_tasks: int):
     """Scatter slot-packed round tensors to the dense per-task layout the
@@ -135,6 +207,71 @@ def slots_to_dense_packed(slot_mask_words, slot_lams, slot_sizes, slot_valid,
     lams_d, member_d, sizes_d = _slot_scalars_to_dense(
         slot_lams, slot_sizes, slot_valid, slot_tasks, n_tasks)
     return words_d, lams_d, member_d, sizes_d
+
+
+def _gammas(member_d: torch.Tensor, sizes_d: torch.Tensor):
+    """Eq. 4 data weights γ (N, T): member sizes normalised per task.
+    Returns (members as fp32, γ)."""
+    memf = member_d.float()
+    gam = sizes_d * memf
+    return memf, gam / torch.clamp(torch.sum(gam, dim=0, keepdim=True),
+                                   min=1e-12)
+
+
+def _transfer(tau_hats, m_hats, sim, held, slot_tasks, n_tasks: int, *,
+              eps: float, kappa: int, cross_task: bool,
+              uniform_cross: bool):
+    """Eq. 6 + 7 in plain torch, then the gather of each slot's fresh task
+    vector for the downlink.  Returns (task_vectors (T, d), tvs_slots
+    (N, K, d))."""
+    weights = ref.cross_weights_ref(sim, held, eps=eps, kappa=kappa,
+                                    cross_task=cross_task,
+                                    uniform_cross=uniform_cross)
+    task_vectors, _tau_tildes = ref.cross_task_combine_ref(tau_hats, m_hats,
+                                                           weights)
+    # sentinel slot ids are clamped; the valid mask zeroes their output
+    return task_vectors, task_vectors[torch.clamp(slot_tasks.long(),
+                                                  max=n_tasks - 1)]
+
+
+def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
+                     slot_tasks, n_tasks: int, *, rho: float = 0.4,
+                     eps: float = 0.5, kappa: int = 3,
+                     cross_task: bool = True, uniform_cross: bool = False,
+                     lam_eps: float = 1e-12, mode: Optional[str] = None):
+    """The full MaTU server round in the bool/fp32 A/B layout.
+
+    Layout: ``unified`` (N, d) fp32; ``slot_masks`` (N, K, d) bool;
+    ``slot_lams`` / ``slot_sizes`` / ``slot_valid`` (N, K);
+    ``slot_tasks`` (N, K) with the sentinel ``n_tasks`` in invalid
+    slots.  The composition is the JAX package's dense kernel path:
+    scatter to the dense (N, T, d) layout, Eq. 3+4 masked aggregation,
+    Eq. 5 dense sign dots, Eq. 6+7 in plain torch, then the downlink
+    re-unification of every client's fresh task vectors.
+
+    Returns (task_vectors (T, d) fp32, tau_hats (T, d) fp32, m_hats
+    (T, d) fp32, similarity (T, T), down_unified (N, d) fp32, down_masks
+    (N, K, d) bool, down_lams (N, K)).  Tasks nobody holds give
+    τ̂ = m̂ = 0 and are masked out of the similarity.  On the same mask
+    bits and bf16-representable unified values every output equals the
+    packed round's bit for bit (the bf16 downlink as the rounding of the
+    fp32 one).
+    """
+    masks_d, lams_d, member_d, sizes_d = slots_to_dense(
+        slot_masks, slot_lams, slot_sizes, slot_valid, slot_tasks, n_tasks)
+    memf, gam = _gammas(member_d, sizes_d)
+    tau_hats, m_hats = masked_agg_batched(unified, masks_d, lams_d, gam,
+                                          member_d, rho=rho, mode=mode)
+    held = torch.sum(memf, dim=0) > 0
+    heldf = held.float()
+    sim = sign_sim(tau_hats, mode=mode) * heldf[None, :] * heldf[:, None]
+    task_vectors, tvs_slots = _transfer(
+        tau_hats, m_hats, sim, held, slot_tasks, n_tasks, eps=eps,
+        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross)
+    uni, dmasks, num, den = fused_unify_raw(tvs_slots, slot_valid,
+                                            packed=False, mode=mode)
+    return (task_vectors, tau_hats, m_hats, sim, uni, dmasks,
+            num / torch.clamp(den, min=lam_eps))
 
 
 def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
@@ -165,9 +302,7 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     words_d, lams_d, member_d, sizes_d = slots_to_dense_packed(
         slot_mask_words, slot_lams, slot_sizes, slot_valid, slot_tasks,
         n_tasks)
-    memf = member_d.float()
-    gam = sizes_d * memf
-    gam = gam / torch.clamp(torch.sum(gam, dim=0, keepdim=True), min=1e-12)
+    memf, gam = _gammas(member_d, sizes_d)
     tau_hats, a_num = masked_agg_batched_packed(
         unified, words_d, lams_d, gam, member_d, d, rho=rho, mode=mode)
     n_t = torch.sum(memf, dim=0)
@@ -179,13 +314,9 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     pos, nz = bitpack.sign_planes(tau_hats)
     sim = (sign_sim_packed(pos, nz, d, mode=mode)
            * heldf[None, :] * heldf[:, None])
-    weights = ref.cross_weights_ref(sim, held, eps=eps, kappa=kappa,
-                                    cross_task=cross_task,
-                                    uniform_cross=uniform_cross)
-    task_vectors, _tau_tildes = ref.cross_task_combine_ref(tau_hats, m_hats,
-                                                           weights)
-    # sentinel slot ids are clamped; the valid mask zeroes their output
-    tvs_slots = task_vectors[torch.clamp(slot_tasks.long(), max=n_tasks - 1)]
+    task_vectors, tvs_slots = _transfer(
+        tau_hats, m_hats, sim, held, slot_tasks, n_tasks, eps=eps,
+        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross)
     uni, dwords, num, den = fused_unify_raw(tvs_slots, slot_valid, mode=mode)
     a_u8 = a_num.to(ref.alpha_dtype(slot_valid.shape[0]))
     return (task_vectors, tau_hats, a_u8, n_t, sim, uni, dwords,

@@ -64,23 +64,52 @@ def _tree_total(p: torch.Tensor) -> torch.Tensor:
     return p[..., 0]
 
 
-def _unify_block(x: torch.Tensor, vf: torch.Tensor):
-    """Eq. 2 + modulators on a (…, K, c) block; vf (…, K) float {0, 1};
-    c a multiple of LAMBDA_BLOCK.  Returns (tau (…, c), mask (…, K, c)
-    bool, num partials, den partials) with the partials on the λ grid.
-    The slot sum runs k = 0, 1, … in order, as in the kernel."""
-    xm = x * vf[..., None]
+def _elect(xm: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 on (…, K, c) with invalid slots already zeroed: σ = sgn of
+    the slot sum (k = 0, 1, … in order, as in the kernels), μ = max |x|
+    over the slots aligned with σ; returns τ = σ·μ (…, c)."""
     s = xm[..., 0, :]
     for k in range(1, xm.shape[-2]):
         s = s + xm[..., k, :]
     sigma = torch.sign(s)
     aligned = (xm * sigma[..., None, :]) > 0
     mu = torch.amax(torch.where(aligned, xm.abs(), 0.0), dim=-2)
-    tau = sigma * mu
+    return sigma * mu
+
+
+def _unify_block(x: torch.Tensor, vf: torch.Tensor):
+    """Eq. 2 + modulators on a (…, K, c) block; vf (…, K) float {0, 1};
+    c a multiple of LAMBDA_BLOCK.  Returns (tau (…, c), mask (…, K, c)
+    bool, num partials, den partials) with the partials on the λ grid."""
+    xm = x * vf[..., None]
+    tau = _elect(xm)
     mask = ((x * tau[..., None, :]) > 0) & (vf[..., None] > 0)
     num = _block_partials(xm.abs())
     den = _block_partials(torch.where(mask, tau.abs()[..., None, :], 0.0))
     return tau, mask, num, den
+
+
+def unify_ref(task_vectors: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 for one client: (K, d) -> (d,) fp32, any K >= 1."""
+    return _elect(task_vectors.float())
+
+
+def fused_unify_ref(task_vectors: torch.Tensor, valid: torch.Tensor):
+    """Fused unify + task masks + λ num/den in the bool/fp32 layout.
+
+    task_vectors (B, K, d) fp32/bf16; valid (B, K) bool.  Returns
+    (unified (B, d) fp32, masks (B, K, d) bool, num (B, K), den (B, K));
+    invalid slots give zero mask rows and num = den = 0.  Both layouts
+    share this fp32 core, so masks and λ are bitwise the same in both.
+    """
+    b, k, d = task_vectors.shape
+    pad = (-d) % LAMBDA_BLOCK
+    x = task_vectors.float()
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    tau, mask, num_p, den_p = _unify_block(x, valid.float())
+    return (tau[:, :d], mask[..., :d], _tree_total(num_p),
+            _tree_total(den_p))
 
 
 def fused_unify_packed_ref(task_vectors: torch.Tensor, valid: torch.Tensor):
@@ -93,14 +122,8 @@ def fused_unify_packed_ref(task_vectors: torch.Tensor, valid: torch.Tensor):
     bf16, mask_words (B, K, ceil(d/32)) int32, num (B, K), den (B, K));
     invalid slots give zero mask rows and num = den = 0.
     """
-    b, k, d = task_vectors.shape
-    pad = (-d) % LAMBDA_BLOCK
-    x = task_vectors.float()
-    if pad:
-        x = torch.nn.functional.pad(x, (0, pad))
-    tau, mask, num_p, den_p = _unify_block(x, valid.float())
-    return (tau[:, :d].to(torch.bfloat16), bitpack.pack_bits(mask[..., :d]),
-            _tree_total(num_p), _tree_total(den_p))
+    tau, mask, num, den = fused_unify_ref(task_vectors, valid)
+    return tau.to(torch.bfloat16), bitpack.pack_bits(mask), num, den
 
 
 def alpha_dtype(n: int) -> torch.dtype:
@@ -109,30 +132,22 @@ def alpha_dtype(n: int) -> torch.dtype:
     return torch.uint8 if n <= 255 else torch.int32
 
 
-def masked_agg_batched_packed_ref(unified: torch.Tensor,
-                                  mask_words: torch.Tensor,
-                                  lams: torch.Tensor, gammas: torch.Tensor,
-                                  members: torch.Tensor, d: int,
-                                  rho: float):
-    """Whole-round Eq. 3 + Eq. 4 over packed (N, T, ceil(d/32)) mask
-    words.
-
-    unified (N, d) bf16/fp32; lams/gammas/members (N, T).  Sign votes
-    are bit(m & pos) − bit(m & neg) with (pos, neg) the sign of
-    ``unified``; a_num = |Σ_n member·votes|; m̂ = 1 if a_num/N_t ≥ ρ
-    else a_num/N_t; τ̂ = m̂ · Σ_n γλ·u·(bit(m&pos) + bit(m&neg)).  The
-    client sum runs in ascending n, one fp32 rounding per product and
-    per add — the order of the CUDA kernel.  Returns (tau_hats (T, d)
-    fp32, alpha_num (T, d) fp32).
-    """
+def _masked_agg(unified: torch.Tensor, mask_row, lams: torch.Tensor,
+                gammas: torch.Tensor, members: torch.Tensor, rho: float):
+    """Eq. 3 + Eq. 4 over all tasks, ``mask_row(n)`` giving client n's
+    (T, d) bool masks.  Sign votes are m&pos − m&neg with (pos, neg) the
+    sign of ``unified``; the client sum runs in ascending n with one
+    fp32 rounding per product and per add — the order of the CUDA
+    kernels.  Returns (tau_hats, alpha_num, m_hats), each (T, d) fp32."""
     n, t = members.shape
     u = unified.float()
     mem = members.float()
     gl = gammas.float() * lams.float()
-    votes = torch.zeros((t, d), dtype=torch.float32, device=u.device)
+    votes = torch.zeros((t, u.shape[-1]), dtype=torch.float32,
+                        device=u.device)
     acc = torch.zeros_like(votes)
     for i in range(n):
-        m = bitpack.unpack_bits(mask_words[i], d)           # (T, d)
+        m = mask_row(i)                                     # (T, d)
         sp = (m & (u[i] > 0)).float()
         sn = (m & (u[i] < 0)).float()
         votes = votes + mem[i, :, None] * (sp - sn)
@@ -140,7 +155,50 @@ def masked_agg_batched_packed_ref(unified: torch.Tensor,
     a_num = votes.abs()
     alpha = a_num / torch.clamp(mem.sum(0), min=1.0)[:, None]
     m_hat = torch.where(alpha >= rho, 1.0, alpha)
-    return acc * m_hat, a_num
+    return acc * m_hat, a_num, m_hat
+
+
+def masked_agg_batched_ref(unified: torch.Tensor, masks: torch.Tensor,
+                           lams: torch.Tensor, gammas: torch.Tensor,
+                           members: torch.Tensor, rho: float):
+    """Whole-round Eq. 3 + Eq. 4 over dense (N, T, d) bool masks.
+
+    unified (N, d) fp32/bf16; lams/gammas/members (N, T); non-member
+    rows carry zero masks and zero gamma.  m̂ = 1 if a_num/N_t ≥ ρ else
+    a_num/N_t, with N_t the member count (a member with zero data weight
+    still counts).  Returns (tau_hats (T, d) fp32, m_hats (T, d) fp32);
+    τ̂ is bitwise :func:`masked_agg_batched_packed_ref`'s on the same
+    masks."""
+    tau, _, m_hat = _masked_agg(unified, lambda i: masks[i].bool(), lams,
+                                gammas, members, rho)
+    return tau, m_hat
+
+
+def masked_agg_batched_packed_ref(unified: torch.Tensor,
+                                  mask_words: torch.Tensor,
+                                  lams: torch.Tensor, gammas: torch.Tensor,
+                                  members: torch.Tensor, d: int,
+                                  rho: float):
+    """Whole-round Eq. 3 + Eq. 4 over packed (N, T, ceil(d/32)) mask
+    words: :func:`masked_agg_batched_ref` on the unpacked rows.  Returns
+    (tau_hats (T, d) fp32, alpha_num (T, d) fp32)."""
+    tau, a_num, _ = _masked_agg(
+        unified, lambda i: bitpack.unpack_bits(mask_words[i], d), lams,
+        gammas, members, rho)
+    return tau, a_num
+
+
+def sign_sim_ref(tau_hats: torch.Tensor) -> torch.Tensor:
+    """Eq. 5 over dense (T, d): S = ½(sgn(τ̂)·sgn(τ̂)ᵀ/d + 1), (T, T)
+    fp32.  The dots are integers below 2^24, exact in fp32 whatever the
+    summation order."""
+    s = torch.sign(tau_hats.float())
+    return sim_from_dots(s @ s.T, tau_hats.shape[-1])
+
+
+def sim_from_dots(dots: torch.Tensor, d: int) -> torch.Tensor:
+    """S = ½(dots/d + 1) from raw (T, T) sign dots."""
+    return 0.5 * (dots.float() / d + 1.0)
 
 
 def sign_sim_packed_ref(pos: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:

@@ -117,7 +117,145 @@ def test_cuda_round_matches_plain_round(cuda):
     want = eng.run_packed(packed, mode="ref")
     torch.cuda.synchronize()
     assert counts == {"fused_unify_packed": 2, "masked_agg_batched_packed": 1,
-                      "sign_sim_packed": 1}
+                      "sign_sim_packed": 1, "fused_unify": 0,
+                      "masked_agg_batched": 0, "sign_sim": 0, "unify": 0}
     for a, b in zip(got[:6] + (got.alpha_num, got.n_held),
                     want[:6] + (want.alpha_num, want.n_held)):
         assert torch.equal(a, b)
+
+
+# -- the bool/fp32 layout ----------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,k,d", [(3, 1, 33), (2, 16, 4100), (5, 3, 300)])
+def test_cuda_fused_unify_bool_matches_plain(cuda, dtype, b, k, d):
+    tv, valid = slot_stack(b + k + d, b, k, d)
+    x = torch.from_numpy(tv).to(cuda, dtype)
+    v = torch.from_numpy(valid).to(cuda)
+    got = fused_unify.fused_unify_cuda(x, v)
+    want = fused_unify.plain_bool(x, v)
+    packed = fused_unify.fused_unify_packed_cuda(x, v)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    # the two layouts: the same mask bits and λ, bf16 = rounding of fp32
+    assert torch.equal(bitpack.pack_bits(got[1]), packed[1])
+    assert torch.equal(got[0].to(torch.bfloat16).view(torch.int16),
+                       packed[0].view(torch.int16))
+    assert torch.equal(got[2], packed[2]) and torch.equal(got[3], packed[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4, 16, 40])
+@pytest.mark.parametrize("d", [33, 300, 4100])
+def test_cuda_unify_matches_plain(cuda, k, d):
+    x = torch.from_numpy(np.random.default_rng(k * d).standard_normal(
+        (k, d)).astype(np.float32)).to(cuda)
+    got = fused_unify.unify_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_unify.plain_unify(x))
+
+
+def bool_round(seed, n, t, d):
+    """Dense bool round inputs with a member of zero data weight and an
+    unheld task (the last)."""
+    u, words, lams, gam, mem = dense_round(seed, n, t, d)
+    first = int(np.argmax(mem[:, 0]))
+    gam[:, 0] *= np.arange(n) != first              # zero-weight member
+    masks = bitpack.unpack_bits(words, d)
+    return u, masks, words, lams, gam, mem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n,t,d", [(0, 5, 4, 300), (1, 40, 6, 4100),
+                                        (2, 3, 2, 33)])
+def test_cuda_masked_agg_bool_matches_plain(cuda, seed, n, t, d):
+    u, masks, words, lams, gam, mem = bool_round(seed, n, t, d)
+    tail = (torch.from_numpy(lams).to(cuda), torch.from_numpy(gam).to(cuda),
+            torch.from_numpy(mem).to(cuda))
+    uni = torch.from_numpy(u).to(cuda, torch.bfloat16).float()
+    got = masked_agg.masked_agg_batched_cuda(uni, masks.to(cuda), *tail, 0.4)
+    want = masked_agg.plain_bool(uni, masks.to(cuda), *tail, 0.4)
+    tau_p, _ = masked_agg.masked_agg_batched_packed_cuda(
+        uni.to(torch.bfloat16), words.to(cuda), *tail, d, 0.4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], tau_p)
+    assert not got[0][-1].any() and not got[1][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(3, 100), (6, 33), (30, 50000)])
+def test_cuda_sign_sim_dense_matches_plain(cuda, t, d):
+    x = torch.randn((t, d), generator=torch.Generator().manual_seed(t + d))
+    x[x.abs() < 0.2] = 0.0
+    x = x.to(cuda)
+    got = sign_sim.sign_sim_cuda(x)
+    pos, nz = bitpack.sign_planes(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sign_sim.plain_dense(x))
+    assert torch.equal(got, ops.sign_sim_packed(pos, nz, d))
+
+
+@pytest.mark.cuda
+def test_cuda_bool_round_matches_packed_round(cuda):
+    """One bool round through the kernels equals the packed round on the
+    same bf16-valued task vectors, bit for bit, and launches the bool
+    kernels: fused_unify twice, masked_agg and sign_sim once."""
+    from repro_torch.core.engine import EngineConfig, RoundEngine, \
+        batched_client_unify, pack_from_slots
+    n, k, t, d = 12, 4, 6, 5000
+    tv, valid = slot_stack(5, n, k, d)
+    rng = np.random.default_rng(6)
+    tasks = np.full((n, k), t, np.int32)
+    for i in range(n):
+        kk = int(valid[i].sum())
+        tasks[i, :kk] = np.sort(rng.choice(t - 1, kk, replace=False))
+    sizes = np.where(valid, rng.integers(10, 200, (n, k)), 0)
+    x = torch.from_numpy(tv * valid[:, :, None]).to(cuda, torch.bfloat16)
+    x = x.float()
+    v = torch.from_numpy(valid).to(cuda)
+    tk, sz = torch.from_numpy(tasks).to(cuda), torch.from_numpy(sizes).to(cuda)
+    cids = list(range(n))
+    tids = [tasks[i, :valid[i].sum()].tolist() for i in range(n)]
+    eng = RoundEngine(EngineConfig(n_tasks=t), device=cuda)
+    outs = {}
+    for packed in (True, False):
+        ops.reset_launch_counts()
+        uni, masks, lams = batched_client_unify(x, v, packed=packed,
+                                                device=cuda)
+        outs[packed] = eng.run_packed(pack_from_slots(
+            cids, tids, uni, masks, lams, tk, v, sz, t, d=d))
+        counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    assert counts == {"fused_unify_packed": 0, "masked_agg_batched_packed": 0,
+                      "sign_sim_packed": 0, "fused_unify": 2,
+                      "masked_agg_batched": 1, "sign_sim": 1, "unify": 0}
+    p, b = outs[True], outs[False]
+    for name in ("task_vectors", "tau_hats", "similarity", "m_hats",
+                 "down_lams"):
+        assert torch.equal(getattr(p, name), getattr(b, name)), name
+    assert torch.equal(bitpack.pack_bits(b.down_masks), p.down_masks)
+    assert torch.equal(b.down_unified.to(torch.bfloat16).view(torch.int16),
+                       p.down_unified.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", [
+    lambda c: fused_unify.fused_unify_cuda(
+        torch.zeros(2, 2, 64, dtype=torch.float16, device=c),
+        torch.ones(2, 2, dtype=torch.bool, device=c)),
+    lambda c: fused_unify.unify_cuda(torch.zeros(2, 64, dtype=torch.int32,
+                                                 device=c)),
+    lambda c: masked_agg.masked_agg_batched_cuda(
+        torch.zeros(2, 64, device=c),
+        torch.zeros(2, 1, 64, dtype=torch.uint8, device=c),
+        torch.ones(2, 1, device=c), torch.ones(2, 1, device=c),
+        torch.ones(2, 1, device=c), 0.4),
+    lambda c: sign_sim.sign_sim_cuda(torch.zeros(2, 64, dtype=torch.bfloat16,
+                                                 device=c)),
+])
+def test_cuda_bool_wrappers_refuse_wrong_dtypes(cuda, call):
+    with pytest.raises(ValueError, match="dtype"):
+        call(cuda)

@@ -203,6 +203,20 @@ def test_kernel_paths_refuse_cpu_tensors(call):
         call(torch.from_numpy(tv), torch.from_numpy(valid))
 
 
+@pytest.mark.parametrize("call", [
+    lambda x, v: fused_unify.fused_unify_cuda(x, v),
+    lambda x, v: fused_unify.unify_cuda(x[0]),
+    lambda x, v: masked_agg.masked_agg_batched_cuda(
+        x[:, 0], torch.zeros(2, 1, 100, dtype=torch.bool), torch.ones(2, 1),
+        torch.ones(2, 1), torch.ones(2, 1), 0.4),
+    lambda x, v: sign_sim.sign_sim_cuda(x[:, 0]),
+])
+def test_bool_kernel_paths_refuse_cpu_tensors(call):
+    tv, valid = slot_stack(6, 2, 2, 100)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(torch.from_numpy(tv), torch.from_numpy(valid))
+
+
 def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -214,7 +228,9 @@ def test_launch_counts_reset_and_names():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"fused_unify_packed": 0,
                                    "masked_agg_batched_packed": 0,
-                                   "sign_sim_packed": 0}
+                                   "sign_sim_packed": 0, "fused_unify": 0,
+                                   "masked_agg_batched": 0, "sign_sim": 0,
+                                   "unify": 0}
     # the plain path never counts as a launch
     tv, valid = slot_stack(8, 2, 2, 64)
     ops.fused_unify_packed(torch.from_numpy(tv), torch.from_numpy(valid))
