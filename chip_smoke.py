@@ -7,9 +7,9 @@ NVIDIA GPU.  Run from the repository root, with no arguments:
 Phases (any failure raises and the script exits nonzero):
 
 1. setup   — torch version, device name, ``nvidia-smi`` name and power
-             limit; TF32 off; build the seven CUDA kernels from the three
-             sources in ``src/repro_torch/kernels/csrc`` (one nvcc each,
-             in parallel).
+             limit; TF32 off (asserted); build the nine CUDA kernels from
+             the four sources in ``src/repro_torch/kernels/csrc`` (one nvcc
+             each, in parallel).
 2. kernels — the packed-wire kernels at the full-width round (N = 32
              clients, k_n in {3, 4},
              T = 30 tasks, d = 1,327,140, the LoRA task-vector size of
@@ -36,7 +36,25 @@ Phases (any failure raises and the script exits nonzero):
 5. app     — the quickstart (6 tasks in 3 groups, 9 clients,
              ``MLPBackbone(32, hidden=64, lora_rank=8)``) through
              ``FedSimulator`` for 3 rounds with MaTU and FedAvg.
-6. summary — a ``kernels:`` line, one JSON line with every kernel's
+6. serve   — multi-tenant serving of qwen2-0.5b at full width (24 layers,
+             d_model 896, vocab 151,936; random weights from a seed).
+             Kernel checks: ``modulated_matmul`` at B = 8 on the three
+             LoRA factor shapes (896, 16), (4864, 16), (16, 896), S = 1
+             and 128, τ in fp32 and bf16, against its plain version, bitwise
+             with x = I, and a misaligned leaf refused; then one MaTU round
+             through ``MaTUServer.round`` at d = 3,588,168 (T = 30, N = 32,
+             3–4 tasks each), ``serving_downlink`` → ``ModulatorStore``,
+             single-task ``masked_agg`` (``ops.masked_agg``) on one task of
+             that round against its plain version, the batched kernel's row
+             and the round's τ̂, and one bf16 ``MultiTenantDecoder(fused=True)
+             .generate`` (B = 8 mixed tasks, 128-token prompts, 32 new
+             tokens, greedy) whose launches are counted (144 per forward);
+             prefill logits against the plain versions, the dense-routed
+             decoder's tokens, step times, tokens/s, peak memory and a
+             profiled prefill and decode window; then the same
+             configuration in fp32, where fused and dense-routed decode
+             must give identical tokens.
+7. summary — a ``kernels:`` line, one JSON line with every kernel's
              numbers, and the last line ``{"ok": true, "device": …}``.
 
 The script needs a CUDA device and the rest of the repository: without
@@ -128,6 +146,9 @@ def setup(torch):
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("fp32 matmuls must run in full fp32 (no TF32)")
     from repro_torch.kernels import build, ops
     secs = build.timed_build(ops.KERNELS)
     log(f"built {len(ops.KERNELS)} kernels in {secs:.2f} s")
@@ -606,6 +627,527 @@ def app_phase(torch, dev):
                                      "cross-group S")
     return counts
 
+# -- serve phase: multi-tenant qwen2-0.5b at full width -----------------------
+
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_D = 3_588_168            # its LoRA task-vector size at rank 16
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
+# the three LoRA factor shapes of one layer: wq/wo a, down a, every b
+SERVE_LEAVES = [(896, 16), (4864, 16), (16, 896)]
+# per decode layer: wq and wo a-factors (896, 16), down's a (4864, 16),
+# three b-factors (16, 896)
+LAYER_MIX = {(896, 16): 2, (4864, 16): 1, (16, 896): 3}
+# |kernel - plain| <= MM_RTOL * (|x| @ |w_eff|): both sum K fp32 products
+# in different orders (worst case 2 K 2^-24 = 5.8e-4 at K = 4864)
+MM_RTOL = 1e-4
+# bf16 model, fused route through the kernels against the same route
+# through the plain versions: ||l_k - l_p|| / ||l_p|| of the prefill
+# logits.  The LoRA products sum in another order in fp32 and are cast
+# to bf16, so a bf16 rounding can flip (2^-8 relative) and carry through
+# 24 bf16 layers.
+BF16_LOGIT_REL_L2 = 5e-2
+# fp32 model, fused against dense-routed prefill logits: the JAX
+# package's own bar (tests/test_serve_multitenant.py)
+FP32_RTOL, FP32_ATOL = 5e-4, 1e-5
+
+
+def serve_kernel_checks(torch, dev):
+    """Kernel 9 at B = SERVE_B on each leaf shape, S = 1 and the prompt
+    length, τ in fp32 and bf16: against its plain version within MM_RTOL,
+    bitwise with x = I, a misaligned leaf refused; timed beside its
+    plain version and bound.  Returns {(k, n, s, tau): numbers}."""
+    from repro_torch.kernels import bitpack, ops, ref
+    from repro_torch.kernels import modulated_matmul as mm
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    b = SERVE_B
+    per = {}
+    for k, n in SERVE_LEAVES:
+        for tau_dt in (torch.float32, torch.bfloat16):
+            base = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
+            tau = (0.05 * torch.randn((k, n), generator=g, device=dev)).to(
+                tau_dt)
+            words = bitpack.pack_bits(
+                torch.rand((b, k * n), generator=g, device=dev) < 0.7)
+            lam = torch.rand(b, generator=g, device=dev) + 0.5
+            w_eff = ref.modulated_weight_ref(base, tau, words, lam)
+            eye = torch.eye(k, device=dev).expand(b, k, k).contiguous()
+            got = mm.modulated_matmul_cuda(eye, base, tau, words, lam)
+            torch.cuda.synchronize()
+            check_equal(torch, f"modulated_matmul x=I ({k}, {n}) {tau_dt}",
+                        got, w_eff)
+            del eye, got
+            for s in (1, SERVE_PROMPT):
+                x = torch.randn((b, s, k), generator=g, device=dev)
+                got = mm.modulated_matmul_cuda(x, base, tau, words, lam)
+                want = mm.plain(x, base, tau, words, lam)
+                scale = torch.einsum("bsk,bkn->bsn", x.abs(), w_eff.abs())
+                torch.cuda.synchronize()
+                ratio = float(((got - want).abs()
+                               / torch.clamp(scale, min=1e-30)).max())
+                if not ratio <= MM_RTOL:
+                    raise AssertionError(
+                        f"modulated_matmul ({k}, {n}) S={s} {tau_dt}: "
+                        f"|err| / (|x| @ |w|) = {ratio} > {MM_RTOL}")
+                ms = time_ms(torch, lambda: mm.modulated_matmul_cuda(
+                    x, base, tau, words, lam))
+                plain_ms = time_ms(torch, lambda: mm.plain(
+                    x, base, tau, words, lam))
+                n_bytes = (x.numel() * 4 + k * n * 4 + k * n
+                           * tau.element_size() + words.numel() * 4 + b * 4
+                           + b * s * n * 4)
+                b_ms, b_by = bound(n_bytes, 2 * b * s * k * n + 3 * b * k * n)
+                err = max_abs(torch, got, want)
+                dev_ms = device_ms(torch, "modulated_matmul_kernel",
+                                   lambda: mm.modulated_matmul_cuda(
+                                       x, base, tau, words, lam))
+                per[(k, n, s, str(tau_dt))] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err, rel=ratio, device_ms=dev_ms)
+                log(f"modulated_matmul B={b} S={s} (K, N)=({k}, {n}) tau "
+                    f"{str(tau_dt)[6:]}: {ms:.4f} ms a call (device "
+                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                    f"{b_ms:.5f} ms ({b_by}); |err|/(|x||w|) {ratio:.2e}, "
+                    f"max|err| {err}")
+        kk, nn = (k + 1, n) if ((k + 1) * n) % 32 else (k, n + 1)
+        x1 = torch.zeros((b, 1, kk), device=dev)
+        bad = (x1, torch.zeros((kk, nn), device=dev),
+               torch.zeros((kk, nn), device=dev),
+               torch.zeros((b, -(-kk * nn // 32)), dtype=torch.int32,
+                           device=dev), torch.ones(b, device=dev))
+        for fn in (ops.modulated_matmul, mm.modulated_matmul_cuda):
+            try:
+                fn(*bad)
+            except ValueError as e:
+                if "word-aligned" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"modulated_matmul took the misaligned "
+                                     f"leaf ({kk}, {nn})")
+        log(f"modulated_matmul: misaligned leaf ({kk}, {nn}) refused")
+    return per
+
+
+def device_ms(torch, kernel: str, fn, n: int = 10) -> float:
+    """Device time of one launch of ``kernel`` (a substring of its
+    name), from ``torch.profiler`` over ``n`` calls of ``fn``: the
+    kernel alone, without the host's launch overhead."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not hits:
+        raise AssertionError(f"profiler saw no {kernel} launch")
+    return sum(e.self_device_time_total for e in hits) / 1e3 / sum(
+        e.count for e in hits)
+
+
+def mm_row(per, s: int):
+    """Kernel 9's numbers for one transformer layer's six launches (the
+    LAYER_MIX of leaf shapes) at sequence length ``s`` with bf16 τ, as
+    the bf16 serving path calls it: the sum of the per-shape times."""
+    keys = [((k, n, s, "torch.bfloat16"), c) for (k, n), c in LAYER_MIX.items()]
+    tot = {f: sum(per[key][f] * c for key, c in keys)
+           for f in ("ms", "plain_ms", "bound_ms", "device_ms")}
+    by = {per[key]["bound_by"] for key, _ in keys}
+    tot["bound_by"] = by.pop() if len(by) == 1 else "bytes"
+    tot["max_abs_err"] = max(v["max_abs_err"] for v in per.values())
+    return tot
+
+
+def serve_round(torch, dev, space):
+    """One MaTU round at the model's d through ``MaTUServer.round``:
+    N clients of 3–4 tasks each (client i holds task i mod T, so every
+    task is held), task vectors 0.05·N(0, 1) made on the card, uploads
+    built by ``batched_client_unify`` and stamped with the manifest
+    fingerprint.  Returns (server, uploads' unified / words / lams,
+    tasks, valid, sizes, round output)."""
+    from repro_torch.core.client import ClientUpload
+    from repro_torch.core.engine import batched_client_unify
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    d = space.d
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ks = 3 + (torch.rand(N, generator=g, device=dev) < 0.5).long()
+    ks = [int(k) for k in ks.tolist()]
+    tasks = torch.full((N, K_MAX), T, dtype=torch.int32, device=dev)
+    for i, k in enumerate(ks):
+        own = i % T
+        rest = [int(t) for t in torch.randperm(T, generator=g, device=dev)
+                .tolist() if t != own][:k - 1]
+        tasks[i, :k] = torch.tensor(sorted([own] + rest), dtype=torch.int32)
+    valid = torch.arange(K_MAX, device=dev)[None, :] < torch.tensor(
+        ks, device=dev)[:, None]
+    sizes = (torch.randint(10, 200, (N, K_MAX), generator=g, device=dev)
+             * valid).float()
+    tv = 0.05 * torch.randn((N, K_MAX, d), generator=g, device=dev) \
+        * valid[:, :, None]
+    uni, words, lams = batched_client_unify(tv, valid, device=dev)
+    del tv
+    uploads = [ClientUpload(i, tasks[i, :k].tolist(), uni[i], words[i, :k],
+                            lams[i, :k], sizes[i, :k].tolist(),
+                            fingerprint=space.fingerprint)
+               for i, k in enumerate(ks)]
+    server = MaTUServer(MaTUServerConfig(n_tasks=T), device=dev)
+    server.round(uploads)
+    return server, (uni, words, lams, tasks, valid, sizes, ks)
+
+
+def single_task_check(torch, dev, round_data, server):
+    """Kernel 8 through ``ops.masked_agg`` once, on the round's most-held
+    task: member rows carry their mask for it and γ from the data sizes,
+    every other row γ = 0 with a nonzero mask (its first slot's).  Held
+    against its plain version, the batched bool kernel's row and the
+    round's own τ̂ of that task, bitwise.  Returns (row, launches)."""
+    from repro_torch.kernels import bitpack, masked_agg, ops
+    uni, words, lams, tasks, valid, sizes, ks = round_data
+    d = uni.shape[1]
+    held = torch.zeros(T, dtype=torch.long, device=dev)
+    held.index_add_(0, tasks[valid].long(), torch.ones_like(
+        tasks[valid], dtype=torch.long))
+    t0 = int(torch.argmax(held))
+    hit = (tasks == t0) & valid                              # (N, K)
+    slot = torch.where(hit.any(1), hit.float().argmax(1),
+                       torch.zeros(N, dtype=torch.long, device=dev))
+    rows = torch.arange(N, device=dev)
+    masks = bitpack.unpack_bits(words[rows, slot], d)        # (N, d) bool
+    lam = lams[rows, slot].float()
+    member = hit.any(1)
+    sz = torch.where(member, sizes[rows, slot], 0.0)
+    gam = sz / torch.clamp(sz.sum(), min=1e-12)
+    ops.reset_launch_counts()
+    tau, m_hat = ops.masked_agg(uni, masks, lam, gam, rho=0.4)
+    launches = ops.launch_counts()["masked_agg"]
+    want = masked_agg.plain_single(uni, masks, lam, gam, 0.4)
+    row = masked_agg.masked_agg_batched_cuda(
+        uni, (masks & member[:, None])[:, None], lam[:, None], gam[:, None],
+        member[:, None], 0.4)
+    out = server.engine.run_packed(_pack(torch, dev, server, round_data))
+    torch.cuda.synchronize()
+    for name, a, b in (("tau vs plain", tau, want[0]),
+                       ("m_hat vs plain", m_hat, want[1]),
+                       ("tau vs batched row", tau, row[0][0]),
+                       ("m_hat vs batched row", m_hat, row[1][0]),
+                       ("tau vs the round's tau_hat", tau, out.tau_hats[t0]),
+                       ("m_hat vs the round's m_hat", m_hat, out.m_hats[t0])):
+        check_equal(torch, f"masked_agg (single task) {name}", a, b)
+    n_mem = int(member.sum())
+    args = (uni, masks, lam, gam, 0.4)
+    ms = time_ms(torch, lambda: masked_agg.masked_agg_cuda(*args))
+    plain_ms = time_ms(torch, lambda: masked_agg.plain_single(*args), reps=5)
+    b_ms, b_by = bound(n_mem * d * (uni.element_size() + 1) + 2 * N * 4
+                       + 2 * d * 4, 8 * n_mem * d)
+    log(f"masked_agg (task {t0}, N={N}, {n_mem} members, {N - n_mem} rows "
+        f"with gamma = 0 and a mask, d={d}): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); equal to the "
+        f"plain version, the batched row and the round's task")
+    rowd = dict(route="cuda", source="src/repro_torch/kernels/csrc/"
+                "masked_agg.cu", replaces="src/repro/kernels/masked_agg.py:202",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                check="tau_hat, m_hat identical to the plain version, the "
+                "batched kernel's row and the round's task")
+    return rowd, launches
+
+
+def _pack(torch, dev, server, round_data):
+    from repro_torch.core.engine import pack_from_slots
+    uni, words, lams, tasks, valid, sizes, ks = round_data
+    return pack_from_slots(list(range(N)),
+                           [tasks[i, :k].tolist() for i, k in enumerate(ks)],
+                           uni, words, lams, tasks, valid, sizes, T,
+                           d=uni.shape[1])
+
+
+def profile_window(torch, label, fn, top: int = 6):
+    """``fn`` under ``torch.profiler``: wall, summed device time, idle
+    share, and the ops that take the most device time.  Returns
+    (wall_ms, busy_ms, {op name: (device ms, calls)})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    log(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}")
+    ops_ = {}
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total):
+        ops_[e.key] = (e.self_device_time_total / 1e3, e.count)
+    for key, (ms, calls) in list(ops_.items())[:top]:
+        log(f"  {ms:8.3f} ms  x{calls:<5d} {key[:90]}")
+    on_host = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith("aten::")]
+    host_us = sum(e.self_cpu_time_total for e in on_host)
+    log(f"  {sum(e.count for e in on_card)} device kernels and copies; "
+        f"{sum(e.count for e in on_host)} aten ops taking {host_us / 1e3:.3f}"
+        f" ms of host time; most host time:")
+    for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:top]:
+        log(f"  {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key}")
+    return wall_us / 1e3, busy_us / 1e3, ops_
+
+
+def _rel_l2(torch, a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def serve_phase(torch, dev, cfg=None):
+    """Multi-tenant serving at full width (see the module docstring).
+    Returns (rows, launches by kernel)."""
+    from dataclasses import replace
+    from repro_torch.common.tree import TaskVectorSpace, tree_leaves
+    from repro_torch.configs.base import load_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (GenerationConfig, ModulatorStore,
+                                   MultiTenantDecoder)
+    from repro_torch.serve.router import route_batch
+
+    per = serve_kernel_checks(torch, dev)
+    rows = {}
+
+    full = cfg is None
+    cfg = cfg or load_arch(SERVE_ARCH)
+    t_build = time.perf_counter()
+    model = cfg.build(device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    params = model.init(g)
+    lora0 = model.lora_init(g)
+    space = TaskVectorSpace.from_tree(lora0)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{cfg.name} ({cfg.dtype}): {n_params} parameters, LoRA d = "
+        f"{space.d}, layout {space.fingerprint}, built in "
+        f"{time.perf_counter() - t_build:.2f} s")
+    if full and space.d != SERVE_D:
+        raise AssertionError(f"LoRA d {space.d} != {SERVE_D}")
+
+    # -- the main path: round -> serving downlink -> store -> generate ------
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, round_data = serve_round(torch, dev, space)
+    dl = server.serving_downlink(packed=True, fingerprint=space.fingerprint)
+    store = ModulatorStore(space, lora0, capacity=T, device=dev)
+    store.ingest(dl)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    gcpu = torch.Generator().manual_seed(SEED + 6)
+    ids = torch.randperm(T, generator=gcpu)[:SERVE_B - 1].tolist()
+    ids.append(ids[0])
+    prompts = torch.randint(1, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=g, device=dev)
+    gen_cfg = GenerationConfig(max_new_tokens=SERVE_NEW)
+    fused = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
+                               device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    mm_before = ops.launch_counts()["modulated_matmul"]
+    t0 = time.perf_counter()
+    out = fused.generate(prompts, ids)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    per_fwd = 6 * cfg.n_layers
+    (mm_name,) = ops.SERVE_KERNELS
+    mm_launches = counts[mm_name] - mm_before
+    if mm_launches != per_fwd * SERVE_NEW:
+        raise AssertionError(f"generate launched modulated_matmul "
+                             f"{mm_launches} times, expected "
+                             f"{per_fwd} x {SERVE_NEW}")
+    if min(counts[k] for k in ops.PACKED_ROUND_KERNELS) < 1:
+        raise AssertionError(f"serve round: a round kernel was not "
+                             f"launched: {counts}")
+    if out.shape != (SERVE_B, SERVE_PROMPT + SERVE_NEW) or \
+            not torch.equal(out[:, :SERVE_PROMPT], prompts.to(out.dtype)) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError("generate: bad output tokens")
+    rep = store.storage_report()
+    log(f"serve main path: round + downlink + ingest {1e3 * t_round:.1f} ms "
+        f"(T={T}, N={N}, d={space.d}); store {rep['tasks']} tasks in "
+        f"{rep['resident_bytes']} B vs {rep['checkpoint_bytes']} B of "
+        f"checkpoints ({rep['ratio']:.2f}x)")
+    log(f"generate (fused, bf16, B={SERVE_B}, tasks {ids}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_NEW} new): wall {1e3 * t_gen:.1f} ms, "
+        f"{SERVE_B * SERVE_NEW / t_gen:.1f} tokens/s, peak device memory "
+        f"{peak / 2**30:.3f} GiB, launches {counts}")
+    serve_counts = dict(counts)
+    serve_counts["modulated_matmul"] = mm_launches
+
+    rows["masked_agg"], serve_counts["masked_agg"] = single_task_check(
+        torch, dev, round_data, server)
+    del round_data
+
+    # -- step times, and profiled prefill / decode windows -------------------
+    lora = fused.route(ids)
+    max_len = SERVE_PROMPT + SERVE_NEW + 8
+
+    def prefill(lora_tree, mode=None):
+        cache = model.init_cache(SERVE_B, max_len)
+        logits, cache = model.prefill_step(params, lora_tree,
+                                           {"tokens": prompts}, cache,
+                                           mode=mode)
+        return logits, cache
+
+    t0 = time.perf_counter()
+    route_batch(store, ids, fused=True)
+    torch.cuda.synchronize()
+    t_route = time.perf_counter() - t0
+    pre_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_k, cache = prefill(lora)
+        torch.cuda.synchronize()
+        pre_ms.append(1e3 * (time.perf_counter() - t0))
+    tok = torch.argmax(logits_k, -1).to(torch.int32)[:, None]
+    step_ms = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.decode_fn(params, lora, {"tokens": tok}, cache,
+                                   SERVE_PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"route (fused) {1e3 * t_route:.2f} ms; prefill {pre_ms} ms; decode "
+        f"steps {[round(x, 3) for x in step_ms]} ms (median "
+        f"{statistics.median(step_ms):.3f})")
+    _, _, pre_ops = profile_window(torch, "prefill", lambda: prefill(lora))
+    cache = prefill(lora)[1]
+
+    def four_steps():
+        c = cache
+        for i in range(4):
+            _, c = model.decode_fn(params, lora, {"tokens": tok}, c,
+                                   SERVE_PROMPT + i)
+
+    dec_wall, dec_busy, dec_ops = profile_window(torch, "4 decode steps",
+                                                 four_steps)
+    mm_dev = [v for k, v in dec_ops.items() if "modulated_matmul" in k]
+    if mm_dev:
+        ms_, calls = mm_dev[0]
+        log(f"decode: modulated_matmul device time {ms_ / calls * 1e3:.2f} "
+            f"us per launch over {calls} launches, against "
+            f"{dec_wall / (4 * per_fwd) * 1e3:.2f} us of wall per launch "
+            f"slot ({dec_wall / 4:.3f} ms per step)")
+    del cache
+
+    # -- the same routed tree through the plain versions --------------------
+    logits_p, _ = prefill(lora, mode="ref")
+    rel = _rel_l2(torch, logits_k, logits_p)
+    out_p = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
+                               mode="ref", device=dev).generate(prompts, ids)
+    agree = float((out_p[:, SERVE_PROMPT:] == out[:, SERVE_PROMPT:])
+                  .float().mean())
+    log(f"bf16 prefill logits, kernels vs plain versions: rel L2 {rel:.3e} "
+        f"(bound {BF16_LOGIT_REL_L2}), max|err| "
+        f"{max_abs(torch, logits_k, logits_p)}; generated-token agreement "
+        f"{agree:.4f}")
+    if not rel <= BF16_LOGIT_REL_L2 or not torch.isfinite(logits_k).all():
+        raise AssertionError(f"bf16 prefill logits: rel L2 {rel}")
+    out_d = MultiTenantDecoder(model, params, store, cfg=gen_cfg,
+                               device=dev).generate(prompts, ids)
+    agree_d = float((out_d[:, SERVE_PROMPT:] == out[:, SERVE_PROMPT:])
+                    .float().mean())
+    log(f"bf16 dense-routed decoder: token agreement with fused {agree_d:.4f} "
+        f"(printed, not required: the dense adapter rounds to bf16, the "
+        f"fused weights stay fp32)")
+    del model, params, lora0, store, lora, fused, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server,
+               prompts, ids, gen_cfg)
+    del server
+    torch.cuda.empty_cache()
+
+    dec = mm_row(per, 1)
+    pre = mm_row(per, SERVE_PROMPT)
+    rows["modulated_matmul"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/modulated_matmul.cu",
+        replaces="src/repro/kernels/modulated_matmul.py:55",
+        max_abs_err=dec["max_abs_err"], ms=dec["ms"],
+        plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+        bound_by=dec["bound_by"], library_ms=None,
+        device_ms=dec["device_ms"], prefill_layer_ms=pre["ms"],
+        prefill_layer_device_ms=pre["device_ms"],
+        prefill_layer_plain_ms=pre["plain_ms"],
+        prefill_layer_bound_ms=pre["bound_ms"],
+        per_shape={f"{k}x{n} S={s} tau={t[6:]}": v
+                   for (k, n, s, t), v in per.items()},
+        check=f"|err| <= {MM_RTOL} (|x| @ |w|) against the plain version; "
+        f"x = I bitwise; misaligned refused (ms / plain / bound: one decode "
+        f"layer's six launches, S=1, bf16 tau)")
+    log(f"modulated_matmul per decode layer (6 launches, S=1): {dec['ms']:.4f}"
+        f" ms of calls (device {dec['device_ms']:.4f} ms), plain "
+        f"{dec['plain_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; per "
+        f"prefill layer (S={SERVE_PROMPT}): {pre['ms']:.4f} ms (device "
+        f"{pre['device_ms']:.4f} ms), plain {pre['plain_ms']:.4f} ms, bound "
+        f"{pre['bound_ms']:.5f} ms")
+    return rows, serve_counts
+
+
+def fp32_check(torch, dev, cfg32, server, prompts, ids, gen_cfg):
+    """The same configuration in fp32: fused (kernel) and dense-routed
+    decode give identical tokens, prefill logits agree within the JAX
+    package's bar, and every factor of layer 0 built by the kernel with
+    x = I equals the dense adapter leaf bit for bit."""
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ModulatorStore, MultiTenantDecoder
+    from repro_torch.serve.router import route_batch
+    model = cfg32.build(device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    params = model.init(g)
+    lora0 = model.lora_init(g)
+    space = TaskVectorSpace.from_tree(lora0)
+    store = ModulatorStore(space, lora0, capacity=T, device=dev)
+    store.ingest(server.serving_downlink(packed=True,
+                                         fingerprint=space.fingerprint))
+    outs, logits = {}, {}
+    for fused in (True, False):
+        dec = MultiTenantDecoder(model, params, store, fused=fused,
+                                 cfg=gen_cfg, device=dev)
+        outs[fused] = dec.generate(prompts, ids)
+        cache = model.init_cache(SERVE_B, SERVE_PROMPT + SERVE_NEW + 8)
+        logits[fused], _ = model.prefill_step(
+            params, dec.route(ids), {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    agree = float((outs[True] == outs[False]).float().mean())
+    log(f"fp32: fused vs dense-routed tokens identical: "
+        f"{torch.equal(outs[True], outs[False])} (agreement {agree:.4f}); "
+        f"prefill logits max|err| {max_abs(torch, logits[True], logits[False])}"
+        f", rel L2 {_rel_l2(torch, logits[True], logits[False]):.3e}")
+    check_equal(torch, "fp32 fused vs dense-routed tokens", outs[True],
+                outs[False])
+    if not torch.allclose(logits[True], logits[False], rtol=FP32_RTOL,
+                          atol=FP32_ATOL):
+        raise AssertionError(f"fp32 prefill logits beyond rtol {FP32_RTOL}, "
+                             f"atol {FP32_ATOL}")
+    fused_t = route_batch(store, ids, fused=True)["units"]["blk"]
+    dense_t = route_batch(store, ids)["units"]["blk"]
+    n_checked = 0
+    for site in (("mixer", "wq"), ("mixer", "wo"), ("ffn", "down")):
+        fs, ds = fused_t[site[0]][site[1]], dense_t[site[0]][site[1]]
+        for f in ("a", "b"):
+            k = fs[f]["base"].shape[1]
+            eye = torch.eye(k, device=dev).expand(SERVE_B, k, k).contiguous()
+            w = ops.modulated_matmul(eye, fs[f]["base"][0], fs[f]["tau"][0],
+                                     fs[f]["words"][0], fs["lam"][0])
+            check_equal(torch, f"fp32 fused weight {'/'.join(site)}/{f} "
+                        f"layer 0 vs dense adapter", w, ds[f][0])
+            n_checked += 1
+    log(f"fp32: {n_checked} fused factor weights of layer 0 (x = I) equal "
+        f"the dense adapter leaves bit for bit")
+    del model, params, store
+
 
 def main() -> int:
     import torch
@@ -629,15 +1171,22 @@ def main() -> int:
     bool_rows, bool_counts = bool_phase(torch, dev)
     log("== app phase ==")
     app_counts = app_phase(torch, dev)
+    log("== serve phase ==")
+    serve_rows, serve_counts = serve_phase(torch, dev)
     kernels, checks = [], {}
-    for name, row in list(rows.items()) + list(bool_rows.items()):
+    paths = {"unify": "ops.unify, once",
+             "masked_agg": "ops.masked_agg, once (serve phase)",
+             "modulated_matmul": "one full-width bf16 generate (serve phase)"}
+    for name, row in (list(rows.items()) + list(bool_rows.items())
+                      + list(serve_rows.items())):
         checks[name] = row.pop("check")
-        packed = name in rows
+        counts = (round_counts if name in rows else
+                  serve_counts if name in serve_rows else bool_counts)
         kernels.append(dict(
-            name=name, launches=(round_counts if packed else bool_counts)[name],
-            path=("packed round (round phase, 3 rounds)" if packed
-                  else "ops.unify, once" if name == "unify"
-                  else "bool round (bool phase, 1 round)"),
+            name=name, launches=counts[name],
+            path=paths.get(name, "packed round (round phase, 3 rounds)"
+                           if name in rows else
+                           "bool round (bool phase, 1 round)"),
             app_launches=app_counts["matu"][name], **row))
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"

@@ -12,6 +12,7 @@ manifest and the same ``fingerprint``.
 from __future__ import annotations
 
 import hashlib
+import json
 from dataclasses import dataclass
 from typing import Any, Callable, List, Tuple
 
@@ -133,6 +134,30 @@ class TaskVectorSpace:
     def fingerprint(self) -> str:
         return hashlib.sha256(self.manifest_text().encode()).hexdigest()[:16]
 
+    def require_compatible(self, other, context: str = "") -> None:
+        """Abort-before-use check.  ``other`` is a fingerprint string or
+        another :class:`TaskVectorSpace`; raises
+        :class:`TaskVectorLayoutError` on mismatch."""
+        theirs = (other.fingerprint if isinstance(other, TaskVectorSpace)
+                  else str(other))
+        if theirs != self.fingerprint:
+            where = f" ({context})" if context else ""
+            raise TaskVectorLayoutError(
+                f"task-vector layout mismatch{where}: local manifest "
+                f"{self.fingerprint} != peer {theirs}; refusing to "
+                f"aggregate vectors whose coordinates may not align")
+
+    def by_path(self, path: str) -> LeafSpec:
+        """Manifest row of one leaf path (the serving router slices a
+        leaf's coordinates, or its packed mask bits, out of the d-axis)."""
+        if not hasattr(self, "_by_path"):
+            self._by_path = {l.path: l for l in self.leaves}
+        try:
+            return self._by_path[path]
+        except KeyError:
+            raise TaskVectorLayoutError(
+                f"no manifest row for leaf path {path!r}") from None
+
     def template(self, device=None) -> dict:
         """Zeros tree in the manifest's model space."""
         root: dict = {}
@@ -170,6 +195,33 @@ class TaskVectorSpace:
             _set_path(root, l.path, vector[l.offset:l.offset + l.size]
                       .reshape(l.shape).to(getattr(torch, l.dtype)))
         return root
+
+    def to_json(self) -> str:
+        """The manifest as JSON (the JAX package's format, field for
+        field)."""
+        return json.dumps({
+            "version": 1,
+            "wire_dtype": _dtype_name(self.dtype),
+            "d": self.d,
+            "fingerprint": self.fingerprint,
+            "leaves": [{"path": l.path, "shape": list(l.shape),
+                        "dtype": l.dtype, "offset": l.offset}
+                       for l in self.leaves],
+        }, indent=1)
+
+    @classmethod
+    def from_json(cls, text: str) -> "TaskVectorSpace":
+        """Rebuild a manifest from :meth:`to_json` text; raises if the
+        stored fingerprint does not match the rebuilt one."""
+        obj = json.loads(text)
+        specs = tuple(LeafSpec(e["path"], tuple(e["shape"]), e["dtype"],
+                               int(e["offset"])) for e in obj["leaves"])
+        space = cls(specs, dtype=getattr(torch, obj["wire_dtype"]))
+        if obj.get("fingerprint") and obj["fingerprint"] != space.fingerprint:
+            raise TaskVectorLayoutError(
+                f"serialized fingerprint {obj['fingerprint']} does not "
+                f"match rebuilt manifest {space.fingerprint}")
+        return space
 
     def __repr__(self) -> str:
         return (f"TaskVectorSpace(d={self.d}, leaves={len(self.leaves)}, "

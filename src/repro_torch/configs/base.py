@@ -1,0 +1,199 @@
+"""Architecture and input-shape registry of the port.
+
+Each ported architecture has a module ``repro_torch/configs/<id>.py``
+defining ``CONFIG = ArchConfig(...)`` with the published
+hyper-parameters, the same values as the JAX package's twin.
+``ArchConfig.build`` instantiates the model; ``reduced()`` yields the
+smoke-test variant (2 layers, d_model <= 128, fp32) of the same family.
+Dtypes are torch dtypes; bf16 is the default, as in the JAX package.
+
+Only the dense family (qwen2-0.5b) is ported so far: ``load_arch`` of
+another name raises.
+"""
+
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    source: str = ""                 # citation
+    # dense/attention options
+    qkv_bias: bool = False
+    rope_base: float = 1_000_000.0
+    tie_embeddings: bool = False
+    head_dim: Optional[int] = None
+    # moe options
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    shared_d_ff: Optional[int] = None
+    moe_capacity_factor: float = 1.25
+    # mla options (deepseek)
+    use_mla: bool = False
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # ssm / hybrid options
+    ssm_state: int = 16
+    mlstm_chunk: int = 256
+    hybrid_window: int = 2048        # hymba SWA on the attention branch
+    # vlm options
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+    vision_tokens: int = 1024        # stub patch embeddings per sample
+    # audio options
+    enc_frames: int = 1500
+    # long-context policy
+    sliding_window_long: Optional[int] = 4096  # None => skip long_500k
+    # PEFT / numerics
+    lora_rank: int = 16
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: same family, tiny dims, fp32 (the JAX
+        package's ``reduced()``, field for field)."""
+        return replace(
+            self,
+            n_layers=2,
+            d_model=min(self.d_model, 128),
+            n_heads=4,
+            n_kv_heads=(min(self.n_kv_heads, 2)
+                        if self.n_kv_heads < self.n_heads else 4),
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab=min(self.vocab, 512),
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
+            n_shared_experts=min(self.n_shared_experts, 1),
+            shared_d_ff=min(self.shared_d_ff, 64) if self.shared_d_ff else None,
+            moe_capacity_factor=8.0,
+            q_lora_rank=32,
+            kv_lora_rank=16,
+            qk_nope_dim=16,
+            qk_rope_dim=8,
+            v_head_dim=16,
+            head_dim=None,
+            ssm_state=8,
+            mlstm_chunk=16,
+            hybrid_window=16,
+            vision_tokens=8,
+            enc_frames=16,
+            mrope_sections=(4, 6, 6) if self.mrope_sections else None,
+            lora_rank=4,
+            dtype=torch.float32,
+            remat=False,
+        )
+
+    def window_for_shape(self, shape: ShapeSpec) -> Optional[int]:
+        if shape.name == "long_500k" and self.family not in ("ssm",):
+            return self.sliding_window_long
+        return None
+
+    def build(self, shape: Optional[ShapeSpec] = None, *, device="cuda"):
+        from repro_torch.models.builders import build_model
+        return build_model(self, shape, device=device)
+
+    def lora_targets(self) -> Tuple[str, ...]:
+        """Module-path patterns of the matmuls that carry LoRA adapters
+        (each adapter leaf is ``<pattern>/{a,b,alpha}``)."""
+        return lora_targets_for(self)
+
+    def check_lora_targets(self, leaf_paths) -> None:
+        """Every declared target must appear among ``leaf_paths`` and no
+        adapter may live outside them; raises ``ValueError``."""
+        check_lora_targets(self.lora_targets(), leaf_paths,
+                           context=f"{self.name} ({self.family})")
+
+
+_FAMILY_LORA_TARGETS: Dict[str, Tuple[str, ...]] = {
+    "dense":  ("mixer/wq", "mixer/wo", "ffn/down"),
+    "vlm":    ("mixer/wq", "mixer/wo", "ffn/down"),
+    "ssm":    ("mlstm/up", "mlstm/down", "slstm/wx", "slstm/ffn_down"),
+    "hybrid": ("mixer/attn/wq", "mixer/attn/wo",
+               "mixer/mamba/in_proj", "mixer/mamba/out_proj", "ffn/down"),
+    "audio":  ("encoder/attn/wq", "encoder/attn/wo", "encoder/mlp/down",
+               "decoder/self_attn/wq", "decoder/self_attn/wo",
+               "decoder/cross_attn/wq", "decoder/cross_attn/wo",
+               "decoder/mlp/down"),
+    "vit":    ("attn/wq", "attn/wo", "mlp/down"),
+}
+
+
+def lora_targets_for(cfg) -> Tuple[str, ...]:
+    """Family targeting rules for an :class:`ArchConfig`."""
+    family = cfg.family
+    if family == "moe":
+        targets = ["mixer/wq_a" if getattr(cfg, "use_mla", False)
+                   else "mixer/wq", "mixer/wo"]
+        if getattr(cfg, "n_shared_experts", 0) > 0:
+            targets.append("ffn/shared/down")
+        return tuple(targets)
+    return _FAMILY_LORA_TARGETS[family]
+
+
+def check_lora_targets(targets: Tuple[str, ...], leaf_paths,
+                       context: str = "") -> None:
+    """Every target pattern must match >= 1 adapter leaf and every leaf
+    must belong to a declared target (leaves are ``.../{a,b,alpha}``)."""
+    where = f" [{context}]" if context else ""
+    modules = set()
+    for path in leaf_paths:
+        mod = path.rsplit("/", 1)[0]
+        if not any(mod == t or mod.endswith("/" + t) for t in targets):
+            raise ValueError(
+                f"LoRA adapter at {path!r} is outside the declared "
+                f"targets {targets}{where}")
+        modules.add(mod)
+    for t in targets:
+        if not any(m == t or m.endswith("/" + t) for m in modules):
+            raise ValueError(
+                f"declared LoRA target {t!r} has no adapter in the "
+                f"manifest (modules: {sorted(modules)}){where}")
+
+
+def load_arch(name: str) -> ArchConfig:
+    """The config of a ported architecture; raises ``ValueError`` for a
+    name the port has no config for yet."""
+    mod_name = name.replace("-", "_").replace(".", "_")
+    try:
+        mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    except ModuleNotFoundError as e:
+        if e.name != f"repro_torch.configs.{mod_name}":
+            raise
+        raise ValueError(f"architecture {name!r} is not ported yet (ported: "
+                         f"{PORTED_ARCHS})") from None
+    return mod.CONFIG
+
+
+PORTED_ARCHS = ("qwen2-0.5b",)

@@ -11,7 +11,7 @@ buffers (:func:`repro_torch.kernels.bitpack.wire_bits`).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -49,6 +49,10 @@ class ClientUpload:
     masks: torch.Tensor         # (k, d) bool | (k, ceil(d/32)) int32 words
     lams: torch.Tensor          # (k,)
     data_sizes: List[int]
+    # TaskVectorSpace fingerprint of the layout the vector was flattened
+    # through (None for homogeneous rounds); lets the server verify layout
+    # agreement before aggregating
+    fingerprint: Optional[str] = None
 
     @property
     def packed(self) -> bool:
@@ -69,6 +73,10 @@ class ClientDownlink:
     unified: torch.Tensor       # (d,) fp32 | bf16 (wire)
     masks: torch.Tensor         # (k, d) bool | (k, ceil(d/32)) int32 words
     lams: torch.Tensor          # (k,)
+    # TaskVectorSpace fingerprint of the layout (None for plain rounds):
+    # the serving ModulatorStore refuses a downlink whose fingerprint does
+    # not match its own manifest
+    fingerprint: Optional[str] = None
 
     @property
     def packed(self) -> bool:

@@ -18,6 +18,8 @@ from repro_torch.core.client import ClientDownlink, ClientUpload
 from repro_torch.core.engine import (EPS_DEFAULT, KAPPA_DEFAULT, RHO_DEFAULT,
                                      EngineConfig, EngineOutput, PackedRound,
                                      RoundEngine)
+from repro_torch.core.unify import unify_with_modulators
+from repro_torch.kernels import bitpack
 
 
 @dataclass
@@ -69,3 +71,29 @@ class MaTUServer:
     def _record(self, out: EngineOutput) -> None:
         self.last_similarity = out.similarity
         self.last_task_vectors = out.task_vectors
+
+    def serving_downlink(self, *, packed: bool = True,
+                         code_masks: bool = False,
+                         fingerprint: Optional[str] = None
+                         ) -> ClientDownlink:
+        """Serving handoff: re-unify the last round's full task-vector
+        set into one all-tasks downlink for a
+        :class:`repro_torch.serve.store.ModulatorStore` — row ``t`` of the
+        modulators is task id ``t``.  ``packed`` ships the wire layout
+        (bf16 unified + int32 mask words), else fp32 unified + bool
+        masks.  ``fingerprint`` stamps the layout manifest the task
+        vectors were flattened through, so the store can verify the
+        handoff.  ``code_masks`` (the entropy-coded wire) raises: the
+        coded wire is not ported yet."""
+        if code_masks:
+            raise NotImplementedError("the entropy-coded mask wire is not "
+                                      "ported yet (ROADMAP §1)")
+        if self.last_task_vectors is None:
+            raise ValueError("serving_downlink needs a completed round "
+                             "(no task vectors recorded yet)")
+        unified, masks, lams = unify_with_modulators(self.last_task_vectors)
+        if packed:
+            return ClientDownlink(unified.to(torch.bfloat16),
+                                  bitpack.pack_bits(masks), lams,
+                                  fingerprint=fingerprint)
+        return ClientDownlink(unified, masks, lams, fingerprint=fingerprint)

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.tree import TaskVectorLayoutError
 from repro_torch.core.client import ClientDownlink, ClientUpload, paper_link_bits
 from repro_torch.core.engine import batched_client_unify, pack_from_slots
 from repro_torch.core.server import MaTUServer, MaTUServerConfig
@@ -31,6 +32,9 @@ class Upload:
     task_ids: List[int]
     task_vectors: torch.Tensor  # (k, d) fine-tuned vectors, one per task
     data_sizes: List[int]
+    # TaskVectorSpace fingerprint of the client's backbone (None for
+    # homogeneous rounds), checked by Strategy.verify_layouts
+    fingerprint: Optional[str] = None
 
 
 @dataclass
@@ -100,9 +104,37 @@ class Strategy:
     def __init__(self, n_tasks: int, d: int, device: DeviceLike = "cuda"):
         self.n_tasks, self.d = n_tasks, d
         self.device = resolve_device(device)
+        # task id -> expected TaskVectorSpace fingerprint (use_layouts)
+        self.expected_layouts: Optional[Dict[int, str]] = None
 
     def task_init(self, client_id: int, task_id: int) -> torch.Tensor:
         raise NotImplementedError
+
+    def use_layouts(self, task_fingerprints: Dict[int, str]) -> None:
+        """Install the server's expected per-task layout fingerprints;
+        every later round checks its uploads against them before
+        aggregating (:meth:`verify_layouts`)."""
+        self.expected_layouts = dict(task_fingerprints)
+
+    def verify_layouts(self, uploads: List[Upload]) -> None:
+        """Raise :class:`TaskVectorLayoutError` when an upload's manifest
+        fingerprint disagrees with the expected one of any task it
+        holds.  A no-op until :meth:`use_layouts`; uploads without a
+        fingerprint pass."""
+        exp = self.expected_layouts
+        if not exp:
+            return
+        for u in uploads:
+            fp = getattr(u, "fingerprint", None)
+            if fp is None:
+                continue
+            for t in u.task_ids:
+                want = exp.get(t)
+                if want is not None and want != fp:
+                    raise TaskVectorLayoutError(
+                        f"client {u.client_id} uploads task {t} flattened "
+                        f"through manifest {fp}, server expects {want}; "
+                        f"refusing to aggregate")
 
     def aggregate(self, uploads: List[Upload]) -> None:
         raise NotImplementedError
@@ -110,6 +142,7 @@ class Strategy:
     def aggregate_batch(self, batch: RoundBatch) -> None:
         """Server step from a pre-packed batch; the default unwraps to
         the ragged per-client path."""
+        self.verify_layouts(batch.uploads)
         self.aggregate(batch.uploads)
 
     def eval_vectors(self, task_id: int) -> List[torch.Tensor]:
@@ -157,6 +190,7 @@ class MaTUStrategy(Strategy):
         self.aggregate_batch(RoundBatch.from_uploads(uploads, self.n_tasks))
 
     def aggregate_batch(self, batch: RoundBatch) -> None:
+        self.verify_layouts(batch.uploads)
         unified, mask_words, lams = batched_client_unify(
             batch.task_vectors, batch.valid, device=self.device)
         packed = pack_from_slots(batch.client_ids, batch.task_ids, unified,

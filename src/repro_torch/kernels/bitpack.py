@@ -114,6 +114,40 @@ def unpack_bits_np(words: np.ndarray, d: int) -> np.ndarray:
     return bits[..., :d].astype(bool)
 
 
+def _from_u32_values(v: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2**32) -> int32 bit patterns."""
+    return torch.where(v >= 1 << 31, v - _U32, v).to(torch.int32)
+
+
+def slice_bits(words: torch.Tensor, start: int, length: int) -> torch.Tensor:
+    """Re-aligned bit-range extract: bits ``[start, start + length)`` of
+    a packed row as ``ceil(length/32)`` words whose bit 0 is the bit at
+    ``start`` (LSB-first, zero tail bits).  Each output word is the OR
+    of two shifted neighbour words, so one manifest leaf's mask bits come
+    out of a whole-d row without unpacking.  ``words`` may carry leading
+    batch axes.  The shifts run on int64 copies in [0, 2**32): a right
+    shift of int32 would sign-extend a set bit 31."""
+    if length < 0 or start < 0:
+        raise ValueError(f"slice_bits needs start/length >= 0, got "
+                         f"({start}, {length})")
+    n_out = packed_width(length)
+    w0, sh = start // WORD_BITS, start % WORD_BITS
+    need = n_out + (1 if sh else 0)
+    avail = words.shape[-1] - w0
+    if avail < need:   # zero-pad so the shifted neighbour read is safe
+        words = torch.nn.functional.pad(words, (0, need - avail))
+    lo = _to_u32_values(words[..., w0:w0 + n_out])
+    if sh:
+        hi = _to_u32_values(words[..., w0 + 1:w0 + 1 + n_out])
+        out = ((lo >> sh) | (hi << (WORD_BITS - sh))) & (_U32 - 1)
+    else:
+        out = lo
+    tail = length % WORD_BITS
+    if tail and n_out:   # zero the tail bits past `length` (layout rule)
+        out[..., -1] &= (1 << tail) - 1
+    return _from_u32_values(out)
+
+
 def sign_planes(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack ``sgn(x)`` over the last axis into (pos, nz) bit-planes."""
     pos = pack_bits(x > 0)

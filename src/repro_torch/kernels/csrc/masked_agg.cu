@@ -1,13 +1,17 @@
 // Whole-round Eq. 3 + Eq. 4, every task in one launch, over packed mask
 // words or dense byte masks.
 //
-// Replaces two TPU kernels of src/repro/kernels/masked_agg.py:
+// Replaces three TPU kernels of src/repro/kernels/masked_agg.py:
 //  * masked_agg_batched_packed_pallas (masks as (N, T, ceil(d/32)) words;
 //    outputs tau_hat and the agreement numerator a_num)
 //    -> masked_agg_packed_launch;
 //  * masked_agg_batched_pallas (the bool/fp32 A/B layout: masks as
 //    (N, T, d) bytes of a torch.bool tensor; outputs tau_hat and m_hat)
-//    -> masked_agg_launch.
+//    -> masked_agg_launch;
+//  * masked_agg_pallas (one task: masks (N, d) as bool bytes or {0, 1} in
+//    fp32/bf16; membership derived here from gamma > 0, N_t = max(#members,
+//    1); outputs tau_hat and m_hat) -> masked_agg_single_launch, the bool
+//    kernel at T = 1 with the member list built from gamma on the device.
 // Per task t and coordinate j, over the member clients n (ascending):
 //   votes  = sum_n mem * (m & pos - m & neg),   a_num = |votes|
 //   m_hat  = 1 if a_num / N_t >= rho else a_num / N_t
@@ -48,12 +52,20 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int UNROLL = 4;                // member rows loaded together
 constexpr int GROUPS = 4;                // coordinate blocks per pass
 
+__device__ __forceinline__ bool mask_set(uint8_t v) { return v != 0; }
+__device__ __forceinline__ bool mask_set(float v) { return v != 0.f; }
+__device__ __forceinline__ bool mask_set(__nv_bfloat16 v) {
+  return __bfloat162float(v) != 0.f;
+}
+
 // PACKED: masks are uint32 words and out2 gets a_num; else masks are
-// 0/1 bytes and out2 gets m_hat.
-template <typename T, bool PACKED>
+// MaskT values (0/1 bytes in the batched bool layout) and out2 gets m_hat.
+// SINGLE (T = 1): ``mem`` holds gamma and ``gl`` lambda; a row is a member
+// iff gamma > 0 and its weight is gamma * lambda, rounded once.
+template <typename T, typename MaskT, bool PACKED, bool SINGLE>
 __global__ void __launch_bounds__(BLOCK)
 masked_agg_kernel(const T* __restrict__ unified,
-                  const void* __restrict__ masks,
+                  const MaskT* __restrict__ masks,
                   const float* __restrict__ gl, const float* __restrict__ mem,
                   int N, int T_, long long d, long long n_words, float rho,
                   float* __restrict__ tau_out, float* __restrict__ out2) {
@@ -70,13 +82,14 @@ masked_agg_kernel(const T* __restrict__ unified,
     int count = 0;
     for (int base = 0; base < N; base += 32) {
       const int n = base + lane;
-      const float m = n < N ? mem[n * T_ + t] : 0.f;
+      const float raw = n < N ? mem[n * T_ + t] : 0.f;
+      const float m = SINGLE ? (raw > 0.f ? 1.f : 0.f) : raw;
       const unsigned bal = __ballot_sync(FULL, m != 0.f);
       if (m != 0.f) {
         const int at = count + __popc(bal & ((1u << lane) - 1u));
         s_idx[at] = n;
         s_mem[at] = m;
-        s_gl[at] = gl[n * T_ + t];
+        s_gl[at] = SINGLE ? __fmul_rn(raw, gl[n]) : gl[n * T_ + t];
       }
       count += __popc(bal);
     }
@@ -116,11 +129,9 @@ masked_agg_kernel(const T* __restrict__ unified,
           u[q][c] = 0.f;
           if (i0 + q < count && jc[c] < d) {
             if constexpr (PACKED)
-              w[q][c] = static_cast<const uint32_t*>(
-                  masks)[(n * T_ + t) * n_words + (jc[c] >> 5)];
+              w[q][c] = masks[(n * T_ + t) * n_words + (jc[c] >> 5)];
             else
-              w[q][c] = static_cast<const uint8_t*>(
-                  masks)[(n * T_ + t) * d + jc[c]];
+              w[q][c] = mask_set(masks[(n * T_ + t) * d + jc[c]]);
             u[q][c] = to_f32(unified[n * d + jc[c]]);
           }
         }
@@ -158,7 +169,7 @@ masked_agg_kernel(const T* __restrict__ unified,
   }
 }
 
-template <bool PACKED>
+template <typename MaskT, bool PACKED, bool SINGLE>
 int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
            const void* mem, int N, int T_, long long d, float rho,
            void* tau_out, void* out2, void* stream) {
@@ -183,14 +194,15 @@ int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
   auto* m = static_cast<const float*>(mem);
   auto* to = static_cast<float*>(tau_out);
   auto* o2 = static_cast<float*>(out2);
+  auto* mk = static_cast<const MaskT*>(masks);
   if (u_bf16)
-    masked_agg_kernel<__nv_bfloat16, PACKED><<<grid, BLOCK, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(unified), masks, g, m, N, T_, d,
-        n_words, rho, to, o2);
+    masked_agg_kernel<__nv_bfloat16, MaskT, PACKED, SINGLE>
+        <<<grid, BLOCK, smem, s>>>(static_cast<const __nv_bfloat16*>(unified),
+                                   mk, g, m, N, T_, d, n_words, rho, to, o2);
   else
-    masked_agg_kernel<float, PACKED><<<grid, BLOCK, smem, s>>>(
-        static_cast<const float*>(unified), masks, g, m, N, T_, d, n_words,
-        rho, to, o2);
+    masked_agg_kernel<float, MaskT, PACKED, SINGLE><<<grid, BLOCK, smem, s>>>(
+        static_cast<const float*>(unified), mk, g, m, N, T_, d, n_words, rho,
+        to, o2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -204,8 +216,8 @@ extern "C" int masked_agg_packed_launch(const void* unified, int u_bf16,
                                         const void* mem, int N, int T_,
                                         long long d, float rho, void* tau_out,
                                         void* anum_out, void* stream) {
-  return launch<true>(unified, u_bf16, words, gl, mem, N, T_, d, rho, tau_out,
-                      anum_out, stream);
+  return launch<uint32_t, true, false>(unified, u_bf16, words, gl, mem, N, T_,
+                                      d, rho, tau_out, anum_out, stream);
 }
 
 // The bool/fp32 layout: masks (N, T, d) uint8 holding 0 or 1 (a torch.bool
@@ -215,6 +227,29 @@ extern "C" int masked_agg_launch(const void* unified, int u_bf16,
                                  const void* mem, int N, int T_, long long d,
                                  float rho, void* tau_out, void* mhat_out,
                                  void* stream) {
-  return launch<false>(unified, u_bf16, masks, gl, mem, N, T_, d, rho,
-                       tau_out, mhat_out, stream);
+  return launch<uint8_t, false, false>(unified, u_bf16, masks, gl, mem, N, T_,
+                                      d, rho, tau_out, mhat_out, stream);
+}
+
+// One task: unified (N, d); masks (N, d) of mask_kind 0 = uint8 0/1 (a
+// torch.bool tensor), 1 = fp32 {0, 1}, 2 = bf16 {0, 1}; lam and gamma (N,)
+// fp32.  Members are the rows with gamma > 0; outputs tau_out and mhat_out
+// (d,) fp32.
+extern "C" int masked_agg_single_launch(const void* unified, int u_bf16,
+                                        const void* masks, int mask_kind,
+                                        const void* lam, const void* gamma,
+                                        int N, long long d, float rho,
+                                        void* tau_out, void* mhat_out,
+                                        void* stream) {
+  if (mask_kind == 0)
+    return launch<uint8_t, false, true>(unified, u_bf16, masks, lam, gamma, N,
+                                        1, d, rho, tau_out, mhat_out, stream);
+  if (mask_kind == 1)
+    return launch<float, false, true>(unified, u_bf16, masks, lam, gamma, N, 1,
+                                      d, rho, tau_out, mhat_out, stream);
+  if (mask_kind == 2)
+    return launch<__nv_bfloat16, false, true>(unified, u_bf16, masks, lam,
+                                              gamma, N, 1, d, rho, tau_out,
+                                              mhat_out, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,15 +1,19 @@
-"""Whole-round Eq. 3 + Eq. 4 (agreement + task merge), every task in one
-launch, over packed mask words or dense bool masks.
+"""Eq. 3 + Eq. 4 (agreement + task merge): whole-round, every task in
+one launch, over packed mask words or dense bool masks; and one task
+alone.
 
 CUDA twins of the JAX package's ``masked_agg_batched_packed_pallas``
-(``masked_agg_batched_packed``: outputs τ̂ and the agreement numerator)
-and ``masked_agg_batched_pallas`` (``masked_agg_batched``, the bool/fp32
-A/B layout: outputs τ̂ and m̂); ``csrc/masked_agg.cu`` holds the kernels
-and their design note.  Their plain versions
-(:func:`repro_torch.kernels.ref.masked_agg_batched_packed_ref`,
-:func:`~repro_torch.kernels.ref.masked_agg_batched_ref`) sum the clients
-in the kernels' order with the kernels' roundings, so kernel and plain
-version agree bit for bit, and τ̂ is bitwise the same in both layouts.
+(``masked_agg_batched_packed``: outputs τ̂ and the agreement numerator),
+``masked_agg_batched_pallas`` (``masked_agg_batched``, the bool/fp32
+A/B layout: outputs τ̂ and m̂) and ``masked_agg_pallas``
+(``masked_agg``: one task, membership from γ > 0, outputs τ̂ and m̂);
+``csrc/masked_agg.cu`` holds the kernels and their design note.  Their
+plain versions (:func:`repro_torch.kernels.ref.masked_agg_batched_packed_ref`,
+:func:`~repro_torch.kernels.ref.masked_agg_batched_ref`,
+:func:`~repro_torch.kernels.ref.masked_agg_ref`) sum the clients in the
+kernels' order with the kernels' roundings, so kernel and plain version
+agree bit for bit, τ̂ is bitwise the same in both layouts, and the
+single-task entry equals the batched kernel's row of the same task.
 """
 
 from __future__ import annotations
@@ -27,9 +31,13 @@ KERNEL = CudaKernel("masked_agg_batched_packed", "masked_agg.cu",
                     "masked_agg_packed_launch", _ARGS)
 KERNEL_BOOL = CudaKernel("masked_agg_batched", "masked_agg.cu",
                          "masked_agg_launch", _ARGS)
+KERNEL_SINGLE = CudaKernel("masked_agg", "masked_agg.cu",
+                           "masked_agg_single_launch",
+                           [_P, _I, _P, _I, _P, _P, _I, _LL, _F, _P, _P, _P])
 
 plain = ref.masked_agg_batched_packed_ref
 plain_bool = ref.masked_agg_batched_ref
+plain_single = ref.masked_agg_ref
 
 MAX_N = 4000       # member list of one task in shared memory (< 48 KB)
 
@@ -57,6 +65,48 @@ def masked_agg_batched(unified, masks, lams, gammas, members, rho: float):
     if unified.device.type == "cpu":
         return plain_bool(unified, masks, lams, gammas, members, rho)
     return masked_agg_batched_cuda(unified, masks, lams, gammas, members, rho)
+
+
+def masked_agg(unified, masks, lams, gammas, rho: float):
+    """Single-task Eq. 3 + Eq. 4: (tau_hat (d,) fp32, m_hat (d,) fp32)
+    from unified (N, d) fp32/bf16, masks (N, d) bool or {0, 1} in the
+    unified dtype and lams / gammas (N,); the members are the rows with
+    gamma > 0.  CPU tensors take the plain version; CUDA tensors take
+    the kernel."""
+    if unified.device.type == "cpu":
+        return plain_single(unified, masks, lams, gammas, rho)
+    return masked_agg_cuda(unified, masks, lams, gammas, rho)
+
+
+_MASK_KINDS = {torch.bool: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def masked_agg_cuda(unified, masks, lams, gammas, rho: float):
+    """The kernel path of :func:`masked_agg`: membership and N_t are
+    derived from gamma inside the kernel (no host round trip); the masks
+    are read in their own dtype (no cast pass)."""
+    require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
+    require_cuda(masks, "masks", tuple(_MASK_KINDS), 2)
+    n, d = unified.shape
+    if tuple(masks.shape) != (n, d):
+        raise ValueError(f"masks {tuple(masks.shape)} != unified {(n, d)}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"masked_agg takes 1 <= N <= {MAX_N}, got {n}")
+    lam = lams.float().contiguous()
+    gam = gammas.float().contiguous()
+    for name, x in (("lams", lam), ("gammas", gam)):
+        require_cuda(x, name, (torch.float32,), 1)
+        if tuple(x.shape) != (n,):
+            raise ValueError(f"{name} {tuple(x.shape)} != {(n,)}")
+    tau = torch.empty((d,), dtype=torch.float32, device=unified.device)
+    m_hat = torch.empty_like(tau)
+    with torch.cuda.device(unified.device):
+        KERNEL_SINGLE.launch(
+            unified.data_ptr(), int(unified.dtype == torch.bfloat16),
+            masks.data_ptr(), _MASK_KINDS[masks.dtype], lam.data_ptr(),
+            gam.data_ptr(), n, d, float(rho), tau.data_ptr(),
+            m_hat.data_ptr(), stream_handle(unified))
+    return tau, m_hat
 
 
 def _launch(kernel: CudaKernel, unified, masks, lams, gammas, members,

@@ -1,5 +1,6 @@
 """Dispatch layer over the port's kernels — the only entry point the
-round engine (``repro_torch.core.engine``) uses for Eq. 2–7 math.
+round engine (``repro_torch.core.engine``) uses for Eq. 2–7 math, and
+the serving path's fused LoRA matmul (``modulated_matmul``).
 
 Dispatch follows the tensors' device: CPU tensors take each kernel's
 plain PyTorch version, CUDA tensors take the hand-written kernel (or
@@ -21,14 +22,18 @@ import torch
 from repro_torch.kernels import bitpack, ref
 from repro_torch.kernels import fused_unify as _fu
 from repro_torch.kernels import masked_agg as _ma
+from repro_torch.kernels import modulated_matmul as _mm
 from repro_torch.kernels import sign_sim as _ss
 
 MODES = (None, "ref")
 KERNELS = (_fu.KERNEL, _ma.KERNEL, _ss.KERNEL,
            _fu.KERNEL_BOOL, _ma.KERNEL_BOOL,
-           _ss.KERNEL_DENSE, _fu.KERNEL_UNIFY)
+           _ss.KERNEL_DENSE, _fu.KERNEL_UNIFY,
+           _ma.KERNEL_SINGLE, _mm.KERNEL)
 # the kernels the packed round launches, by name
 PACKED_ROUND_KERNELS = tuple(k.name for k in KERNELS[:3])
+# the kernels the multi-tenant decode launches, by name
+SERVE_KERNELS = (_mm.KERNEL.name,)
 
 
 def _plain(mode: Optional[str]) -> bool:
@@ -90,6 +95,32 @@ def fused_unify_packed(task_vectors: torch.Tensor, valid: torch.Tensor, *,
     and λ are decided on fp32 values before the bf16 rounding."""
     uni, words, num, den = fused_unify_raw(task_vectors, valid, mode=mode)
     return uni, words, num / torch.clamp(den, min=eps)
+
+
+def masked_agg(unified, masks, lams, gammas, *, rho: float = 0.4,
+               mode: Optional[str] = None):
+    """Single-task Eq. 3 + Eq. 4 (membership inferred from gammas > 0):
+    unified (N, d), masks (N, d) bool or {0, 1}, lams / gammas (N,) ->
+    (tau_hat (d,) fp32, m_hat (d,) fp32)."""
+    if _plain(mode):
+        return _ma.plain_single(unified, masks, lams, gammas, rho)
+    return _ma.masked_agg(unified, masks, lams, gammas, rho)
+
+
+def modulated_matmul(x: torch.Tensor, base: torch.Tensor, tau: torch.Tensor,
+                     words: torch.Tensor, lam: torch.Tensor, *,
+                     mode: Optional[str] = None) -> torch.Tensor:
+    """Serving: per-request modulated LoRA matmul ``y_b = x_b @ (base +
+    λ_b · m_b ⊙ τ)`` with the modulator mask kept packed until the
+    kernel builds its weight tile.  x (B, S, K) fp32; base (K, N) fp32;
+    tau (K, N) fp32/bf16; words (B, K·N/32) int32 row-major over the
+    (K, N) leaf; lam (B,) fp32 -> (B, S, N) fp32.  ``K · N`` must be
+    word-aligned (% 32 == 0): the serve router only routes such leaves
+    here."""
+    _mm.check_aligned(*base.shape)
+    if _plain(mode):
+        return _mm.plain(x, base, tau, words, lam)
+    return _mm.modulated_matmul(x, base, tau, words, lam)
 
 
 def masked_agg_batched_packed(unified, mask_words, lams, gammas, members,

@@ -188,6 +188,48 @@ def masked_agg_batched_packed_ref(unified: torch.Tensor,
     return tau, a_num
 
 
+def masked_agg_ref(unified: torch.Tensor, masks: torch.Tensor,
+                   lams: torch.Tensor, gammas: torch.Tensor, rho: float):
+    """Single-task Eq. 3 + Eq. 4 with membership from γ > 0.
+
+    unified (N, d) fp32/bf16; masks (N, d) bool or {0, 1}; lams, gammas
+    (N,), gammas the normalised data weights (0 for non-members).  N_t
+    is the count of γ > 0, at least 1; rows with γ = 0 add nothing,
+    whatever their mask.  Returns (tau_hat (d,) fp32, m_hat (d,) fp32),
+    bitwise the batched :func:`_masked_agg`'s row for this task."""
+    members = gammas > 0
+    m = (masks != 0) & members[:, None]
+    tau, _, m_hat = _masked_agg(unified, lambda i: m[i:i + 1],
+                                lams[:, None], gammas[:, None],
+                                members[:, None], rho)
+    return tau[0], m_hat[0]
+
+
+def modulated_weight_ref(base: torch.Tensor, tau: torch.Tensor,
+                         words: torch.Tensor, lam: torch.Tensor
+                         ) -> torch.Tensor:
+    """Per-request effective weights ``base + (λ_b · m_b) · τ``: base
+    (K, N) fp32, tau (K, N) fp32/bf16, words (B, ceil(K·N/32)) int32
+    over the row-major (K, N) leaf, lam (B,).  Returns (B, K, N) fp32,
+    one rounding per product and per add: for bits in {0, 1} this is
+    bitwise the materialised adapter ``base + λ·where(m, τ, 0)``."""
+    k, n = base.shape
+    bits = bitpack.unpack_bits(words, k * n, torch.float32).reshape(
+        (-1, k, n))
+    return (base.float()[None]
+            + (lam.float()[:, None, None] * bits) * tau.float()[None])
+
+
+def modulated_matmul_ref(x: torch.Tensor, base: torch.Tensor,
+                         tau: torch.Tensor, words: torch.Tensor,
+                         lam: torch.Tensor) -> torch.Tensor:
+    """The unpack-then-matmul oracle of the fused serving matmul:
+    x (B, S, K) -> (B, S, N) fp32, ``y_b = x_b @ w_eff_b`` with
+    :func:`modulated_weight_ref`'s weights, the product in fp32."""
+    w_eff = modulated_weight_ref(base, tau, words, lam)
+    return torch.einsum("bsk,bkn->bsn", x.float(), w_eff)
+
+
 def sign_sim_ref(tau_hats: torch.Tensor) -> torch.Tensor:
     """Eq. 5 over dense (T, d): S = ½(sgn(τ̂)·sgn(τ̂)ᵀ/d + 1), (T, T)
     fp32.  The dots are integers below 2^24, exact in fp32 whatever the

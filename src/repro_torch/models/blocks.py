@@ -1,0 +1,80 @@
+"""Pre-norm residual transformer block with a uniform full-sequence /
+prefill / decode API (the JAX package's ``Block``; its SSM adapters and
+hybrid mixer come with the zoo slice)."""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+
+from repro_torch.nn.module import Module, RMSNorm
+
+Tree = Any
+
+
+class Block(Module):
+    """x + mixer(norm1(x)), then x + ffn(norm2(x))."""
+
+    def __init__(self, d_model: int, mixer: Module, ffn: Optional[Module], *,
+                 dtype=torch.float32):
+        self.d_model, self.mixer, self.ffn = d_model, mixer, ffn
+        self.norm1 = RMSNorm(d_model, dtype=dtype)
+        self.norm2 = RMSNorm(d_model, dtype=dtype) if ffn is not None else None
+        self.dtype = dtype
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        p = {"norm1": self.norm1.init(None, device, lead),
+             "mixer": self.mixer.init(generator, device, lead)}
+        if self.ffn is not None:
+            p["norm2"] = self.norm2.init(None, device, lead)
+            p["ffn"] = self.ffn.init(generator, device, lead)
+        return p
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = ()):
+        out = {"mixer": self.mixer.lora_init(generator, rank, device, lead)}
+        if self.ffn is not None and hasattr(self.ffn, "lora_init"):
+            out["ffn"] = self.ffn.lora_init(generator, rank, device, lead)
+        return out
+
+    def _ffn_apply(self, params, x, lora, mode):
+        y = self.ffn(params["ffn"], self.norm2(params["norm2"], x),
+                     lora.get("ffn"), mode=mode)
+        return x + y
+
+    def __call__(self, params, x, *, positions=None, lora=None, mode=None):
+        lora = lora or {}
+        x = x + self.mixer(params["mixer"], self.norm1(params["norm1"], x),
+                           positions=positions, lora=lora.get("mixer"),
+                           mode=mode)
+        return x if self.ffn is None else self._ffn_apply(params, x, lora,
+                                                          mode)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   lead: Sequence[int] = ()):
+        return self.mixer.init_cache(batch, max_len, dtype, device, lead)
+
+    def prefill(self, params, x, cache, *, positions=None, lora=None,
+                mode=None):
+        lora = lora or {}
+        h, cache = self.mixer.prefill(params["mixer"],
+                                      self.norm1(params["norm1"], x), cache,
+                                      positions=positions,
+                                      lora=lora.get("mixer"), mode=mode)
+        x = x + h
+        if self.ffn is not None:
+            x = self._ffn_apply(params, x, lora, mode)
+        return x, cache
+
+    def decode_step(self, params, x, cache, pos: int, *, lora=None,
+                    mode=None):
+        lora = lora or {}
+        h, cache = self.mixer.decode_step(params["mixer"],
+                                          self.norm1(params["norm1"], x),
+                                          cache, pos, lora=lora.get("mixer"),
+                                          mode=mode)
+        x = x + h
+        if self.ffn is not None:
+            x = self._ffn_apply(params, x, lora, mode)
+        return x, cache

@@ -1,0 +1,73 @@
+"""Assemble models from ``ArchConfig`` (one builder per family).
+
+``build_model`` returns an :class:`ArchModel` with the uniform interface
+the serving path relies on: ``init`` / ``lora_init``, ``forward``,
+``init_cache``, ``prefill_step`` and ``decode_fn``.  Only the dense
+family is ported so far (qwen2-0.5b); the other families raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.common.device import DeviceLike
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.models.blocks import Block
+from repro_torch.models.lm import LM
+from repro_torch.nn.attention import Attention
+from repro_torch.nn.mlp import SwiGLU
+
+
+class ArchModel:
+    """Uniform facade over an LM for one (config, shape) pair."""
+
+    def __init__(self, cfg: ArchConfig, model: LM, kind: str):
+        self.cfg = cfg
+        self.model = model
+        self.kind = kind  # "lm"
+
+    @property
+    def device(self):
+        return self.model.device
+
+    def init(self, generator=0, *, device=None):
+        return self.model.init(generator, device=device)
+
+    def lora_init(self, generator=1, *, device=None):
+        return self.model.lora_init(generator, self.cfg.lora_rank,
+                                    device=device)
+
+    def forward(self, params, tokens, *, lora=None, mode=None):
+        return self.model.forward(params, tokens, lora=lora, mode=mode)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        return self.model.init_cache(batch, max_len, dtype)
+
+    def prefill_step(self, params, lora, batch, cache, *, mode=None):
+        return self.model.prefill(params, lora, batch, cache, mode=mode)
+
+    def decode_fn(self, params, lora, batch, cache, pos: int, *, mode=None):
+        return self.model.decode_step(params, lora, batch["tokens"], cache,
+                                      pos, mode=mode)
+
+
+def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
+                device: DeviceLike = "cuda") -> ArchModel:
+    """The model of ``cfg`` on ``device`` (default CUDA; raises without a
+    card).  A ``shape`` of the long-context kind gives the attention its
+    sliding window, as in the JAX package."""
+    window = cfg.window_for_shape(shape) if shape is not None else None
+    dt = cfg.dtype
+    if cfg.family == "dense":
+        mixer = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
+                          rope=True, rope_base=cfg.rope_base, window=window,
+                          dtype=dt)
+        block = Block(cfg.d_model, mixer,
+                      SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt), dtype=dt)
+        lm = LM(vocab=cfg.vocab, d_model=cfg.d_model, n_units=cfg.n_layers,
+                unit_blocks=[("blk", block)],
+                tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
+        return ArchModel(cfg, lm, "lm")
+    raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
+                     f"dense)")

@@ -1,0 +1,3 @@
+"""Neural-network building blocks of the port: the functional module
+system with LoRA-aware ``Dense`` (``module``), RoPE (``rope``), GQA with
+a KV cache (``attention``) and SwiGLU (``mlp``)."""

@@ -1,0 +1,188 @@
+"""Grouped-query attention with RoPE, sliding windows and a KV cache.
+
+Three execution paths, as in the JAX package:
+
+* ``__call__``     full-sequence (materialised scores);
+* ``prefill``      full-sequence, and writes the KV cache;
+* ``decode_step``  one token against the cache; a ring buffer when a
+                   sliding window is configured.
+
+The cache is preallocated ((B, S_cache, KV, D) keys and values plus
+``kpos``, the position held in each slot, -1 when empty) and updated in
+place: PyTorch's idiom, where the JAX package returns a new cache.
+Softmax math is fp32 whatever the activation dtype, with a -1e30 mask.
+Heads are grouped as ``h = kv · group + g``, so query head h reads KV
+head h // group.  The JAX package's chunked query loop (``impl``) and
+cross-attention (whisper) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence
+
+import torch
+
+from repro_torch.nn.module import Dense, Module
+from repro_torch.nn.rope import apply_rope
+
+Tree = Any
+NEG_INF = -1e30
+
+
+def _split_heads(x, n_heads, head_dim):
+    return x.reshape(x.shape[:-1] + (n_heads, head_dim))
+
+
+class Attention(Module):
+    def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, *,
+                 head_dim: Optional[int] = None, qkv_bias: bool = False,
+                 out_bias: bool = False, rope: bool = True,
+                 rope_base: float = 10000.0, window: Optional[int] = None,
+                 causal: bool = True, dtype=torch.float32):
+        if n_heads % n_kv_heads:
+            raise ValueError(f"{n_heads} heads do not group over "
+                             f"{n_kv_heads} KV heads")
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.n_kv = n_kv_heads
+        self.head_dim = head_dim or d_model // n_heads
+        self.group = n_heads // n_kv_heads
+        self.rope = rope
+        self.rope_base = rope_base
+        self.window = window
+        self.causal = causal
+        self.dtype = dtype
+        hd = self.head_dim
+        self.wq = Dense(d_model, n_heads * hd, bias=qkv_bias, dtype=dtype)
+        self.wk = Dense(d_model, n_kv_heads * hd, bias=qkv_bias, dtype=dtype)
+        self.wv = Dense(d_model, n_kv_heads * hd, bias=qkv_bias, dtype=dtype)
+        self.wo = Dense(n_heads * hd, d_model, bias=out_bias, dtype=dtype,
+                        scale=1.0 / math.sqrt(n_heads * hd))
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        return {"wq": self.wq.init(generator, device, lead),
+                "wk": self.wk.init(generator, device, lead),
+                "wv": self.wv.init(generator, device, lead),
+                "wo": self.wo.init(generator, device, lead)}
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = ()):
+        return {"wq": self.wq.lora_init(generator, rank, device, lead),
+                "wo": self.wo.lora_init(generator, rank, device, lead)}
+
+    # -- projections -----------------------------------------------------
+    def _qkv(self, params, x, positions, lora, mode):
+        lora = lora or {}
+        q = _split_heads(self.wq(params["wq"], x, lora.get("wq"), mode=mode),
+                         self.n_heads, self.head_dim)
+        k = _split_heads(self.wk(params["wk"], x), self.n_kv, self.head_dim)
+        v = _split_heads(self.wv(params["wv"], x), self.n_kv, self.head_dim)
+        if self.rope and positions is not None:
+            q = apply_rope(q, positions, base=self.rope_base)
+            k = apply_rope(k, positions, base=self.rope_base)
+        return q, k, v
+
+    def _out(self, params, ctx, lora, mode):
+        lora = lora or {}
+        b, s = ctx.shape[0], ctx.shape[1]
+        return self.wo(params["wo"],
+                       ctx.reshape(b, s, self.n_heads * self.head_dim),
+                       lora.get("wo"), mode=mode)
+
+    def _mask(self, q_pos, k_pos):
+        """q_pos (Q,), k_pos (K,) -> bool (Q, K); True = attend."""
+        ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                        device=q_pos.device)
+        if self.causal:
+            ok &= k_pos[None, :] <= q_pos[:, None]
+        if self.window is not None:
+            ok &= (q_pos[:, None] - k_pos[None, :]) < self.window
+        return ok
+
+    def _sdpa(self, q, k, v, mask):
+        """q (B, Q, H, D), k/v (B, S, KV, D), mask (Q, S) bool or None.
+        Scores in the activation dtype, then fp32 scaling, mask and
+        softmax; probabilities back in v's dtype."""
+        b, qlen = q.shape[0], q.shape[1]
+        qg = q.reshape(b, qlen, self.n_kv, self.group, self.head_dim)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+        scores = scores * (1.0 / math.sqrt(self.head_dim))
+        if mask is not None:
+            scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        ctx = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+        return ctx.reshape(b, qlen, self.n_heads, self.head_dim)
+
+    # -- full sequence -----------------------------------------------------
+    def _full(self, q, k, v, positions):
+        s = q.shape[1]
+        q_pos = (positions[0] if positions is not None
+                 else torch.arange(s, device=q.device))
+        mask = (self._mask(q_pos, q_pos)
+                if (self.causal or self.window) else None)
+        return self._sdpa(q, k, v, mask)
+
+    def __call__(self, params, x, *, positions=None, lora=None,
+                 mode: Optional[str] = None):
+        """x (B, S, d) -> (B, S, d)."""
+        q, k, v = self._qkv(params, x, positions, lora, mode)
+        return self._out(params, self._full(q, k, v, positions), lora, mode)
+
+    # -- serving -----------------------------------------------------------
+    def cache_len(self, max_len: int) -> int:
+        return min(max_len, self.window) if self.window is not None \
+            else max_len
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   lead: Sequence[int] = ()):
+        dtype = dtype or self.dtype
+        s = self.cache_len(max_len)
+        shape = tuple(lead) + (batch, s, self.n_kv, self.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "kpos": torch.full(tuple(lead) + (s,), -1, dtype=torch.int32,
+                                   device=device)}
+
+    def prefill(self, params, x, cache, *, positions=None, lora=None,
+                mode: Optional[str] = None):
+        """Full-sequence attention, and the cache filled in place (the
+        trailing window, slot = pos % window, when the prompt is longer
+        than the cache).  q, k and v are computed once."""
+        q, k, v = self._qkv(params, x, positions, lora, mode)
+        y = self._out(params, self._full(q, k, v, positions), lora, mode)
+        s_cache = cache["k"].shape[1]
+        s = k.shape[1]
+        if s >= s_cache:
+            start = s - s_cache
+            kpos = torch.arange(start, s, device=x.device)
+            slots = kpos % s_cache
+            cache["k"][:, slots] = k[:, start:].to(cache["k"].dtype)
+            cache["v"][:, slots] = v[:, start:].to(cache["v"].dtype)
+            cache["kpos"][slots] = kpos.to(torch.int32)
+        else:
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
+            cache["kpos"][:s] = torch.arange(s, dtype=torch.int32,
+                                             device=x.device)
+        return y, cache
+
+    def decode_step(self, params, x, cache, pos: int, *, lora=None,
+                    mode: Optional[str] = None):
+        """x (B, 1, d); ``pos`` the position of this token (an int).  The
+        cache is updated in place."""
+        b = x.shape[0]
+        positions = torch.full((b, 1), pos, dtype=torch.int64,
+                               device=x.device)
+        q, k, v = self._qkv(params, x, positions, lora, mode)
+        s_cache = cache["k"].shape[1]
+        slot = pos % s_cache
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["kpos"][slot] = pos
+        kpos = cache["kpos"]
+        valid = (kpos >= 0) & (kpos <= pos)
+        if self.window is not None:
+            valid &= (pos - kpos) < self.window
+        ctx = self._sdpa(q, cache["k"], cache["v"], valid[None, :])
+        return self._out(params, ctx, lora, mode), cache

@@ -1,0 +1,36 @@
+"""Feed-forward blocks: SwiGLU (llama/qwen family).  GELU comes with the
+whisper and ViT configs."""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+
+from repro_torch.nn.module import Dense, Module
+
+Tree = Any
+
+
+class SwiGLU(Module):
+    def __init__(self, d_model: int, d_ff: int, *, dtype=torch.float32):
+        self.d_model, self.d_ff, self.dtype = d_model, d_ff, dtype
+        self.gate = Dense(d_model, d_ff, dtype=dtype)
+        self.up = Dense(d_model, d_ff, dtype=dtype)
+        self.down = Dense(d_ff, d_model, dtype=dtype)
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        return {"gate": self.gate.init(generator, device, lead),
+                "up": self.up.init(generator, device, lead),
+                "down": self.down.init(generator, device, lead)}
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = ()):
+        return {"down": self.down.lora_init(generator, rank, device, lead)}
+
+    def __call__(self, params, x, lora: Optional[Tree] = None, *,
+                 mode: Optional[str] = None):
+        lora = lora or {}
+        h = (torch.nn.functional.silu(self.gate(params["gate"], x))
+             * self.up(params["up"], x))
+        return self.down(params["down"], h, lora.get("down"), mode=mode)

@@ -1,0 +1,161 @@
+"""Minimal functional module system, the JAX package's in PyTorch.
+
+A module is a config-carrying object with
+
+* ``init(generator, device, lead=()) -> params``: a nested dict of
+  tensors (``lead`` prepends stacked axes, e.g. ``(n_layers,)``);
+* ``__call__(params, ...)``: a function of (params, inputs).
+
+Parameters are plain nested dicts in the JAX package's layout — a
+Dense weight is (in, out) — so a JAX parameter tree converts leaf for
+leaf (``repro_torch.models.convert``) and task vectors, LoRA trees and
+the :class:`~repro_torch.common.tree.TaskVectorSpace` manifest work on
+them directly.  Random initialisation draws from a ``torch.Generator``;
+it gives other numbers than ``jax.random`` from the same seed.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional, Sequence
+
+import torch
+
+Tree = Any
+
+
+def _normal(generator, shape, device, scale: float, dtype) -> torch.Tensor:
+    """``N(0, 1) * scale`` drawn in fp32, then cast to ``dtype``."""
+    x = torch.randn(tuple(shape), generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+class Module:
+    """Base class; subclasses define ``init`` and ``__call__``."""
+
+    def init_stacked(self, generator, n: int, device=None) -> Tree:
+        """``n`` independent inits stacked along a leading layers axis."""
+        return self.init(generator, device, lead=(n,))
+
+
+class Dense(Module):
+    """y = x @ W (+ b), W stored (in, out).  LoRA-aware: pass the mirrored
+    ``lora`` subtree in one of four forms (see :meth:`__call__`)."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool = False,
+                 dtype=torch.float32, scale: Optional[float] = None):
+        self.in_dim, self.out_dim, self.bias = in_dim, out_dim, bias
+        self.dtype, self.scale = dtype, scale
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        scale = (self.scale if self.scale is not None
+                 else 1.0 / math.sqrt(self.in_dim))
+        lead = tuple(lead)
+        p = {"w": _normal(generator, lead + (self.in_dim, self.out_dim),
+                          device, scale, self.dtype)}
+        if self.bias:
+            p["b"] = torch.zeros(lead + (self.out_dim,), dtype=self.dtype,
+                                 device=device)
+        return p
+
+    def __call__(self, params, x, lora: Optional[Tree] = None, *,
+                 mode: Optional[str] = None):
+        """The LoRA branches, as in the JAX package:
+
+        * none: ``lora`` is None or carries no ``a``;
+        * plain: a (in, r), b (r, out): ``y += (x @ a) @ b · α/r``;
+        * dense-routed: per-request leaves a (B, in, r), b (B, r, out),
+          alpha (B,);
+        * fused: ``a`` / ``b`` are dicts ``{"base", "tau", "words"}`` and
+          ``lam`` / ``alpha`` (B,): both LoRA products go through
+          ``ops.modulated_matmul`` (``mode`` reaches it), so each
+          request's modulated weight is built inside the kernel.
+        """
+        y = torch.matmul(x, params["w"])
+        if lora is not None and "a" in lora:
+            a = lora["a"]
+            if isinstance(a, dict):
+                y = y + self._lora_routed_fused(x, lora, mode)
+            elif a.dim() == 3:
+                r = a.shape[-1]
+                scaling = lora["alpha"].to(x.dtype) / r
+                h = torch.einsum("b...i,bir->b...r", x, a)
+                yl = torch.einsum("b...r,bro->b...o", h, lora["b"])
+                y = y + yl * scaling.reshape((-1,) + (1,) * (yl.dim() - 1))
+            else:
+                r = a.shape[-1]
+                alpha = lora.get("alpha")
+                scaling = (alpha if alpha is not None else float(r)) / r
+                y = y + torch.matmul(torch.matmul(x, a), lora["b"]) * scaling
+        if self.bias:
+            y = y + params["b"]
+        return y
+
+    @staticmethod
+    def _lora_routed_fused(x, lora, mode):
+        """Fused serving branch: x (B, in) or (B, S, in); the two LoRA
+        factors run through ``ops.modulated_matmul`` in fp32, scaled by
+        each request's α/r, and the sum returns in x's dtype.  The
+        kernel's effective weight ``base + (λ·m)·τ`` is bitwise the
+        dense-routed adapter leaf in fp32."""
+        from repro_torch.kernels import ops
+        af, bf, lam = lora["a"], lora["b"], lora["lam"]
+        r = af["base"].shape[-1]
+        squeeze = x.dim() == 2
+        x3 = (x[:, None, :] if squeeze else x).float().contiguous()
+        h = ops.modulated_matmul(x3, af["base"], af["tau"], af["words"],
+                                 lam, mode=mode)
+        yl = ops.modulated_matmul(h, bf["base"], bf["tau"], bf["words"],
+                                  lam, mode=mode)
+        yl = yl * (lora["alpha"].float() / r)[:, None, None]
+        yl = yl[:, 0] if squeeze else yl
+        return yl.to(x.dtype)
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = (), *, alpha: Optional[float] = None,
+                  dtype=None):
+        dtype = dtype or self.dtype
+        lead = tuple(lead)
+        return {
+            "a": _normal(generator, lead + (self.in_dim, rank), device,
+                         1.0 / math.sqrt(self.in_dim), dtype),
+            "b": torch.zeros(lead + (rank, self.out_dim), dtype=dtype,
+                             device=device),
+            "alpha": torch.full(lead, float(alpha if alpha is not None
+                                            else rank),
+                                dtype=dtype, device=device),
+        }
+
+
+class Embedding(Module):
+    def __init__(self, vocab: int, dim: int, *, dtype=torch.float32):
+        self.vocab, self.dim, self.dtype = vocab, dim, dtype
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        return {"table": _normal(generator, tuple(lead) + (self.vocab,
+                                                           self.dim),
+                                 device, 0.02, self.dtype)}
+
+    def __call__(self, params, ids):
+        return params["table"][ids]
+
+    def attend(self, params, x):
+        """Tied readout: logits = x @ table^T."""
+        return torch.matmul(x, params["table"].t())
+
+
+class RMSNorm(Module):
+    def __init__(self, dim: int, *, eps: float = 1e-6, dtype=torch.float32):
+        self.dim, self.eps, self.dtype = dim, eps, dtype
+
+    def init(self, generator=None, device=None, lead: Sequence[int] = ()):
+        return {"scale": torch.ones(tuple(lead) + (self.dim,),
+                                    dtype=self.dtype, device=device)}
+
+    def __call__(self, params, x):
+        dt = x.dtype
+        x32 = x.float()
+        y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True)
+                              + self.eps)
+        return (y * params["scale"].float()).to(dt)

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (bitpack, fused_unify, masked_agg,  # noqa
-                                 ops, sign_sim)
+                                 modulated_matmul, ops, ref, sign_sim)
 
 
 def slot_stack(seed, b, k, d):
@@ -118,7 +118,8 @@ def test_cuda_round_matches_plain_round(cuda):
     torch.cuda.synchronize()
     assert counts == {"fused_unify_packed": 2, "masked_agg_batched_packed": 1,
                       "sign_sim_packed": 1, "fused_unify": 0,
-                      "masked_agg_batched": 0, "sign_sim": 0, "unify": 0}
+                      "masked_agg_batched": 0, "sign_sim": 0, "unify": 0,
+                      "masked_agg": 0, "modulated_matmul": 0}
     for a, b in zip(got[:6] + (got.alpha_num, got.n_held),
                     want[:6] + (want.alpha_num, want.n_held)):
         assert torch.equal(a, b)
@@ -231,7 +232,8 @@ def test_cuda_bool_round_matches_packed_round(cuda):
     torch.cuda.synchronize()
     assert counts == {"fused_unify_packed": 0, "masked_agg_batched_packed": 0,
                       "sign_sim_packed": 0, "fused_unify": 2,
-                      "masked_agg_batched": 1, "sign_sim": 1, "unify": 0}
+                      "masked_agg_batched": 1, "sign_sim": 1, "unify": 0,
+                      "masked_agg": 0, "modulated_matmul": 0}
     p, b = outs[True], outs[False]
     for name in ("task_vectors", "tau_hats", "similarity", "m_hats",
                  "down_lams"):
@@ -259,3 +261,119 @@ def test_cuda_bool_round_matches_packed_round(cuda):
 def test_cuda_bool_wrappers_refuse_wrong_dtypes(cuda, call):
     with pytest.raises(ValueError, match="dtype"):
         call(cuda)
+
+
+# -- the serving path: modulated_matmul and single-task masked_agg ----------
+
+# the three LoRA factor shapes of qwen2-0.5b at rank 16
+SERVE_LEAVES = [(896, 16), (4864, 16), (16, 896)]
+# |kernel - plain| <= MM_RTOL * (|x| @ |w_eff|): both sum K fp32 products
+# in different orders (worst case 2 K 2^-24 = 5.8e-4 at K = 4864)
+MM_RTOL = 1e-4
+
+
+def mm_args(seed, cuda, b, s, k, n, tau_dtype):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, k), generator=g)
+    base = torch.randn((k, n), generator=g) / k ** 0.5
+    tau = 0.05 * torch.randn((k, n), generator=g)
+    words = bitpack.pack_bits(torch.rand((b, k * n), generator=g) < 0.7)
+    lam = torch.rand(b, generator=g) + 0.5
+    return (x.to(cuda), base.to(cuda), tau.to(cuda, tau_dtype),
+            words.to(cuda), lam.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 128])
+@pytest.mark.parametrize("k,n", SERVE_LEAVES)
+def test_cuda_modulated_matmul_matches_plain(cuda, k, n, s, tau_dtype):
+    args = mm_args(k + n + s, cuda, 8, s, k, n, tau_dtype)
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert got.shape == (8, s, n) and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", SERVE_LEAVES)
+def test_cuda_modulated_matmul_weight_build_bitwise(cuda, k, n, tau_dtype):
+    """x = I: every output is one exact product, so the kernel returns its
+    effective weight, bitwise the plain ``base + (λ·m)·τ``."""
+    x, base, tau, words, lam = mm_args(7, cuda, 8, 1, k, n, tau_dtype)
+    eye = torch.eye(k, device=cuda).expand(8, k, k).contiguous()
+    got = modulated_matmul.modulated_matmul_cuda(eye, base, tau, words, lam)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.modulated_weight_ref(base, tau, words, lam))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(897, 16), (4865, 16), (16, 897)])
+def test_cuda_modulated_matmul_rejects_misaligned(cuda, k, n):
+    x, base, tau, _, lam = mm_args(1, cuda, 2, 1, k, n, torch.float32)
+    words = torch.zeros((2, -(-k * n // 32)), dtype=torch.int32, device=cuda)
+    before = modulated_matmul.KERNEL.launches
+    with pytest.raises(ValueError, match="word-aligned"):
+        ops.modulated_matmul(x, base, tau, words, lam)
+    with pytest.raises(ValueError, match="word-aligned"):
+        modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+    assert modulated_matmul.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.float32,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(7, 300), (32, 40000)])
+def test_cuda_masked_agg_single_matches_plain_and_batched_row(
+        cuda, n, d, mask_dtype, u_dtype):
+    """Kernel 8 bitwise against its plain version and against the batched
+    bool kernel's row fed the same task with members = γ > 0; a γ = 0 row
+    carries a nonzero mask and adds nothing."""
+    rng = np.random.default_rng(n + d)
+    u = rng.standard_normal((n, d)).astype(np.float32)
+    u[rng.random((n, d)) < 0.1] = 0.0
+    masks = rng.random((n, d)) < 0.7
+    lams = (rng.random(n) + 0.5).astype(np.float32)
+    sizes = rng.integers(10, 200, n).astype(np.float32)
+    sizes[1] = 0.0
+    gam = (sizes / sizes.sum()).astype(np.float32)
+    uni = torch.from_numpy(u).to(cuda, u_dtype)
+    tm = torch.from_numpy(masks).to(cuda)
+    tl, tg = torch.from_numpy(lams).to(cuda), torch.from_numpy(gam).to(cuda)
+    got = masked_agg.masked_agg_cuda(uni, tm.to(mask_dtype), tl, tg, 0.4)
+    want = masked_agg.plain_single(uni, tm, tl, tg, 0.4)
+    mem = tg > 0
+    row = masked_agg.masked_agg_batched_cuda(uni, (tm & mem[:, None])[:, None],
+                                             tl[:, None], tg[:, None],
+                                             mem[:, None], 0.4)
+    torch.cuda.synchronize()
+    for a, w, r in zip(got, want, row):
+        assert torch.equal(a, w) and torch.equal(a, r[0])
+
+
+@pytest.mark.cuda
+def test_cpu_tensors_take_the_plain_versions(cuda):
+    """With a card present, CPU tensors still take the plain versions and
+    launch nothing; the same inputs on the card launch the kernels."""
+    ops.reset_launch_counts()
+    args = mm_args(3, "cpu", 2, 3, 32, 16, torch.float32)
+    y = ops.modulated_matmul(*args)
+    u = torch.randn(4, 64)
+    m = torch.rand(4, 64) < 0.5
+    lam, gam = torch.ones(4), torch.full((4,), 0.25)
+    t, mh = ops.masked_agg(u, m, lam, gam)
+    assert sum(ops.launch_counts().values()) == 0
+    assert torch.equal(y, modulated_matmul.plain(*args))
+    yc = ops.modulated_matmul(*(a.to(cuda) for a in args))
+    tc, _ = ops.masked_agg(u.to(cuda), m.to(cuda), lam.to(cuda), gam.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modulated_matmul"] == 1
+    assert ops.launch_counts()["masked_agg"] == 1
+    assert ((yc.cpu() - y).abs() <= 1e-5 * (1 + y.abs())).all()
+    assert torch.equal(tc.cpu(), t)
+

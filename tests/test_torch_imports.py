@@ -21,6 +21,7 @@ from repro_torch.core.server import MaTUServer, MaTUServerConfig  # noqa: E402
 from repro_torch.fed.simulator import FedConfig, FedSimulator  # noqa: E402
 from repro_torch.fed.strategies import (FedAvgStrategy,  # noqa: E402
                                         MaTUStrategy)
+from repro_torch.serve import ModulatorStore, MultiTenantDecoder  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -53,7 +54,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     for must in ("ops.py", "engine.py", "strategies.py", "simulator.py",
-                 "chip_smoke.py"):
+                 "router.py", "lm.py", "attention.py", "chip_smoke.py"):
         assert must in names
     assert forbidden("jax.numpy") and forbidden("repro.core")
     assert not forbidden("repro_torch.core")
@@ -78,7 +79,22 @@ ENTRY_POINTS = {
     "batched_client_unify": lambda: batched_client_unify(
         torch.zeros(2, 2, 64), torch.ones(2, 2, dtype=torch.bool)),
     "pack_uploads": lambda: pack_uploads([_upload()], 3),
+    "build_model": lambda: _qwen().build(),
+    "LM": lambda: _qwen().build(device="cpu").model.__class__(
+        vocab=8, d_model=8, n_units=1, unit_blocks=[]),
+    "ModulatorStore": lambda: ModulatorStore(_space(), {}),
+    "MultiTenantDecoder": lambda: MultiTenantDecoder(None, {}, None),
 }
+
+
+def _qwen():
+    from repro_torch.configs.base import load_arch
+    return load_arch("qwen2-0.5b").reduced()
+
+
+def _space():
+    from repro_torch.common.tree import TaskVectorSpace
+    return TaskVectorSpace.from_tree({"a": torch.zeros(4)})
 
 
 def _upload():
