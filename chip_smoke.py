@@ -7,8 +7,8 @@ NVIDIA GPU.  Run from the repository root, with no arguments:
 Phases (any failure raises and the script exits nonzero):
 
 1. setup   — torch version, device name, ``nvidia-smi`` name and power
-             limit; TF32 off (asserted); build the nine CUDA kernels from
-             the four sources in ``src/repro_torch/kernels/csrc`` (one nvcc
+             limit; TF32 off (asserted); build the ten CUDA kernels from
+             the five sources in ``src/repro_torch/kernels/csrc`` (one nvcc
              each, in parallel).
 2. kernels — the packed-wire kernels at the full-width round (N = 32
              clients, k_n in {3, 4},
@@ -54,7 +54,21 @@ Phases (any failure raises and the script exits nonzero):
              profiled prefill and decode window; then the same
              configuration in fp32, where fused and dense-routed decode
              must give identical tokens.
-7. summary — a ``kernels:`` line, one JSON line with every kernel's
+7. xlstm   — multi-tenant serving of xlstm-1.3b at full width (24
+             (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
+             vocab 50,304; random weights from a seed).  Kernel checks:
+             ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512 and a ragged
+             500, fp32 and bf16, zero and random initial state, h and the
+             final (C, n, m) against its plain version, timed; then one
+             round at d = 12,058,464, ``serving_downlink`` →
+             ``ModulatorStore``, and one bf16 fused generate (B = 8 over 7
+             tasks, 512-token prompts, 32 new tokens) whose launches are
+             counted (24 of kernel 10, 192 of kernel 9 per forward);
+             prefill logits against the plain versions, step and
+             per-block times, profiled prefill and decode windows; then
+             fp32, where fused and dense-routed decode must agree token
+             for token.
+8. summary — a ``kernels:`` line, one JSON line with every kernel's
              numbers, and the last line ``{"ok": true, "device": …}``.
 
 The script needs a CUDA device and the rest of the repository: without
@@ -75,11 +89,12 @@ SRC = os.path.join(ROOT, "src")
 
 N, K_MAX, T, D = 32, 4, 30, 1_327_140
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and fp32 outside the
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; fp32 outside the
 # tensor cores — the table's only scalar-ALU rate, used for the integer
-# popcount work too
+# popcount work too; dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 REPS = 25
 RTOL = 1e-5
 
@@ -105,10 +120,12 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
     return float(statistics.median(times))
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and ops
-    over the scalar peak."""
-    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, bf16_ops: float = 0.0):
+    """(bound_ms, bound_by): the largest of bytes over the HBM rate,
+    ``n_ops`` over the scalar fp32 peak and ``bf16_ops`` (products of
+    bf16 operands) over the bf16 tensor-core peak."""
+    tb = n_bytes / HBM_BYTES_PER_S
+    to = max(n_ops / SCALAR_OPS_PER_S, bf16_ops / BF16_TC_OPS_PER_S)
     return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
 
 
@@ -957,8 +974,7 @@ def serve_phase(torch, dev, cfg=None):
     peak = torch.cuda.max_memory_allocated()
     counts = ops.launch_counts()
     per_fwd = 6 * cfg.n_layers
-    (mm_name,) = ops.SERVE_KERNELS
-    mm_launches = counts[mm_name] - mm_before
+    mm_launches = counts["modulated_matmul"] - mm_before
     if mm_launches != per_fwd * SERVE_NEW:
         raise AssertionError(f"generate launched modulated_matmul "
                              f"{mm_launches} times, expected "
@@ -1149,6 +1165,382 @@ def fp32_check(torch, dev, cfg32, server, prompts, ids, gen_cfg):
     del model, params, store
 
 
+# -- xlstm phase: multi-tenant xlstm-1.3b at full width -----------------------
+
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_D = 12_058_464           # its LoRA task-vector size at rank 16
+XLSTM_B, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 32
+XLSTM_RAGGED = 500             # a prompt length that pads the last chunk
+# kernel 10 against its plain version: fp32 to the JAX package's mLSTM
+# bar (both sum in fp32, in other orders); bf16 h to 2^-6 relative and
+# absolute (a few bf16 ulps at |h| <= 8: a summation-order difference can
+# flip the bf16 rounding of a score, w, w @ v or h); the fp32 state to
+# the fp32 bar at either input dtype
+MLSTM_RTOL, MLSTM_ATOL = 1e-4, 1e-5
+MLSTM_BF16_TOL = 2.0 ** -6
+# bf16 model, fused route through the kernels against the same route
+# through the plain versions: rel L2 of the prefill logits.  Kernels 9
+# and 10 sum in other orders than their plain versions, so bf16 roundings
+# flip and carry through 48 bf16 layers, as in the qwen2 phase
+XLSTM_BF16_LOGIT_REL_L2 = 5e-2
+
+
+def mlstm_inputs(torch, dev, g, b, h, s, dk, dv, dtype, random_state):
+    """Model-shaped kernel-10 inputs made on the card: q, k ~ N(0, 1) /
+    sqrt(dk), v ~ N(0, 1), gates i ~ N(0, 1), f ~ N(2, 1) in fp32; a
+    random state is C, n ~ 0.3 N(0, 1), m ~ N(0, 1), else the zero state
+    (m = -1e30)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    q, k = rn(b, h, s, dk) * dk ** -0.5, rn(b, h, s, dk) * dk ** -0.5
+    args = [q.to(dtype), k.to(dtype), rn(b, h, s, dv).to(dtype),
+            rn(b, h, s), rn(b, h, s) + 2.0]
+    if random_state:
+        st = (0.3 * rn(b, h, dk, dv), 0.3 * rn(b, h, dk), rn(b, h))
+    else:
+        st = (torch.zeros((b, h, dk, dv), device=dev),
+              torch.zeros((b, h, dk), device=dev),
+              torch.full((b, h), -1e30, device=dev))
+    return args, st
+
+
+def mlstm_work(b, h, s, dk, dv, chunk, elt):
+    """(bytes, state operations, intra-chunk operations) of one call: q,
+    k, v, the gates and the state read once, h and the state written
+    once; the multiply-adds of the real steps of each chunk, two each:
+    q·C and the state fold (2·l·Dk·Dv each, fp32 C), and the causal q·k
+    and w @ v (l(l+1)·Dk and l(l+1)·Dv, products of two model-dtype
+    operands)."""
+    n_bytes = (b * h * s * (2 * dk + dv) * elt + 2 * b * h * s * 4
+               + 2 * b * h * (dk * dv + dk + 1) * 4 + b * h * s * dv * elt)
+    state_ops = intra_ops = 0
+    for c0 in range(0, s, chunk):
+        l = min(chunk, s - c0)
+        state_ops += 4 * l * dk * dv
+        intra_ops += l * (l + 1) * (dk + dv)
+    return n_bytes, b * h * state_ops, b * h * intra_ops
+
+
+def mlstm_kernel_checks(torch, dev, cfg):
+    """Kernel 10 at the model's full width (B = XLSTM_B, its heads, Dk,
+    Dv and chunk): S = XLSTM_PROMPT and a ragged XLSTM_RAGGED, fp32 and
+    bf16, zero and random initial state, h and the final (C, n, m)
+    against the plain version; timed at the serving shape.  Returns the
+    kernel's row."""
+    from repro_torch.kernels import mlstm_chunk as ml
+    from repro_torch.nn.ssm import MLSTMBlock
+    blk = MLSTMBlock(cfg.d_model, cfg.n_heads, chunk=cfg.mlstm_chunk)
+    b, h, dk, dv, chunk = XLSTM_B, cfg.n_heads, blk.dk, blk.dv, blk.chunk
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    err32, err16, timed = 0.0, 0.0, {}
+    for s, random_state in ((XLSTM_PROMPT, False), (XLSTM_RAGGED, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args, st = mlstm_inputs(torch, dev, g, b, h, s, dk, dv, dtype,
+                                    random_state)
+            got_h, got_st = ml.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
+            want_h, want_st = ml.plain(*args, st, chunk=chunk)
+            torch.cuda.synchronize()
+            name = (f"mlstm_chunkwise S={s} {str(dtype)[6:]} "
+                    f"{'random' if random_state else 'zero'} state")
+            if got_h.shape != want_h.shape or got_h.dtype != dtype or \
+                    not torch.isfinite(got_h).all():
+                raise AssertionError(f"{name}: bad h")
+            tol = ((MLSTM_RTOL, MLSTM_ATOL) if dtype == torch.float32
+                   else (MLSTM_BF16_TOL, MLSTM_BF16_TOL))
+            err = check_close(torch, f"{name} h", got_h, want_h, *tol)
+            for part, a, w in zip("Cnm", got_st, want_st):
+                err32 = max(err32, check_close(torch, f"{name} {part}", a, w,
+                                               MLSTM_RTOL, MLSTM_ATOL))
+            rel = _rel_l2(torch, got_h, want_h)
+            if dtype == torch.float32:
+                err32 = max(err32, err)
+            else:
+                err16 = max(err16, err)
+            log(f"{name}: h max|err| {err} (rel L2 {rel:.2e}, bar rtol = "
+                f"{tol[0]}, atol = {tol[1]}); state within rtol "
+                f"{MLSTM_RTOL}, atol {MLSTM_ATOL}")
+            if random_state:
+                # the model path's in-place C: the state's C is C_out
+                C = st[0].clone()
+                in_h, in_st = ml.mlstm_chunkwise_cuda(
+                    *args, (C, st[1], st[2]), chunk=chunk, C_out=C)
+                torch.cuda.synchronize()
+                if in_st[0] is not C or not torch.equal(in_h, got_h) or \
+                        not all(torch.equal(a, w)
+                                for a, w in zip(in_st, got_st)):
+                    raise AssertionError(f"{name}: C read and written in "
+                                         "place differs from C_out apart")
+                log(f"{name}: C in place bitwise the separate-buffer call")
+            if s == XLSTM_PROMPT and not random_state:
+                timed[dtype] = (args, st)
+    rows = {}
+    for dtype, (args, st) in timed.items():
+        fn = lambda: ml.mlstm_chunkwise_cuda(*args, st, chunk=chunk)  # noqa
+        ms = time_ms(torch, fn)
+        dev_ms = device_ms(torch, "mlstm_chunk_kernel", fn)
+        plain_ms = time_ms(torch, lambda: ml.plain(*args, st, chunk=chunk),
+                           reps=5)
+        n_bytes, state_ops, intra_ops = mlstm_work(
+            b, h, XLSTM_PROMPT, dk, dv, chunk, args[0].element_size())
+        n_ops = state_ops + intra_ops
+        # in bf16 the causal q·k and w @ v multiply bf16 operands, work
+        # for the tensor cores; q·C and the fold take fp32 C
+        b_ms, b_by = (bound(n_bytes, state_ops, intra_ops)
+                      if dtype == torch.bfloat16 else bound(n_bytes, n_ops))
+        rows[dtype] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                           ops=n_ops)
+        log(f"mlstm_chunkwise B={b} H={h} S={XLSTM_PROMPT} Dk={dk} Dv={dv} "
+            f"chunk={chunk} {str(dtype)[6:]}: {ms:.4f} ms a call (device "
+            f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}: {n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), "
+            f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s achieved")
+    serve = rows[torch.bfloat16]
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        replaces="src/repro/kernels/mlstm_chunk.py:87", max_abs_err=err16,
+        ms=serve["ms"], plain_ms=serve["plain_ms"],
+        bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
+        library_ms=None, device_ms=serve["device_ms"],
+        fp32=rows[torch.float32],
+        fp32_max_abs_err=err32,
+        check=f"fp32 h and state rtol {MLSTM_RTOL}, atol {MLSTM_ATOL}; bf16 "
+        f"h rtol = atol = {MLSTM_BF16_TOL} (max |err| fp32 {err32}, bf16 "
+        f"{err16}); S = {XLSTM_PROMPT} and {XLSTM_RAGGED}, zero and random "
+        f"state (ms / plain / bound: bf16, S = {XLSTM_PROMPT}, zero state)")
+
+
+def block_prefill_walls(torch, model, params, lora, prompts):
+    """Host wall of one layer's prefill per block kind (layer 0, the
+    routed LoRA, a fresh cache): the per-block split of a prefill."""
+    lm = model.model
+    cache = model.init_cache(XLSTM_B, XLSTM_PROMPT + XLSTM_NEW + 8)
+    x = lm._embed_in(params, prompts)
+    walls = {}
+    for name, blk, p, l, c in next(lm._layers(params, lora, cache)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, _ = blk.prefill(p, x, c, lora=l)
+        torch.cuda.synchronize()
+        walls[name] = 1e3 * (time.perf_counter() - t0)
+    return walls
+
+
+def xlstm_phase(torch, dev, cfg=None):
+    """Multi-tenant serving of xlstm-1.3b at full width (see the module
+    docstring).  Returns (kernel row, launches by kernel)."""
+    from dataclasses import replace
+    from repro_torch.common.tree import TaskVectorSpace, tree_leaves
+    from repro_torch.configs.base import load_arch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (GenerationConfig, ModulatorStore,
+                                   MultiTenantDecoder)
+
+    full = cfg is None
+    cfg = cfg or load_arch(XLSTM_ARCH)
+    row = mlstm_kernel_checks(torch, dev, cfg)
+    torch.cuda.empty_cache()
+
+    t_build = time.perf_counter()
+    model = cfg.build(device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    params = model.init(g)
+    lora0 = model.lora_init(g)
+    space = TaskVectorSpace.from_tree(lora0)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{cfg.name} ({cfg.dtype}): {n_params} parameters, "
+        f"{cfg.n_layers // 2} (mLSTM, sLSTM) units, LoRA d = {space.d} in "
+        f"{len(space.leaves)} manifest leaves, layout {space.fingerprint}, "
+        f"built in {time.perf_counter() - t_build:.2f} s")
+    if full and space.d != XLSTM_D:
+        raise AssertionError(f"LoRA d {space.d} != {XLSTM_D}")
+
+    # -- the main path: round -> serving downlink -> store -> generate ------
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, round_data = serve_round(torch, dev, space)
+    del round_data
+    dl = server.serving_downlink(packed=True, fingerprint=space.fingerprint)
+    store = ModulatorStore(space, lora0, capacity=T, device=dev)
+    store.ingest(dl)
+    torch.cuda.synchronize()
+    t_round = time.perf_counter() - t0
+    gcpu = torch.Generator().manual_seed(SEED + 10)
+    ids = torch.randperm(T, generator=gcpu)[:XLSTM_B - 1].tolist()
+    ids.append(ids[0])
+    prompts = torch.randint(1, cfg.vocab, (XLSTM_B, XLSTM_PROMPT),
+                            generator=g, device=dev)
+    gen_cfg = GenerationConfig(max_new_tokens=XLSTM_NEW)
+    fused = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
+                               device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out = fused.generate(prompts, ids)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    launches = {k: counts[k] - before[k] for k in ops.SERVE_KERNELS}
+    n_units = cfg.n_layers // 2
+    want = {"modulated_matmul": 8 * n_units * XLSTM_NEW,
+            "mlstm_chunkwise": n_units}
+    if launches != want:
+        raise AssertionError(f"xlstm generate launched {launches}, expected "
+                             f"{want} (8 x {n_units} kernel-9 launches per "
+                             f"forward, {XLSTM_NEW} forwards; kernel 10 once "
+                             f"per mLSTM layer at prefill)")
+    if min(counts[k] for k in ops.PACKED_ROUND_KERNELS) < 1:
+        raise AssertionError(f"xlstm round: a round kernel was not "
+                             f"launched: {counts}")
+    if out.shape != (XLSTM_B, XLSTM_PROMPT + XLSTM_NEW) or \
+            not torch.equal(out[:, :XLSTM_PROMPT], prompts.to(out.dtype)) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError("xlstm generate: bad output tokens")
+    rep = store.storage_report()
+    log(f"xlstm main path: round + downlink + ingest {1e3 * t_round:.1f} ms "
+        f"(T={T}, N={N}, d={space.d}); store {rep['tasks']} tasks in "
+        f"{rep['resident_bytes']} B vs {rep['checkpoint_bytes']} B of "
+        f"checkpoints ({rep['ratio']:.2f}x)")
+    log(f"xlstm generate (fused, bf16, B={XLSTM_B}, tasks {ids}, prompt "
+        f"{XLSTM_PROMPT}, {XLSTM_NEW} new): wall {1e3 * t_gen:.1f} ms, "
+        f"{XLSTM_B * XLSTM_NEW / t_gen:.1f} tokens/s, peak device memory "
+        f"{peak / 2**30:.3f} GiB, launches {launches}")
+
+    # -- step times, per-block split, profiled prefill / decode windows -----
+    lora = fused.route(ids)
+    max_len = XLSTM_PROMPT + XLSTM_NEW + 8
+
+    def prefill(lora_tree, mode=None):
+        cache = model.init_cache(XLSTM_B, max_len)
+        return model.prefill_step(params, lora_tree, {"tokens": prompts},
+                                  cache, mode=mode)
+
+    pre_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_k, cache = prefill(lora)
+        torch.cuda.synchronize()
+        pre_ms.append(1e3 * (time.perf_counter() - t0))
+    tok = torch.argmax(logits_k, -1).to(torch.int32)[:, None]
+    step_ms = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.decode_fn(params, lora, {"tokens": tok}, cache,
+                                   XLSTM_PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    walls = block_prefill_walls(torch, model, params, lora, prompts)
+    log(f"xlstm prefill {[round(x, 1) for x in pre_ms]} ms; decode steps "
+        f"{[round(x, 3) for x in step_ms]} ms (median "
+        f"{statistics.median(step_ms):.3f}); one layer's prefill: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
+        + f" (x {n_units} layers each)")
+    _, _, pre_ops = profile_window(torch, "xlstm prefill",
+                                   lambda: prefill(lora))
+    k10 = [v for k, v in pre_ops.items() if "mlstm_chunk_kernel" in k]
+    if k10:
+        log(f"xlstm prefill: mlstm_chunk_kernel {k10[0][0]:.3f} ms of device "
+            f"time over {k10[0][1]} launches")
+    cache = prefill(lora)[1]
+
+    def four_steps():
+        c = cache
+        for i in range(4):
+            _, c = model.decode_fn(params, lora, {"tokens": tok}, c,
+                                   XLSTM_PROMPT + i)
+
+    profile_window(torch, "xlstm 4 decode steps", four_steps)
+    del cache
+
+    # -- the same routed tree through the plain versions --------------------
+    logits_p, _ = prefill(lora, mode="ref")
+    rel = _rel_l2(torch, logits_k, logits_p)
+    out_p = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
+                               mode="ref", device=dev).generate(prompts, ids)
+    agree = float((out_p[:, XLSTM_PROMPT:] == out[:, XLSTM_PROMPT:])
+                  .float().mean())
+    log(f"xlstm bf16 prefill logits, kernels vs plain versions: rel L2 "
+        f"{rel:.3e} (bound {XLSTM_BF16_LOGIT_REL_L2}), max|err| "
+        f"{max_abs(torch, logits_k, logits_p)}; generated-token agreement "
+        f"{agree:.4f} (printed, not required)")
+    if not rel <= XLSTM_BF16_LOGIT_REL_L2 or \
+            not torch.isfinite(logits_k).all():
+        raise AssertionError(f"xlstm bf16 prefill logits: rel L2 {rel}")
+    del model, params, lora0, store, lora, fused, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    xlstm_fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server,
+                     prompts, ids, gen_cfg)
+    del server
+    torch.cuda.empty_cache()
+    row["prefill_ms"] = pre_ms
+    row["decode_step_ms"] = statistics.median(step_ms)
+    row["xlstm_modulated_matmul_launches"] = launches["modulated_matmul"]
+    return row, launches
+
+
+def xlstm_fp32_check(torch, dev, cfg32, server, prompts, ids, gen_cfg):
+    """xlstm-1.3b in fp32: fused (kernel 9) and dense-routed decode give
+    identical tokens, prefill logits agree within the JAX package's bar,
+    and every aligned fused factor of layer 0 built with x = I equals the
+    dense adapter leaf bit for bit."""
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ModulatorStore, MultiTenantDecoder
+    from repro_torch.serve.router import route_batch
+    model = cfg32.build(device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    params = model.init(g)
+    lora0 = model.lora_init(g)
+    space = TaskVectorSpace.from_tree(lora0)
+    store = ModulatorStore(space, lora0, capacity=T, device=dev)
+    store.ingest(server.serving_downlink(packed=True,
+                                         fingerprint=space.fingerprint))
+    outs, logits = {}, {}
+    for fused in (True, False):
+        dec = MultiTenantDecoder(model, params, store, fused=fused,
+                                 cfg=gen_cfg, device=dev)
+        outs[fused] = dec.generate(prompts, ids)
+        cache = model.init_cache(XLSTM_B, XLSTM_PROMPT + XLSTM_NEW + 8)
+        logits[fused], _ = model.prefill_step(
+            params, dec.route(ids), {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    agree = float((outs[True] == outs[False]).float().mean())
+    log(f"xlstm fp32: fused vs dense-routed tokens identical: "
+        f"{torch.equal(outs[True], outs[False])} (agreement {agree:.4f}); "
+        f"prefill logits max|err| {max_abs(torch, logits[True], logits[False])}"
+        f", rel L2 {_rel_l2(torch, logits[True], logits[False]):.3e}")
+    check_equal(torch, "xlstm fp32 fused vs dense-routed tokens", outs[True],
+                outs[False])
+    if not torch.allclose(logits[True], logits[False], rtol=FP32_RTOL,
+                          atol=FP32_ATOL):
+        raise AssertionError(f"xlstm fp32 prefill logits beyond rtol "
+                             f"{FP32_RTOL}, atol {FP32_ATOL}")
+    fused_t = route_batch(store, ids, fused=True)["units"]
+    dense_t = route_batch(store, ids)["units"]
+    n_checked = 0
+    for unit, site in (("mlstm", "up"), ("mlstm", "down"), ("slstm", "wx"),
+                       ("slstm", "ffn_down")):
+        fs, ds = fused_t[unit][site], dense_t[unit][site]
+        for f in ("a", "b"):
+            k = fs[f]["base"].shape[1]
+            eye = torch.eye(k, device=dev).expand(XLSTM_B, k, k).contiguous()
+            w = ops.modulated_matmul(eye, fs[f]["base"][0], fs[f]["tau"][0],
+                                     fs[f]["words"][0], fs["lam"][0])
+            check_equal(torch, f"xlstm fp32 fused weight {unit}/{site}/{f} "
+                        f"layer 0 vs dense adapter", w, ds[f][0])
+            n_checked += 1
+            del eye, w
+    log(f"xlstm fp32: {n_checked} fused factor weights of layer 0 (x = I) "
+        f"equal the dense adapter leaves bit for bit")
+    del model, params, store
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1173,10 +1565,19 @@ def main() -> int:
     app_counts = app_phase(torch, dev)
     log("== serve phase ==")
     serve_rows, serve_counts = serve_phase(torch, dev)
+    log("== xlstm phase ==")
+    xlstm_row, xlstm_counts = xlstm_phase(torch, dev)
+    serve_rows["mlstm_chunkwise"] = xlstm_row
+    serve_counts["mlstm_chunkwise"] = xlstm_counts["mlstm_chunkwise"]
     kernels, checks = [], {}
     paths = {"unify": "ops.unify, once",
              "masked_agg": "ops.masked_agg, once (serve phase)",
-             "modulated_matmul": "one full-width bf16 generate (serve phase)"}
+             "modulated_matmul": "one full-width bf16 qwen2-0.5b generate "
+                                 "(serve phase; "
+                                 f"{xlstm_counts['modulated_matmul']} more in "
+                                 "the xlstm generate)",
+             "mlstm_chunkwise": "one full-width bf16 xlstm-1.3b generate "
+                                "(xlstm phase)"}
     for name, row in (list(rows.items()) + list(bool_rows.items())
                       + list(serve_rows.items())):
         checks[name] = row.pop("check")

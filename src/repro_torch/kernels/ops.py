@@ -1,6 +1,9 @@
 """Dispatch layer over the port's kernels — the only entry point the
 round engine (``repro_torch.core.engine``) uses for Eq. 2–7 math, and
-the serving path's fused LoRA matmul (``modulated_matmul``).
+the serving path's fused LoRA matmul (``modulated_matmul``).  The xLSTM
+prefill's ``mlstm_chunkwise`` dispatches in its own module
+(``kernels.mlstm_chunk``), as the JAX package's ``ops`` has no mLSTM
+entry; its kernel is listed in ``KERNELS`` with the others.
 
 Dispatch follows the tensors' device: CPU tensors take each kernel's
 plain PyTorch version, CUDA tensors take the hand-written kernel (or
@@ -22,6 +25,7 @@ import torch
 from repro_torch.kernels import bitpack, ref
 from repro_torch.kernels import fused_unify as _fu
 from repro_torch.kernels import masked_agg as _ma
+from repro_torch.kernels import mlstm_chunk as _ml
 from repro_torch.kernels import modulated_matmul as _mm
 from repro_torch.kernels import sign_sim as _ss
 
@@ -29,11 +33,12 @@ MODES = (None, "ref")
 KERNELS = (_fu.KERNEL, _ma.KERNEL, _ss.KERNEL,
            _fu.KERNEL_BOOL, _ma.KERNEL_BOOL,
            _ss.KERNEL_DENSE, _fu.KERNEL_UNIFY,
-           _ma.KERNEL_SINGLE, _mm.KERNEL)
+           _ma.KERNEL_SINGLE, _mm.KERNEL, _ml.KERNEL)
 # the kernels the packed round launches, by name
 PACKED_ROUND_KERNELS = tuple(k.name for k in KERNELS[:3])
-# the kernels the multi-tenant decode launches, by name
-SERVE_KERNELS = (_mm.KERNEL.name,)
+# the kernels the multi-tenant decode launches, by name (the mLSTM
+# prefill's only for the ssm family)
+SERVE_KERNELS = (_mm.KERNEL.name, _ml.KERNEL.name)
 
 
 def _plain(mode: Optional[str]) -> bool:

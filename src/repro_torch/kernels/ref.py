@@ -230,6 +230,80 @@ def modulated_matmul_ref(x: torch.Tensor, base: torch.Tensor,
     return torch.einsum("bsk,bkn->bsn", x.float(), w_eff)
 
 
+def logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log σ(x) = -softplus(-x), with JAX's softplus ``logaddexp(y, 0)``
+    (torch's ``softplus`` returns y itself above its threshold of 20)."""
+    return -torch.logaddexp(-x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        i_pre: torch.Tensor, f_pre: torch.Tensor, state, *,
+                        chunk: int):
+    """Chunkwise-parallel stabilised mLSTM (the JAX package's
+    ``nn/ssm.py::mlstm_chunkwise``): q, k (B, H, S, Dk) — q pre-scaled —
+    v (B, H, S, Dv) in the model dtype; i_pre, f_pre (B, H, S); state
+    (C (B, H, Dk, Dv), n (B, H, Dk), m (B, H)) fp32.  Returns (h
+    (B, H, S, Dv) in v's dtype, (C, n, m)).
+
+    S is padded to a chunk multiple with identity steps (q = k = v = 0,
+    i = -1e30, f = +40) exactly as the JAX package pads: they still
+    decay the final state by exp(-softplus(-40)) per step.  The model
+    dtype's rounding points are the JAX package's: the q·k scores, w
+    before w @ v, and that product, round to v's dtype (the identity in
+    fp32); everything else is fp32.  One departure, shared with the
+    kernel: the log-forget-gate cumsum is summed in fp64 and rounded
+    once, so any summation order gives the same fp32 ``bcum``."""
+    s = q.shape[2]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        i_pre = torch.nn.functional.pad(i_pre, (0, pad), value=-1e30)
+        f_pre = torch.nn.functional.pad(f_pre, (0, pad), value=40.0)
+    C, n, m = state
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()
+    hs = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        ic = i_pre[:, :, sl].float()
+        log_f = logsigmoid(f_pre[:, :, sl].float())
+        bcum = torch.cumsum(log_f.double(), dim=-1).float()
+        c = ic - bcum
+        cmax = torch.cummax(c, dim=-1).values
+        m_t = bcum + torch.maximum(m[..., None], cmax)
+
+        scale_inter = torch.exp(bcum + m[..., None] - m_t)
+        h_inter = (qc.float() @ C) * scale_inter[..., None]
+        qn_inter = (qc.float() @ n[..., None])[..., 0] * scale_inter
+
+        d_log = bcum[..., :, None] - bcum[..., None, :] + ic[..., None, :]
+        d_mat = torch.where(causal, torch.exp(d_log - m_t[..., None]), 0.0)
+        scores = (qc @ kc.transpose(-1, -2)).float()
+        w = d_mat * scores
+        h_intra = w.to(vc.dtype) @ vc
+        qn_intra = torch.sum(w, dim=-1)
+
+        qn = qn_inter + qn_intra
+        denom = torch.maximum(qn.abs(), torch.exp(-m_t))[..., None]
+        hs.append(((h_inter + h_intra.float()) / denom).to(v.dtype))
+
+        total = bcum[..., -1]
+        m_next = torch.maximum(m + total, total + torch.amax(c, dim=-1))
+        wgt = torch.exp(total[..., None] - bcum + ic - m_next[..., None])
+        decay = torch.exp(m + total - m_next)
+        kw = wgt[..., None] * kc.float()
+        C = decay[..., None, None] * C + kw.transpose(-1, -2) @ vc.float()
+        n = decay[..., None] * n + torch.sum(kw, dim=-2)
+        m = m_next
+    h = torch.cat(hs, dim=2)[:, :, :s]
+    return h, (C, n, m)
+
+
 def sign_sim_ref(tau_hats: torch.Tensor) -> torch.Tensor:
     """Eq. 5 over dense (T, d): S = ½(sgn(τ̂)·sgn(τ̂)ᵀ/d + 1), (T, T)
     fp32.  The dots are integers below 2^24, exact in fp32 whatever the

@@ -1,6 +1,8 @@
-"""Pre-norm residual transformer block with a uniform full-sequence /
-prefill / decode API (the JAX package's ``Block``; its SSM adapters and
-hybrid mixer come with the zoo slice)."""
+"""Blocks with a uniform full-sequence / prefill / decode API: the
+pre-norm residual transformer ``Block`` and ``SSMBlockAdapter``, which
+fits the xLSTM blocks (their own norms and residuals) to the same API
+(the JAX package's ``models/blocks.py``; its hybrid mixer comes with
+the hymba slice)."""
 
 from __future__ import annotations
 
@@ -78,3 +80,37 @@ class Block(Module):
         if self.ffn is not None:
             x = self._ffn_apply(params, x, lora, mode)
         return x, cache
+
+
+class SSMBlockAdapter(Module):
+    """Adapts ``MLSTMBlock`` / ``SLSTMBlock`` (own residual and norms) to
+    the ``Block`` API; prefill and decode update the cache in place."""
+
+    def __init__(self, inner: Module):
+        self.inner = inner
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        return self.inner.init(generator, device, lead)
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = ()):
+        return self.inner.lora_init(generator, rank, device, lead)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   lead: Sequence[int] = ()):
+        return self.inner.init_cache(batch, max_len, dtype, device, lead)
+
+    def __call__(self, params, x, *, positions=None, lora=None, mode=None):
+        del positions
+        return self.inner(params, x, lora=lora, mode=mode)
+
+    def prefill(self, params, x, cache, *, positions=None, lora=None,
+                mode=None):
+        del positions
+        return self.inner.forward(params, x, lora=lora, state=cache,
+                                  mode=mode)
+
+    def decode_step(self, params, x, cache, pos: int, *, lora=None,
+                    mode=None):
+        return self.inner.decode_step(params, x, cache, pos, lora=lora,
+                                      mode=mode)

@@ -2,8 +2,9 @@
 
 ``build_model`` returns an :class:`ArchModel` with the uniform interface
 the serving path relies on: ``init`` / ``lora_init``, ``forward``,
-``init_cache``, ``prefill_step`` and ``decode_fn``.  Only the dense
-family is ported so far (qwen2-0.5b); the other families raise.
+``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
+dense family (qwen2-0.5b) and the ssm family (xlstm-1.3b, alternating
+mLSTM / sLSTM blocks); the other families raise.
 """
 
 from __future__ import annotations
@@ -12,10 +13,11 @@ from typing import Optional
 
 from repro_torch.common.device import DeviceLike
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.models.blocks import Block
+from repro_torch.models.blocks import Block, SSMBlockAdapter
 from repro_torch.models.lm import LM
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.mlp import SwiGLU
+from repro_torch.nn.ssm import MLSTMBlock, SLSTMBlock
 
 
 class ArchModel:
@@ -69,5 +71,18 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                 unit_blocks=[("blk", block)],
                 tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
         return ArchModel(cfg, lm, "lm")
+    if cfg.family == "ssm":             # xLSTM: alternating mLSTM/sLSTM pairs
+        if cfg.n_layers % 2:
+            raise ValueError(f"ssm family needs an even n_layers, got "
+                             f"{cfg.n_layers}")
+        mlstm = SSMBlockAdapter(MLSTMBlock(cfg.d_model, cfg.n_heads,
+                                           chunk=cfg.mlstm_chunk, dtype=dt))
+        slstm = SSMBlockAdapter(SLSTMBlock(cfg.d_model, cfg.n_heads,
+                                           dtype=dt))
+        lm = LM(vocab=cfg.vocab, d_model=cfg.d_model,
+                n_units=cfg.n_layers // 2,
+                unit_blocks=[("mlstm", mlstm), ("slstm", slstm)],
+                tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
+        return ArchModel(cfg, lm, "lm")
     raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
-                     f"dense)")
+                     f"dense, ssm)")

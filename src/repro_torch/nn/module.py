@@ -39,6 +39,16 @@ class Module:
         return self.init(generator, device, lead=(n,))
 
 
+def _promoted(*ts):
+    """``ts`` cast to their common dtype, as ``jnp.einsum`` promotes its
+    operands (an fp32 activation against bf16 weights computes in fp32;
+    equal dtypes are left as they are)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t.to(dt) for t in ts]
+
+
 class Dense(Module):
     """y = x @ W (+ b), W stored (in, out).  LoRA-aware: pass the mirrored
     ``lora`` subtree in one of four forms (see :meth:`__call__`)."""
@@ -72,7 +82,7 @@ class Dense(Module):
           ``ops.modulated_matmul`` (``mode`` reaches it), so each
           request's modulated weight is built inside the kernel.
         """
-        y = torch.matmul(x, params["w"])
+        y = torch.matmul(*_promoted(x, params["w"]))
         if lora is not None and "a" in lora:
             a = lora["a"]
             if isinstance(a, dict):
@@ -80,14 +90,16 @@ class Dense(Module):
             elif a.dim() == 3:
                 r = a.shape[-1]
                 scaling = lora["alpha"].to(x.dtype) / r
-                h = torch.einsum("b...i,bir->b...r", x, a)
-                yl = torch.einsum("b...r,bro->b...o", h, lora["b"])
+                h = torch.einsum("b...i,bir->b...r", *_promoted(x, a))
+                yl = torch.einsum("b...r,bro->b...o",
+                                  *_promoted(h, lora["b"]))
                 y = y + yl * scaling.reshape((-1,) + (1,) * (yl.dim() - 1))
             else:
                 r = a.shape[-1]
                 alpha = lora.get("alpha")
                 scaling = (alpha if alpha is not None else float(r)) / r
-                y = y + torch.matmul(torch.matmul(x, a), lora["b"]) * scaling
+                h = torch.matmul(*_promoted(x, a))
+                y = y + torch.matmul(*_promoted(h, lora["b"])) * scaling
         if self.bias:
             y = y + params["b"]
         return y

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: bitwise for every output (the plain versions fix the kernels'
-summation order).  Every test here is marked ``cuda`` and skips inside
+card: bitwise for every output where the plain versions fix the kernels'
+summation order, and to a stated tolerance where a product's sum order
+differs (``modulated_matmul``, ``mlstm_chunkwise``).  Every test here is marked ``cuda`` and skips inside
 the test where no CUDA device is available; this file imports no JAX,
 so it runs on a machine with the card and torch alone:
 
@@ -13,7 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (bitpack, fused_unify, masked_agg,  # noqa
-                                 modulated_matmul, ops, ref, sign_sim)
+                                 mlstm_chunk, modulated_matmul, ops, ref,
+                                 sign_sim)
 
 
 def slot_stack(seed, b, k, d):
@@ -119,7 +121,8 @@ def test_cuda_round_matches_plain_round(cuda):
     assert counts == {"fused_unify_packed": 2, "masked_agg_batched_packed": 1,
                       "sign_sim_packed": 1, "fused_unify": 0,
                       "masked_agg_batched": 0, "sign_sim": 0, "unify": 0,
-                      "masked_agg": 0, "modulated_matmul": 0}
+                      "masked_agg": 0, "modulated_matmul": 0,
+                      "mlstm_chunkwise": 0}
     for a, b in zip(got[:6] + (got.alpha_num, got.n_held),
                     want[:6] + (want.alpha_num, want.n_held)):
         assert torch.equal(a, b)
@@ -233,7 +236,8 @@ def test_cuda_bool_round_matches_packed_round(cuda):
     assert counts == {"fused_unify_packed": 0, "masked_agg_batched_packed": 0,
                       "sign_sim_packed": 0, "fused_unify": 2,
                       "masked_agg_batched": 1, "sign_sim": 1, "unify": 0,
-                      "masked_agg": 0, "modulated_matmul": 0}
+                      "masked_agg": 0, "modulated_matmul": 0,
+                      "mlstm_chunkwise": 0}
     p, b = outs[True], outs[False]
     for name in ("task_vectors", "tau_hats", "similarity", "m_hats",
                  "down_lams"):
@@ -377,3 +381,132 @@ def test_cpu_tensors_take_the_plain_versions(cuda):
     assert ((yc.cpu() - y).abs() <= 1e-5 * (1 + y.abs())).all()
     assert torch.equal(tc.cpu(), t)
 
+
+
+# kernel 10 against its plain version: fp32 to the JAX package's mLSTM
+# bar (both sum the products in fp32, in other orders); bf16 h to a few
+# bf16 ulps (2^-6 relative and absolute, |h| <= 8), since such a
+# difference can flip the bf16 rounding of a score, w, w @ v or h; the
+# fp32 state to the fp32 bar at either input dtype
+MLSTM_RTOL, MLSTM_ATOL = 1e-4, 1e-5
+MLSTM_BF16_TOL = 2.0 ** -6
+
+
+def mlstm_args(seed, cuda, b, h, s, dk, dv, dtype, state="zero"):
+    """Model-shaped inputs: q, k ~ N(0, 1) / sqrt(dk), v ~ N(0, 1), gates
+    i ~ N(0, 1), f ~ N(2, 1); a random state is C, n ~ 0.3 N(0, 1),
+    m ~ N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, h, s, dk), generator=g) * dk ** -0.5
+    k = torch.randn((b, h, s, dk), generator=g) * dk ** -0.5
+    v = torch.randn((b, h, s, dv), generator=g)
+    i = torch.randn((b, h, s), generator=g)
+    f = torch.randn((b, h, s), generator=g) + 2.0
+    if state == "zero":
+        st = (torch.zeros((b, h, dk, dv)), torch.zeros((b, h, dk)),
+              torch.full((b, h), -1e30))
+    else:
+        st = (0.3 * torch.randn((b, h, dk, dv), generator=g),
+              0.3 * torch.randn((b, h, dk), generator=g),
+              torch.randn((b, h), generator=g))
+    return ([x.to(cuda, dtype) for x in (q, k, v)]
+            + [i.to(cuda), f.to(cuda)], tuple(x.to(cuda) for x in st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["zero", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (2, 3, 40, 8, 12, 16), (1, 2, 100, 16, 64, 16), (2, 2, 37, 32, 100, 64),
+    (8, 4, 512, 256, 1024, 256), (8, 4, 500, 256, 1024, 256)])
+def test_cuda_mlstm_chunkwise_matches_plain(cuda, b, h, s, dk, dv, chunk,
+                                            dtype, state):
+    """h and the final (C, n, m), at the reduced and the full xlstm-1.3b
+    width (Dk 256, Dv 1024, chunk 256), S a chunk multiple and ragged."""
+    args, st = mlstm_args(s + dk, cuda, b, h, s, dk, dv, dtype, state)
+    got_h, got_st = mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
+    want_h, want_st = mlstm_chunk.plain(*args, st, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got_h.shape == (b, h, s, dv) and got_h.dtype == dtype
+    tol = ((MLSTM_RTOL, MLSTM_ATOL) if dtype == torch.float32
+           else (MLSTM_BF16_TOL, MLSTM_BF16_TOL))
+    torch.testing.assert_close(got_h.float(), want_h.float(), rtol=tol[0],
+                               atol=tol[1])
+    for a, w in zip(got_st, want_st):
+        torch.testing.assert_close(a, w, rtol=MLSTM_RTOL, atol=MLSTM_ATOL)
+
+
+def _refusals(cuda):
+    args, st = mlstm_args(0, cuda, 1, 2, 8, 16, 32, torch.float32)
+    q, k, v, i, f = args
+    return {
+        "fp16": ([q.half(), k.half(), v.half(), i, f], st, 4),
+        "bf16 gates": ([q, k, v, i.bfloat16(), f], st, 4),
+        "mixed q/v dtypes": ([q, k, v.bfloat16(), i, f], st, 4),
+        "non-contiguous q": ([q.transpose(2, 3).contiguous().transpose(2, 3),
+                              k, v, i, f], st, 4),
+        "cpu tensors": ([x.cpu() for x in args], tuple(x.cpu() for x in st),
+                        4),
+        "state shape": (args, (st[0][:, :1], st[1], st[2]), 4),
+        "dk > 256": ([torch.zeros(1, 1, 4, 257, device=cuda)] * 2
+                     + [torch.zeros(1, 1, 4, 8, device=cuda),
+                        torch.zeros(1, 1, 4, device=cuda),
+                        torch.zeros(1, 1, 4, device=cuda)],
+                     (torch.zeros(1, 1, 257, 8, device=cuda),
+                      torch.zeros(1, 1, 257, device=cuda),
+                      torch.zeros(1, 1, device=cuda)), 4),
+        "chunk beyond shared memory": (args, st, 65536),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp16", "bf16 gates", "mixed q/v dtypes",
+                                  "non-contiguous q", "cpu tensors",
+                                  "state shape", "dk > 256",
+                                  "chunk beyond shared memory"])
+def test_cuda_mlstm_chunkwise_refuses(cuda, case):
+    """What the kernel does not take raises before any launch."""
+    args, st, chunk = _refusals(cuda)[case]
+    before = mlstm_chunk.KERNEL.launches
+    with pytest.raises(ValueError):
+        mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
+    assert mlstm_chunk.KERNEL.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (2, 2, 37, 32, 100, 16), (8, 4, 500, 256, 1024, 256)])
+def test_cuda_mlstm_c_in_place_matches_separate_buffer(cuda, b, h, s, dk, dv,
+                                                       chunk, dtype):
+    """The model path's C_out = the state's C: read and written in place,
+    bitwise the call that writes a fresh C."""
+    args, st = mlstm_args(s + 1, cuda, b, h, s, dk, dv, dtype, "random")
+    want_h, want_st = mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
+    C = st[0].clone()
+    got_h, got_st = mlstm_chunk.mlstm_chunkwise_cuda(
+        *args, (C, st[1], st[2]), chunk=chunk, C_out=C)
+    torch.cuda.synchronize()
+    assert got_st[0] is C
+    assert torch.equal(got_h, want_h)
+    for a, w in zip(got_st, want_st):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_dispatch_follows_the_device(cuda):
+    """CUDA tensors launch kernel 10 (``mode="ref"`` does not), CPU
+    tensors take the plain version."""
+    args, st = mlstm_args(4, cuda, 1, 2, 20, 16, 32, torch.float32, "random")
+    before = mlstm_chunk.KERNEL.launches
+    got = mlstm_chunk.mlstm_chunkwise(*args, st, chunk=8)
+    ref_h, _ = mlstm_chunk.mlstm_chunkwise(*args, st, chunk=8, mode="ref")
+    cpu_h, _ = mlstm_chunk.mlstm_chunkwise(*(x.cpu() for x in args),
+                                           tuple(x.cpu() for x in st),
+                                           chunk=8)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.KERNEL.launches == before + 1
+    torch.testing.assert_close(got[0], ref_h, rtol=MLSTM_RTOL,
+                               atol=MLSTM_ATOL)
+    torch.testing.assert_close(cpu_h, ref_h.cpu(), rtol=MLSTM_RTOL,
+                               atol=MLSTM_ATOL)

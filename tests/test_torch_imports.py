@@ -54,7 +54,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     for must in ("ops.py", "engine.py", "strategies.py", "simulator.py",
-                 "router.py", "lm.py", "attention.py", "chip_smoke.py"):
+                 "router.py", "lm.py", "attention.py", "ssm.py",
+                 "mlstm_chunk.py", "xlstm_1_3b.py", "chip_smoke.py"):
         assert must in names
     assert forbidden("jax.numpy") and forbidden("repro.core")
     assert not forbidden("repro_torch.core")
@@ -80,6 +81,7 @@ ENTRY_POINTS = {
         torch.zeros(2, 2, 64), torch.ones(2, 2, dtype=torch.bool)),
     "pack_uploads": lambda: pack_uploads([_upload()], 3),
     "build_model": lambda: _qwen().build(),
+    "build_model (xlstm)": lambda: _xlstm().build(),
     "LM": lambda: _qwen().build(device="cpu").model.__class__(
         vocab=8, d_model=8, n_units=1, unit_blocks=[]),
     "ModulatorStore": lambda: ModulatorStore(_space(), {}),
@@ -90,6 +92,11 @@ ENTRY_POINTS = {
 def _qwen():
     from repro_torch.configs.base import load_arch
     return load_arch("qwen2-0.5b").reduced()
+
+
+def _xlstm():
+    from repro_torch.configs.base import load_arch
+    return load_arch("xlstm-1.3b").reduced()
 
 
 def _space():

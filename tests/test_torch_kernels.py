@@ -231,7 +231,8 @@ def test_launch_counts_reset_and_names():
                                    "sign_sim_packed": 0, "fused_unify": 0,
                                    "masked_agg_batched": 0, "sign_sim": 0,
                                    "unify": 0, "masked_agg": 0,
-                                   "modulated_matmul": 0}
+                                   "modulated_matmul": 0,
+                                   "mlstm_chunkwise": 0}
     # the plain path never counts as a launch
     tv, valid = slot_stack(8, 2, 2, 64)
     ops.fused_unify_packed(torch.from_numpy(tv), torch.from_numpy(valid))

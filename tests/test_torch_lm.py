@@ -81,7 +81,7 @@ def test_reduced_config_matches_jax():
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        load_arch("xlstm-1.3b")
+        load_arch("hymba-1.5b")
     cfg = load_arch("qwen2-0.5b").reduced()
     cfg.family = "moe"
     with pytest.raises(ValueError, match="not ported"):
