@@ -39,9 +39,13 @@ Phases (any failure raises and the script exits nonzero):
 6. serve   — multi-tenant serving of qwen2-0.5b at full width (24 layers,
              d_model 896, vocab 151,936; random weights from a seed).
              Kernel checks: ``modulated_matmul`` at B = 8 on the three
-             LoRA factor shapes (896, 16), (4864, 16), (16, 896), S = 1
-             and 128, τ in fp32 and bf16, against its plain version, bitwise
-             with x = I, and a misaligned leaf refused; then one MaTU round
+             LoRA factor shapes (896, 16), (4864, 16), (16, 896) at S = 1,
+             16 and 128, and on xlstm-1.3b's five at S = 1 and 16 (S <= 16
+             takes the split-K decode route), τ in fp32 and bf16, against
+             its plain version, bitwise with x = I and with one-hot rows at
+             decode, bitwise run to run and B = 1 against B = 8 at S = 1,
+             timed with the device functions a call runs, and a misaligned
+             leaf refused; then one MaTU round
              through ``MaTUServer.round`` at d = 3,588,168 (T = 30, N = 32,
              3–4 tasks each), ``serving_downlink`` → ``ModulatorStore``,
              single-task ``masked_agg`` (``ops.masked_agg``) on one task of
@@ -79,6 +83,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -654,6 +659,11 @@ SERVE_LEAVES = [(896, 16), (4864, 16), (16, 896)]
 # per decode layer: wq and wo a-factors (896, 16), down's a (4864, 16),
 # three b-factors (16, 896)
 LAYER_MIX = {(896, 16): 2, (4864, 16): 1, (16, 896): 3}
+# xlstm-1.3b's LoRA factor shapes at rank 16, as one (mLSTM, sLSTM) unit
+# runs them: mlstm/up and slstm/wx (2048, 8192), mlstm/down (4096, 2048),
+# slstm/ffn_down (2730, 2048); each an a and a b factor
+XLSTM_UNIT_MIX = {(2048, 16): 2, (4096, 16): 1, (2730, 16): 1,
+                  (16, 8192): 2, (16, 2048): 2}
 # |kernel - plain| <= MM_RTOL * (|x| @ |w_eff|): both sum K fp32 products
 # in different orders (worst case 2 K 2^-24 = 5.8e-4 at K = 4864)
 MM_RTOL = 1e-4
@@ -669,16 +679,23 @@ FP32_RTOL, FP32_ATOL = 5e-4, 1e-5
 
 
 def serve_kernel_checks(torch, dev):
-    """Kernel 9 at B = SERVE_B on each leaf shape, S = 1 and the prompt
-    length, τ in fp32 and bf16: against its plain version within MM_RTOL,
-    bitwise with x = I, a misaligned leaf refused; timed beside its
-    plain version and bound.  Returns {(k, n, s, tau): numbers}."""
+    """Kernel 9 at B = SERVE_B on each qwen2 leaf shape at S = 1, the
+    decode route's largest S and the prompt length, and on each xlstm
+    leaf shape at S = 1 and the decode route's largest S, τ in fp32 and
+    bf16: against its plain version within MM_RTOL, bitwise with x = I
+    (qwen2 leaves) and with one-hot rows at decode; at S = 1 bitwise
+    deterministic and batch-invariant; a misaligned leaf refused; timed
+    beside its plain version and bound, with the device functions each
+    call runs.  Returns {(k, n, s, tau): numbers}."""
     from repro_torch.kernels import bitpack, ops, ref
     from repro_torch.kernels import modulated_matmul as mm
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     b = SERVE_B
     per = {}
-    for k, n in SERVE_LEAVES:
+    dmax = mm.DECODE_MAX_S
+    leaves = ([(kn, (1, dmax, SERVE_PROMPT)) for kn in SERVE_LEAVES]
+              + [(kn, (1, dmax)) for kn in XLSTM_UNIT_MIX])
+    for (k, n), seqs in leaves:
         for tau_dt in (torch.float32, torch.bfloat16):
             base = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
             tau = (0.05 * torch.randn((k, n), generator=g, device=dev)).to(
@@ -687,13 +704,27 @@ def serve_kernel_checks(torch, dev):
                 torch.rand((b, k * n), generator=g, device=dev) < 0.7)
             lam = torch.rand(b, generator=g, device=dev) + 0.5
             w_eff = ref.modulated_weight_ref(base, tau, words, lam)
-            eye = torch.eye(k, device=dev).expand(b, k, k).contiguous()
-            got = mm.modulated_matmul_cuda(eye, base, tau, words, lam)
-            torch.cuda.synchronize()
-            check_equal(torch, f"modulated_matmul x=I ({k}, {n}) {tau_dt}",
-                        got, w_eff)
-            del eye, got
-            for s in (1, SERVE_PROMPT):
+            if (k, n) in SERVE_LEAVES:
+                eye = torch.eye(k, device=dev).expand(b, k, k).contiguous()
+                got = mm.modulated_matmul_cuda(eye, base, tau, words, lam)
+                torch.cuda.synchronize()
+                check_equal(torch, f"modulated_matmul x=I ({k}, {n}) "
+                            f"{tau_dt}", got, w_eff)
+                del eye, got
+            # one-hot rows at decode: the first rows, rows across the first
+            # chunk boundary, the last chunk
+            kc = mm.decode_chunks(k)[0]
+            for k0, s1 in ((0, dmax), (kc - 3, 5), (k - dmax, dmax),
+                           (k - 1, 1)):
+                s1 = min(s1, k - k0)
+                hot = torch.eye(k, device=dev)[k0:k0 + s1].expand(
+                    b, s1, k).contiguous()
+                got = mm.modulated_matmul_cuda(hot, base, tau, words, lam)
+                torch.cuda.synchronize()
+                check_equal(torch, f"modulated_matmul one-hot rows "
+                            f"{k0}:{k0 + s1} ({k}, {n}) {tau_dt}", got,
+                            w_eff[:, k0:k0 + s1])
+            for s in seqs:
                 x = torch.randn((b, s, k), generator=g, device=dev)
                 got = mm.modulated_matmul_cuda(x, base, tau, words, lam)
                 want = mm.plain(x, base, tau, words, lam)
@@ -705,6 +736,18 @@ def serve_kernel_checks(torch, dev):
                     raise AssertionError(
                         f"modulated_matmul ({k}, {n}) S={s} {tau_dt}: "
                         f"|err| / (|x| @ |w|) = {ratio} > {MM_RTOL}")
+                if s == 1:
+                    again = mm.modulated_matmul_cuda(x, base, tau, words, lam)
+                    alone = [mm.modulated_matmul_cuda(
+                        x[i:i + 1].contiguous(), base, tau,
+                        words[i:i + 1].contiguous(), lam[i:i + 1].contiguous())
+                        for i in range(b)]
+                    torch.cuda.synchronize()
+                    check_equal(torch, f"modulated_matmul ({k}, {n}) S=1 "
+                                f"{tau_dt} run to run", again, got)
+                    check_equal(torch, f"modulated_matmul ({k}, {n}) S=1 "
+                                f"{tau_dt} B=1 calls against B={b}",
+                                torch.cat(alone), got)
                 ms = time_ms(torch, lambda: mm.modulated_matmul_cuda(
                     x, base, tau, words, lam))
                 plain_ms = time_ms(torch, lambda: mm.plain(
@@ -714,17 +757,24 @@ def serve_kernel_checks(torch, dev):
                            + b * s * n * 4)
                 b_ms, b_by = bound(n_bytes, 2 * b * s * k * n + 3 * b * k * n)
                 err = max_abs(torch, got, want)
-                dev_ms = device_ms(torch, "modulated_matmul_kernel",
-                                   lambda: mm.modulated_matmul_cuda(
-                                       x, base, tau, words, lam))
+                dev_ms, fns = device_ms(torch, "modulated_matmul_",
+                                        lambda: mm.modulated_matmul_cuda(
+                                            x, base, tau, words, lam))
+                route = ("modulated_matmul_splitk_kernel" if s <= dmax
+                         else "modulated_matmul_kernel<")
+                if not any(route in f for f in fns):
+                    raise AssertionError(f"modulated_matmul S={s}: no "
+                                         f"{route} launch among {list(fns)}")
                 per[(k, n, s, str(tau_dt))] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    max_abs_err=err, rel=ratio, device_ms=dev_ms)
+                    max_abs_err=err, rel=ratio, device_ms=dev_ms,
+                    device_functions=fns)
                 log(f"modulated_matmul B={b} S={s} (K, N)=({k}, {n}) tau "
                     f"{str(tau_dt)[6:]}: {ms:.4f} ms a call (device "
                     f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
                     f"{b_ms:.5f} ms ({b_by}); |err|/(|x||w|) {ratio:.2e}, "
-                    f"max|err| {err}")
+                    f"max|err| {err}; a call runs "
+                    + ", ".join(f"{c:g} x {f[:60]}" for f, c in fns.items()))
         kk, nn = (k + 1, n) if ((k + 1) * n) % 32 else (k, n + 1)
         x1 = torch.zeros((b, 1, kk), device=dev)
         bad = (x1, torch.zeros((kk, nn), device=dev),
@@ -744,10 +794,14 @@ def serve_kernel_checks(torch, dev):
     return per
 
 
-def device_ms(torch, kernel: str, fn, n: int = 10) -> float:
-    """Device time of one launch of ``kernel`` (a substring of its
-    name), from ``torch.profiler`` over ``n`` calls of ``fn``: the
-    kernel alone, without the host's launch overhead."""
+def device_ms(torch, prefix: str, fn, n: int = 10):
+    """Device time of one call of ``fn``, from ``torch.profiler`` over
+    ``n`` calls, without the host's launch overhead: for every device
+    function the calls ran, its mean time a launch times its launches a
+    call (its count over ``n``, rounded: the profiler can drop an event
+    of a long window, so a plain total over ``n`` would read low),
+    summed.  Each function must be named with ``prefix`` (the kernel's
+    own).  Returns (ms a call, {device function: launches seen / n})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -755,25 +809,47 @@ def device_ms(torch, kernel: str, fn, n: int = 10) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key
-            and e.device_type == torch.autograd.DeviceType.CUDA]
-    if not hits:
-        raise AssertionError(f"profiler saw no {kernel} launch")
-    return sum(e.self_device_time_total for e in hits) / 1e3 / sum(
-        e.count for e in hits)
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not on_card:
+        raise AssertionError(f"profiler saw no device function of {prefix}")
+    named = re.compile(r"(^|[\s:])" + re.escape(prefix))
+    other = [e.key for e in on_card if not named.search(e.key)]
+    if other:
+        raise AssertionError(f"a call ran device functions not named "
+                             f"{prefix}*: {other}")
+    return (sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
+                for e in on_card) / 1e3,
+            {e.key: e.count / n for e in on_card})
 
 
-def mm_row(per, s: int):
-    """Kernel 9's numbers for one transformer layer's six launches (the
-    LAYER_MIX of leaf shapes) at sequence length ``s`` with bf16 τ, as
-    the bf16 serving path calls it: the sum of the per-shape times."""
-    keys = [((k, n, s, "torch.bfloat16"), c) for (k, n), c in LAYER_MIX.items()]
+def mm_row(per, s: int, mix=LAYER_MIX):
+    """Kernel 9's numbers for one layer's launches (``mix``: the leaf
+    shapes and their counts; a qwen2 layer's six by default) at sequence
+    length ``s`` with bf16 τ, as the bf16 serving path calls it: the sum
+    of the per-shape times."""
+    keys = [((k, n, s, "torch.bfloat16"), c) for (k, n), c in mix.items()]
     tot = {f: sum(per[key][f] * c for key, c in keys)
            for f in ("ms", "plain_ms", "bound_ms", "device_ms")}
     by = {per[key]["bound_by"] for key, _ in keys}
     tot["bound_by"] = by.pop() if len(by) == 1 else "bytes"
     tot["max_abs_err"] = max(v["max_abs_err"] for v in per.values())
     return tot
+
+
+def mm_decode_summary(label, ops_, calls: int, wall_ms: float,
+                      busy_ms: float) -> float:
+    """Kernel 9's share of a profiled decode window (``ops_`` from
+    ``profile_window``; ``calls`` kernel-9 calls in it): every device
+    function named ``modulated_matmul*``, summed; returns its ms."""
+    fns = {k: v for k, v in ops_.items() if "modulated_matmul" in k}
+    ms_ = sum(v[0] for v in fns.values())
+    log(f"{label}: modulated_matmul device time {ms_:.3f} ms of "
+        f"{busy_ms:.3f} busy ms ({ms_ / calls * 1e3:.2f} us per call over "
+        f"{calls} calls, against {wall_ms / calls * 1e3:.2f} us of wall per "
+        f"call slot); device functions: "
+        + ", ".join(f"{k[:70]} x{v[1]}" for k, v in fns.items()))
+    return ms_
 
 
 def serve_round(torch, dev, space):
@@ -1047,13 +1123,7 @@ def serve_phase(torch, dev, cfg=None):
 
     dec_wall, dec_busy, dec_ops = profile_window(torch, "4 decode steps",
                                                  four_steps)
-    mm_dev = [v for k, v in dec_ops.items() if "modulated_matmul" in k]
-    if mm_dev:
-        ms_, calls = mm_dev[0]
-        log(f"decode: modulated_matmul device time {ms_ / calls * 1e3:.2f} "
-            f"us per launch over {calls} launches, against "
-            f"{dec_wall / (4 * per_fwd) * 1e3:.2f} us of wall per launch "
-            f"slot ({dec_wall / 4:.3f} ms per step)")
+    mm_decode_summary("decode", dec_ops, 4 * per_fwd, dec_wall, dec_busy)
     del cache
 
     # -- the same routed tree through the plain versions --------------------
@@ -1086,6 +1156,7 @@ def serve_phase(torch, dev, cfg=None):
 
     dec = mm_row(per, 1)
     pre = mm_row(per, SERVE_PROMPT)
+    unit = mm_row(per, 1, XLSTM_UNIT_MIX)
     rows["modulated_matmul"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/modulated_matmul.cu",
         replaces="src/repro/kernels/modulated_matmul.py:55",
@@ -1096,17 +1167,24 @@ def serve_phase(torch, dev, cfg=None):
         prefill_layer_device_ms=pre["device_ms"],
         prefill_layer_plain_ms=pre["plain_ms"],
         prefill_layer_bound_ms=pre["bound_ms"],
+        xlstm_unit_ms=unit["ms"], xlstm_unit_device_ms=unit["device_ms"],
+        xlstm_unit_plain_ms=unit["plain_ms"],
+        xlstm_unit_bound_ms=unit["bound_ms"],
         per_shape={f"{k}x{n} S={s} tau={t[6:]}": v
                    for (k, n, s, t), v in per.items()},
         check=f"|err| <= {MM_RTOL} (|x| @ |w|) against the plain version; "
-        f"x = I bitwise; misaligned refused (ms / plain / bound: one decode "
+        f"x = I and one-hot decode rows bitwise; S = 1 run to run and B = 1 "
+        f"against B = {SERVE_B} bitwise; misaligned refused (ms / plain / "
+        f"bound: one decode "
         f"layer's six launches, S=1, bf16 tau)")
     log(f"modulated_matmul per decode layer (6 launches, S=1): {dec['ms']:.4f}"
         f" ms of calls (device {dec['device_ms']:.4f} ms), plain "
         f"{dec['plain_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; per "
         f"prefill layer (S={SERVE_PROMPT}): {pre['ms']:.4f} ms (device "
         f"{pre['device_ms']:.4f} ms), plain {pre['plain_ms']:.4f} ms, bound "
-        f"{pre['bound_ms']:.5f} ms")
+        f"{pre['bound_ms']:.5f} ms; per xlstm decode unit (8 launches, S=1): "
+        f"{unit['ms']:.4f} ms (device {unit['device_ms']:.4f} ms), plain "
+        f"{unit['plain_ms']:.4f} ms, bound {unit['bound_ms']:.5f} ms")
     return rows, serve_counts
 
 
@@ -1277,7 +1355,7 @@ def mlstm_kernel_checks(torch, dev, cfg):
     for dtype, (args, st) in timed.items():
         fn = lambda: ml.mlstm_chunkwise_cuda(*args, st, chunk=chunk)  # noqa
         ms = time_ms(torch, fn)
-        dev_ms = device_ms(torch, "mlstm_chunk_kernel", fn)
+        dev_ms = device_ms(torch, "mlstm_chunk", fn)[0]
         plain_ms = time_ms(torch, lambda: ml.plain(*args, st, chunk=chunk),
                            reps=5)
         n_bytes, state_ops, intra_ops = mlstm_work(
@@ -1454,7 +1532,10 @@ def xlstm_phase(torch, dev, cfg=None):
             _, c = model.decode_fn(params, lora, {"tokens": tok}, c,
                                    XLSTM_PROMPT + i)
 
-    profile_window(torch, "xlstm 4 decode steps", four_steps)
+    dec_wall, dec_busy, dec_ops = profile_window(
+        torch, "xlstm 4 decode steps", four_steps)
+    mm_decode_summary("xlstm decode", dec_ops, 4 * 8 * n_units, dec_wall,
+                      dec_busy)
     del cache
 
     # -- the same routed tree through the plain versions --------------------

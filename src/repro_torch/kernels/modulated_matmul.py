@@ -3,7 +3,10 @@
 mask kept bit-packed until the kernel builds its weight tile.
 
 CUDA twin of the JAX package's ``modulated_matmul_pallas``;
-``csrc/modulated_matmul.cu`` holds the kernel and its design note.  Its
+``csrc/modulated_matmul.cu`` holds the kernels and their design note:
+one C call takes the tiled prefill kernel for ``S > DECODE_MAX_S`` and,
+at decode, the split-K kernel over the chunks of :func:`decode_chunks`
+followed by a fixed-order sum of the chunks' partials.  Its
 plain version (:func:`repro_torch.kernels.ref.modulated_matmul_ref`,
 unpack then matmul) builds the same effective weights bit for bit; the
 product sums in another order, so the two agree to fp32 tolerance (and
@@ -13,6 +16,7 @@ bit for bit with ``x = I``, where every output is one exact product).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,9 +26,36 @@ from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("modulated_matmul", "modulated_matmul.cu",
                     "modulated_matmul_launch",
-                    [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P])
+                    [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P])
 
 plain = ref.modulated_matmul_ref
+
+# The decode route (the kernel's DECODE_MAX_S and KC_MAX): S up to
+# DECODE_MAX_S splits K into chunks of CHUNK_MIN to CHUNK_MAX rows, a
+# multiple of ROW_STEP, about TARGET_CHUNKS of them: at B = 8 and N = 16
+# that is ~2 blocks for each of the H100's 132 SMs.
+DECODE_MAX_S = 16
+CHUNK_MIN, CHUNK_MAX, ROW_STEP = 16, 128, 16
+TARGET_CHUNKS = 33
+
+
+def decode_chunks(k: int) -> Tuple[int, int]:
+    """(rows per chunk, number of chunks) of the decode route's split of
+    K.  It depends on K alone, so the order of every sum, and with it
+    request b's outputs, does not depend on the batch."""
+    rows = -(-k // TARGET_CHUNKS)
+    rows = min(CHUNK_MAX, max(CHUNK_MIN, -(-rows // ROW_STEP) * ROW_STEP))
+    return rows, -(-k // rows)
+
+
+def decode_workspace_shape(b: int, s: int, k: int, n: int
+                           ) -> Optional[Tuple[int, int, int, int]]:
+    """(B, chunks, S, N): the fp32 partials the decode route sums, or
+    None where the call writes y directly (prefill, or one chunk)."""
+    chunks = decode_chunks(k)[1]
+    if s > DECODE_MAX_S or chunks == 1:
+        return None
+    return (b, chunks, s, n)
 
 
 def check_aligned(k: int, n: int) -> None:
@@ -64,9 +95,13 @@ def modulated_matmul_cuda(x, base, tau, words, lam) -> torch.Tensor:
         raise ValueError(f"modulated_matmul takes 1 <= B <= 65535 and "
                          f"S >= 1, got B={b}, S={s}")
     y = torch.empty((b, s, n), dtype=torch.float32, device=x.device)
+    ws_shape = decode_workspace_shape(b, s, k, n)
+    ws = (None if ws_shape is None else
+          torch.empty(ws_shape, dtype=torch.float32, device=x.device))
     with torch.cuda.device(x.device):
         KERNEL.launch(x.data_ptr(), base.data_ptr(), tau.data_ptr(),
                       int(tau.dtype == torch.bfloat16), words.data_ptr(),
-                      lam.data_ptr(), b, s, k, n, y.data_ptr(),
+                      lam.data_ptr(), b, s, k, n, decode_chunks(k)[0],
+                      None if ws is None else ws.data_ptr(), y.data_ptr(),
                       stream_handle(x))
     return y

@@ -315,6 +315,84 @@ def test_cuda_modulated_matmul_weight_build_bitwise(cuda, k, n, tau_dtype):
     assert torch.equal(got, ref.modulated_weight_ref(base, tau, words, lam))
 
 
+# kernel 9's decode route (S <= DECODE_MAX_S: split K, a fixed-order
+# reduction) on every LoRA factor of qwen2-0.5b and xlstm-1.3b at rank 16
+DECODE_LEAVES = SERVE_LEAVES + [(2048, 16), (4096, 16), (2730, 16),
+                                (16, 2048), (16, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 3, 16, 17])
+@pytest.mark.parametrize("k,n", DECODE_LEAVES)
+def test_cuda_modulated_matmul_decode_matches_plain(cuda, k, n, s, tau_dtype,
+                                                    b):
+    """Both sides of the route threshold (S = 16 decode, 17 prefill)."""
+    args = mm_args(k + n + s + b, cuda, b, s, k, n, tau_dtype)
+    before = modulated_matmul.KERNEL.launches
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert modulated_matmul.KERNEL.launches == before + 1
+    assert got.shape == (b, s, n) and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", DECODE_LEAVES)
+def test_cuda_modulated_matmul_decode_weight_build_bitwise(cuda, k, n,
+                                                           tau_dtype):
+    """One-hot rows x = I[k0:k0+S] at S <= 16 take the decode route and
+    return those rows of the effective weight bit for bit: the first
+    rows, rows across the first chunk boundary, the last chunk."""
+    _, base, tau, words, lam = mm_args(11, cuda, 8, 1, k, n, tau_dtype)
+    w_eff = ref.modulated_weight_ref(base, tau, words, lam)
+    kc = modulated_matmul.decode_chunks(k)[0]
+    for k0, s in ((0, 16), (kc - 3, 5), (k - 16, 16), (k - 1, 1)):
+        s = min(s, k - k0)
+        x = torch.eye(k, device=cuda)[k0:k0 + s].expand(8, s, k).contiguous()
+        got = modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+        torch.cuda.synchronize()
+        assert torch.equal(got, w_eff[:, k0:k0 + s]), (k0, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 16])
+@pytest.mark.parametrize("k,n", DECODE_LEAVES)
+def test_cuda_modulated_matmul_decode_deterministic_batch_invariant(
+        cuda, k, n, s, tau_dtype):
+    """Two calls on the same inputs are equal bit for bit, and request
+    b's rows of a B = 8 call equal a B = 1 call on request b alone."""
+    x, base, tau, words, lam = mm_args(k + s, cuda, 8, s, k, n, tau_dtype)
+    y1 = modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+    y2 = modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+    alone = [modulated_matmul.modulated_matmul_cuda(
+        x[i:i + 1].contiguous(), base, tau, words[i:i + 1].contiguous(),
+        lam[i:i + 1].contiguous()) for i in range(8)]
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    for i in range(8):
+        assert torch.equal(alone[i], y1[i:i + 1]), i
+
+
+@pytest.mark.cuda
+def test_cuda_modulated_matmul_decode_refusal_raises(cuda, monkeypatch):
+    """No fallback: a decode launch the kernel refuses (here a chunk of
+    more rows than its x stage holds) raises and counts no launch."""
+    args = mm_args(5, cuda, 8, 1, 4864, 16, torch.bfloat16)
+    monkeypatch.setattr(modulated_matmul, "decode_chunks",
+                        lambda k: (256, -(-k // 256)))
+    before = modulated_matmul.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        modulated_matmul.modulated_matmul_cuda(*args)
+    assert modulated_matmul.KERNEL.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,n", [(897, 16), (4865, 16), (16, 897)])
 def test_cuda_modulated_matmul_rejects_misaligned(cuda, k, n):
