@@ -61,9 +61,13 @@ Phases (any failure raises and the script exits nonzero):
 7. xlstm   — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
-             ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512 and a ragged
-             500, fp32 and bf16, zero and random initial state, h and the
-             final (C, n, m) against its plain version, timed; then one
+             ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
+             500 and a ragged three-chunk 700, fp32 and bf16, zero and
+             random initial state, h and the final (C, n, m) against its
+             plain version, its pre-pass alone against the pre-pass's
+             plain version, run to run and C in place bitwise; timed
+             with each of its device functions' share of a call and its
+             workspace bytes; then one
              round at d = 12,058,464, ``serving_downlink`` →
              ``ModulatorStore``, and one bf16 fused generate (B = 8 over 7
              tasks, 512-token prompts, 32 new tokens) whose launches are
@@ -76,7 +80,9 @@ Phases (any failure raises and the script exits nonzero):
              numbers, and the last line ``{"ok": true, "device": …}``.
 
 The script needs a CUDA device and the rest of the repository: without
-either it exits nonzero before printing any result.
+either it exits nonzero before printing any result.  ``--only mlstm``
+runs setup and kernel 10's checks and timings alone (a quick loop for a
+kernel-10 change), and prints no summary and no "ok" line.
 """
 
 from __future__ import annotations
@@ -252,8 +258,8 @@ def kernel_phase(torch, dev):
     want = masked_agg.plain(*args)
     torch.cuda.synchronize()
     check_equal(torch, "masked_agg alpha_num", got[1], want[1])
-    err = check_close(torch, "masked_agg tau_hat", got[0], want[0],
-                      atol=1e-6)
+    check_equal(torch, "masked_agg tau_hat", got[0], want[0])
+    err = max_abs(torch, got[0], want[0])
     tau_hats = got[0]
     ms = time_ms(torch, lambda: masked_agg.masked_agg_batched_packed_cuda(
         *args))
@@ -265,8 +271,7 @@ def kernel_phase(torch, dev):
         route="cuda", source="src/repro_torch/kernels/csrc/masked_agg.cu",
         replaces="src/repro/kernels/masked_agg.py:139", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, check=f"alpha_num identical; tau_hat rtol {RTOL}, "
-        f"atol 1e-06 (max |err| {err})")
+        library_ms=None, check="alpha_num and tau_hat identical")
     log(f"masked_agg_batched_packed (N={N} T={T} d={D}, {n_member_rows} "
         f"member rows): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}); max|err| {err}")
@@ -309,18 +314,19 @@ def kernel_phase(torch, dev):
     check_equal(torch, "round n_held", out_k.n_held, out_p.n_held)
     check_equal(torch, "round similarity", out_k.similarity,
                 out_p.similarity)
-    check_close(torch, "round task_vectors", out_k.task_vectors,
-                out_p.task_vectors, atol=1e-6)
+    check_equal(torch, "round task_vectors", out_k.task_vectors,
+                out_p.task_vectors)
     bits_k = bitpack.unpack_bits(out_k.down_masks, D)
     bits_p = bitpack.unpack_bits(out_p.down_masks, D)
     valid_bits = valid[:, :, None].expand_as(bits_k)
     agree = float((bits_k == bits_p)[valid_bits].float().mean())
-    if agree < 0.99999:
-        raise AssertionError(f"round downlink mask bits agree on {agree}")
+    check_equal(torch, "round downlink mask bits", bits_k[valid_bits],
+                bits_p[valid_bits])
     ulp = (bf16_bits(torch, out_k.down_unified).int()
            - bf16_bits(torch, out_p.down_unified).int()).abs().max()
-    if int(ulp) > 1:
-        raise AssertionError(f"round downlink bf16 differ by {int(ulp)} ulp")
+    check_equal(torch, "round downlink bf16 bits",
+                bf16_bits(torch, out_k.down_unified),
+                bf16_bits(torch, out_p.down_unified))
     if not torch.isfinite(out_k.task_vectors).all():
         raise AssertionError("round task vectors not finite")
     log(f"round kernels vs plain: downlink bits agree {agree}, bf16 max "
@@ -757,7 +763,7 @@ def serve_kernel_checks(torch, dev):
                            + b * s * n * 4)
                 b_ms, b_by = bound(n_bytes, 2 * b * s * k * n + 3 * b * k * n)
                 err = max_abs(torch, got, want)
-                dev_ms, fns = device_ms(torch, "modulated_matmul_",
+                dev_ms, fns, _ = device_ms(torch, "modulated_matmul_",
                                         lambda: mm.modulated_matmul_cuda(
                                             x, base, tau, words, lam))
                 route = ("modulated_matmul_splitk_kernel" if s <= dmax
@@ -801,26 +807,33 @@ def device_ms(torch, prefix: str, fn, n: int = 10):
     call (its count over ``n``, rounded: the profiler can drop an event
     of a long window, so a plain total over ``n`` would read low),
     summed.  Each function must be named with ``prefix`` (the kernel's
-    own).  Returns (ms a call, {device function: launches seen / n})."""
+    own).  A window in which the profiler reports no device event at all
+    (it has happened on the card for a window of 5 µs launches) is taken
+    again, up to three windows.  Returns (ms a call, {device function:
+    launches seen / n}, {device function: its ms a call})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not on_card:
-        raise AssertionError(f"profiler saw no device function of {prefix}")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+    else:
+        raise AssertionError(f"profiler saw no device function of {prefix} "
+                             f"in three windows")
     named = re.compile(r"(^|[\s:])" + re.escape(prefix))
     other = [e.key for e in on_card if not named.search(e.key)]
     if other:
         raise AssertionError(f"a call ran device functions not named "
                              f"{prefix}*: {other}")
-    return (sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
-                for e in on_card) / 1e3,
-            {e.key: e.count / n for e in on_card})
+    per = {e.key: e.self_device_time_total / e.count
+           * max(1, round(e.count / n)) / 1e3 for e in on_card}
+    return sum(per.values()), {e.key: e.count / n for e in on_card}, per
 
 
 def mm_row(per, s: int, mix=LAYER_MIX):
@@ -1249,6 +1262,10 @@ XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_D = 12_058_464           # its LoRA task-vector size at rank 16
 XLSTM_B, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 32
 XLSTM_RAGGED = 500             # a prompt length that pads the last chunk
+XLSTM_RAGGED3 = 700            # three chunks of 256, the last one ragged
+# kernel 10's device functions (the pre-pass's two kernels and the main
+# kernel), as the profiler names them
+K10_FUNCS = re.compile(r"(^|[\s:])mlstm_\w*kernel")
 # kernel 10 against its plain version: fp32 to the JAX package's mLSTM
 # bar (both sum in fp32, in other orders); bf16 h to 2^-6 relative and
 # absolute (a few bf16 ulps at |h| <= 8: a summation-order difference can
@@ -1299,80 +1316,123 @@ def mlstm_work(b, h, s, dk, dv, chunk, elt):
     return n_bytes, b * h * state_ops, b * h * intra_ops
 
 
+def mlstm_prepass_check(torch, ml, name, args, st, chunk, dtype):
+    """Kernel 10's pre-pass alone against its plain version: every
+    output, w / qn_intra / the divisor at h's bar (they carry the bf16
+    score rounding), the rest at the fp32 bar.  Returns the entries of
+    bcum that differ from the plain version's (printed: both sum in fp64
+    and round once, but take log sigmoid by other formulas)."""
+    q, k, _, i, f = args
+    got = ml.mlstm_chunk_prepass_cuda(q, k, i, f, st[1], st[2], chunk=chunk)
+    want = ml.plain_prepass(q, k, i, f, st[1], st[2], chunk=chunk)
+    torch.cuda.synchronize()
+    bf16_keys = ("w", "qn_intra", "den") if dtype == torch.bfloat16 else ()
+    for key, w in want.items():
+        tol = ((MLSTM_BF16_TOL, MLSTM_BF16_TOL) if key in bf16_keys
+               else (MLSTM_RTOL, MLSTM_ATOL))
+        check_close(torch, f"{name} pre-pass {key}", got[key], w, *tol)
+    return int((got["bcum"] != want["bcum"]).sum())
+
+
 def mlstm_kernel_checks(torch, dev, cfg):
     """Kernel 10 at the model's full width (B = XLSTM_B, its heads, Dk,
-    Dv and chunk): S = XLSTM_PROMPT and a ragged XLSTM_RAGGED, fp32 and
-    bf16, zero and random initial state, h and the final (C, n, m)
-    against the plain version; timed at the serving shape.  Returns the
-    kernel's row."""
+    Dv and chunk): S = XLSTM_PROMPT, a ragged XLSTM_RAGGED and a ragged
+    three-chunk XLSTM_RAGGED3, fp32 and bf16, zero and random initial
+    state: h and the final (C, n, m) against the plain version, the
+    pre-pass alone against its plain version, run to run bitwise, and
+    (random state) C read and written in place bitwise the
+    separate-buffer call; timed at the serving shape, with each device
+    function's share.  Returns the kernel's row."""
     from repro_torch.kernels import mlstm_chunk as ml
     from repro_torch.nn.ssm import MLSTMBlock
     blk = MLSTMBlock(cfg.d_model, cfg.n_heads, chunk=cfg.mlstm_chunk)
     b, h, dk, dv, chunk = XLSTM_B, cfg.n_heads, blk.dk, blk.dv, blk.chunk
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     err32, err16, timed = 0.0, 0.0, {}
-    for s, random_state in ((XLSTM_PROMPT, False), (XLSTM_RAGGED, True)):
-        for dtype in (torch.float32, torch.bfloat16):
-            args, st = mlstm_inputs(torch, dev, g, b, h, s, dk, dv, dtype,
-                                    random_state)
-            got_h, got_st = ml.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
-            want_h, want_st = ml.plain(*args, st, chunk=chunk)
-            torch.cuda.synchronize()
-            name = (f"mlstm_chunkwise S={s} {str(dtype)[6:]} "
-                    f"{'random' if random_state else 'zero'} state")
-            if got_h.shape != want_h.shape or got_h.dtype != dtype or \
-                    not torch.isfinite(got_h).all():
-                raise AssertionError(f"{name}: bad h")
-            tol = ((MLSTM_RTOL, MLSTM_ATOL) if dtype == torch.float32
-                   else (MLSTM_BF16_TOL, MLSTM_BF16_TOL))
-            err = check_close(torch, f"{name} h", got_h, want_h, *tol)
-            for part, a, w in zip("Cnm", got_st, want_st):
-                err32 = max(err32, check_close(torch, f"{name} {part}", a, w,
-                                               MLSTM_RTOL, MLSTM_ATOL))
-            rel = _rel_l2(torch, got_h, want_h)
-            if dtype == torch.float32:
-                err32 = max(err32, err)
-            else:
-                err16 = max(err16, err)
-            log(f"{name}: h max|err| {err} (rel L2 {rel:.2e}, bar rtol = "
-                f"{tol[0]}, atol = {tol[1]}); state within rtol "
-                f"{MLSTM_RTOL}, atol {MLSTM_ATOL}")
-            if random_state:
-                # the model path's in-place C: the state's C is C_out
-                C = st[0].clone()
-                in_h, in_st = ml.mlstm_chunkwise_cuda(
-                    *args, (C, st[1], st[2]), chunk=chunk, C_out=C)
+    for s in (XLSTM_PROMPT, XLSTM_RAGGED, XLSTM_RAGGED3):
+        for random_state in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                args, st = mlstm_inputs(torch, dev, g, b, h, s, dk, dv,
+                                        dtype, random_state)
+                got_h, got_st = ml.mlstm_chunkwise_cuda(*args, st,
+                                                        chunk=chunk)
+                again_h, again_st = ml.mlstm_chunkwise_cuda(*args, st,
+                                                            chunk=chunk)
+                want_h, want_st = ml.plain(*args, st, chunk=chunk)
                 torch.cuda.synchronize()
-                if in_st[0] is not C or not torch.equal(in_h, got_h) or \
+                name = (f"mlstm_chunkwise S={s} {str(dtype)[6:]} "
+                        f"{'random' if random_state else 'zero'} state")
+                if got_h.shape != want_h.shape or got_h.dtype != dtype or \
+                        not torch.isfinite(got_h).all():
+                    raise AssertionError(f"{name}: bad h")
+                if not torch.equal(got_h, again_h) or \
                         not all(torch.equal(a, w)
-                                for a, w in zip(in_st, got_st)):
-                    raise AssertionError(f"{name}: C read and written in "
-                                         "place differs from C_out apart")
-                log(f"{name}: C in place bitwise the separate-buffer call")
-            if s == XLSTM_PROMPT and not random_state:
-                timed[dtype] = (args, st)
+                                for a, w in zip(got_st, again_st)):
+                    raise AssertionError(f"{name}: two calls differ")
+                tol = ((MLSTM_RTOL, MLSTM_ATOL) if dtype == torch.float32
+                       else (MLSTM_BF16_TOL, MLSTM_BF16_TOL))
+                err = check_close(torch, f"{name} h", got_h, want_h, *tol)
+                for part, a, w in zip("Cnm", got_st, want_st):
+                    err32 = max(err32, check_close(torch, f"{name} {part}",
+                                                   a, w, MLSTM_RTOL,
+                                                   MLSTM_ATOL))
+                rel = _rel_l2(torch, got_h, want_h)
+                if dtype == torch.float32:
+                    err32 = max(err32, err)
+                else:
+                    err16 = max(err16, err)
+                n_bcum = mlstm_prepass_check(torch, ml, name, args, st, chunk,
+                                             dtype)
+                log(f"{name}: h max|err| {err} (rel L2 {rel:.2e}, bar rtol "
+                    f"= {tol[0]}, atol = {tol[1]}); state within rtol "
+                    f"{MLSTM_RTOL}, atol {MLSTM_ATOL}; run to run bitwise; "
+                    f"pre-pass within its bars ({n_bcum} bcum entries not "
+                    f"bitwise the plain version's)")
+                if random_state:
+                    # the model path's in-place C: the state's C is C_out
+                    C = st[0].clone()
+                    in_h, in_st = ml.mlstm_chunkwise_cuda(
+                        *args, (C, st[1], st[2]), chunk=chunk, C_out=C)
+                    torch.cuda.synchronize()
+                    if in_st[0] is not C or not torch.equal(in_h, got_h) or \
+                            not all(torch.equal(a, w)
+                                    for a, w in zip(in_st, got_st)):
+                        raise AssertionError(f"{name}: C read and written in "
+                                             "place differs from C_out apart")
+                    log(f"{name}: C in place bitwise the separate-buffer "
+                        f"call")
+                if s == XLSTM_PROMPT and not random_state:
+                    timed[dtype] = (args, st)
     rows = {}
     for dtype, (args, st) in timed.items():
         fn = lambda: ml.mlstm_chunkwise_cuda(*args, st, chunk=chunk)  # noqa
         ms = time_ms(torch, fn)
-        dev_ms = device_ms(torch, "mlstm_chunk", fn)[0]
+        dev_ms, _, per_fn = device_ms(torch, "mlstm_", fn)
         plain_ms = time_ms(torch, lambda: ml.plain(*args, st, chunk=chunk),
                            reps=5)
+        elt = args[0].element_size()
         n_bytes, state_ops, intra_ops = mlstm_work(
-            b, h, XLSTM_PROMPT, dk, dv, chunk, args[0].element_size())
+            b, h, XLSTM_PROMPT, dk, dv, chunk, elt)
         n_ops = state_ops + intra_ops
         # in bf16 the causal q·k and w @ v multiply bf16 operands, work
         # for the tensor cores; q·C and the fold take fp32 C
         b_ms, b_by = (bound(n_bytes, state_ops, intra_ops)
                       if dtype == torch.bfloat16 else bound(n_bytes, n_ops))
+        ws_bytes = ml.workspace_bytes(b * h, XLSTM_PROMPT, chunk, dk, elt)
         rows[dtype] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
-                           ops=n_ops)
+                           ops=n_ops, workspace_bytes=ws_bytes,
+                           device_functions=per_fn,
+                           blocks_per_sm=ml.occupancy(dtype, chunk, dk))
         log(f"mlstm_chunkwise B={b} H={h} S={XLSTM_PROMPT} Dk={dk} Dv={dv} "
             f"chunk={chunk} {str(dtype)[6:]}: {ms:.4f} ms a call (device "
             f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({b_by}: {n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), "
-            f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s achieved")
+            f"{n_ops / dev_ms / 1e9:.2f} TFLOP/s achieved; workspace "
+            f"{ws_bytes} B; blocks a SM {rows[dtype]['blocks_per_sm']}")
+        for f_name, f_ms in sorted(per_fn.items(), key=lambda x: -x[1]):
+            log(f"  {f_ms:.4f} ms ({100 * f_ms / dev_ms:.1f} % of a call) "
+                f"{f_name[:90]}")
     serve = rows[torch.bfloat16]
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
@@ -1380,12 +1440,17 @@ def mlstm_kernel_checks(torch, dev, cfg):
         ms=serve["ms"], plain_ms=serve["plain_ms"],
         bound_ms=serve["bound_ms"], bound_by=serve["bound_by"],
         library_ms=None, device_ms=serve["device_ms"],
+        workspace_bytes=serve["workspace_bytes"],
+        device_functions=serve["device_functions"],
+        blocks_per_sm=serve["blocks_per_sm"],
         fp32=rows[torch.float32],
         fp32_max_abs_err=err32,
         check=f"fp32 h and state rtol {MLSTM_RTOL}, atol {MLSTM_ATOL}; bf16 "
         f"h rtol = atol = {MLSTM_BF16_TOL} (max |err| fp32 {err32}, bf16 "
-        f"{err16}); S = {XLSTM_PROMPT} and {XLSTM_RAGGED}, zero and random "
-        f"state (ms / plain / bound: bf16, S = {XLSTM_PROMPT}, zero state)")
+        f"{err16}); S = {XLSTM_PROMPT}, {XLSTM_RAGGED} and {XLSTM_RAGGED3}, "
+        f"zero and random state; pre-pass within its bars; run to run and "
+        f"C in place bitwise (ms / plain / bound: bf16, S = {XLSTM_PROMPT}, "
+        f"zero state)")
 
 
 def block_prefill_walls(torch, model, params, lora, prompts):
@@ -1520,10 +1585,14 @@ def xlstm_phase(torch, dev, cfg=None):
         + f" (x {n_units} layers each)")
     _, _, pre_ops = profile_window(torch, "xlstm prefill",
                                    lambda: prefill(lora))
-    k10 = [v for k, v in pre_ops.items() if "mlstm_chunk_kernel" in k]
-    if k10:
-        log(f"xlstm prefill: mlstm_chunk_kernel {k10[0][0]:.3f} ms of device "
-            f"time over {k10[0][1]} launches")
+    # the launch counts above show that the prefill ran kernel 10; this
+    # window only reads its device time (none if the profiler saw none)
+    k10 = {k: v for k, v in pre_ops.items() if K10_FUNCS.search(k)}
+    k10_ms = sum(ms for ms, _ in k10.values())
+    log(f"xlstm prefill: kernel 10 {k10_ms:.3f} ms of device time over its "
+        f"{len(k10)} device functions: " + ", ".join(
+            f"{ms:.3f} ms x{calls} {re.search(r'mlstm_\w*', k).group(0)}"
+            for k, (ms, calls) in k10.items()))
     cache = prefill(lora)[1]
 
     def four_steps():
@@ -1560,6 +1629,7 @@ def xlstm_phase(torch, dev, cfg=None):
     del server
     torch.cuda.empty_cache()
     row["prefill_ms"] = pre_ms
+    row["prefill_kernel10_ms"] = k10_ms
     row["decode_step_ms"] = statistics.median(step_ms)
     row["xlstm_modulated_matmul_launches"] = launches["modulated_matmul"]
     return row, launches
@@ -1636,6 +1706,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     setup(torch)
+    if sys.argv[1:] == ["--only", "mlstm"]:
+        # kernel 10's checks and timings alone: a quick loop for a
+        # kernel-10 change; no summary, no "ok" line
+        from repro_torch.configs.base import load_arch
+        log("== kernel 10 alone ==")
+        row = mlstm_kernel_checks(torch, dev, load_arch(XLSTM_ARCH))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"mlstm_chunkwise": row}), flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
+              f"or --only mlstm", file=sys.stderr)
+        return 2
     log("== kernel phase ==")
     rows = kernel_phase(torch, dev)
     log("== round phase ==")

@@ -256,13 +256,9 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     once, so any summation order gives the same fp32 ``bcum``."""
     s = q.shape[2]
     nc = -(-s // chunk)
-    pad = nc * chunk - s
-    if pad:
-        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
-        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-        i_pre = torch.nn.functional.pad(i_pre, (0, pad), value=-1e30)
-        f_pre = torch.nn.functional.pad(f_pre, (0, pad), value=40.0)
+    q, k, v = (_pad_steps(x, chunk) for x in (q, k, v))
+    i_pre = _pad_steps(i_pre, chunk, -1e30)
+    f_pre = _pad_steps(f_pre, chunk, 40.0)
     C, n, m = state
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=q.device).tril()
@@ -302,6 +298,99 @@ def mlstm_chunkwise_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_next
     h = torch.cat(hs, dim=2)[:, :, :s]
     return h, (C, n, m)
+
+
+def _pad_steps(x: torch.Tensor, chunk: int, value: float = 0.0):
+    """Pad the step axis (dim 2) of x to a chunk multiple with ``value``:
+    the mLSTM's identity steps are q = k = v = 0, i = -1e30, f = +40."""
+    pad = -x.shape[2] % chunk
+    if not pad:
+        return x
+    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, pad),
+                                   value=value)
+
+
+def mlstm_chunk_prepass_ref(q: torch.Tensor, k: torch.Tensor,
+                            i_pre: torch.Tensor, f_pre: torch.Tensor,
+                            n0: torch.Tensor, m0: torch.Tensor, *,
+                            chunk: int):
+    """The part of :func:`mlstm_chunkwise_ref` that depends on all of Dk
+    and on no value column: kernel 10's pre-pass.  q, k (B, H, S, Dk) in
+    the model dtype T; i_pre, f_pre (B, H, S); n0 (B, H, Dk), m0 (B, H)
+    fp32.  Returns a dict, nc = ceil(S / chunk), L = chunk:
+
+    * per step (B, H, nc, L), fp32: ``bcum``, ``i`` (padded), ``m_t``,
+      ``scale_inter``, ``wgt``, ``qn_intra`` (the row sum of the
+      unrounded w) and ``den`` (the divisor of h);
+    * per chunk: ``decay``, ``m`` (m at the chunk's start) (B, H, nc) and
+      ``n`` (n at the chunk's start) (B, H, nc, Dk), fp32;
+    * ``w`` (B, H, nc, L, L) in T: the causal decay-weighted scores;
+    * ``n_final``, ``m_final``: the state's n and m after the last chunk.
+
+    Same ops in the same order as :func:`mlstm_chunkwise_ref`."""
+    q, k = _pad_steps(q, chunk), _pad_steps(k, chunk)
+    i_pre = _pad_steps(i_pre, chunk, -1e30)
+    f_pre = _pad_steps(f_pre, chunk, 40.0)
+    nc = q.shape[2] // chunk
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=q.device).tril()
+    out = {key: [] for key in ("bcum", "i", "m_t", "scale_inter", "wgt",
+                               "qn_intra", "den", "decay", "m", "n", "w")}
+    n, m = n0, m0
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qc, kc = q[:, :, sl], k[:, :, sl]
+        ic = i_pre[:, :, sl].float()
+        bcum = torch.cumsum(logsigmoid(f_pre[:, :, sl].float()).double(),
+                            dim=-1).float()
+        c = ic - bcum
+        m_t = bcum + torch.maximum(m[..., None],
+                                   torch.cummax(c, dim=-1).values)
+        scale_inter = torch.exp(bcum + m[..., None] - m_t)
+        qn_inter = (qc.float() @ n[..., None])[..., 0] * scale_inter
+        d_log = bcum[..., :, None] - bcum[..., None, :] + ic[..., None, :]
+        d_mat = torch.where(causal, torch.exp(d_log - m_t[..., None]), 0.0)
+        w = d_mat * (qc @ kc.transpose(-1, -2)).float()
+        qn_intra = torch.sum(w, dim=-1)
+        den = torch.maximum((qn_inter + qn_intra).abs(), torch.exp(-m_t))
+        total = bcum[..., -1]
+        m_next = torch.maximum(m + total, total + torch.amax(c, dim=-1))
+        wgt = torch.exp(total[..., None] - bcum + ic - m_next[..., None])
+        decay = torch.exp(m + total - m_next)
+        for key, val in (("bcum", bcum), ("i", ic), ("m_t", m_t),
+                         ("scale_inter", scale_inter), ("wgt", wgt),
+                         ("qn_intra", qn_intra), ("den", den),
+                         ("decay", decay), ("m", m), ("n", n),
+                         ("w", w.to(q.dtype))):
+            out[key].append(val)
+        n = decay[..., None] * n + torch.sum(wgt[..., None] * kc.float(),
+                                             dim=-2)
+        m = m_next
+    res = {key: torch.stack(val, dim=2) for key, val in out.items()}
+    res["n_final"], res["m_final"] = n, m
+    return res
+
+
+def mlstm_chunk_main_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         C0: torch.Tensor, pre, *, chunk: int):
+    """The part of :func:`mlstm_chunkwise_ref` that depends on C and the
+    value columns: kernel 10's main kernel, from the pre-pass's outputs
+    ``pre`` (:func:`mlstm_chunk_prepass_ref`).  Returns (h (B, H, S, Dv)
+    in v's dtype, C (B, H, Dk, Dv) fp32)."""
+    s = q.shape[2]
+    q, k, v = (_pad_steps(x, chunk) for x in (q, k, v))
+    C, hs = C0, []
+    for ci in range(q.shape[2] // chunk):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        qc, kc, vc = q[:, :, sl], k[:, :, sl], v[:, :, sl]
+        h_inter = (qc.float() @ C) * pre["scale_inter"][:, :, ci, :, None]
+        h_intra = pre["w"][:, :, ci] @ vc
+        hs.append(((h_inter + h_intra.float())
+                   / pre["den"][:, :, ci, :, None]).to(v.dtype))
+        kw = pre["wgt"][:, :, ci, :, None] * kc.float()
+        C = (pre["decay"][:, :, ci, None, None] * C
+             + kw.transpose(-1, -2) @ vc.float())
+    return torch.cat(hs, dim=2)[:, :, :s], C
 
 
 def sign_sim_ref(tau_hats: torch.Tensor) -> torch.Tensor:

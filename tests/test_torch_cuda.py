@@ -468,6 +468,12 @@ def test_cpu_tensors_take_the_plain_versions(cuda):
 # fp32 state to the fp32 bar at either input dtype
 MLSTM_RTOL, MLSTM_ATOL = 1e-4, 1e-5
 MLSTM_BF16_TOL = 2.0 ** -6
+# (B, H, S, Dk, Dv, chunk); Dk and Dv multiples of 8, the kernel's
+# 16-byte rows in bf16
+MLSTM_SHAPES = [
+    (2, 3, 40, 8, 24, 16), (1, 2, 100, 16, 64, 16), (2, 2, 37, 32, 104, 64),
+    (1, 1, 70, 16, 72, 16), (2, 1, 700, 256, 200, 256),
+    (8, 4, 512, 256, 1024, 256), (8, 4, 500, 256, 1024, 256)]
 
 
 def mlstm_args(seed, cuda, b, h, s, dk, dv, dtype, state="zero"):
@@ -494,13 +500,13 @@ def mlstm_args(seed, cuda, b, h, s, dk, dv, dtype, state="zero"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("state", ["zero", "random"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
-    (2, 3, 40, 8, 12, 16), (1, 2, 100, 16, 64, 16), (2, 2, 37, 32, 100, 64),
-    (8, 4, 512, 256, 1024, 256), (8, 4, 500, 256, 1024, 256)])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", MLSTM_SHAPES)
 def test_cuda_mlstm_chunkwise_matches_plain(cuda, b, h, s, dk, dv, chunk,
                                             dtype, state):
     """h and the final (C, n, m), at the reduced and the full xlstm-1.3b
-    width (Dk 256, Dv 1024, chunk 256), S a chunk multiple and ragged."""
+    width (Dk 256, Dv 1024, chunk 256), S a chunk multiple and ragged
+    over up to five chunks, Dv not a multiple of the 64-column tile,
+    B·H = 1."""
     args, st = mlstm_args(s + dk, cuda, b, h, s, dk, dv, dtype, state)
     got_h, got_st = mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
     want_h, want_st = mlstm_chunk.plain(*args, st, chunk=chunk)
@@ -534,6 +540,19 @@ def _refusals(cuda):
                       torch.zeros(1, 1, 257, device=cuda),
                       torch.zeros(1, 1, device=cuda)), 4),
         "chunk beyond shared memory": (args, st, 65536),
+        "bf16 dv % 8": ([q.bfloat16(), k.bfloat16(), v[..., :12].bfloat16()
+                         .contiguous(), i, f],
+                        (st[0][..., :12].contiguous(), st[1], st[2]), 4),
+        "bf16 dk % 8": ([q[..., :12].bfloat16().contiguous(),
+                         k[..., :12].bfloat16().contiguous(),
+                         v.bfloat16(), i, f],
+                        (st[0][:, :, :12].contiguous(),
+                         st[1][..., :12].contiguous(), st[2]), 4),
+        "fp32 dv % 4": ([q, k, v[..., :6].contiguous(), i, f],
+                        (st[0][..., :6].contiguous(), st[1], st[2]), 4),
+        "q off a 16-byte boundary": (
+            [torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape),
+             k, v, i, f], st, 4),
     }
 
 
@@ -541,7 +560,10 @@ def _refusals(cuda):
 @pytest.mark.parametrize("case", ["fp16", "bf16 gates", "mixed q/v dtypes",
                                   "non-contiguous q", "cpu tensors",
                                   "state shape", "dk > 256",
-                                  "chunk beyond shared memory"])
+                                  "chunk beyond shared memory",
+                                  "bf16 dv % 8", "bf16 dk % 8",
+                                  "fp32 dv % 4",
+                                  "q off a 16-byte boundary"])
 def test_cuda_mlstm_chunkwise_refuses(cuda, case):
     """What the kernel does not take raises before any launch."""
     args, st, chunk = _refusals(cuda)[case]
@@ -554,7 +576,8 @@ def test_cuda_mlstm_chunkwise_refuses(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
-    (2, 2, 37, 32, 100, 16), (8, 4, 500, 256, 1024, 256)])
+    (2, 2, 37, 32, 104, 16), (1, 1, 70, 16, 72, 16),
+    (8, 4, 500, 256, 1024, 256), (2, 1, 700, 256, 200, 256)])
 def test_cuda_mlstm_c_in_place_matches_separate_buffer(cuda, b, h, s, dk, dv,
                                                        chunk, dtype):
     """The model path's C_out = the state's C: read and written in place,
@@ -588,3 +611,62 @@ def test_cuda_mlstm_dispatch_follows_the_device(cuda):
                                atol=MLSTM_ATOL)
     torch.testing.assert_close(cpu_h, ref_h.cpu(), rtol=MLSTM_RTOL,
                                atol=MLSTM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["zero", "random"])
+def test_cuda_mlstm_fp32_rows_of_four(cuda, state):
+    """fp32 takes Dk and Dv in multiples of 4 (16-byte rows), which bf16
+    refuses ("bf16 dv % 8" above)."""
+    args, st = mlstm_args(9, cuda, 2, 1, 45, 12, 20, torch.float32, state)
+    got_h, got_st = mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=16)
+    want_h, want_st = mlstm_chunk.plain(*args, st, chunk=16)
+    torch.testing.assert_close(got_h, want_h, rtol=MLSTM_RTOL,
+                               atol=MLSTM_ATOL)
+    for a, w in zip(got_st, want_st):
+        torch.testing.assert_close(a, w, rtol=MLSTM_RTOL, atol=MLSTM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["zero", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (2, 3, 40, 8, 24, 16), (1, 1, 70, 16, 72, 16), (2, 1, 700, 256, 200, 256),
+    (8, 4, 512, 256, 1024, 256)])
+def test_cuda_mlstm_prepass_matches_plain(cuda, b, h, s, dk, dv, chunk,
+                                          dtype, state):
+    """The pre-pass alone against ``ref.mlstm_chunk_prepass_ref``: the
+    gate statistics, the n / m chain, w, qn_intra and the divisor.  w,
+    qn_intra and the divisor carry the bf16 score rounding, which a
+    summation-order difference can flip: bf16 to h's bar; all else at the
+    fp32 bar."""
+    args, st = mlstm_args(s + 3 * dk, cuda, b, h, s, dk, dv, dtype, state)
+    q, k, _, i, f = args
+    got = mlstm_chunk.mlstm_chunk_prepass_cuda(q, k, i, f, st[1], st[2],
+                                               chunk=chunk)
+    want = mlstm_chunk.plain_prepass(q, k, i, f, st[1], st[2], chunk=chunk)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for key, w in want.items():
+        assert got[key].shape == w.shape and got[key].dtype == w.dtype, key
+        loose = dtype == torch.bfloat16 and key in ("w", "qn_intra", "den")
+        tol = (MLSTM_BF16_TOL, MLSTM_BF16_TOL) if loose else (MLSTM_RTOL,
+                                                              MLSTM_ATOL)
+        torch.testing.assert_close(got[key].float(), w.float(), rtol=tol[0],
+                                   atol=tol[1], msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,dk,dv,chunk", [
+    (1, 1, 70, 16, 72, 16), (8, 4, 700, 256, 1024, 256)])
+def test_cuda_mlstm_run_to_run_bitwise(cuda, b, h, s, dk, dv, chunk, dtype):
+    """Two calls on the same inputs give the same bits: every sum has a
+    fixed order, and the divisors are computed once."""
+    args, st = mlstm_args(s + 5, cuda, b, h, s, dk, dv, dtype, "random")
+    one = mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
+    two = mlstm_chunk.mlstm_chunkwise_cuda(*args, st, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0])
+    for a, w in zip(one[1], two[1]):
+        assert torch.equal(a, w)

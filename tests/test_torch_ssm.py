@@ -219,10 +219,14 @@ def test_kernel_path_refuses_cpu_tensors():
 
 def test_smem_bytes_at_full_width_fit_one_block():
     """xlstm-1.3b's prefill (Dk 256, chunk 256) fits one block's shared
-    memory; a chunk of 8192 does not, and the kernel path refuses it
-    before any launch."""
-    assert mlstm_chunk.smem_bytes(256, 256) <= mlstm_chunk.SMEM_LIMIT
-    assert mlstm_chunk.smem_bytes(8192, 256) > mlstm_chunk.SMEM_LIMIT
+    memory in fp32, and two blocks a SM in bf16 (the main kernel's stage
+    buffers hold bf16); a chunk of 8192 in fp32 does not fit, and the
+    kernel path refuses it before any launch."""
+    assert mlstm_chunk.smem_bytes(256, 256, 4) <= mlstm_chunk.SMEM_LIMIT
+    assert mlstm_chunk.smem_bytes(256, 256, 2) <= mlstm_chunk.SMEM_TWO_BLOCKS
+    assert mlstm_chunk.smem_bytes(256, 256, 2) == 4 * (
+        256 * 64 + 3 * 256 + 2 * 32 * (256 + 64) // 2)
+    assert mlstm_chunk.smem_bytes(8192, 256, 4) > mlstm_chunk.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
