@@ -15,9 +15,11 @@ Phases (any failure raises and the script exits nonzero):
              T = 30 tasks, d = 1,327,140, the LoRA task-vector size of
              ViT-B/32 at rank 16 on attn/wq, attn/wo and mlp/down): each
              kernel against its plain PyTorch version on the same inputs,
-             then timed (median of CUDA-event-timed launches) beside its
-             plain version and its bound; one whole round with kernels
-             against the same round with the plain versions.
+             bitwise (kernels 1 and 2 also run to run), then timed
+             (median of CUDA-event-timed calls; kernels 1 and 2 also by
+             device time) beside its plain version and its bound; one
+             whole round with kernels against the same round with the
+             plain versions.
 3. round   — three rounds of ``MaTUStrategy.aggregate`` at that width;
              round r+1 starts from ``task_init`` (the downlink, modulated)
              plus a seeded perturbation in place of local training.  Each
@@ -80,9 +82,12 @@ Phases (any failure raises and the script exits nonzero):
              numbers, and the last line ``{"ok": true, "device": …}``.
 
 The script needs a CUDA device and the rest of the repository: without
-either it exits nonzero before printing any result.  ``--only mlstm``
-runs setup and kernel 10's checks and timings alone (a quick loop for a
-kernel-10 change), and prints no summary and no "ok" line.
+either it exits nonzero before printing any result.  ``--only round``
+runs setup and the kernel phase alone (kernels 1–3 against their plain
+versions and timed, and the whole-round gates: a quick loop for a
+round-kernel change); ``--only mlstm`` runs setup and kernel 10's checks
+and timings alone (a quick loop for a kernel-10 change).  Neither prints
+the summary or the "ok" line.
 """
 
 from __future__ import annotations
@@ -107,7 +112,6 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 REPS = 25
-RTOL = 1e-5
 
 
 def log(msg: str = "") -> None:
@@ -144,7 +148,7 @@ def max_abs(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def check_close(torch, name, got, want, rtol=RTOL, atol=0.0) -> float:
+def check_close(torch, name, got, want, rtol, atol) -> float:
     err = max_abs(torch, got, want)
     if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
         raise AssertionError(f"{name}: kernel vs plain max |err| {err} "
@@ -224,9 +228,13 @@ def kernel_phase(torch, dev):
     check_equal(torch, "fused_unify words", got[1], want[1])
     check_equal(torch, "fused_unify unified (bf16 bits)",
                 bf16_bits(torch, got[0]), bf16_bits(torch, want[0]))
-    err = max(check_close(torch, "fused_unify num", got[2], want[2]),
-              check_close(torch, "fused_unify den", got[3], want[3]))
+    check_equal(torch, "fused_unify num", got[2], want[2])
+    check_equal(torch, "fused_unify den", got[3], want[3])
+    err = 0.0
     ms = time_ms(torch, lambda: fused_unify.fused_unify_packed_cuda(tv, valid))
+    dev_ms, _, per_fn = device_ms(
+        torch, "fused_unify",
+        lambda: fused_unify.fused_unify_packed_cuda(tv, valid))
     plain_ms = time_ms(torch, lambda: fused_unify.plain(tv, valid), reps=5)
     # valid slot rows and the valid flags read; unified, words, num and
     # den written (the per-block partials are the kernel's own scratch)
@@ -236,12 +244,14 @@ def kernel_phase(torch, dev):
     rows["fused_unify_packed"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/fused_unify.cu",
         replaces="src/repro/kernels/fused_unify.py:124", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, check="words, bf16 bits identical; num/den "
-        f"rtol {RTOL} (max |err| {err})")
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        check="words, bf16 bits, num and den identical")
     log(f"fused_unify_packed (upload, B={N} K={K_MAX} d={D}, {n_valid} "
-        f"valid slots): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); max|err| {err}")
+        f"valid slots): {ms:.4f} ms (device {dev_ms:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_fn.items())
+        + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"num/den identical")
 
     # -- the round's dense inputs -----------------------------------------
     uni, words, lams = ops.fused_unify_packed(tv, valid)
@@ -259,10 +269,17 @@ def kernel_phase(torch, dev):
     torch.cuda.synchronize()
     check_equal(torch, "masked_agg alpha_num", got[1], want[1])
     check_equal(torch, "masked_agg tau_hat", got[0], want[0])
+    again = masked_agg.masked_agg_batched_packed_cuda(*args)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, again)):
+        check_equal(torch, f"masked_agg run to run, output {i}", a, b)
     err = max_abs(torch, got[0], want[0])
     tau_hats = got[0]
     ms = time_ms(torch, lambda: masked_agg.masked_agg_batched_packed_cuda(
         *args))
+    dev_ms, _, per_fn = device_ms(
+        torch, "masked_agg",
+        lambda: masked_agg.masked_agg_batched_packed_cuda(*args))
     plain_ms = time_ms(torch, lambda: masked_agg.plain(*args), reps=5)
     n_bytes = (N * D * 2 + n_member_rows * w * 4 + 2 * N * T * 4
                + 2 * T * D * 4)
@@ -270,11 +287,15 @@ def kernel_phase(torch, dev):
     rows["masked_agg_batched_packed"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/masked_agg.cu",
         replaces="src/repro/kernels/masked_agg.py:139", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, check="alpha_num and tau_hat identical")
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+        check="alpha_num and tau_hat identical")
+    tile = masked_agg.packed_tile(N, uni.element_size())
     log(f"masked_agg_batched_packed (N={N} T={T} d={D}, {n_member_rows} "
-        f"member rows): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); max|err| {err}")
+        f"member rows; tile {tile}): {ms:.4f} ms (device {dev_ms:.4f} ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_fn.items())
+        + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"max|err| {err}")
 
     # -- sign_sim_packed --------------------------------------------------
     pos, nz = bitpack.sign_planes(tau_hats)
@@ -341,14 +362,20 @@ def kernel_phase(torch, dev):
     check_equal(torch, "downlink words", got[1], want[1])
     check_equal(torch, "downlink bf16 bits", bf16_bits(torch, got[0]),
                 bf16_bits(torch, want[0]))
-    err = max(check_close(torch, "downlink num", got[2], want[2]),
-              check_close(torch, "downlink den", got[3], want[3]))
-    rows["fused_unify_packed"]["max_abs_err"] = max(
-        rows["fused_unify_packed"]["max_abs_err"], err)
+    check_equal(torch, "downlink num", got[2], want[2])
+    check_equal(torch, "downlink den", got[3], want[3])
+    again = fused_unify.fused_unify_packed_cuda(tvs_slots, valid)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, again)):
+        check_equal(torch, f"downlink run to run, output {i}", a, b)
     ms_down = time_ms(torch, lambda: fused_unify.fused_unify_packed_cuda(
         tvs_slots, valid))
-    log(f"fused_unify_packed (downlink, same shape): {ms_down:.4f} ms; "
-        f"max|err| {err}")
+    dev_down, _, _ = device_ms(
+        torch, "fused_unify",
+        lambda: fused_unify.fused_unify_packed_cuda(tvs_slots, valid))
+    log(f"fused_unify_packed (downlink, same shape): {ms_down:.4f} ms "
+        f"(device {dev_down:.4f} ms); num/den identical, run to run "
+        f"identical")
     del tv, tvs_slots, out_k, out_p, bits_k, bits_p, packed
     torch.cuda.empty_cache()
     return rows
@@ -1706,6 +1733,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
     setup(torch)
+    if sys.argv[1:] == ["--only", "round"]:
+        # kernels 1-3 at the full-width round and the whole-round gates
+        # alone: a quick loop for a round-kernel change; no summary, no
+        # "ok" line
+        log("== kernel phase alone ==")
+        rows = kernel_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(rows), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "mlstm"]:
         # kernel 10's checks and timings alone: a quick loop for a
         # kernel-10 change; no summary, no "ok" line
@@ -1717,7 +1753,7 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
-              f"or --only mlstm", file=sys.stderr)
+              f"--only round or --only mlstm", file=sys.stderr)
         return 2
     log("== kernel phase ==")
     rows = kernel_phase(torch, dev)

@@ -4,7 +4,7 @@
 // Replaces three TPU kernels of src/repro/kernels/masked_agg.py:
 //  * masked_agg_batched_packed_pallas (masks as (N, T, ceil(d/32)) words;
 //    outputs tau_hat and the agreement numerator a_num)
-//    -> masked_agg_packed_launch;
+//    -> masked_agg_packed_launch (two routes, chosen by N; see below);
 //  * masked_agg_batched_pallas (the bool/fp32 A/B layout: masks as
 //    (N, T, d) bytes of a torch.bool tensor; outputs tau_hat and m_hat)
 //    -> masked_agg_launch;
@@ -21,7 +21,44 @@
 // a_num holds exact integers.
 //
 // What bounds it on the H100: device-memory bytes (a handful of flops per
-// loaded value).  Design against that:
+// loaded value).  Of the packed kernel's bytes at the full-width round
+// (N 32, T 30, d 1,327,140) three quarters are its fp32 (T, d) outputs.
+//
+// The packed layout's tile route (masked_agg_lists_kernel +
+// masked_agg_tile_kernel, one C call), taken when N rows of a tile fit one
+// 48 KB stage — the widest tile of 1024, 512 or 256 coordinates that does
+// (tile_width; up to N = 93 in bf16, 47 in fp32; mirrored by
+// repro_torch.kernels.masked_agg.packed_tile):
+//  * persistent blocks walk d-tiles; a tile's N unified rows are staged
+//    in shared memory by 1-D bulk copies (stage.cuh: any d, any row
+//    offset) in a ring of two stages, so unified is read from device
+//    memory exactly once, and the next tile's rows are in flight while
+//    this one is summed;
+//  * masked_agg_lists_kernel first writes every task's member list once
+//    (one warp a task: a ballot over its (N, T) flags, ascending n; the
+//    member weight, gamma * lambda rounded once as the plain version
+//    rounds it, and N_t) into a workspace the tile kernel reads through
+//    L1, so the C call takes lams, gammas and bool members as they are;
+//  * for every task the block's threads own 8 consecutive coordinates
+//    each (tile / 8 threads a task, 256 / that many tasks at once): they
+//    share one mask word, and their unified values are shared loads as
+//    wide as the staged row's alignment allows, unchecked when every
+//    staged row of the tile is whole and no coordinate is past d (one
+//    test a tile); a task's first four members' mask words are loaded
+//    together;
+//  * m_hat of a count of unit votes below 32 is a shuffle from the lane
+//    that divided that count by N_t once a task, where each coordinate
+//    took a division;
+//  * tau_hat and a_num go out as 16-byte streaming stores (__stcs:
+//    written once, evicted first); plain float4 stores compiled to 4-byte
+//    ones here;
+//  * registers are capped for two blocks a SM (16 warps).
+// Larger N keep the first design below as the second route: one block
+// per (task, coordinate range), with gamma * lambda and the member flags
+// as fp32 first written by masked_agg_prep_kernel in the same C call.
+//
+// The first design (the wide-N packed route, the bool layout and the
+// single-task kernel):
 //  * rows with members[n, t] == 0 are skipped — their masks are zero and
 //    their gamma is zero, so they add nothing.  The TPU kernels' BlockSpecs
 //    stream all N unified rows for every task; at N = 32, T = 30 and
@@ -41,9 +78,11 @@
 //    fastest grid axis: the T blocks of one d-range run side by side, so a
 //    unified tile is re-read from L2, not from device memory;
 //  * sums use __fadd_rn/__fmul_rn: no FMA contraction, the rounding of the
-//    plain version in ref._masked_agg, bit for bit.  Both layouts share it,
-//    so tau_hat is bitwise equal across them on the same mask bits.
+//    plain version in ref._masked_agg, bit for bit.  Both layouts and both
+//    routes share it (the members in ascending order), so tau_hat is
+//    bitwise equal across them on the same mask bits.
 #include "launch.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -206,18 +245,407 @@ int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- the packed layout's tile route ------------------------------------
+
+constexpr int TILE_STAGES = 2;
+constexpr long long STAGE_BYTES = 48 * 1024;  // N staged rows of a tile
+constexpr int QUADS = 2;                 // a thread's coordinates / 4
+
+// Coordinates a tile takes for N rows of elt-byte unified values: the
+// widest of 1024, 512, 256 whose N staged rows (each tile * elt + 16
+// bytes) fit one stage; 0 if none does (the wide-N route).
+int tile_width(int N, int elt) {
+  for (int t = 1024; t >= 256; t /= 2)
+    if (static_cast<long long>(N) * (t * elt + 16) <= STAGE_BYTES) return t;
+  return 0;
+}
+
+// The member lists, one row of 4 + 4 * max(N, 4) words a task: count,
+// N_t = max(sum of member weights in ascending order, 1) as fp32, then
+// {n, weight, gamma * lambda (rounded once), 0} for each member,
+// ascending, and zero entries after them.  One warp a task.
+__global__ void __launch_bounds__(BLOCK)
+masked_agg_lists_kernel(const float* __restrict__ lams,
+                        const float* __restrict__ gammas,
+                        const uint8_t* __restrict__ mem_b,
+                        const float* __restrict__ mem_f, int N, int T_,
+                        int* __restrict__ lists) {
+  const int lane = threadIdx.x & 31;
+  const long long t =
+      static_cast<long long>(blockIdx.x) * (BLOCK / 32) + (threadIdx.x >> 5);
+  if (t >= T_) return;                    // uniform over the warp
+  const int cap = N < 4 ? 4 : N;
+  int* row = lists + t * (4 + 4 * cap);
+  int count = 0;
+  for (int n0 = 0; n0 < N; n0 += 32) {
+    const int n = n0 + lane;
+    const long long at = static_cast<long long>(n) * T_ + t;
+    const float m = n < N ? (mem_f ? mem_f[at] : (mem_b[at] ? 1.f : 0.f))
+                          : 0.f;
+    const unsigned bal = __ballot_sync(FULL, m != 0.f);
+    if (m != 0.f) {
+      int4 e;
+      e.x = n;
+      e.y = __float_as_int(m);
+      e.z = __float_as_int(__fmul_rn(gammas[at], lams[at]));
+      e.w = 0;
+      *reinterpret_cast<int4*>(
+          row + 4 + 4 * (count + __popc(bal & ((1u << lane) - 1u)))) = e;
+    }
+    count += __popc(bal);
+  }
+  for (int i = count + lane; i < cap; i += 32)
+    *reinterpret_cast<int4*>(row + 4 + 4 * i) = make_int4(0, 0, 0, 0);
+  __syncwarp();
+  if (lane == 0) {
+    float n_t = 0.f;                      // in member order
+    for (int i = 0; i < count; ++i) n_t += __int_as_float(row[5 + 4 * i]);
+    row[0] = count;
+    row[1] = __float_as_int(fmaxf(n_t, 1.f));
+  }
+}
+
+// 4 consecutive unified values of a staged row at p (the row aligned to
+// ``align`` bytes there), as fp32.
+__device__ __forceinline__ void load_quad(const float* p, int align,
+                                          float (&u)[4]) {
+  if (align >= 16) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    u[0] = a.x;
+    u[1] = a.y;
+    u[2] = a.z;
+    u[3] = a.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) u[c] = p[c];
+  }
+}
+__device__ __forceinline__ void load_quad(const __nv_bfloat16* p, int align,
+                                          float (&u)[4]) {
+  uint32_t v[2];                         // bf16 pairs
+  if (align >= 8) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+    const auto* h = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      v[i] = static_cast<uint32_t>(h[2 * i]) |
+             (static_cast<uint32_t>(h[2 * i + 1]) << 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {          // bf16 -> fp32 is exact
+    u[2 * i] = __uint_as_float(v[i] << 16);
+    u[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
+  }
+}
+
+// A task's count, N_t and first four members, with their mask words for
+// the thread's coordinates, loaded together before its sums.
+struct TaskFetch {
+  int count;
+  float n_t1;
+  int4 e[4];                              // {n, weight, gamma*lambda, 0}
+  uint32_t w[4];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK, 2)
+masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
+                       const uint32_t* __restrict__ words,
+                       const int* __restrict__ lists, int list_ld,
+                       int members_f32, int N, int T_, long long d,
+                       long long n_words, int tile, float rho,
+                       float* __restrict__ tau_out,
+                       float* __restrict__ anum_out) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const int row = tile * static_cast<int>(sizeof(T)) + 16;
+  const long long stage = static_cast<long long>(N) * row;
+  auto* bar = reinterpret_cast<uint64_t*>(tile_smem + TILE_STAGES * stage);
+  const long long n_tiles = (d + tile - 1) / tile;
+  const int per_task = tile / (4 * QUADS);  // threads a task (>= 32)
+  const int groups = BLOCK / per_task;      // tasks at once
+  const int grp = threadIdx.x / per_task;
+  // the thread's 8 coordinates of a tile: [jt, jt + 8), one mask word
+  const long long jt = 4LL * QUADS * (threadIdx.x % per_task);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec_out =
+      ((reinterpret_cast<uintptr_t>(tau_out) |
+        reinterpret_cast<uintptr_t>(anum_out)) & 15) == 0;
+
+  auto row_addr = [&](long long r, long long j0) -> uintptr_t {
+    return reinterpret_cast<uintptr_t>(unified + (r * d + j0));
+  };
+  auto issue = [&](long long tl, int s) {  // one warp
+    const long long j0 = tl * tile;
+    const long long n = d - j0 < tile ? d - j0 : tile;
+    stage_rows(tile_smem + s * stage, row, N,
+               [&](int r) { return row_addr(r, j0); },
+               static_cast<unsigned>(n * sizeof(T)), span, &bar[s]);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TILE_STAGES; ++s) mbar_init(&bar[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int s = 0; s < TILE_STAGES; ++s)
+      if (blockIdx.x + s * (long long)gridDim.x < n_tiles)
+        issue(blockIdx.x + s * (long long)gridDim.x, s);
+
+  int it = 0;
+  for (long long tl = blockIdx.x; tl < n_tiles; tl += gridDim.x, ++it) {
+    const int s = it % TILE_STAGES;
+    const long long j0 = tl * tile;
+    const long long n = d - j0 < tile ? d - j0 : tile;
+    const unsigned char* st = tile_smem + s * stage;
+
+    // every staged row of the tile copied whole and no coordinate past d:
+    // the sums read shared memory unchecked (only rows 0 and N - 1 can be
+    // cut at the tensor's ends)
+    const bool fast =
+        n == tile && in_span(row_addr(0, j0), tile * sizeof(T), span) &&
+        in_span(row_addr(N - 1, j0), tile * sizeof(T), span);
+    const uint32_t* wt = words + (j0 + jt) / 32;  // + (n T + t) n_words
+    const int shift = static_cast<int>((j0 + jt) & 31);
+    // member (row n) of task t: its mask word (0 past d)
+    auto word = [&](long long nrow, int t) -> uint32_t {
+      return jt < n ? wt[(nrow * T_ + t) * n_words] : 0u;
+    };
+    auto fetch = [&](int t) {
+      TaskFetch f;
+      const int* lrow = lists + static_cast<long long>(t) * list_ld;
+      const int2 h = *reinterpret_cast<const int2*>(lrow);
+      f.count = h.x;
+      f.n_t1 = __int_as_float(h.y);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        f.e[q] = reinterpret_cast<const int4*>(lrow + 4)[q];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)         // zero entries read row 0
+        f.w[q] = word(f.e[q].x, t);
+      return f;
+    };
+
+    // one task's sums and outputs from its fetched members
+    auto task = [&](int t, const TaskFetch& cur) {
+      float votes[QUADS][4], acc[QUADS][4];
+#pragma unroll
+      for (int i = 0; i < QUADS; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) votes[i][c] = acc[i][c] = 0.f;
+      // one member's sums over the thread's coordinates, in member order
+      auto add = [&](int4 e, uint32_t w) {
+        const uintptr_t a = row_addr(e.x, j0);
+        const unsigned char* p =
+            staged(st + e.x * row, a, a) + jt * sizeof(T);
+        float u[QUADS][4];
+        if (fast) {
+          // the row's alignment in the stage, the same for every thread
+          const int low =
+              static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+#pragma unroll
+          for (int i = 0; i < QUADS; ++i)
+            load_quad(reinterpret_cast<const T*>(p) + 4 * i,
+                      low ? (low & -low) : 16, u[i]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4 * QUADS; ++c) {
+            const uintptr_t y = a + (jt + c) * sizeof(T);
+            u[c / 4][c % 4] =
+                jt + c < n
+                    ? to_f32(*reinterpret_cast<const T*>(
+                          in_span(y, sizeof(T), span)
+                              ? p + c * sizeof(T)
+                              : reinterpret_cast<const unsigned char*>(y)))
+                    : 0.f;
+          }
+        }
+        const float m = __int_as_float(e.y), g = __int_as_float(e.z);
+        const uint32_t bits = w >> shift;
+#pragma unroll
+        for (int i = 0; i < QUADS; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {   // the sums, in member order
+            const bool set = (bits >> (4 * i + c)) & 1u;
+            const float sp = (set && u[i][c] > 0.f) ? 1.f : 0.f;
+            const float sn = (set && u[i][c] < 0.f) ? 1.f : 0.f;
+            votes[i][c] = __fadd_rn(votes[i][c], __fmul_rn(m, sp - sn));
+            acc[i][c] = __fadd_rn(acc[i][c],
+                                  __fmul_rn(g, __fmul_rn(u[i][c], sp + sn)));
+          }
+      };
+      const int count = cur.count;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < count) add(cur.e[q], cur.w[q]);
+      const int* lrow = lists + static_cast<long long>(t) * list_ld + 4;
+      for (int k = 4; k < count; ++k) {   // members past the fetched four
+        const int4 e = reinterpret_cast<const int4*>(lrow)[k];
+        add(e, word(e.x, t));
+      }
+      // m_hat: lane a holds its value at a_num = a when a_num is a count
+      // of unit votes below 32 (bool members), else divide per value
+      const bool table = !members_f32 && count < 32;
+      float mh_tab = 0.f;
+      if (table) {
+        const float alpha = __fdiv_rn(static_cast<float>(lane), cur.n_t1);
+        mh_tab = alpha >= rho ? 1.f : alpha;
+      }
+      float tv[QUADS][4], av[QUADS][4];
+#pragma unroll
+      for (int i = 0; i < QUADS; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          av[i][c] = fabsf(votes[i][c]);
+          float m_hat;
+          if (table) {
+            m_hat = __shfl_sync(FULL, mh_tab, static_cast<int>(av[i][c]));
+          } else {
+            const float alpha = __fdiv_rn(av[i][c], cur.n_t1);
+            m_hat = alpha >= rho ? 1.f : alpha;
+          }
+          tv[i][c] = __fmul_rn(acc[i][c], m_hat);
+        }
+      const long long o = static_cast<long long>(t) * d + j0 + jt;
+      if (vec_out && jt + 4 * QUADS <= n && (o & 3) == 0) {
+#pragma unroll
+        for (int i = 0; i < QUADS; ++i) {
+          __stcs(reinterpret_cast<float4*>(tau_out + o + 4 * i),
+                 make_float4(tv[i][0], tv[i][1], tv[i][2], tv[i][3]));
+          __stcs(reinterpret_cast<float4*>(anum_out + o + 4 * i),
+                 make_float4(av[i][0], av[i][1], av[i][2], av[i][3]));
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4 * QUADS; ++c)
+          if (jt + c < n) {
+            tau_out[o + c] = tv[c / 4][c % 4];
+            anum_out[o + c] = av[c / 4][c % 4];
+          }
+      }
+    };
+
+    mbar_wait(&bar[s], (it / TILE_STAGES) & 1);
+    for (int t = grp; t < T_; t += groups) task(t, fetch(t));
+    __syncthreads();                      // stage s is read
+    if (warp == 0 && tl + TILE_STAGES * (long long)gridDim.x < n_tiles)
+      issue(tl + TILE_STAGES * (long long)gridDim.x, s);
+  }
+}
+
+// The wide-N route's inputs: gamma * lambda (rounded once) and the
+// member weights as fp32 (N, T), the form masked_agg_kernel reads.
+__global__ void __launch_bounds__(BLOCK)
+masked_agg_prep_kernel(const float* __restrict__ lams,
+                       const float* __restrict__ gammas,
+                       const uint8_t* __restrict__ mem_b,
+                       const float* __restrict__ mem_f, long long count,
+                       float* __restrict__ gl, float* __restrict__ mem) {
+  const long long i = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
+  if (i >= count) return;
+  gl[i] = __fmul_rn(gammas[i], lams[i]);
+  mem[i] = mem_f ? mem_f[i] : (mem_b[i] ? 1.f : 0.f);
+}
+
+// Workspace words of the tile route's member lists: T rows of
+// 4 + 4 * max(N, 4).
+long long list_words(int N, int T_) {
+  return static_cast<long long>(T_) * (4 + 4 * (N < 4 ? 4 : N));
+}
+
+template <typename T>
+int launch_tile(const T* u, const uint32_t* words, const float* lams,
+                const float* gammas, const uint8_t* mem_b,
+                const float* mem_f, int N, int T_, long long d, int tile,
+                float rho, int* lists, float* tau, float* anum,
+                cudaStream_t s) {
+  masked_agg_lists_kernel<<<static_cast<unsigned>((T_ + 7) / 8), BLOCK, 0,
+                            s>>>(lams, gammas, mem_b, mem_f, N, T_, lists);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  auto kern = masked_agg_tile_kernel<T>;
+  static bool opted_in = false;           // the largest stage ring
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(TILE_STAGES * STAGE_BYTES + 64));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = true;
+  }
+  const size_t smem = TILE_STAGES * (static_cast<size_t>(N) *
+                                     (tile * sizeof(T) + 16) + 8);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, BLOCK,
+                                                    smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long n_tiles = (d + tile - 1) / tile;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const unsigned grid =
+      static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
+  const Span span = tensor_span(u, static_cast<unsigned long long>(N) * d *
+                                       sizeof(T));
+  const int ld = 4 + 4 * (N < 4 ? 4 : N);
+  kern<<<grid, BLOCK, smem, s>>>(u, span, words, lists, ld, mem_f != nullptr,
+                                 N, T_, d, (d + 31) / 32, tile, rho, tau,
+                                 anum);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // unified (N, d) fp32 (u_bf16 = 0) or bf16 (u_bf16 = 1); words (N, T,
-// ceil(d/32)) uint32; gl = gamma * lambda and mem (N, T) fp32.  Outputs
+// ceil(d/32)) uint32; lams and gammas (N, T) fp32; members (N, T) fp32
+// (mem_f32 = 1) or uint8 0/1 (a torch.bool tensor).  tile must be
+// tile_width(N, sizeof element), 0 taking the wide-N route; ws is a
+// workspace of ws_words 4-byte words, T * (4 + 4 * max(N, 4)) on the
+// tile route (the member lists), 2 * N * T on the wide-N route.  Outputs
 // tau_out and anum_out (T, d) fp32.  Returns cudaGetLastError().
 extern "C" int masked_agg_packed_launch(const void* unified, int u_bf16,
-                                        const void* words, const void* gl,
-                                        const void* mem, int N, int T_,
-                                        long long d, float rho, void* tau_out,
-                                        void* anum_out, void* stream) {
-  return launch<uint32_t, true, false>(unified, u_bf16, words, gl, mem, N, T_,
-                                      d, rho, tau_out, anum_out, stream);
+                                        const void* words, const void* lams,
+                                        const void* gammas,
+                                        const void* members, int mem_f32,
+                                        int N, int T_, long long d, float rho,
+                                        int tile, void* ws, long long ws_words,
+                                        void* tau_out, void* anum_out,
+                                        void* stream) {
+  if (N < 1 || N > 4000 || T_ < 1 || T_ > 65535 || d < 1 ||
+      tile != tile_width(N, u_bf16 ? 2 : 4) || ws == nullptr ||
+      ws_words != (tile ? list_words(N, T_) : 2LL * N * T_))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* lam = static_cast<const float*>(lams);
+  auto* gam = static_cast<const float*>(gammas);
+  auto* mem_b = mem_f32 ? nullptr : static_cast<const uint8_t*>(members);
+  auto* mem_f = mem_f32 ? static_cast<const float*>(members) : nullptr;
+  auto* w = static_cast<const uint32_t*>(words);
+  auto* to = static_cast<float*>(tau_out);
+  auto* ao = static_cast<float*>(anum_out);
+  if (tile) {
+    auto* lists = static_cast<int*>(ws);
+    if (u_bf16)
+      return launch_tile(static_cast<const __nv_bfloat16*>(unified), w, lam,
+                         gam, mem_b, mem_f, N, T_, d, tile, rho, lists, to,
+                         ao, s);
+    return launch_tile(static_cast<const float*>(unified), w, lam, gam,
+                       mem_b, mem_f, N, T_, d, tile, rho, lists, to, ao, s);
+  }
+  const long long count = static_cast<long long>(N) * T_;
+  auto* gl = static_cast<float*>(ws);
+  masked_agg_prep_kernel<<<static_cast<unsigned>((count + BLOCK - 1) / BLOCK),
+                           BLOCK, 0, s>>>(lam, gam, mem_b, mem_f, count, gl,
+                                          gl + count);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch<uint32_t, true, false>(unified, u_bf16, words, gl, gl + count,
+                                      N, T_, d, rho, tau_out, anum_out,
+                                      stream);
 }
 
 // The bool/fp32 layout: masks (N, T, d) uint8 holding 0 or 1 (a torch.bool
@@ -253,3 +681,4 @@ extern "C" int masked_agg_single_launch(const void* unified, int u_bf16,
                                               mhat_out, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+

@@ -11,7 +11,8 @@ kernels and their design note):
 * ``unify`` ↔ ``unify_pallas``: Eq. 2 for one client, (K, d) → (d,).
 
 The fused kernels run at both ends of the wire: the clients' upload
-construction and the server's downlink re-unification.  Their plain
+construction and the server's downlink re-unification.  The packed one
+is one C call with no other launch around it.  Their plain
 versions (:func:`repro_torch.kernels.ref.fused_unify_packed_ref`,
 :func:`~repro_torch.kernels.ref.fused_unify_ref`,
 :func:`~repro_torch.kernels.ref.unify_ref`) fix the same in-block and
@@ -31,11 +32,12 @@ from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 KMAX = 16          # slots a lane keeps in registers (csrc/fused_unify.cu)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_FUSED_ARGS = [_P, _I, _P, _I, _I, _LL, _P, _P, _P, _P, _LL, _P]
 KERNEL = CudaKernel("fused_unify_packed", "fused_unify.cu",
-                    "fused_unify_packed_launch", _FUSED_ARGS)
+                    "fused_unify_packed_launch",
+                    [_P, _I, _P, _I, _I, _LL, _P, _P, _P, _LL, _P, _P])
 KERNEL_BOOL = CudaKernel("fused_unify", "fused_unify.cu",
-                         "fused_unify_launch", _FUSED_ARGS)
+                         "fused_unify_launch",
+                         [_P, _I, _P, _I, _I, _LL, _P, _P, _P, _P, _LL, _P])
 KERNEL_UNIFY = CudaKernel("unify", "fused_unify.cu", "unify_launch",
                           [_P, _I, _I, _LL, _P, _P])
 
@@ -74,11 +76,17 @@ def unify(task_vectors: torch.Tensor) -> torch.Tensor:
     return unify_cuda(task_vectors)
 
 
+def lambda_blocks(d: int) -> int:
+    """λ blocks of :data:`ref.LAMBDA_BLOCK` coordinates that cover d: the
+    length of each λ partials row the packed kernel writes."""
+    return -(-d // ref.LAMBDA_BLOCK)
+
+
 def _launch_fused(kernel: CudaKernel, task_vectors: torch.Tensor,
                   valid: torch.Tensor, uni: torch.Tensor,
                   masks: torch.Tensor):
-    """Check the inputs, launch ``kernel`` into ``uni`` / ``masks`` and
-    return (num, den) from its λ block partials."""
+    """Check the inputs, launch the bool layout's ``kernel`` into ``uni``
+    / ``masks`` and return (num, den) from its λ block partials."""
     b, k, d = task_vectors.shape
     dev = task_vectors.device
     # num and den partials side by side, each row already zero-padded to
@@ -109,14 +117,26 @@ def _check_fused(task_vectors: torch.Tensor, valid: torch.Tensor, name: str):
 
 
 def fused_unify_packed_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
-    """The kernel path of :func:`fused_unify_packed` (CUDA tensors only)."""
+    """The kernel path of :func:`fused_unify_packed` (CUDA tensors only).
+    One C call, no other launch: the kernel writes one λ partial a λ
+    block into a workspace from torch's allocator (no zero fill), and a
+    second kernel in the same call sums each row by the tree of
+    :func:`ref._tree_total`."""
     b, k, d = _check_fused(task_vectors, valid, "fused_unify_packed")
     dev = task_vectors.device
     uni = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
     words = torch.empty((b, k, bitpack.packed_width(d)), dtype=torch.int32,
                         device=dev)
-    num, den = _launch_fused(KERNEL, task_vectors, valid, uni, words)
-    return uni, words, num, den
+    n_blk = lambda_blocks(d)
+    part = torch.empty((2, b, k, n_blk), dtype=torch.float32, device=dev)
+    num_den = torch.empty((2, b, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        KERNEL.launch(task_vectors.data_ptr(),
+                      int(task_vectors.dtype == torch.bfloat16),
+                      valid.data_ptr(), b, k, d, uni.data_ptr(),
+                      words.data_ptr(), part.data_ptr(), n_blk,
+                      num_den.data_ptr(), stream_handle(task_vectors))
+    return uni, words, num_den[0], num_den[1]
 
 
 def fused_unify_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):

@@ -26,11 +26,13 @@ from repro_torch.kernels import bitpack, ref
 from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGS = [_P, _I, _P, _P, _P, _I, _I, _LL, _F, _P, _P, _P]
 KERNEL = CudaKernel("masked_agg_batched_packed", "masked_agg.cu",
-                    "masked_agg_packed_launch", _ARGS)
+                    "masked_agg_packed_launch",
+                    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _LL, _F, _I, _P, _LL,
+                     _P, _P, _P])
 KERNEL_BOOL = CudaKernel("masked_agg_batched", "masked_agg.cu",
-                         "masked_agg_launch", _ARGS)
+                         "masked_agg_launch",
+                         [_P, _I, _P, _P, _P, _I, _I, _LL, _F, _P, _P, _P])
 KERNEL_SINGLE = CudaKernel("masked_agg", "masked_agg.cu",
                            "masked_agg_single_launch",
                            [_P, _I, _P, _I, _P, _P, _I, _LL, _F, _P, _P, _P])
@@ -40,6 +42,26 @@ plain_bool = ref.masked_agg_batched_ref
 plain_single = ref.masked_agg_ref
 
 MAX_N = 4000       # member list of one task in shared memory (< 48 KB)
+STAGE_BYTES = 48 * 1024   # the N staged unified rows of one packed tile
+
+
+def packed_tile(n: int, elt: int) -> int:
+    """The packed kernel's route and tile width for N rows of ``elt``-byte
+    unified values (``tile_width`` in ``csrc/masked_agg.cu``): the widest
+    of 1024, 512 and 256 coordinates whose N staged rows (``tile * elt +
+    16`` bytes each) fit one stage of :data:`STAGE_BYTES`; 0 where none
+    does, the wide-N route (first for N = 94 in bf16, 48 in fp32)."""
+    for tile in (1024, 512, 256):
+        if n * (tile * elt + 16) <= STAGE_BYTES:
+            return tile
+    return 0
+
+
+def packed_workspace(n: int, t: int, tile: int) -> int:
+    """4-byte words of the packed C call's workspace: the tile route's
+    member lists, T rows of ``4 + 4 * max(N, 4)``; the wide-N route's
+    fp32 γ·λ and member weights, ``2 * N * T``."""
+    return t * (4 + 4 * max(n, 4)) if tile else 2 * n * t
 
 
 def masked_agg_batched_packed(unified, mask_words, lams, gammas, members,
@@ -109,14 +131,18 @@ def masked_agg_cuda(unified, masks, lams, gammas, rho: float):
     return tau, m_hat
 
 
-def _launch(kernel: CudaKernel, unified, masks, lams, gammas, members,
-            n: int, t: int, d: int, rho: float):
+def _check_round(kernel: CudaKernel, unified, n: int, t: int, d: int):
     if tuple(unified.shape) != (n, d):
         raise ValueError(f"unified {tuple(unified.shape)} does not fit "
                          f"N={n}, d={d}")
     if not 1 <= t <= 65535 or not 1 <= n <= MAX_N:
         raise ValueError(f"{kernel.name} takes 1 <= T <= 65535 and "
                          f"1 <= N <= {MAX_N}, got T={t}, N={n}")
+
+
+def _launch(kernel: CudaKernel, unified, masks, lams, gammas, members,
+            n: int, t: int, d: int, rho: float):
+    _check_round(kernel, unified, n, t, d)
     gl = (gammas.float() * lams.float()).contiguous()
     mem = members.float().contiguous()
     for name, x in (("gamma*lambda", gl), ("members", mem)):
@@ -136,15 +162,38 @@ def _launch(kernel: CudaKernel, unified, masks, lams, gammas, members,
 
 def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
                                    d: int, rho: float):
-    """The kernel path of :func:`masked_agg_batched_packed`."""
+    """The kernel path of :func:`masked_agg_batched_packed`: one C call,
+    which rounds γ·λ itself and reads bool (or fp32) members as they are,
+    so fp32 ``lams`` / ``gammas`` and bool ``members`` take no other
+    launch.  The route is :func:`packed_tile`'s."""
     require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
     require_cuda(mask_words, "mask_words", (torch.int32,), 3)
     n, t, w = mask_words.shape
     if w != bitpack.packed_width(d):
         raise ValueError(f"mask_words {tuple(mask_words.shape)} do not fit "
                          f"d={d}")
-    return _launch(KERNEL, unified, mask_words, lams, gammas, members, n, t,
-                   d, rho)
+    _check_round(KERNEL, unified, n, t, d)
+    lam = lams.float().contiguous()
+    gam = gammas.float().contiguous()
+    mem = members if members.dtype == torch.bool else members.float()
+    mem = mem.contiguous()
+    for name, x in (("lams", lam), ("gammas", gam), ("members", mem)):
+        require_cuda(x, name, (torch.float32, torch.bool), 2)
+        if tuple(x.shape) != (n, t):
+            raise ValueError(f"{name} {tuple(x.shape)} != {(n, t)}")
+    dev = unified.device
+    tile = packed_tile(n, unified.element_size())
+    ws_words = packed_workspace(n, t, tile)
+    ws = torch.empty((ws_words,), dtype=torch.int32, device=dev)
+    tau = torch.empty((t, d), dtype=torch.float32, device=dev)
+    a_num = torch.empty_like(tau)
+    with torch.cuda.device(dev):
+        KERNEL.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
+                      mask_words.data_ptr(), lam.data_ptr(), gam.data_ptr(),
+                      mem.data_ptr(), int(mem.dtype == torch.float32), n, t,
+                      d, float(rho), tile, ws.data_ptr(), ws_words,
+                      tau.data_ptr(), a_num.data_ptr(), stream_handle(unified))
+    return tau, a_num
 
 
 def masked_agg_batched_cuda(unified, masks, lams, gammas, members,

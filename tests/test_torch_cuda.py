@@ -128,6 +128,144 @@ def test_cuda_round_matches_plain_round(cuda):
         assert torch.equal(a, b)
 
 
+# -- the packed round's redesigned kernels: staged tiles at any alignment ----
+
+def offset_view(x, shift):
+    """``x`` copied into a flat buffer ``shift`` elements in: a tensor
+    whose start (and end) is not 16-byte aligned, so the kernels' staged
+    copies are clamped at both ends of the tensor."""
+    flat = torch.zeros(x.numel() + shift + 8, dtype=x.dtype, device=x.device)
+    view = flat[shift:shift + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def packed_unify_inputs(seed, cuda, b, k, d, dtype):
+    """(B, K, d) slot stack with invalid slots: client 0 holds one slot
+    fewer than K (where K > 1), the rest from ``slot_stack``."""
+    tv, valid = slot_stack(seed, b, k, d)
+    if k > 1:
+        valid[0, -1] = False
+    return (torch.from_numpy(tv).to(cuda, dtype),
+            torch.from_numpy(valid).to(cuda))
+
+
+def assert_packed_unify_bitwise(got, want):
+    assert torch.equal(got[1], want[1])                        # words
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 4100, 65540])
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_unify_packed_tiles_bitwise(cuda, dtype, k, d):
+    """Kernel 1 at widths whose bf16 rows start 2-, 4- or 8-byte aligned
+    (d % 8 = 1, 4, 4): words, bf16 bits and λ num/den bitwise the plain
+    version, invalid slots zero, and bitwise run to run."""
+    x, v = packed_unify_inputs(k * d, cuda, 3, k, d, dtype)
+    got = fused_unify.fused_unify_packed_cuda(x, v)
+    again = fused_unify.fused_unify_packed_cuda(x, v)
+    want = fused_unify.plain(x, v)
+    torch.cuda.synchronize()
+    assert_packed_unify_bitwise(got, want)
+    assert_packed_unify_bitwise(again, got)
+    if k > 1:
+        assert not got[1][0, -1].any() and got[2][0, -1] == 0
+        assert got[3][0, -1] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 3])
+@pytest.mark.parametrize("d", [33, 4100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_unify_packed_unaligned_tensor(cuda, dtype, d, shift):
+    """Kernel 1 on a slot stack that starts and ends off 16-byte
+    alignment: the values the staged copies leave out are read from
+    device memory; every output bitwise the plain version."""
+    x, v = packed_unify_inputs(d + shift, cuda, 4, 4, d, dtype)
+    xs = offset_view(x, shift)
+    assert xs.data_ptr() % 16 != 0
+    got = fused_unify.fused_unify_packed_cuda(xs, v)
+    want = fused_unify.plain(x, v)
+    torch.cuda.synchronize()
+    assert_packed_unify_bitwise(got, want)
+
+
+def packed_agg_args(seed, cuda, n, t, d, dtype, float_members=False):
+    u, words, lams, gam, mem = dense_round(seed, n, t, d)
+    members = torch.from_numpy(mem).to(cuda)
+    return (torch.from_numpy(u).to(cuda, dtype), words.to(cuda),
+            torch.from_numpy(lams).to(cuda), torch.from_numpy(gam).to(cuda),
+            members.float() if float_members else members, d, 0.4)
+
+
+def assert_packed_agg_bitwise(cuda, args):
+    got = masked_agg.masked_agg_batched_packed_cuda(*args)
+    again = masked_agg.masked_agg_batched_packed_cuda(*args)
+    want = masked_agg.plain(*args)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, g)
+    assert not got[0][-1].any() and not got[1][-1].any()     # unheld task
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 4100, 65540])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_masked_agg_packed_tiles_bitwise(cuda, dtype, d):
+    """Kernel 2's tile route at the round's N = 32, T = 30 and widths whose
+    rows and outputs start unaligned: τ̂ and a_num bitwise the plain
+    version and run to run, the unheld task zero."""
+    args = packed_agg_args(d, cuda, 32, 30, d, dtype)
+    assert masked_agg.packed_tile(32, args[0].element_size()) > 0
+    assert_packed_agg_bitwise(cuda, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.bfloat16, 93),
+                                     (torch.bfloat16, 94),
+                                     (torch.float32, 47), (torch.float32, 48)])
+def test_cuda_masked_agg_packed_route_boundary(cuda, dtype, n):
+    """N on both sides of the boundary between the tile route and the
+    wide-N route: both bitwise the plain version and run to run."""
+    args = packed_agg_args(n, cuda, n, 5, 4100, dtype)
+    tile = masked_agg.packed_tile(n, args[0].element_size())
+    assert (tile > 0) == (n in (93, 47))
+    assert_packed_agg_bitwise(cuda, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [7, 100])
+def test_cuda_masked_agg_packed_float_members_unaligned(cuda, n):
+    """Both routes with fp32 member flags (read as they are) and unified
+    rows in a tensor that starts off 16-byte alignment."""
+    args = packed_agg_args(n + 1, cuda, n, 4, 300, torch.bfloat16,
+                           float_members=True)
+    args = (offset_view(args[0], 3),) + args[1:]
+    assert args[0].data_ptr() % 16 != 0
+    assert_packed_agg_bitwise(cuda, args)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_round_kernels_refusal_raises(cuda, monkeypatch):
+    """No fallback: a workspace or tile plan the C call does not share
+    is refused; the wrapper raises and counts no launch."""
+    x, v = packed_unify_inputs(1, cuda, 2, 4, 4100, torch.float32)
+    monkeypatch.setattr(fused_unify, "lambda_blocks", lambda d: 1)
+    before = fused_unify.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_unify.fused_unify_packed_cuda(x, v)
+    assert fused_unify.KERNEL.launches == before
+    args = packed_agg_args(2, cuda, 32, 4, 4100, torch.bfloat16)
+    monkeypatch.setattr(masked_agg, "packed_tile", lambda n, elt: 1024)
+    before = masked_agg.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        masked_agg.masked_agg_batched_packed_cuda(*args)
+    assert masked_agg.KERNEL.launches == before
+
+
 # -- the bool/fp32 layout ----------------------------------------------------
 
 @pytest.mark.cuda
