@@ -15,11 +15,12 @@ Phases (any failure raises and the script exits nonzero):
              T = 30 tasks, d = 1,327,140, the LoRA task-vector size of
              ViT-B/32 at rank 16 on attn/wq, attn/wo and mlp/down): each
              kernel against its plain PyTorch version on the same inputs,
-             bitwise (kernels 1 and 2 also run to run), then timed
-             (median of CUDA-event-timed calls; kernels 1 and 2 also by
-             device time) beside its plain version and its bound; one
-             whole round with kernels against the same round with the
-             plain versions.
+             bitwise (kernels 1–3 also run to run; kernel 3 also against
+             ``sgn @ sgn.T`` and its first design, the T > 64 route), then
+             timed (median of CUDA-event-timed calls; kernels 1–3 also by
+             device time, each device function's share) beside its plain
+             version and its bound; one whole round with kernels against
+             the same round with the plain versions.
 3. round   — three rounds of ``MaTUStrategy.aggregate`` at that width;
              round r+1 starts from ``task_init`` (the downlink, modulated)
              plus a seeded perturbation in place of local training.  Each
@@ -30,7 +31,9 @@ Phases (any failure raises and the script exits nonzero):
              task vectors: each of its kernels (``fused_unify``,
              ``masked_agg_batched``, ``sign_sim``, and ``unify`` for one
              client of K = 4) against its plain version, bitwise, and
-             timed; one bool round through the entry points
+             timed (``masked_agg_batched`` also run to run, by device
+             time, and its τ̂ against ``masked_agg_batched_packed``'s on
+             the same bits); one bool round through the entry points
              (``batched_client_unify(packed=False)`` → ``pack_from_slots``
              → ``RoundEngine.run_packed`` → ``downlinks``) with its launch
              counts, against the same round with the plain versions and
@@ -70,7 +73,8 @@ Phases (any failure raises and the script exits nonzero):
              plain version, run to run and C in place bitwise; timed
              with each of its device functions' share of a call and its
              workspace bytes; then one
-             round at d = 12,058,464, ``serving_downlink`` →
+             round at d = 12,058,464 (kernel 3 checked and timed on the
+             sign planes of its task vectors), ``serving_downlink`` →
              ``ModulatorStore``, and one bf16 fused generate (B = 8 over 7
              tasks, 512-token prompts, 32 new tokens) whose launches are
              counted (24 of kernel 10, 192 of kernel 9 per forward);
@@ -85,9 +89,13 @@ The script needs a CUDA device and the rest of the repository: without
 either it exits nonzero before printing any result.  ``--only round``
 runs setup and the kernel phase alone (kernels 1–3 against their plain
 versions and timed, and the whole-round gates: a quick loop for a
-round-kernel change); ``--only mlstm`` runs setup and kernel 10's checks
-and timings alone (a quick loop for a kernel-10 change).  Neither prints
-the summary or the "ok" line.
+round-kernel change); ``--only bool`` runs setup and the bool phase
+alone (kernels 4–7 and the bool round: a quick loop for a change to
+them); ``--only devtime`` times kernels 3 and 5 alone by device function,
+any fill or conversion of a wrapper listed apart (it also runs from the
+root of an earlier checkout, to measure it); ``--only mlstm`` runs setup
+and kernel 10's checks and timings alone (a quick loop for a kernel-10
+change).  None of them prints the summary or the "ok" line.
 """
 
 from __future__ import annotations
@@ -107,10 +115,11 @@ N, K_MAX, T, D = 32, 4, 30, 1_327_140
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; fp32 outside the
 # tensor cores — the table's only scalar-ALU rate, used for the integer
-# popcount work too; dense bf16 on the tensor cores
+# popcount work too; dense bf16 and int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+INT8_TC_OPS_PER_S = 1979e12
 REPS = 25
 
 
@@ -135,12 +144,15 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
     return float(statistics.median(times))
 
 
-def bound(n_bytes: float, n_ops: float, bf16_ops: float = 0.0):
+def bound(n_bytes: float, n_ops: float, bf16_ops: float = 0.0,
+          int8_ops: float = 0.0):
     """(bound_ms, bound_by): the largest of bytes over the HBM rate,
-    ``n_ops`` over the scalar fp32 peak and ``bf16_ops`` (products of
-    bf16 operands) over the bf16 tensor-core peak."""
+    ``n_ops`` over the scalar fp32 peak, ``bf16_ops`` (products of bf16
+    operands) over the bf16 tensor-core peak and ``int8_ops`` over the
+    int8 tensor-core peak."""
     tb = n_bytes / HBM_BYTES_PER_S
-    to = max(n_ops / SCALAR_OPS_PER_S, bf16_ops / BF16_TC_OPS_PER_S)
+    to = max(n_ops / SCALAR_OPS_PER_S, bf16_ops / BF16_TC_OPS_PER_S,
+             int8_ops / INT8_TC_OPS_PER_S)
     return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
 
 
@@ -213,8 +225,7 @@ def make_round_inputs(torch, dev):
 def kernel_phase(torch, dev):
     from repro_torch.core.engine import (EngineConfig, RoundEngine,
                                          pack_from_slots)
-    from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ops,
-                                     sign_sim)
+    from repro_torch.kernels import bitpack, fused_unify, masked_agg, ops
 
     tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
     n_valid = sum(ks)
@@ -299,28 +310,7 @@ def kernel_phase(torch, dev):
 
     # -- sign_sim_packed --------------------------------------------------
     pos, nz = bitpack.sign_planes(tau_hats)
-    got = sign_sim.sign_sim_packed_cuda(pos, nz)
-    want = sign_sim.plain(pos, nz)
-    torch.cuda.synchronize()
-    check_equal(torch, "sign_sim dots", got, want)
-    sgn = torch.sign(tau_hats)
-    lib = sgn @ sgn.T
-    check_equal(torch, "sign_sim dots vs sgn @ sgn.T", got, lib)
-    ms = time_ms(torch, lambda: sign_sim.sign_sim_packed_cuda(pos, nz))
-    plain_ms = time_ms(torch, lambda: sign_sim.plain(pos, nz), reps=5)
-    lib_ms = time_ms(torch, lambda: torch.sign(tau_hats)
-                     @ torch.sign(tau_hats).T)
-    b_ms, b_by = bound(2 * T * w * 4 + T * T * 4,
-                       6 * (T * (T + 1) // 2) * w)
-    rows["sign_sim_packed"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/sign_sim.cu",
-        replaces="src/repro/kernels/sign_sim.py:70", max_abs_err=0.0,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms, check="dots identical (and equal to the fp32 "
-        "sgn @ sgn.T)")
-    log(f"sign_sim_packed (T={T} w={w}): {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, library sign@sign.T {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+    rows["sign_sim_packed"] = sign_sim_packed_check(torch, pos, nz, tau_hats)
 
     # -- one whole round: kernels vs plain versions -----------------------
     engine = RoundEngine(EngineConfig(n_tasks=T), device=dev)
@@ -379,6 +369,64 @@ def kernel_phase(torch, dev):
     del tv, tvs_slots, out_k, out_p, bits_k, bits_p, packed
     torch.cuda.empty_cache()
     return rows
+
+
+def sign_sim_packed_check(torch, pos, nz, x):
+    """Kernel 3 on the sign planes (pos, nz) of ``x`` (T, d): its dots
+    against the plain version and the fp32 ``sgn(x) @ sgn(x).T``, run to
+    run, and the first design's (the route for T > 64, here forced) —
+    all bitwise; timed by CUDA events and by device time (each device
+    function's share), beside the first design's, the plain version and
+    the library product.  Returns the kernel's row."""
+    from repro_torch.kernels import sign_sim
+    t, w = pos.shape
+    blocks, per, route = sign_sim.packed_plan(
+        t, w, torch.cuda.get_device_properties(pos.device)
+        .multi_processor_count)
+    got = sign_sim.sign_sim_packed_cuda(pos, nz)
+    again = sign_sim.sign_sim_packed_cuda(pos, nz)
+    first = sign_sim.sign_sim_packed_cuda(pos, nz, route="popc")
+    want = sign_sim.plain(pos, nz)
+    sgn = torch.sign(x)
+    lib = sgn @ sgn.T
+    del sgn
+    torch.cuda.synchronize()
+    check_equal(torch, "sign_sim_packed dots", got, want)
+    check_equal(torch, "sign_sim_packed dots vs sgn @ sgn.T", got, lib)
+    check_equal(torch, "sign_sim_packed run to run", again, got)
+    check_equal(torch, "sign_sim_packed first design", first, want)
+    ms = time_ms(torch, lambda: sign_sim.sign_sim_packed_cuda(pos, nz))
+    dev_ms, _, per_fn = device_ms(
+        torch, "sign_sim_packed", lambda: sign_sim.sign_sim_packed_cuda(pos, nz))
+    first_ms = time_ms(torch, lambda: sign_sim.sign_sim_packed_cuda(
+        pos, nz, route="popc"))
+    first_dev, _, first_fn = device_ms(
+        torch, "sign_sim_packed",
+        lambda: sign_sim.sign_sim_packed_cuda(pos, nz, route="popc"))
+    plain_ms = time_ms(torch, lambda: sign_sim.plain(pos, nz), reps=5)
+    lib_ms = time_ms(torch, lambda: torch.sign(x) @ torch.sign(x).T)
+    # planes read once, dots written; the pairs' int8 products (a
+    # multiply and an add a coordinate) on the tensor cores
+    b_ms, b_by = bound(2 * t * w * 4 + t * t * 4, 0.0,
+                       int8_ops=2 * (t * (t + 1) // 2) * 32 * w)
+
+    def share(fns):
+        return ", ".join(f"{fn_name(k)} {v:.4f}" for k, v in fns.items())
+    log(f"sign_sim_packed (T={t} w={w}; {route}: {blocks} blocks of {per} "
+        f"words): {ms:.4f} ms (device {dev_ms:.4f} ms: {share(per_fn)}); "
+        f"first design {first_ms:.4f} ms (device {first_dev:.4f} ms: "
+        f"{share(first_fn)}); plain {plain_ms:.4f} ms, library sign@sign.T "
+        f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); dots identical to "
+        f"the plain version, sgn @ sgn.T and the first design, run to run "
+        f"identical")
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sign_sim.cu",
+        replaces="src/repro/kernels/sign_sim.py:70", max_abs_err=0.0,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, first_design_ms=first_ms,
+        first_design_device_ms=first_dev,
+        check="dots identical to the plain version, the fp32 sgn @ sgn.T "
+        "and the first design; run to run identical")
 
 
 def round_phase(torch, dev):
@@ -469,7 +517,7 @@ def bool_phase(torch, dev):
     rows = {}
 
     def row(name, source, replaces, got, want, ms, plain_ms, n_bytes, n_ops,
-            library_ms=None):
+            library_ms=None, dev=None):
         b_ms, b_by = bound(n_bytes, n_ops)
         err = max(max_abs(torch, a, b) for a, b in zip(got, want))
         rows[name] = dict(
@@ -477,7 +525,12 @@ def bool_phase(torch, dev):
             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             check="every output identical to the plain version")
-        log(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        share = ""
+        if dev is not None:               # (device ms, {function: ms})
+            rows[name]["device_ms"] = dev[0]
+            share = f" (device {dev[0]:.4f} ms: " + ", ".join(
+                f"{fn_name(k)} {v:.4f}" for k, v in dev[1].items()) + ")"
+        log(f"{name}: {ms:.4f} ms{share}, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})"
             + ("" if library_ms is None else f", library {library_ms:.4f} ms")
             + f"; max|err| {err}")
@@ -524,7 +577,16 @@ def bool_phase(torch, dev):
     got = masked_agg.masked_agg_batched_cuda(*args)
     want = masked_agg.plain_bool(*args)
     same("masked_agg_batched", got, want)
+    same("masked_agg_batched run to run", got,
+         masked_agg.masked_agg_batched_cuda(*args))
+    # kernel 2 on the same mask bits: the same tau_hat
+    same("masked_agg_batched vs masked_agg_batched_packed", got[:1],
+         masked_agg.masked_agg_batched_packed_cuda(
+             uni.to(torch.bfloat16), bitpack.pack_bits(masks_d), lams_d, gam,
+             member_d, D, 0.4)[:1])
     tau_hats = got[0]
+    dev_ms, _, per_fn = device_ms(
+        torch, "masked_agg", lambda: masked_agg.masked_agg_batched_cuda(*args))
     row("masked_agg_batched", "masked_agg.cu",
         "src/repro/kernels/masked_agg.py:67", got, want,
         time_ms(torch, lambda: masked_agg.masked_agg_batched_cuda(*args)),
@@ -532,8 +594,10 @@ def bool_phase(torch, dev):
         # unified once, the member mask rows, the (N, T) scalars; tau_hat
         # and m_hat written
         N * D * 4 + n_member_rows * D + 3 * N * T * 4 + 2 * T * D * 4,
-        8 * n_member_rows * D)
-    log(f"  ({n_member_rows} member rows)")
+        8 * n_member_rows * D, dev=(dev_ms, per_fn))
+    log(f"  ({n_member_rows} member rows; tau_hat identical to "
+        f"masked_agg_batched_packed's on the same bits, run to run "
+        f"identical)")
     del masks_d, args
 
     # -- sign_sim (dense) -------------------------------------------------
@@ -629,6 +693,49 @@ def bool_phase(torch, dev):
     del tv, batch_b, out_b, batch_p, out_p, up_b, downs_b
     torch.cuda.empty_cache()
     return rows, counts
+
+
+def devtime_phase(torch, dev):
+    """Kernels 3 and 5 alone at the full-width round (kernel 3 also on
+    seeded random planes of the xLSTM round's width, w = 376,827): ms a
+    call and device time by function, any other launch of a wrapper (a
+    fill, a conversion) listed apart.  It calls only entry points that
+    every slice of the port has, so it also measures an earlier checkout
+    of the package: copy this script into that checkout's root and run it
+    there with ``--only devtime``.  Returns the numbers as a dict."""
+    from repro_torch.kernels import bitpack, masked_agg, ops, sign_sim
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
+    tv = tv.to(torch.bfloat16).float()
+    uni, masks, lams = ops.fused_unify(tv, valid)
+    del tv
+    masks_d, lams_d, member_d, sizes_d = ops.slots_to_dense(
+        masks, lams, sizes, valid, tasks, T)
+    del masks
+    gam = sizes_d * member_d.float()
+    gam = gam / torch.clamp(gam.sum(0, keepdim=True), min=1e-12)
+    args = (uni, masks_d, lams_d, gam, member_d, 0.4)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    nz = torch.randint(-2 ** 31, 2 ** 31 - 1, (T, 376_827), generator=g,
+                       device=dev, dtype=torch.int32)
+    wide = (torch.randint(-2 ** 31, 2 ** 31 - 1, nz.shape, generator=g,
+                          device=dev, dtype=torch.int32) & nz, nz)
+    cases = {
+        "masked_agg_batched": ("masked_agg", lambda: (
+            masked_agg.masked_agg_batched_cuda(*args))),
+        "sign_sim_packed": ("sign_sim_packed", lambda: (
+            sign_sim.sign_sim_packed_cuda(*planes))),
+        "sign_sim_packed_w376827": ("sign_sim_packed", lambda: (
+            sign_sim.sign_sim_packed_cuda(*wide)))}
+    planes = bitpack.sign_planes(masked_agg.masked_agg_batched_cuda(*args)[0])
+    out = {}
+    for name, (prefix, fn) in cases.items():
+        ms = time_ms(torch, fn)
+        own, _, per = device_ms(torch, prefix, fn, apart=True)
+        out[name] = dict(ms=ms, device_ms=own, by_function={
+            fn_name(k): v for k, v in per.items()})
+        log(f"{name}: {ms:.4f} ms a call, device {own:.4f} ms; "
+            + ", ".join(f"{fn_name(k)} {v:.4f}" for k, v in per.items()))
+    return out
 
 
 def app_phase(torch, dev):
@@ -827,7 +934,7 @@ def serve_kernel_checks(torch, dev):
     return per
 
 
-def device_ms(torch, prefix: str, fn, n: int = 10):
+def device_ms(torch, prefix: str, fn, n: int = 10, apart: bool = False):
     """Device time of one call of ``fn``, from ``torch.profiler`` over
     ``n`` calls, without the host's launch overhead: for every device
     function the calls ran, its mean time a launch times its launches a
@@ -836,8 +943,10 @@ def device_ms(torch, prefix: str, fn, n: int = 10):
     summed.  Each function must be named with ``prefix`` (the kernel's
     own).  A window in which the profiler reports no device event at all
     (it has happened on the card for a window of 5 µs launches) is taken
-    again, up to three windows.  Returns (ms a call, {device function:
-    launches seen / n}, {device function: its ms a call})."""
+    again, up to three windows.  ``apart``: functions not so named (a
+    fill, a conversion) are listed beside the kernel's, not refused, and
+    left out of its sum.  Returns (ms a call, {device function: launches
+    seen / n}, {device function: its ms a call})."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -855,12 +964,19 @@ def device_ms(torch, prefix: str, fn, n: int = 10):
                              f"in three windows")
     named = re.compile(r"(^|[\s:])" + re.escape(prefix))
     other = [e.key for e in on_card if not named.search(e.key)]
-    if other:
+    if other and not apart:
         raise AssertionError(f"a call ran device functions not named "
                              f"{prefix}*: {other}")
     per = {e.key: e.self_device_time_total / e.count
            * max(1, round(e.count / n)) / 1e3 for e in on_card}
-    return sum(per.values()), {e.key: e.count / n for e in on_card}, per
+    own = sum(v for k, v in per.items() if k not in other)
+    return own, {e.key: e.count / n for e in on_card}, per
+
+
+def fn_name(key: str) -> str:
+    """A device function's name from the profiler's key (its signature)."""
+    m = re.search(r"(\w+)(<[^(]*>)?\(", key)
+    return m.group(1) + (m.group(2) or "") if m else key
 
 
 def mm_row(per, s: int, mix=LAYER_MIX):
@@ -1498,11 +1614,12 @@ def block_prefill_walls(torch, model, params, lora, prompts):
 
 def xlstm_phase(torch, dev, cfg=None):
     """Multi-tenant serving of xlstm-1.3b at full width (see the module
-    docstring).  Returns (kernel row, launches by kernel)."""
+    docstring).  Returns (kernel 10's row, launches by kernel, kernel 3's
+    row at the round's d)."""
     from dataclasses import replace
     from repro_torch.common.tree import TaskVectorSpace, tree_leaves
     from repro_torch.configs.base import load_arch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import bitpack, ops
     from repro_torch.serve import (GenerationConfig, ModulatorStore,
                                    MultiTenantDecoder)
 
@@ -1537,6 +1654,12 @@ def xlstm_phase(torch, dev, cfg=None):
     store.ingest(dl)
     torch.cuda.synchronize()
     t_round = time.perf_counter() - t0
+    # kernel 3 at this width, on the sign planes of the round's task
+    # vectors (a launch of its own, not the main path's)
+    tvs = server.last_task_vectors
+    wide = sign_sim_packed_check(torch, *bitpack.sign_planes(tvs), tvs)
+    del tvs
+    torch.cuda.empty_cache()
     gcpu = torch.Generator().manual_seed(SEED + 10)
     ids = torch.randperm(T, generator=gcpu)[:XLSTM_B - 1].tolist()
     ids.append(ids[0])
@@ -1659,7 +1782,7 @@ def xlstm_phase(torch, dev, cfg=None):
     row["prefill_kernel10_ms"] = k10_ms
     row["decode_step_ms"] = statistics.median(step_ms)
     row["xlstm_modulated_matmul_launches"] = launches["modulated_matmul"]
-    return row, launches
+    return row, launches, wide
 
 
 def xlstm_fp32_check(torch, dev, cfg32, server, prompts, ids, gen_cfg):
@@ -1742,6 +1865,22 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(rows), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "bool"]:
+        # the bool/fp32 layout's kernels and its round alone: a quick
+        # loop for a change to kernels 4-7; no summary, no "ok" line
+        log("== bool phase alone ==")
+        rows, counts = bool_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"rows": rows, "launches": counts}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "devtime"]:
+        # kernels 3 and 5 timed alone, fills and conversions apart (runs on
+        # an earlier checkout too); no summary, no "ok" line
+        log("== kernels 3 and 5 alone ==")
+        out = devtime_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "mlstm"]:
         # kernel 10's checks and timings alone: a quick loop for a
         # kernel-10 change; no summary, no "ok" line
@@ -1753,7 +1892,8 @@ def main() -> int:
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
-              f"--only round or --only mlstm", file=sys.stderr)
+              f"--only round, --only bool, --only devtime or --only mlstm",
+              file=sys.stderr)
         return 2
     log("== kernel phase ==")
     rows = kernel_phase(torch, dev)
@@ -1766,7 +1906,11 @@ def main() -> int:
     log("== serve phase ==")
     serve_rows, serve_counts = serve_phase(torch, dev)
     log("== xlstm phase ==")
-    xlstm_row, xlstm_counts = xlstm_phase(torch, dev)
+    xlstm_row, xlstm_counts, sim_wide = xlstm_phase(torch, dev)
+    rows["sign_sim_packed"]["at_xlstm_round_d"] = {
+        k: sim_wide[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "library_ms", "first_design_ms",
+                                 "first_design_device_ms")}
     serve_rows["mlstm_chunkwise"] = xlstm_row
     serve_counts["mlstm_chunkwise"] = xlstm_counts["mlstm_chunkwise"]
     kernels, checks = [], {}

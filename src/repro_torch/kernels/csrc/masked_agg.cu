@@ -7,7 +7,7 @@
 //    -> masked_agg_packed_launch (two routes, chosen by N; see below);
 //  * masked_agg_batched_pallas (the bool/fp32 A/B layout: masks as
 //    (N, T, d) bytes of a torch.bool tensor; outputs tau_hat and m_hat)
-//    -> masked_agg_launch;
+//    -> masked_agg_launch (the same two routes);
 //  * masked_agg_pallas (one task: masks (N, d) as bool bytes or {0, 1} in
 //    fp32/bf16; membership derived here from gamma > 0, N_t = max(#members,
 //    1); outputs tau_hat and m_hat) -> masked_agg_single_launch, the bool
@@ -22,18 +22,22 @@
 //
 // What bounds it on the H100: device-memory bytes (a handful of flops per
 // loaded value).  Of the packed kernel's bytes at the full-width round
-// (N 32, T 30, d 1,327,140) three quarters are its fp32 (T, d) outputs.
+// (N 32, T 30, d 1,327,140) three quarters are its fp32 (T, d) outputs;
+// of the bool layout's, half (its mask bytes are another quarter).
 //
-// The packed layout's tile route (masked_agg_lists_kernel +
-// masked_agg_tile_kernel, one C call), taken when N rows of a tile fit one
+// Both layouts' tile route (masked_agg_lists_kernel +
+// masked_agg_tile_kernel<T, BYTES>, one C call), taken when N rows of a
+// tile fit one
 // 48 KB stage — the widest tile of 1024, 512 or 256 coordinates that does
 // (tile_width; up to N = 93 in bf16, 47 in fp32; mirrored by
 // repro_torch.kernels.masked_agg.packed_tile):
 //  * persistent blocks walk d-tiles; a tile's N unified rows are staged
 //    in shared memory by 1-D bulk copies (stage.cuh: any d, any row
-//    offset) in a ring of two stages, so unified is read from device
-//    memory exactly once, and the next tile's rows are in flight while
-//    this one is summed;
+//    offset), so unified is read from device memory exactly once: packed,
+//    in a ring of two stages, the next tile's rows in flight while this
+//    one is summed (two blocks a SM); bool, in one stage, three blocks a
+//    SM hiding each other's waits (its mask loads gain more from warps
+//    than from the ring);
 //  * masked_agg_lists_kernel first writes every task's member list once
 //    (one warp a task: a ballot over its (N, T) flags, ascending n; the
 //    member weight, gamma * lambda rounded once as the plain version
@@ -41,24 +45,32 @@
 //    L1, so the C call takes lams, gammas and bool members as they are;
 //  * for every task the block's threads own 8 consecutive coordinates
 //    each (tile / 8 threads a task, 256 / that many tasks at once): they
-//    share one mask word, and their unified values are shared loads as
+//    share one mask word (bool layout: 8 mask bytes, turned into the same
+//    8 bits by a multiply), and their unified values are shared loads as
 //    wide as the staged row's alignment allows, unchecked when every
 //    staged row of the tile is whole and no coordinate is past d (one
 //    test a tile); a task's first four members' mask words are loaded
 //    together;
+//  * bool layout: its mask bytes are 8x the words, and loaded where they
+//    are used they set the pace (each task waits for its own); so on whole
+//    tiles with 4-byte-aligned rows every thread copies its 8 bytes of a
+//    task's first 8 members by cp.async into a buffer of its own in
+//    shared memory a task ahead, and the next tile's first task while the
+//    block waits at the tile's barrier (staging a tile's mask rows for the
+//    whole block instead left room for fewer blocks a SM, and was slower);
 //  * m_hat of a count of unit votes below 32 is a shuffle from the lane
 //    that divided that count by N_t once a task, where each coordinate
 //    took a division;
-//  * tau_hat and a_num go out as 16-byte streaming stores (__stcs:
+//  * tau_hat and a_num (m_hat) go out as 16-byte streaming stores (__stcs:
 //    written once, evicted first); plain float4 stores compiled to 4-byte
 //    ones here;
-//  * registers are capped for two blocks a SM (16 warps).
+//  * registers are capped for two blocks a SM (16 warps; bool: three).
 // Larger N keep the first design below as the second route: one block
 // per (task, coordinate range), with gamma * lambda and the member flags
 // as fp32 first written by masked_agg_prep_kernel in the same C call.
 //
-// The first design (the wide-N packed route, the bool layout and the
-// single-task kernel):
+// The first design (the wide-N route of both layouts and the single-task
+// kernel):
 //  * rows with members[n, t] == 0 are skipped — their masks are zero and
 //    their gamma is zero, so they add nothing.  The TPU kernels' BlockSpecs
 //    stream all N unified rows for every task; at N = 32, T = 30 and
@@ -245,9 +257,18 @@ int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- the packed layout's tile route ------------------------------------
+// -- both layouts' tile route ----------------------------------------
 
-constexpr int TILE_STAGES = 2;
+// Unified stages a block and blocks a SM: the packed layout keeps the
+// next tile's rows in flight; the bool layout, whose mask-byte waits set
+// its pace, trades that for a third block a SM (one stage, its prefetch).
+template <bool BYTES>
+__host__ __device__ constexpr int tile_stages() { return BYTES ? 1 : 2; }
+template <bool BYTES>
+__host__ __device__ constexpr int tile_blocks() { return BYTES ? 3 : 2; }
+constexpr int PREFETCH = 8;     // members a task whose mask bytes are
+                                // prefetched (bool layout)
+constexpr size_t PREFETCH_BYTES = 2ull * PREFETCH * BLOCK * 8;
 constexpr long long STAGE_BYTES = 48 * 1024;  // N staged rows of a tile
 constexpr int QUADS = 2;                 // a thread's coordinates / 4
 
@@ -341,7 +362,26 @@ __device__ __forceinline__ void load_quad(const __nv_bfloat16* p, int align,
   }
 }
 
-// A task's count, N_t and first four members, with their mask words for
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// A task's count, N_t and first four members, with their mask bits for
 // the thread's coordinates, loaded together before its sums.
 struct TaskFetch {
   int count;
@@ -350,19 +390,52 @@ struct TaskFetch {
   uint32_t w[4];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK, 2)
+// Bytes 0..3 of x (each 0 or 1, as in a torch.bool tensor) as bits 0..3.
+__device__ __forceinline__ uint32_t byte_bits(uint32_t x) {
+  return (x * 0x01020408u) >> 24;
+}
+
+// The mask bits of the 8 bool bytes at p (coordinates c < m valid): loads
+// as wide as p's alignment allows (the row's: the same for the warp),
+// streaming (each byte is read once).
+__device__ __forceinline__ uint32_t mask_byte_bits(const uint8_t* p, int m) {
+  uint32_t v[2] = {0u, 0u};
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (m >= 8 && (a & 7) == 0) {
+    const uint2 x = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else if (m >= 8 && (a & 3) == 0) {
+    v[0] = __ldcs(reinterpret_cast<const unsigned*>(p));
+    v[1] = __ldcs(reinterpret_cast<const unsigned*>(p + 4));
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c < m) v[c / 4] |= static_cast<uint32_t>(p[c]) << (8 * (c % 4));
+  }
+  return byte_bits(v[0]) | (byte_bits(v[1]) << 4);
+}
+
+// BYTES: masks are the bool layout's (N, T, d) bytes and out2 gets m_hat;
+// else (N, T, ceil(d/32)) words and out2 gets a_num.
+template <typename T, bool BYTES>
+__global__ void __launch_bounds__(BLOCK, tile_blocks<BYTES>())
 masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
-                       const uint32_t* __restrict__ words,
+                       const void* __restrict__ masks,
                        const int* __restrict__ lists, int list_ld,
                        int members_f32, int N, int T_, long long d,
                        long long n_words, int tile, float rho,
                        float* __restrict__ tau_out,
-                       float* __restrict__ anum_out) {
+                       float* __restrict__ out2) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
+  constexpr int TILE_STAGES = tile_stages<BYTES>();
   const int row = tile * static_cast<int>(sizeof(T)) + 16;
   const long long stage = static_cast<long long>(N) * row;
   auto* bar = reinterpret_cast<uint64_t*>(tile_smem + TILE_STAGES * stage);
+  // bool layout: each thread's 8 mask bytes of the first PREFETCH members
+  // of a task, [buffer][member][thread], for the next task while this one
+  // is summed (a thread reads only what it copied)
+  auto* pbuf = reinterpret_cast<uint2*>(bar + TILE_STAGES);
   const long long n_tiles = (d + tile - 1) / tile;
   const int per_task = tile / (4 * QUADS);  // threads a task (>= 32)
   const int groups = BLOCK / per_task;      // tasks at once
@@ -372,7 +445,7 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool vec_out =
       ((reinterpret_cast<uintptr_t>(tau_out) |
-        reinterpret_cast<uintptr_t>(anum_out)) & 15) == 0;
+        reinterpret_cast<uintptr_t>(out2)) & 15) == 0;
 
   auto row_addr = [&](long long r, long long j0) -> uintptr_t {
     return reinterpret_cast<uintptr_t>(unified + (r * d + j0));
@@ -395,6 +468,48 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
       if (blockIdx.x + s * (long long)gridDim.x < n_tiles)
         issue(blockIdx.x + s * (long long)gridDim.x, s);
 
+  // every staged row of tile tl copied whole and no coordinate past d: the
+  // sums read shared memory unchecked (only rows 0 and N - 1 can be cut at
+  // the tensor's ends)
+  auto fast_of = [&](long long tl) {
+    const long long j0 = tl * tile;
+    return d - j0 >= tile && in_span(row_addr(0, j0), tile * sizeof(T), span) &&
+           in_span(row_addr(N - 1, j0), tile * sizeof(T), span);
+  };
+  // bool layout, fast tiles with 4-byte-aligned rows: the mask bytes of a
+  // task's first PREFETCH members come by cp.async a task ahead (across
+  // tiles too), into buffer b
+  auto pre_of = [&](long long tl) {
+    return BYTES && fast_of(tl) &&
+           ((d | reinterpret_cast<uintptr_t>(masks)) & 3) == 0;
+  };
+  auto prefetch = [&](long long tl, int t, int b) {
+    const int* lrow = lists + static_cast<long long>(t) * list_ld;
+    const int count = lrow[0];
+#pragma unroll
+    for (int q = 0; q < PREFETCH; ++q)
+      if (q < count) {
+        const auto* src = static_cast<const uint8_t*>(masks) +
+                          (lrow[4 + 4 * q] * static_cast<long long>(T_) + t) *
+                              d + tl * tile + jt;
+        uint2* dst = pbuf + (b * PREFETCH + q) * BLOCK + threadIdx.x;
+        if ((reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+          cp_async(dst, src, 8);
+        } else {
+          cp_async(dst, src, 4);
+          cp_async(reinterpret_cast<unsigned char*>(dst) + 4, src + 4, 4);
+        }
+      }
+    cp_async_commit();
+  };
+  auto prefetched = [&](int b, int q) -> uint32_t {
+    const uint2 v = pbuf[(b * PREFETCH + q) * BLOCK + threadIdx.x];
+    return byte_bits(v.x) | (byte_bits(v.y) << 4);
+  };
+  int b = 0;
+  if (blockIdx.x < n_tiles && grp < T_ && pre_of(blockIdx.x))
+    prefetch(blockIdx.x, grp, 0);
+
   int it = 0;
   for (long long tl = blockIdx.x; tl < n_tiles; tl += gridDim.x, ++it) {
     const int s = it % TILE_STAGES;
@@ -402,19 +517,22 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
     const long long n = d - j0 < tile ? d - j0 : tile;
     const unsigned char* st = tile_smem + s * stage;
 
-    // every staged row of the tile copied whole and no coordinate past d:
-    // the sums read shared memory unchecked (only rows 0 and N - 1 can be
-    // cut at the tensor's ends)
-    const bool fast =
-        n == tile && in_span(row_addr(0, j0), tile * sizeof(T), span) &&
-        in_span(row_addr(N - 1, j0), tile * sizeof(T), span);
-    const uint32_t* wt = words + (j0 + jt) / 32;  // + (n T + t) n_words
-    const int shift = static_cast<int>((j0 + jt) & 31);
-    // member (row n) of task t: its mask word (0 past d)
+    const bool fast = fast_of(tl);
+    // member (row n) of task t: its mask word (0 past d), or the mask
+    // bits of the thread's 8 bytes (shift 0)
+    const int shift = BYTES ? 0 : static_cast<int>((j0 + jt) & 31);
     auto word = [&](long long nrow, int t) -> uint32_t {
-      return jt < n ? wt[(nrow * T_ + t) * n_words] : 0u;
+      if (jt >= n) return 0u;
+      if constexpr (BYTES)
+        return mask_byte_bits(static_cast<const uint8_t*>(masks) +
+                                  (nrow * T_ + t) * d + j0 + jt,
+                              static_cast<int>(n - jt));
+      else
+        return static_cast<const uint32_t*>(
+            masks)[(nrow * T_ + t) * n_words + (j0 + jt) / 32];
     };
-    auto fetch = [&](int t) {
+    const bool pre = pre_of(tl);
+    auto fetch = [&](int t, int b) {
       TaskFetch f;
       const int* lrow = lists + static_cast<long long>(t) * list_ld;
       const int2 h = *reinterpret_cast<const int2*>(lrow);
@@ -425,12 +543,12 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
         f.e[q] = reinterpret_cast<const int4*>(lrow + 4)[q];
 #pragma unroll
       for (int q = 0; q < 4; ++q)         // zero entries read row 0
-        f.w[q] = word(f.e[q].x, t);
+        f.w[q] = pre ? prefetched(b, q) : word(f.e[q].x, t);
       return f;
     };
 
     // one task's sums and outputs from its fetched members
-    auto task = [&](int t, const TaskFetch& cur) {
+    auto task = [&](int t, const TaskFetch& cur, int b) {
       float votes[QUADS][4], acc[QUADS][4];
 #pragma unroll
       for (int i = 0; i < QUADS; ++i)
@@ -484,7 +602,7 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
       const int* lrow = lists + static_cast<long long>(t) * list_ld + 4;
       for (int k = 4; k < count; ++k) {   // members past the fetched four
         const int4 e = reinterpret_cast<const int4*>(lrow)[k];
-        add(e, word(e.x, t));
+        add(e, pre && k < PREFETCH ? prefetched(b, k) : word(e.x, t));
       }
       // m_hat: lane a holds its value at a_num = a when a_num is a count
       // of unit votes below 32 (bool members), else divide per value
@@ -494,20 +612,22 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
         const float alpha = __fdiv_rn(static_cast<float>(lane), cur.n_t1);
         mh_tab = alpha >= rho ? 1.f : alpha;
       }
+      // av: a_num (words) or m_hat (bytes), the second output
       float tv[QUADS][4], av[QUADS][4];
 #pragma unroll
       for (int i = 0; i < QUADS; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          av[i][c] = fabsf(votes[i][c]);
+          const float a_num = fabsf(votes[i][c]);
           float m_hat;
           if (table) {
-            m_hat = __shfl_sync(FULL, mh_tab, static_cast<int>(av[i][c]));
+            m_hat = __shfl_sync(FULL, mh_tab, static_cast<int>(a_num));
           } else {
-            const float alpha = __fdiv_rn(av[i][c], cur.n_t1);
+            const float alpha = __fdiv_rn(a_num, cur.n_t1);
             m_hat = alpha >= rho ? 1.f : alpha;
           }
           tv[i][c] = __fmul_rn(acc[i][c], m_hat);
+          av[i][c] = BYTES ? m_hat : a_num;
         }
       const long long o = static_cast<long long>(t) * d + j0 + jt;
       if (vec_out && jt + 4 * QUADS <= n && (o & 3) == 0) {
@@ -515,7 +635,7 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
         for (int i = 0; i < QUADS; ++i) {
           __stcs(reinterpret_cast<float4*>(tau_out + o + 4 * i),
                  make_float4(tv[i][0], tv[i][1], tv[i][2], tv[i][3]));
-          __stcs(reinterpret_cast<float4*>(anum_out + o + 4 * i),
+          __stcs(reinterpret_cast<float4*>(out2 + o + 4 * i),
                  make_float4(av[i][0], av[i][1], av[i][2], av[i][3]));
         }
       } else {
@@ -523,13 +643,25 @@ masked_agg_tile_kernel(const T* __restrict__ unified, Span span,
         for (int c = 0; c < 4 * QUADS; ++c)
           if (jt + c < n) {
             tau_out[o + c] = tv[c / 4][c % 4];
-            anum_out[o + c] = av[c / 4][c % 4];
+            out2[o + c] = av[c / 4][c % 4];
           }
       }
     };
 
     mbar_wait(&bar[s], (it / TILE_STAGES) & 1);
-    for (int t = grp; t < T_; t += groups) task(t, fetch(t));
+    for (int t = grp; t < T_; t += groups, b ^= 1) {
+      if (pre) {
+        if (t + groups < T_)
+          prefetch(tl, t + groups, b ^ 1);
+        else
+          cp_async_commit();
+        cp_async_wait1();                 // this task's bytes have landed
+      }
+      task(t, fetch(t, b), b);
+    }
+    // the next tile's first task, while this block waits at the barrier
+    if (tl + gridDim.x < n_tiles && grp < T_ && pre_of(tl + gridDim.x))
+      prefetch(tl + gridDim.x, grp, b);
     __syncthreads();                      // stage s is read
     if (warp == 0 && tl + TILE_STAGES * (long long)gridDim.x < n_tiles)
       issue(tl + TILE_STAGES * (long long)gridDim.x, s);
@@ -556,27 +688,30 @@ long long list_words(int N, int T_) {
   return static_cast<long long>(T_) * (4 + 4 * (N < 4 ? 4 : N));
 }
 
-template <typename T>
-int launch_tile(const T* u, const uint32_t* words, const float* lams,
+template <typename T, bool BYTES>
+int launch_tile(const T* u, const void* masks, const float* lams,
                 const float* gammas, const uint8_t* mem_b,
                 const float* mem_f, int N, int T_, long long d, int tile,
-                float rho, int* lists, float* tau, float* anum,
+                float rho, int* lists, float* tau, float* out2,
                 cudaStream_t s) {
   masked_agg_lists_kernel<<<static_cast<unsigned>((T_ + 7) / 8), BLOCK, 0,
                             s>>>(lams, gammas, mem_b, mem_f, N, T_, lists);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  auto kern = masked_agg_tile_kernel<T>;
+  auto kern = masked_agg_tile_kernel<T, BYTES>;
   static bool opted_in = false;           // the largest stage ring
   if (!opted_in) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(TILE_STAGES * STAGE_BYTES + 64));
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(tile_stages<BYTES>() * (STAGE_BYTES + 8) +
+                         (BYTES ? PREFETCH_BYTES : 0)));
     if (e != cudaSuccess) return static_cast<int>(e);
     opted_in = true;
   }
-  const size_t smem = TILE_STAGES * (static_cast<size_t>(N) *
-                                     (tile * sizeof(T) + 16) + 8);
+  const size_t smem =
+      tile_stages<BYTES>() *
+          (static_cast<size_t>(N) * (tile * sizeof(T) + 16) + 8) +
+      (BYTES ? PREFETCH_BYTES : 0);
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, BLOCK,
                                                     smem);
@@ -592,10 +727,56 @@ int launch_tile(const T* u, const uint32_t* words, const float* lams,
   const Span span = tensor_span(u, static_cast<unsigned long long>(N) * d *
                                        sizeof(T));
   const int ld = 4 + 4 * (N < 4 ? 4 : N);
-  kern<<<grid, BLOCK, smem, s>>>(u, span, words, lists, ld, mem_f != nullptr,
+  kern<<<grid, BLOCK, smem, s>>>(u, span, masks, lists, ld, mem_f != nullptr,
                                  N, T_, d, (d + 31) / 32, tile, rho, tau,
-                                 anum);
+                                 out2);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both whole-round layouts: the tile route (tile > 0) or the first design
+// (the wide-N route), with the workspace and plan checks they share.
+template <bool BYTES>
+int round_launch(const void* unified, int u_bf16, const void* masks,
+                 const void* lams, const void* gammas, const void* members,
+                 int mem_f32, int N, int T_, long long d, float rho, int tile,
+                 void* ws, long long ws_words, void* tau_out, void* out2,
+                 void* stream) {
+  if (N < 1 || N > 4000 || T_ < 1 || T_ > 65535 || d < 1 ||
+      tile != tile_width(N, u_bf16 ? 2 : 4) || ws == nullptr ||
+      ws_words != (tile ? list_words(N, T_) : 2LL * N * T_))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* lam = static_cast<const float*>(lams);
+  auto* gam = static_cast<const float*>(gammas);
+  auto* mem_b = mem_f32 ? nullptr : static_cast<const uint8_t*>(members);
+  auto* mem_f = mem_f32 ? static_cast<const float*>(members) : nullptr;
+  auto* to = static_cast<float*>(tau_out);
+  auto* o2 = static_cast<float*>(out2);
+  if (tile) {
+    auto* lists = static_cast<int*>(ws);
+    if (u_bf16)
+      return launch_tile<__nv_bfloat16, BYTES>(
+          static_cast<const __nv_bfloat16*>(unified), masks, lam, gam, mem_b,
+          mem_f, N, T_, d, tile, rho, lists, to, o2, s);
+    return launch_tile<float, BYTES>(static_cast<const float*>(unified),
+                                     masks, lam, gam, mem_b, mem_f, N, T_, d,
+                                     tile, rho, lists, to, o2, s);
+  }
+  const long long count = static_cast<long long>(N) * T_;
+  auto* gl = static_cast<float*>(ws);
+  masked_agg_prep_kernel<<<static_cast<unsigned>((count + BLOCK - 1) / BLOCK),
+                           BLOCK, 0, s>>>(lam, gam, mem_b, mem_f, count, gl,
+                                          gl + count);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if constexpr (BYTES)
+    return launch<uint8_t, false, false>(unified, u_bf16, masks, gl,
+                                         gl + count, N, T_, d, rho, tau_out,
+                                         out2, stream);
+  else
+    return launch<uint32_t, true, false>(unified, u_bf16, masks, gl,
+                                        gl + count, N, T_, d, rho, tau_out,
+                                        out2, stream);
 }
 
 }  // namespace
@@ -615,48 +796,24 @@ extern "C" int masked_agg_packed_launch(const void* unified, int u_bf16,
                                         int tile, void* ws, long long ws_words,
                                         void* tau_out, void* anum_out,
                                         void* stream) {
-  if (N < 1 || N > 4000 || T_ < 1 || T_ > 65535 || d < 1 ||
-      tile != tile_width(N, u_bf16 ? 2 : 4) || ws == nullptr ||
-      ws_words != (tile ? list_words(N, T_) : 2LL * N * T_))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* lam = static_cast<const float*>(lams);
-  auto* gam = static_cast<const float*>(gammas);
-  auto* mem_b = mem_f32 ? nullptr : static_cast<const uint8_t*>(members);
-  auto* mem_f = mem_f32 ? static_cast<const float*>(members) : nullptr;
-  auto* w = static_cast<const uint32_t*>(words);
-  auto* to = static_cast<float*>(tau_out);
-  auto* ao = static_cast<float*>(anum_out);
-  if (tile) {
-    auto* lists = static_cast<int*>(ws);
-    if (u_bf16)
-      return launch_tile(static_cast<const __nv_bfloat16*>(unified), w, lam,
-                         gam, mem_b, mem_f, N, T_, d, tile, rho, lists, to,
-                         ao, s);
-    return launch_tile(static_cast<const float*>(unified), w, lam, gam,
-                       mem_b, mem_f, N, T_, d, tile, rho, lists, to, ao, s);
-  }
-  const long long count = static_cast<long long>(N) * T_;
-  auto* gl = static_cast<float*>(ws);
-  masked_agg_prep_kernel<<<static_cast<unsigned>((count + BLOCK - 1) / BLOCK),
-                           BLOCK, 0, s>>>(lam, gam, mem_b, mem_f, count, gl,
-                                          gl + count);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return launch<uint32_t, true, false>(unified, u_bf16, words, gl, gl + count,
-                                      N, T_, d, rho, tau_out, anum_out,
-                                      stream);
+  return round_launch<false>(unified, u_bf16, words, lams, gammas, members,
+                             mem_f32, N, T_, d, rho, tile, ws, ws_words,
+                             tau_out, anum_out, stream);
 }
 
 // The bool/fp32 layout: masks (N, T, d) uint8 holding 0 or 1 (a torch.bool
-// tensor); outputs tau_out and mhat_out (T, d) fp32.
+// tensor), the rest as masked_agg_packed_launch takes it; outputs tau_out
+// and mhat_out (T, d) fp32.
 extern "C" int masked_agg_launch(const void* unified, int u_bf16,
-                                 const void* masks, const void* gl,
-                                 const void* mem, int N, int T_, long long d,
-                                 float rho, void* tau_out, void* mhat_out,
-                                 void* stream) {
-  return launch<uint8_t, false, false>(unified, u_bf16, masks, gl, mem, N, T_,
-                                      d, rho, tau_out, mhat_out, stream);
+                                 const void* masks, const void* lams,
+                                 const void* gammas, const void* members,
+                                 int mem_f32, int N, int T_, long long d,
+                                 float rho, int tile, void* ws,
+                                 long long ws_words, void* tau_out,
+                                 void* mhat_out, void* stream) {
+  return round_launch<true>(unified, u_bf16, masks, lams, gammas, members,
+                            mem_f32, N, T_, d, rho, tile, ws, ws_words,
+                            tau_out, mhat_out, stream);
 }
 
 // One task: unified (N, d); masks (N, d) of mask_kind 0 = uint8 0/1 (a

@@ -10,9 +10,52 @@
 // Both give the exact integer sgn(tau_t) . sgn(tau_t'); the caller
 // normalises by d: S = (dots / d + 1) / 2.
 //
-// What bounds it on the H100: device-memory bytes — the packed planes are
-// 2 * T * w words, the dense input T * d fp32 values, each read once, and
-// T(T+1)/2 pairs cost a few integer ops per word.  Design against that:
+// The packed kernel, T <= 64 (the tensor-core route; one C call launches
+// sign_sim_packed_mma_kernel and sign_sim_packed_sum_kernel):
+//  * what bounds it on the H100: the planes are 2 * T * w words, read
+//    once (3 us at the full-width round, T 30, w 41,474).  The popcount
+//    identity takes two __popc a pair and word, 38.6 M there: at 16 a
+//    cycle a SM that alone is ~10 us.  The int8 tensor cores take the
+//    pair products instead.  Bit j of a word is coordinate 32k + j, and
+//    its sign as the identity defines it is +1 (nz and pos), -1 (nz, not
+//    pos) or 0 (no nz, whatever pos holds); the dots are the Gram matrix
+//    of those signs, exact in int32.  What bounds this design is integer
+//    instruction issue and each block's serial start and end, not bytes:
+//    turning plane bits into int8 operands costs ~6 integer instructions
+//    a row and word, and variants with the loads or the products left
+//    out each still take most of the kernel's time;
+//  * a group of 4 plane words of every task row is 4 k-steps of
+//    mma.sync.m16n8k32.s8: thread tig of a quad takes word tig of the
+//    group, and the mma of offset o = 0..3 its bits 8j + o and 8j + o + 4
+//    (j = 0..3) as int8 +-1/0 in registers: the word shifted by 0 or 2, a
+//    bit (o mod 2) of each byte masked, and one multiply-add make 4 of
+//    them, the odd offsets as +-2 into accumulators of their own (4 times
+//    the dots, divided out exactly).  The k order is free, as A and B
+//    share the registers: registers 0 and 2 of the A fragment of rows
+//    r..r+7 hold what the B fragment of those rows holds, so the Gram
+//    product needs no second operand, and only the upper-triangle 16 x 8
+//    tiles are multiplied (2, 6, 20 for T <= 16, 32, 64);
+//  * each block (two a SM) owns one contiguous range of words, staged for
+//    all T rows in chunks of 64 words by 16-byte cp.async into a ring of
+//    three stages (rows start only 4-byte aligned: a row's 16-byte-aligned
+//    window is copied, its few words cut off at the tensors' ends by
+//    4-byte copies; 1-D bulk copies of these 272-byte rows were slower);
+//    rows padded to 68 words (4 banks apart), so the 8 rows a fragment
+//    load touches fall in at most 2-way bank conflicts;
+//  * the 8 warps take groups in turn and keep int32 accumulators; the
+//    block adds the warps' fragments in shared memory (int32: exact in any
+//    order) and writes one partial a pair to a workspace; the sum kernel
+//    (one warp a pair) adds the blocks' partials in int32 and writes the
+//    fp32 dots, mirrored.  No atomics on device memory, no zero fill, no
+//    conversion pass after the call.
+// T > 64 keeps the first design as a second route (sign_sim_packed_kernel,
+// below, after sign_sim_packed_zero_kernel clears its int32 sums; the sum
+// kernel converts them), in the same C call.
+//
+// The first design (the packed route for T > 64, and the dense kernel):
+// what bounds it on the H100 is device-memory bytes — the packed planes
+// are 2 * T * w words, the dense input T * d fp32 values, each read once,
+// and T(T+1)/2 pairs cost a few integer ops per word.  Design against that:
 //  * each block stages one range of the input for all T tasks in shared
 //    memory: packed, W words of pos/nz; dense, the signs of W coordinates
 //    as int8, four to a 32-bit word (one coalesced read of the input, rows
@@ -112,21 +155,344 @@ sign_sim_kernel(const float* __restrict__ x, int T_, long long d, int WW,
   }
 }
 
+
+// -- the tensor-core route (T <= 64) ------------------------------------
+
+constexpr int MMA_THREADS = 256;         // 8 warps
+constexpr int MMA_WARPS = MMA_THREADS / 32;
+constexpr int CHUNK = 64;                // words a chunk
+constexpr int STAGES = 3;                // chunks in flight
+constexpr int ROW_W = CHUNK + 4;         // words a stage row (4 mod 32)
+constexpr int SEGS = CHUNK / 4 + 1;      // 16-byte segments a row window
+
+// Shared-memory bytes of the mma kernel for MT 16-row task tiles: STAGES
+// chunks of both planes (the warps' accumulator fragments reuse it).
+constexpr size_t mma_smem(int MT) {
+  return static_cast<size_t>(STAGES) * 2 * 16 * MT * ROW_W * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, uintptr_t src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The int8 signs of the coordinates at bits q, 8 + q, 16 + q, 24 + q of
+// the plane words p (pos) and z (nz), scaled by 2^q: +2^q, -2^q or 0 a
+// byte (q = 0: 0x01, 0xff; q = 1: 0x02, 0xfe).  The positive and negative
+// bits are disjoint, so the add is an or.
+__device__ __forceinline__ uint32_t signs4(uint32_t p, uint32_t z, int q) {
+  const uint32_t m = 0x01010101u << q;
+  const uint32_t pb = p & z & m, nb = ~p & z & m;
+  return pb + nb * ((0x100u >> q) - 1u);
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Index of the pair (a, b), a <= b < T, in row-major upper-triangle order.
+__device__ __forceinline__ int pair_index(int a, int b, int T_) {
+  return a * T_ - a * (a - 1) / 2 + (b - a);
+}
+
+// pos, nz (T, w) words, T <= 16 * MT.  Block blk owns the words
+// [blk * W, min((blk + 1) * W, w)), W a multiple of 4; it writes its sum
+// of every pair (a <= b) to ws[blk * T(T+1)/2 + pair_index(a, b)] (a
+// contiguous row of its own, so that blocks share no sector but at their
+// rows' ends).
+template <int MT>
+__global__ void __launch_bounds__(MMA_THREADS, MT == 4 ? 1 : 2)
+sign_sim_packed_mma_kernel(const uint32_t* __restrict__ pos,
+                           const uint32_t* __restrict__ nz, int T_,
+                           long long w, long long W, int* __restrict__ ws) {
+  constexpr int R = 16 * MT;               // task rows, zero past T
+  constexpr int NT = 2 * MT;               // 8-column tiles
+  constexpr int TILES = MT * (MT + 1);     // upper-triangle 16 x 8 tiles
+  constexpr int PLANE = R * ROW_W;         // words of one plane a stage
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const long long w0 = blockIdx.x * W;
+  const long long w1 = w0 + W < w ? w0 + W : w;
+  const int n_chunks = static_cast<int>((w1 - w0 + CHUNK - 1) / CHUNK);
+  // the planes' addresses and their bytes (both tensors the same size)
+  const uintptr_t base[2] = {reinterpret_cast<uintptr_t>(pos),
+                             reinterpret_cast<uintptr_t>(nz)};
+  const unsigned long long bytes = 4ull * T_ * w;
+
+  // rows past T stay zero in every stage
+  for (int sp = 0; sp < 2 * STAGES; ++sp)
+    for (int i = tid; i < (R - T_) * ROW_W; i += MMA_THREADS)
+      sm[sp * PLANE + T_ * ROW_W + i] = 0u;
+  // the 16-byte-aligned start of each plane row's window at the block's
+  // first word, and the row's offset in it (pos rows, then nz rows)
+  __shared__ uintptr_t row_a0[2 * 16 * MT];
+  __shared__ int row_mis[2 * 16 * MT];
+  for (int i = tid; i < 2 * T_; i += MMA_THREADS) {
+    const int pl = i >= T_, r = i - pl * T_;
+    const uintptr_t a = base[pl] + 4ull * (r * w + w0);
+    row_a0[i] = a & ~uintptr_t(15);
+    row_mis[i] = static_cast<int>(a & 15);
+  }
+  __syncthreads();
+
+  // chunk c of the block's range into stage s: the 16-byte segments of
+  // each row's window that hold its words (the chunks start 256 bytes
+  // apart), 4-byte copies where a segment leaves the tensor
+  auto issue = [&](int c, int s) {
+    const long long c0 = w0 + static_cast<long long>(c) * CHUNK;
+    const int n_bytes =
+        4 * static_cast<int>(w1 - c0 < CHUNK ? w1 - c0 : CHUNK);
+    unsigned char* stage = reinterpret_cast<unsigned char*>(sm + s * 2 * PLANE);
+    for (int i = tid; i < 2 * T_ * SEGS; i += MMA_THREADS) {
+      const int pr = i / SEGS, sg = i - pr * SEGS;
+      if (16 * sg >= row_mis[pr] + n_bytes) continue;
+      const int pl = pr >= T_;
+      const uintptr_t y = row_a0[pr] + 4ull * CHUNK * c + 16 * sg;
+      unsigned char* dst =
+          stage + 4 * ((pr + pl * (R - T_)) * ROW_W) + 16 * sg;
+      const uintptr_t lo = base[pl], hi = base[pl] + bytes;
+      if (y >= lo && y + 16 <= hi) {
+        cp_async16(dst, y);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (y + 4 * q >= lo && y + 4 * q + 4 <= hi)
+            cp_async4(dst + 4 * q, y + 4 * q);
+      }
+    }
+  };
+
+  // this thread's rows g + 8h of each task tile: their word offsets in a
+  // stage plane (the row's misalignment is the same in every chunk: the
+  // chunks start 16-byte steps apart)
+  int off[2][2 * MT];
+#pragma unroll
+  for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j) {
+      const int r = 8 * j + g;
+      off[pl][j] = r * ROW_W + (r < T_ ? row_mis[pl * T_ + r] >> 2 : 0);
+    }
+
+  int acc[2][TILES][4];                   // bits o even, odd (4x)
+#pragma unroll
+  for (int i = 0; i < TILES; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[0][i][q] = acc[1][i][q] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_chunks) issue(s, s);
+    cp_async_commit();
+  }
+  // one group of 4 plane words of every task row: 4 k-steps.  The k
+  // order is free (A and B share the registers): thread tig takes word
+  // tig of the group, and an mma the bits 8 j + o of that word (register
+  // h of rows g + 8h) and 8 j + o + 4 (register h + 2), j = 0..3, o = 0..3
+  // in turn.  Shifting the word by 0 or 2 and masking bit 0 or 1 of each
+  // byte gives o, so a bit o = q (mod 2) enters as +-2^q: the q = 1 mmas
+  // sum into their own accumulators, 4 times the dots
+  auto group = [&](const uint32_t* sp, const uint32_t* sn, int k, int n) {
+    uint32_t pw[2 * MT], zw[2 * MT];      // this thread's word of each row
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j) {
+      pw[j] = k + tig < n ? sp[off[0][j] + k] : 0u;
+      zw[j] = k + tig < n ? sn[off[1][j] + k] : 0u;
+    }
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const int sh = o & 2, q = o & 1;
+      uint32_t fa[MT][4];
+#pragma unroll
+      for (int j = 0; j < 2 * MT; ++j) {
+        fa[j / 2][j % 2] = signs4(pw[j] >> sh, zw[j] >> sh, q);
+        fa[j / 2][j % 2 + 2] = signs4(pw[j] >> (sh + 4), zw[j] >> (sh + 4), q);
+      }
+      // the B fragment of columns 8 nt .. 8 nt + 7 is registers 0 and 2
+      // (nt even) or 1 and 3 (nt odd) of task tile nt / 2
+      int tile = 0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 2 * mt; nt < NT; ++nt, ++tile)
+          mma_s8(acc[q][tile], fa[mt], fa[nt / 2][nt % 2],
+                 fa[nt / 2][nt % 2 + 2]);
+    }
+  };
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                      // chunk c landed; c - 1 consumed
+    if (c + STAGES - 1 < n_chunks)
+      issue(c + STAGES - 1, (c + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const uint32_t* sp = sm + (c % STAGES) * 2 * PLANE + tig;
+    const uint32_t* sn = sp + PLANE;
+    const long long c0 = w0 + static_cast<long long>(c) * CHUNK;
+    const int n = static_cast<int>(w1 - c0 < CHUNK ? w1 - c0 : CHUNK);
+    if (n == CHUNK) {                     // unrolled: immediate offsets
+#pragma unroll
+      for (int i = 0; i < CHUNK / (4 * MMA_WARPS); ++i)
+        group(sp, sn, 4 * (warp + MMA_WARPS * i), CHUNK);
+    } else {
+      for (int k = 4 * warp; k < n; k += 4 * MMA_WARPS) group(sp, sn, k, n);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                        // every stage read
+
+  // the warps' fragments side by side in shared memory, then each
+  // fragment entry summed over the 8 warps (int32: exact in any order) and
+  // written as the block's partial of its pair, where row <= col < T
+  int* red = reinterpret_cast<int*>(sm);
+  constexpr int FRAG = TILES * 4 * 32;     // a warp's accumulator entries
+#pragma unroll
+  for (int i = 0; i < TILES; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) red[warp * FRAG + (i * 4 + q) * 32 + lane] =
+        acc[0][i][q] + (acc[1][i][q] >> 2);   // exact: a multiple of 4
+  __syncthreads();
+  for (int i = tid; i < FRAG; i += MMA_THREADS) {
+    int sum = 0;
+#pragma unroll
+    for (int v = 0; v < MMA_WARPS; ++v) sum += red[v * FRAG + i];
+    const int l = i & 31, q = (i >> 5) & 3;
+    int tile = i >> 7, mt = 0;             // tile -> (mt, nt >= 2 mt)
+    while (tile >= NT - 2 * mt) {
+      tile -= NT - 2 * mt;
+      ++mt;
+    }
+    const int nt = 2 * mt + tile;
+    const int row = 16 * mt + (l >> 2) + 8 * (q >> 1);
+    const int col = 8 * nt + 2 * (l & 3) + (q & 1);
+    if (row <= col && col < T_)
+      ws[static_cast<long long>(blockIdx.x) * (T_ * (T_ + 1) / 2) +
+         pair_index(row, col, T_)] = sum;
+  }
+}
+
+// Clears the first design's int32 sums (the route for T > 64).
+__global__ void __launch_bounds__(BLOCK)
+sign_sim_packed_zero_kernel(int* __restrict__ sums, int count) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  if (i < count) sums[i] = 0;
+}
+
+// One warp a pair (a <= b): the sum of its n_blk partials, ws[i * P + p]
+// for i < n_blk (the tensor-core route: p = pair_index(a, b) in rows of
+// P = T(T+1)/2; the first design's (T, T) sums: p = a * T + b, n_blk = 1),
+// in int32 (exact in any order), written as fp32 to dots[a, b] and
+// dots[b, a].
+__global__ void __launch_bounds__(BLOCK)
+sign_sim_packed_sum_kernel(const int* __restrict__ ws, int T_, int n_blk,
+                           int square, float* __restrict__ dots) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (BLOCK / 32) + (threadIdx.x >> 5);
+  if (p >= T_ * T_) return;               // uniform over the warp
+  const int a = p / T_, b = p % T_;
+  if (a > b) return;
+  const int* src = ws + (square ? p : pair_index(a, b, T_));
+  const long long stride = T_ * (T_ + 1) / 2;
+  int s = 0;
+#pragma unroll 4
+  for (int i = lane; i < n_blk; i += 32) s += src[i * stride];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (lane == 0) {
+    const float v = static_cast<float>(s);
+    dots[a * T_ + b] = v;
+    dots[b * T_ + a] = v;
+  }
+}
+
+template <int MT>
+cudaError_t launch_mma(const uint32_t* pos, const uint32_t* nz, int T_,
+                       long long w, int blocks, long long W, int* ws,
+                       cudaStream_t s) {
+  auto kern = sign_sim_packed_mma_kernel<MT>;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(mma_smem(MT)));
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  kern<<<static_cast<unsigned>(blocks), MMA_THREADS, mma_smem(MT), s>>>(
+      pos, nz, T_, w, W, ws);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// pos, nz (T, w) uint32; dots (T, T) int32, zeroed by the caller.  W words
-// per block; 2 * T * (W + 1) * 4 bytes of shared memory must fit in 48 KB.
+// pos, nz (T, w) uint32 planes; dots (T, T) fp32 out.  route 1, the
+// tensor cores (T <= 64): ``blocks`` blocks of W words each (W a multiple
+// of 4, blocks * W >= w > (blocks - 1) * W), ws of blocks * T(T+1)/2
+// int32 partials.  route 0, the first design (any T): W words a block,
+// 2 * T * (W + 1) * 4 bytes of shared memory within 48 KB, blocks =
+// ceil(w / W), ws of T * T int32 sums.  ws needs no fill.  Returns
+// cudaGetLastError().
 extern "C" int sign_sim_packed_launch(const void* pos, const void* nz, int T_,
-                                      long long w, int W, void* dots,
+                                      long long w, int route, int blocks,
+                                      long long W, void* ws,
+                                      long long ws_words, void* dots,
                                       void* stream) {
-  const size_t smem = 2ull * T_ * (W + 1) * sizeof(uint32_t);
-  if (T_ < 1 || w < 1 || W < 1 || smem > 48 * 1024)
+  if (T_ < 1 || w < 1 || W < 1 || blocks < 1 ||
+      static_cast<long long>(blocks) * W < w ||
+      static_cast<long long>(blocks - 1) * W >= w || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_blocks = (w + W - 1) / W;
-  sign_sim_packed_kernel<<<static_cast<unsigned>(n_blocks), BLOCK, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pos), static_cast<const uint32_t*>(nz), T_,
-      w, W, static_cast<int*>(dots));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* p = static_cast<const uint32_t*>(pos);
+  auto* z = static_cast<const uint32_t*>(nz);
+  auto* out = static_cast<float*>(dots);
+  int* sums = static_cast<int*>(ws);
+  const int pairs = T_ * (T_ + 1) / 2;
+  cudaError_t e;
+  if (route == 1) {
+    if (T_ > 64 || W % 4 != 0 ||
+        ws_words != static_cast<long long>(blocks) * pairs)
+      return static_cast<int>(cudaErrorInvalidValue);
+    e = T_ <= 16   ? launch_mma<1>(p, z, T_, w, blocks, W, sums, s)
+        : T_ <= 32 ? launch_mma<2>(p, z, T_, w, blocks, W, sums, s)
+                   : launch_mma<4>(p, z, T_, w, blocks, W, sums, s);
+  } else if (route == 0) {
+    const size_t smem = 2ull * T_ * (W + 1) * sizeof(uint32_t);
+    if (smem > 48 * 1024 || ws_words != static_cast<long long>(T_) * T_)
+      return static_cast<int>(cudaErrorInvalidValue);
+    sign_sim_packed_zero_kernel<<<(T_ * T_ + BLOCK - 1) / BLOCK, BLOCK, 0,
+                                  s>>>(sums, T_ * T_);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sign_sim_packed_kernel<<<static_cast<unsigned>(blocks), BLOCK, smem, s>>>(
+        p, z, T_, w, static_cast<int>(W), sums);
+    e = cudaGetLastError();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sign_sim_packed_sum_kernel<<<(T_ * T_ + BLOCK / 32 - 1) / (BLOCK / 32),
+                               BLOCK, 0, s>>>(sums, T_, route == 1 ? blocks : 1,
+                                              route == 0, out);
   return static_cast<int>(cudaGetLastError());
 }
 

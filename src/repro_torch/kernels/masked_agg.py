@@ -32,7 +32,8 @@ KERNEL = CudaKernel("masked_agg_batched_packed", "masked_agg.cu",
                      _P, _P, _P])
 KERNEL_BOOL = CudaKernel("masked_agg_batched", "masked_agg.cu",
                          "masked_agg_launch",
-                         [_P, _I, _P, _P, _P, _I, _I, _LL, _F, _P, _P, _P])
+                         [_P, _I, _P, _P, _P, _P, _I, _I, _I, _LL, _F, _I, _P,
+                          _LL, _P, _P, _P])
 KERNEL_SINGLE = CudaKernel("masked_agg", "masked_agg.cu",
                            "masked_agg_single_launch",
                            [_P, _I, _P, _I, _P, _P, _I, _LL, _F, _P, _P, _P])
@@ -46,8 +47,9 @@ STAGE_BYTES = 48 * 1024   # the N staged unified rows of one packed tile
 
 
 def packed_tile(n: int, elt: int) -> int:
-    """The packed kernel's route and tile width for N rows of ``elt``-byte
-    unified values (``tile_width`` in ``csrc/masked_agg.cu``): the widest
+    """The whole-round kernels' route and tile width (both layouts: the
+    packed words and the bool bytes) for N rows of ``elt``-byte unified
+    values (``tile_width`` in ``csrc/masked_agg.cu``): the widest
     of 1024, 512 and 256 coordinates whose N staged rows (``tile * elt +
     16`` bytes each) fit one stage of :data:`STAGE_BYTES`; 0 where none
     does, the wide-N route (first for N = 94 in bf16, 48 in fp32)."""
@@ -58,7 +60,7 @@ def packed_tile(n: int, elt: int) -> int:
 
 
 def packed_workspace(n: int, t: int, tile: int) -> int:
-    """4-byte words of the packed C call's workspace: the tile route's
+    """4-byte words of a whole-round C call's workspace: the tile route's
     member lists, T rows of ``4 + 4 * max(N, 4)``; the wide-N route's
     fp32 γ·λ and member weights, ``2 * N * T``."""
     return t * (4 + 4 * max(n, 4)) if tile else 2 * n * t
@@ -140,39 +142,13 @@ def _check_round(kernel: CudaKernel, unified, n: int, t: int, d: int):
                          f"1 <= N <= {MAX_N}, got T={t}, N={n}")
 
 
-def _launch(kernel: CudaKernel, unified, masks, lams, gammas, members,
-            n: int, t: int, d: int, rho: float):
+def _launch_round(kernel: CudaKernel, unified, masks, lams, gammas, members,
+                  n: int, t: int, d: int, rho: float):
+    """One C call of either whole-round layout: it rounds γ·λ itself and
+    reads bool (or fp32) members as they are, so fp32 ``lams`` /
+    ``gammas`` and bool ``members`` take no other launch.  The route is
+    :func:`packed_tile`'s.  Returns (tau_hats, the second output)."""
     _check_round(kernel, unified, n, t, d)
-    gl = (gammas.float() * lams.float()).contiguous()
-    mem = members.float().contiguous()
-    for name, x in (("gamma*lambda", gl), ("members", mem)):
-        require_cuda(x, name, (torch.float32,), 2)
-        if tuple(x.shape) != (n, t):
-            raise ValueError(f"{name} {tuple(x.shape)} != {(n, t)}")
-    dev = unified.device
-    tau = torch.empty((t, d), dtype=torch.float32, device=dev)
-    out2 = torch.empty_like(tau)
-    with torch.cuda.device(dev):
-        kernel.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
-                      masks.data_ptr(), gl.data_ptr(), mem.data_ptr(), n, t,
-                      d, float(rho), tau.data_ptr(), out2.data_ptr(),
-                      stream_handle(unified))
-    return tau, out2
-
-
-def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
-                                   d: int, rho: float):
-    """The kernel path of :func:`masked_agg_batched_packed`: one C call,
-    which rounds γ·λ itself and reads bool (or fp32) members as they are,
-    so fp32 ``lams`` / ``gammas`` and bool ``members`` take no other
-    launch.  The route is :func:`packed_tile`'s."""
-    require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
-    require_cuda(mask_words, "mask_words", (torch.int32,), 3)
-    n, t, w = mask_words.shape
-    if w != bitpack.packed_width(d):
-        raise ValueError(f"mask_words {tuple(mask_words.shape)} do not fit "
-                         f"d={d}")
-    _check_round(KERNEL, unified, n, t, d)
     lam = lams.float().contiguous()
     gam = gammas.float().contiguous()
     mem = members if members.dtype == torch.bool else members.float()
@@ -186,22 +162,37 @@ def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
     ws_words = packed_workspace(n, t, tile)
     ws = torch.empty((ws_words,), dtype=torch.int32, device=dev)
     tau = torch.empty((t, d), dtype=torch.float32, device=dev)
-    a_num = torch.empty_like(tau)
+    out2 = torch.empty_like(tau)
     with torch.cuda.device(dev):
-        KERNEL.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
-                      mask_words.data_ptr(), lam.data_ptr(), gam.data_ptr(),
+        kernel.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
+                      masks.data_ptr(), lam.data_ptr(), gam.data_ptr(),
                       mem.data_ptr(), int(mem.dtype == torch.float32), n, t,
                       d, float(rho), tile, ws.data_ptr(), ws_words,
-                      tau.data_ptr(), a_num.data_ptr(), stream_handle(unified))
-    return tau, a_num
+                      tau.data_ptr(), out2.data_ptr(), stream_handle(unified))
+    return tau, out2
+
+
+def masked_agg_batched_packed_cuda(unified, mask_words, lams, gammas, members,
+                                   d: int, rho: float):
+    """The kernel path of :func:`masked_agg_batched_packed`
+    (:func:`_launch_round`)."""
+    require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
+    require_cuda(mask_words, "mask_words", (torch.int32,), 3)
+    n, t, w = mask_words.shape
+    if w != bitpack.packed_width(d):
+        raise ValueError(f"mask_words {tuple(mask_words.shape)} do not fit "
+                         f"d={d}")
+    return _launch_round(KERNEL, unified, mask_words, lams, gammas, members,
+                         n, t, d, rho)
 
 
 def masked_agg_batched_cuda(unified, masks, lams, gammas, members,
                             rho: float):
-    """The kernel path of :func:`masked_agg_batched`; the kernel reads the
-    bool masks' bytes as they are (no fp32 copy)."""
+    """The kernel path of :func:`masked_agg_batched`
+    (:func:`_launch_round`); the kernel reads the bool masks' bytes as they
+    are (no fp32 copy)."""
     require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
     require_cuda(masks, "masks", (torch.bool,), 3)
     n, t, d = masks.shape
-    return _launch(KERNEL_BOOL, unified, masks, lams, gammas, members, n, t,
-                   d, rho)
+    return _launch_round(KERNEL_BOOL, unified, masks, lams, gammas, members,
+                         n, t, d, rho)

@@ -9,11 +9,17 @@ their design note.  The dots are exact integers, so kernel and plain
 version (:func:`repro_torch.kernels.ref.sign_sim_packed_ref`,
 :func:`~repro_torch.kernels.ref.sign_sim_ref`) agree exactly, and S is
 bitwise the same in both layouts.
+
+The packed kernel has two routes, chosen by T in the wrapper
+(:func:`packed_plan`): T <= 64 takes the int8 tensor cores (each block
+owns one word range; a sum kernel adds the blocks' int32 partials in
+the same C call), T > 64 the first design (pairs on ``__popc``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,7 +28,7 @@ from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("sign_sim_packed", "sign_sim.cu", "sign_sim_packed_launch",
-                    [_P, _P, _I, _LL, _I, _P, _P])
+                    [_P, _P, _I, _LL, _I, _I, _LL, _P, _LL, _P, _P])
 KERNEL_DENSE = CudaKernel("sign_sim", "sign_sim.cu", "sign_sim_launch",
                           [_P, _I, _LL, _I, _P, _P])
 
@@ -37,6 +43,52 @@ def words_per_block(t: int) -> int:
     """Largest word range W whose pos/nz tiles for ``t`` tasks
     (2·t·(W+1) words, rows padded by one) fit in 48 KB."""
     return min(_MAX_W, _SMEM // (8 * t) - 1)
+
+
+MMA_MAX_T = 64         # the tensor-core route's task rows (4 tiles of 16)
+MMA_BLOCKS_PER_SM = 2
+MMA_CHUNK = 64         # words a block stages at a time, for every row
+MMA_STAGES = 3         # chunks in flight
+ROUTES = ("popc", "mma")   # index = the C call's route argument
+
+
+def packed_plan(t: int, w: int, sms: int = 132, route: str | None = None):
+    """The packed kernel's launch plan for (T, w) planes on a card of
+    ``sms`` SMs: (blocks, words a block, route).  By default T <= 64
+    takes the tensor cores ("mma"): two blocks a SM, each owning one
+    range of a multiple of 4 words, the ranges covering [0, w) once;
+    T > 64 the first design ("popc", :func:`words_per_block` words a
+    block).  ``route="popc"`` takes the first design at any T."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"unknown route {route!r}; expected one of {ROUTES}")
+    if route == "mma" and t > MMA_MAX_T:
+        raise ValueError(f"the tensor cores take T <= {MMA_MAX_T}, got {t}")
+    if route == "popc" or t > MMA_MAX_T:
+        per = words_per_block(t)
+        return -(-w // per), per, "popc"
+    per = -(-w // (MMA_BLOCKS_PER_SM * sms))
+    per = max(4, -(-per // 4) * 4)
+    return -(-w // per), per, "mma"
+
+
+def packed_smem(t: int) -> int:
+    """Shared-memory bytes of a tensor-core block for ``t`` tasks: the
+    stage ring of both planes for 16, 32 or 64 rows, each row padded to
+    68 words (``mma_smem`` in ``csrc/sign_sim.cu``), and each plane row's
+    window start (8 bytes) and offset (4)."""
+    rows = 16 if t <= 16 else 32 if t <= 32 else 64
+    return MMA_STAGES * 2 * rows * (MMA_CHUNK + 4) * 4 + 2 * rows * 12
+
+
+def packed_workspace(t: int, blocks: int, route: str) -> int:
+    """int32 words of the packed C call's workspace: one partial a block
+    and pair on the tensor-core route, the (T, T) sums on the first."""
+    return blocks * (t * (t + 1) // 2) if route == "mma" else t * t
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sign_words_per_block(t: int) -> int:
@@ -62,23 +114,31 @@ def sign_sim(tau_hats: torch.Tensor) -> torch.Tensor:
     return sign_sim_cuda(tau_hats)
 
 
-def sign_sim_packed_cuda(pos: torch.Tensor, nz: torch.Tensor) -> torch.Tensor:
-    """The kernel path of :func:`sign_sim_packed`."""
+def sign_sim_packed_cuda(pos: torch.Tensor, nz: torch.Tensor,
+                         route: str | None = None) -> torch.Tensor:
+    """The kernel path of :func:`sign_sim_packed`: one C call, whose
+    output is the fp32 dots (no fill, no conversion launch).  ``route``
+    is :func:`packed_plan`'s: "popc" runs the first design at any T, so
+    the two routes can be held against each other."""
     require_cuda(pos, "pos", (torch.int32,), 2)
     require_cuda(nz, "nz", (torch.int32,), 2)
     if pos.shape != nz.shape or pos.device != nz.device:
         raise ValueError(f"pos {tuple(pos.shape)} and nz {tuple(nz.shape)} "
                          f"must match")
     t, w = pos.shape
-    blk = words_per_block(t)
-    if blk < 1 or w < 1:
+    if words_per_block(t) < 1 or w < 1:
         raise ValueError(f"sign_sim_packed takes T <= {_SMEM // 16} and "
                          f"w >= 1, got {(t, w)}")
-    dots = torch.zeros((t, t), dtype=torch.int32, device=pos.device)
+    blocks, per, route = packed_plan(t, w, _sm_count(pos.device.index),
+                                     route)
+    ws = torch.empty((packed_workspace(t, blocks, route),), dtype=torch.int32,
+                     device=pos.device)
+    dots = torch.empty((t, t), dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
-        KERNEL.launch(pos.data_ptr(), nz.data_ptr(), t, w, blk,
-                      dots.data_ptr(), stream_handle(pos))
-    return dots.float()
+        KERNEL.launch(pos.data_ptr(), nz.data_ptr(), t, w,
+                      ROUTES.index(route), blocks, per, ws.data_ptr(),
+                      ws.numel(), dots.data_ptr(), stream_handle(pos))
+    return dots
 
 
 def sign_sim_cuda(tau_hats: torch.Tensor) -> torch.Tensor:

@@ -266,6 +266,72 @@ def test_cuda_packed_round_kernels_refusal_raises(cuda, monkeypatch):
     assert masked_agg.KERNEL.launches == before
 
 
+# -- kernel 3: the int8 tensor-core route and the first design -------------
+
+def sign_planes_np(seed, t, w, subset):
+    """(pos, nz) int32 (T, w) of random bits; ``subset=False`` leaves pos
+    bits where nz is clear, which the identity ignores."""
+    rng = np.random.default_rng(seed)
+    nz = rng.integers(0, 2 ** 32, (t, w), dtype=np.uint64)
+    pos = rng.integers(0, 2 ** 32, (t, w), dtype=np.uint64)
+    if subset:
+        pos &= nz
+    return [torch.from_numpy(a.astype(np.uint32).view(np.int32))
+            for a in (pos, nz)]
+
+
+def assert_sign_sim_packed_bitwise(pos, nz, want):
+    got = sign_sim.sign_sim_packed_cuda(pos, nz)
+    again = sign_sim.sign_sim_packed_cuda(pos, nz)
+    first = sign_sim.sign_sim_packed_cuda(pos, nz, route="popc")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(again, got) and torch.equal(first, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 7, 41_474])
+@pytest.mark.parametrize("t", [1, 2, 30, 32, 33, 64, 65])
+def test_cuda_sign_sim_packed_routes_bitwise(cuda, t, w):
+    """Both routes (the tensor cores for T <= 64, the first design at any
+    T) bitwise the plain version and run to run, pos a subset of nz for
+    even T and not for odd T."""
+    pos, nz = (x.to(cuda) for x in sign_planes_np(t * w, t, w, t % 2 == 0))
+    assert sign_sim.packed_plan(t, w)[2] == ("mma" if t <= 64 else "popc")
+    assert_sign_sim_packed_bitwise(pos, nz, sign_sim.plain(pos, nz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subset", [True, False])
+@pytest.mark.parametrize("shift", [1, 3])
+@pytest.mark.parametrize("t,w", [(30, 7), (30, 4100), (64, 333)])
+def test_cuda_sign_sim_packed_unaligned_planes(cuda, t, w, shift, subset):
+    """Planes that start 4 or 12 bytes past 16-byte alignment, every row
+    at its own offset: the staged windows' cut words come by 4-byte
+    copies; bitwise the plain version."""
+    pos, nz = (offset_view(x.to(cuda), shift)
+               for x in sign_planes_np(w + shift, t, w, subset))
+    assert pos.data_ptr() % 16 != 0 and nz.data_ptr() % 16 != 0
+    assert_sign_sim_packed_bitwise(pos, nz, sign_sim.plain(pos, nz))
+
+
+@pytest.mark.cuda
+def test_cuda_sign_sim_packed_refusal_raises(cuda, monkeypatch):
+    """No fallback: a plan whose blocks do not cover the words once is
+    refused; the wrapper raises and counts no launch."""
+    pos, nz = (x.to(cuda) for x in sign_planes_np(0, 30, 4100, True))
+    plan = sign_sim.packed_plan
+    monkeypatch.setattr(sign_sim, "packed_plan",
+                        lambda t, w, sms, route=None: (1, 4, "mma"))
+    before = sign_sim.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sign_sim.sign_sim_packed_cuda(pos, nz)
+    assert sign_sim.KERNEL.launches == before
+    monkeypatch.setattr(sign_sim, "packed_plan", plan)
+    sign_sim.sign_sim_packed_cuda(pos, nz)
+    assert sign_sim.KERNEL.launches == before + 1
+
+
 # -- the bool/fp32 layout ----------------------------------------------------
 
 @pytest.mark.cuda
@@ -325,6 +391,73 @@ def test_cuda_masked_agg_bool_matches_plain(cuda, seed, n, t, d):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(got[0], tau_p)
     assert not got[0][-1].any() and not got[1][-1].any()
+
+
+def bool_agg_args(seed, cuda, n, t, d, dtype, float_members=False):
+    """Kernel 5's arguments from ``bool_round`` (a zero-weight member, the
+    last task unheld) and the same masks as kernel 2's words."""
+    u, masks, words, lams, gam, mem = bool_round(seed, n, t, d)
+    members = torch.from_numpy(mem).to(cuda)
+    return ((torch.from_numpy(u).to(cuda, dtype), masks.to(cuda),
+             torch.from_numpy(lams).to(cuda), torch.from_numpy(gam).to(cuda),
+             members.float() if float_members else members, 0.4),
+            words.to(cuda))
+
+
+def assert_bool_agg_bitwise(args, words):
+    """τ̂ and m̂ bitwise the plain version and run to run, τ̂ bitwise
+    kernel 2's on the same mask bits, the unheld task zero."""
+    got = masked_agg.masked_agg_batched_cuda(*args)
+    again = masked_agg.masked_agg_batched_cuda(*args)
+    want = masked_agg.plain_bool(*args)
+    unified, masks, lams, gam, mem, rho = args
+    tau_p, _ = masked_agg.masked_agg_batched_packed_cuda(
+        unified, words, lams, gam, mem, masks.shape[-1], rho)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, g)
+    assert torch.equal(got[0], tau_p)
+    assert not got[0][-1].any() and not got[1][-1].any()     # unheld task
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [33, 4100, 65540])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_masked_agg_bool_tiles_bitwise(cuda, dtype, d):
+    """Kernel 5's tile route at the round's N = 32, T = 30, at widths whose
+    mask rows start at any byte (d = 33) or 4-byte aligned (4100, 65540)."""
+    args, words = bool_agg_args(d + 1, cuda, 32, 30, d, dtype)
+    assert masked_agg.packed_tile(32, args[0].element_size()) > 0
+    assert_bool_agg_bitwise(args, words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.bfloat16, 93),
+                                     (torch.bfloat16, 94),
+                                     (torch.float32, 47), (torch.float32, 48)])
+def test_cuda_masked_agg_bool_route_boundary(cuda, dtype, n):
+    """N on both sides of the boundary between the tile route and the
+    first design (the wide-N route)."""
+    args, words = bool_agg_args(n + 2, cuda, n, 5, 4100, dtype)
+    tile = masked_agg.packed_tile(n, args[0].element_size())
+    assert (tile > 0) == (n in (93, 47))
+    assert_bool_agg_bitwise(args, words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("float_members", [False, True])
+@pytest.mark.parametrize("shift", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_masked_agg_bool_unaligned(cuda, dtype, shift, float_members):
+    """Unified and masks in tensors that start 1 or 3 elements past
+    16-byte alignment (the staged copies clamped at both ends, every mask
+    row at an odd byte), bool or fp32 members."""
+    args, words = bool_agg_args(shift, cuda, 32, 6, 4100, dtype,
+                                float_members)
+    args = (offset_view(args[0], shift), offset_view(args[1], shift)) \
+        + args[2:]
+    assert args[0].data_ptr() % 16 != 0 and args[1].data_ptr() % 2 == 1
+    assert_bool_agg_bitwise(args, words)
 
 
 @pytest.mark.cuda
