@@ -33,7 +33,13 @@ Phases (any failure raises and the script exits nonzero):
              client of K = 4) against its plain version, bitwise, and
              timed (``masked_agg_batched`` also run to run, by device
              time, and its τ̂ against ``masked_agg_batched_packed``'s on
-             the same bits); one bool round through the entry points
+             the same bits; ``sign_sim``, whose T <= 64 route runs the
+             int8 tensor cores and writes S in the same C call, also run
+             to run, against the packed form and its first design (the
+             ``__dp4a`` route for T > 64, here forced), by device time
+             beside that design's, after a check that torch's S on the
+             card is the reciprocal form its epilogue computes); one bool
+             round through the entry points
              (``batched_client_unify(packed=False)`` → ``pack_from_slots``
              → ``RoundEngine.run_packed`` → ``downlinks``) with its launch
              counts, against the same round with the plain versions and
@@ -53,9 +59,11 @@ Phases (any failure raises and the script exits nonzero):
              leaf refused; then one MaTU round
              through ``MaTUServer.round`` at d = 3,588,168 (T = 30, N = 32,
              3–4 tasks each), ``serving_downlink`` → ``ModulatorStore``,
-             single-task ``masked_agg`` (``ops.masked_agg``) on one task of
+             single-task ``masked_agg`` (``ops.masked_agg``; its
+             member-row route: only the γ > 0 rows streamed) on one task of
              that round against its plain version, the batched kernel's row
-             and the round's τ̂, and one bf16 ``MultiTenantDecoder(fused=True)
+             and the round's τ̂, run to run, timed with device time, and
+             one bf16 ``MultiTenantDecoder(fused=True)
              .generate`` (B = 8 mixed tasks, 128-token prompts, 32 new
              tokens, greedy) whose launches are counted (144 per forward);
              prefill logits against the plain versions, the dense-routed
@@ -91,11 +99,13 @@ runs setup and the kernel phase alone (kernels 1–3 against their plain
 versions and timed, and the whole-round gates: a quick loop for a
 round-kernel change); ``--only bool`` runs setup and the bool phase
 alone (kernels 4–7 and the bool round: a quick loop for a change to
-them); ``--only devtime`` times kernels 3 and 5 alone by device function,
-any fill or conversion of a wrapper listed apart (it also runs from the
-root of an earlier checkout, to measure it); ``--only mlstm`` runs setup
-and kernel 10's checks and timings alone (a quick loop for a kernel-10
-change).  None of them prints the summary or the "ok" line.
+them); ``--only devtime`` times kernels 3–8 alone by device function
+(rows 4–7 at the full-width bool round, 8 on 9 member rows of 32 at
+d = 3,588,168), any fill or conversion of a wrapper listed apart (it
+also runs from the root of an earlier checkout, to measure it); ``--only
+mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
+for a kernel-10 change).  None of them prints the summary or the "ok"
+line.
 """
 
 from __future__ import annotations
@@ -429,6 +439,87 @@ def sign_sim_packed_check(torch, pos, nz, x):
         "and the first design; run to run identical")
 
 
+def sim_form_check(torch, dev, d):
+    """Which form ``ref.sim_from_dots`` takes on the card: its S for every
+    integer dot in [-d, d] against 0.5 * (dots * fl32(1/d) + 1) and
+    0.5 * (dots / d + 1), each rounded once an operation (numpy fp32 on
+    the host).  The dense kernel writes the first; raises unless the card
+    gives it bit for bit.  Returns the entries where each form differs."""
+    import numpy as np
+    from repro_torch.kernels import ref, sign_sim
+    dots = np.arange(-d, d + 1, dtype=np.float32)
+    card = ref.sim_from_dots(torch.from_numpy(dots).to(dev), d).cpu().numpy()
+    half, one = np.float32(0.5), np.float32(1.0)
+    recip = half * (dots * np.float32(sign_sim.reciprocal(d)) + one)
+    div = half * (dots / np.float32(d) + one)
+    n_recip = int((card != recip).sum())
+    n_div = int((card != div).sum())
+    log(f"sim_from_dots on the card at d={d}: differs from the reciprocal "
+        f"form in {n_recip} of {dots.size} dots, from the division in "
+        f"{n_div}")
+    if n_recip:
+        raise AssertionError("torch's S on the card is not 0.5 * (dots * "
+                             "fl32(1/d) + 1): the dense kernel's epilogue "
+                             "would differ from the packed round's S")
+    return {"reciprocal": n_recip, "division": n_div}
+
+
+def sign_sim_dense_check(torch, x):
+    """Kernel 6 on dense (T, d) fp32 ``x``: its S against the plain
+    version, the packed form (``ops.sign_sim_packed`` on the sign planes
+    of ``x``), run to run and the first design's (the route for T > 64,
+    here forced) -- all bitwise; timed by CUDA events and by device time
+    (each device function's share), beside the first design's, the plain
+    version and the library product.  Returns the kernel's row."""
+    from repro_torch.kernels import bitpack, ops, sign_sim
+    t, d = x.shape
+    blocks, per, route = sign_sim.dense_plan(
+        t, d, torch.cuda.get_device_properties(x.device)
+        .multi_processor_count)
+    forms = sim_form_check(torch, x.device, d)
+    got = sign_sim.sign_sim_cuda(x)
+    again = sign_sim.sign_sim_cuda(x)
+    first = sign_sim.sign_sim_cuda(x, route="dp4a")
+    want = sign_sim.plain_dense(x)
+    packed = ops.sign_sim_packed(*bitpack.sign_planes(x), d)
+    torch.cuda.synchronize()
+    check_equal(torch, "sign_sim S", got, want)
+    check_equal(torch, "sign_sim vs the popcount form", got, packed)
+    check_equal(torch, "sign_sim run to run", again, got)
+    check_equal(torch, "sign_sim first design", first, want)
+    ms = time_ms(torch, lambda: sign_sim.sign_sim_cuda(x))
+    dev_ms, _, per_fn = device_ms(torch, "sign_sim",
+                                  lambda: sign_sim.sign_sim_cuda(x))
+    first_ms = time_ms(torch, lambda: sign_sim.sign_sim_cuda(x, route="dp4a"))
+    first_dev, _, first_fn = device_ms(
+        torch, "sign_sim", lambda: sign_sim.sign_sim_cuda(x, route="dp4a"))
+    plain_ms = time_ms(torch, lambda: sign_sim.plain_dense(x), reps=5)
+    lib_ms = time_ms(torch, lambda: torch.sign(x) @ torch.sign(x).T)
+    # x read once, S written; the pairs' int8 sign products (a multiply
+    # and an add a coordinate) on the tensor cores
+    b_ms, b_by = bound(t * d * 4 + t * t * 4, 0.0,
+                       int8_ops=2 * (t * (t + 1) // 2) * d)
+
+    def share(fns):
+        return ", ".join(f"{fn_name(k)} {v:.4f}" for k, v in fns.items())
+    log(f"sign_sim (T={t} d={d}; {route}: {blocks} blocks of {per} "
+        f"coordinates): {ms:.4f} ms (device {dev_ms:.4f} ms: "
+        f"{share(per_fn)}); first design {first_ms:.4f} ms (device "
+        f"{first_dev:.4f} ms: {share(first_fn)}); plain {plain_ms:.4f} ms, "
+        f"library sign@sign.T {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"S identical to the plain version, the packed form and the first "
+        f"design, run to run identical")
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/sign_sim.cu",
+        replaces="src/repro/kernels/sign_sim.py:37", max_abs_err=0.0,
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, first_design_ms=first_ms,
+        first_design_device_ms=first_dev, sim_form_mismatches=forms,
+        check="S identical to the plain version, the packed form "
+        "(sim_from_dots of kernel 3's dots) and the first design; run to "
+        "run identical")
+
+
 def round_phase(torch, dev):
     from repro_torch.fed.strategies import MaTUStrategy, Upload
     from repro_torch.kernels import ops
@@ -601,17 +692,7 @@ def bool_phase(torch, dev):
     del masks_d, args
 
     # -- sign_sim (dense) -------------------------------------------------
-    got = (sign_sim.sign_sim_cuda(tau_hats),)
-    want = (sign_sim.plain_dense(tau_hats),)
-    same("sign_sim", got, want)
-    check_equal(torch, "sign_sim vs the popcount form", got[0],
-                ops.sign_sim_packed(*bitpack.sign_planes(tau_hats), D))
-    row("sign_sim", "sign_sim.cu", "src/repro/kernels/sign_sim.py:37", got,
-        want, time_ms(torch, lambda: sign_sim.sign_sim_cuda(tau_hats)),
-        time_ms(torch, lambda: sign_sim.plain_dense(tau_hats), reps=5),
-        T * D * 4 + T * T * 4, 2 * (T * (T + 1) // 2) * D,
-        library_ms=time_ms(torch, lambda: torch.sign(tau_hats)
-                           @ torch.sign(tau_hats).T))
+    rows["sign_sim"] = sign_sim_dense_check(torch, tau_hats)
     del uni, masks, lams, tau_hats, got, want
 
     # -- one bool round through the entry points --------------------------
@@ -696,37 +777,59 @@ def bool_phase(torch, dev):
 
 
 def devtime_phase(torch, dev):
-    """Kernels 3 and 5 alone at the full-width round (kernel 3 also on
-    seeded random planes of the xLSTM round's width, w = 376,827): ms a
-    call and device time by function, any other launch of a wrapper (a
-    fill, a conversion) listed apart.  It calls only entry points that
-    every slice of the port has, so it also measures an earlier checkout
-    of the package: copy this script into that checkout's root and run it
-    there with ``--only devtime``.  Returns the numbers as a dict."""
-    from repro_torch.kernels import bitpack, masked_agg, ops, sign_sim
+    """Kernels 3-8 alone (4: ``fused_unify_cuda``, 5: bool
+    ``masked_agg_batched_cuda``, 6: ``sign_sim_cuda``, 7: ``unify_cuda``
+    at K = 4, all at the full-width bool round; 3: ``sign_sim_packed_cuda``
+    there and on seeded random planes of the xLSTM round's width,
+    w = 376,827; 8: ``masked_agg_cuda`` on seeded bf16 unified rows at
+    the qwen2 round's d = 3,588,168, N = 32 of which 9 members, the rest
+    with a mask and gamma = 0): ms a call and device time by function,
+    any other launch of a wrapper (a fill, a conversion) listed apart.  It
+    calls only entry points that every slice of the port since the serve
+    slice has, so it also measures an earlier checkout of the package:
+    copy this script into that checkout's root and run it there with
+    ``--only devtime``.  Returns the numbers as a dict."""
+    from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ops,
+                                     sign_sim)
     tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
     tv = tv.to(torch.bfloat16).float()
+    x1 = tv[ks.index(max(ks)), :max(ks)].contiguous()
     uni, masks, lams = ops.fused_unify(tv, valid)
-    del tv
     masks_d, lams_d, member_d, sizes_d = ops.slots_to_dense(
         masks, lams, sizes, valid, tasks, T)
     del masks
     gam = sizes_d * member_d.float()
     gam = gam / torch.clamp(gam.sum(0, keepdim=True), min=1e-12)
     args = (uni, masks_d, lams_d, gam, member_d, 0.4)
+    tau_hats = masked_agg.masked_agg_batched_cuda(*args)[0]
+    planes = bitpack.sign_planes(tau_hats)
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     nz = torch.randint(-2 ** 31, 2 ** 31 - 1, (T, 376_827), generator=g,
                        device=dev, dtype=torch.int32)
     wide = (torch.randint(-2 ** 31, 2 ** 31 - 1, nz.shape, generator=g,
                           device=dev, dtype=torch.int32) & nz, nz)
+    # kernel 8: 9 members of 32 rows, the others a mask and gamma = 0
+    n_mem = 9
+    u8 = (0.05 * torch.randn((N, SERVE_D), generator=g, device=dev)).to(
+        torch.bfloat16)
+    m8 = torch.rand((N, SERVE_D), generator=g, device=dev) < 0.7
+    l8 = torch.rand(N, generator=g, device=dev) + 0.5
+    sz = torch.randint(10, 200, (N,), generator=g, device=dev).float()
+    sz[torch.randperm(N, generator=g, device=dev)[n_mem:]] = 0.0
+    g8 = sz / sz.sum()
     cases = {
+        "fused_unify": ("fused_unify", lambda: (
+            fused_unify.fused_unify_cuda(tv, valid))),
         "masked_agg_batched": ("masked_agg", lambda: (
             masked_agg.masked_agg_batched_cuda(*args))),
+        "sign_sim": ("sign_sim", lambda: sign_sim.sign_sim_cuda(tau_hats)),
+        "unify": ("unify", lambda: fused_unify.unify_cuda(x1)),
+        "masked_agg": ("masked_agg", lambda: (
+            masked_agg.masked_agg_cuda(u8, m8, l8, g8, 0.4))),
         "sign_sim_packed": ("sign_sim_packed", lambda: (
             sign_sim.sign_sim_packed_cuda(*planes))),
         "sign_sim_packed_w376827": ("sign_sim_packed", lambda: (
             sign_sim.sign_sim_packed_cuda(*wide)))}
-    planes = bitpack.sign_planes(masked_agg.masked_agg_batched_cuda(*args)[0])
     out = {}
     for name, (prefix, fn) in cases.items():
         ms = time_ms(torch, fn)
@@ -1070,6 +1173,7 @@ def single_task_check(torch, dev, round_data, server):
     ops.reset_launch_counts()
     tau, m_hat = ops.masked_agg(uni, masks, lam, gam, rho=0.4)
     launches = ops.launch_counts()["masked_agg"]
+    again = masked_agg.masked_agg_cuda(uni, masks, lam, gam, 0.4)
     want = masked_agg.plain_single(uni, masks, lam, gam, 0.4)
     row = masked_agg.masked_agg_batched_cuda(
         uni, (masks & member[:, None])[:, None], lam[:, None], gam[:, None],
@@ -1081,24 +1185,32 @@ def single_task_check(torch, dev, round_data, server):
                        ("tau vs batched row", tau, row[0][0]),
                        ("m_hat vs batched row", m_hat, row[1][0]),
                        ("tau vs the round's tau_hat", tau, out.tau_hats[t0]),
-                       ("m_hat vs the round's m_hat", m_hat, out.m_hats[t0])):
+                       ("m_hat vs the round's m_hat", m_hat, out.m_hats[t0]),
+                       ("tau run to run", again[0], tau),
+                       ("m_hat run to run", again[1], m_hat)):
         check_equal(torch, f"masked_agg (single task) {name}", a, b)
     n_mem = int(member.sum())
     args = (uni, masks, lam, gam, 0.4)
     ms = time_ms(torch, lambda: masked_agg.masked_agg_cuda(*args))
+    dev_ms, _, per_fn = device_ms(
+        torch, "masked_agg", lambda: masked_agg.masked_agg_cuda(*args))
     plain_ms = time_ms(torch, lambda: masked_agg.plain_single(*args), reps=5)
     b_ms, b_by = bound(n_mem * d * (uni.element_size() + 1) + 2 * N * 4
                        + 2 * d * 4, 8 * n_mem * d)
     log(f"masked_agg (task {t0}, N={N}, {n_mem} members, {N - n_mem} rows "
-        f"with gamma = 0 and a mask, d={d}): {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); equal to the "
-        f"plain version, the batched row and the round's task")
+        f"with gamma = 0 and a mask, d={d}): {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms: " + ", ".join(
+            f"{fn_name(k)} {v:.4f}" for k, v in per_fn.items())
+        + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); equal "
+        f"to the plain version, the batched row and the round's task, run "
+        f"to run identical")
     rowd = dict(route="cuda", source="src/repro_torch/kernels/csrc/"
                 "masked_agg.cu", replaces="src/repro/kernels/masked_agg.py:202",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None,
+                max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 check="tau_hat, m_hat identical to the plain version, the "
-                "batched kernel's row and the round's task")
+                "batched kernel's row and the round's task; run to run "
+                "identical")
     return rowd, launches
 
 
@@ -1874,9 +1986,9 @@ def main() -> int:
         print(json.dumps({"rows": rows, "launches": counts}), flush=True)
         return 0
     if sys.argv[1:] == ["--only", "devtime"]:
-        # kernels 3 and 5 timed alone, fills and conversions apart (runs on
+        # kernels 3-8 timed alone, fills and conversions apart (runs on
         # an earlier checkout too); no summary, no "ok" line
-        log("== kernels 3 and 5 alone ==")
+        log("== kernels 3-8 alone ==")
         out = devtime_phase(torch, dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)

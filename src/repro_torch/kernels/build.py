@@ -14,6 +14,7 @@ refused launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -120,6 +121,13 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{err} ({msg})")
         self.launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (queried once): what the persistent
+    kernels' launch plans take, so that a C call queries nothing."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_handle(t: torch.Tensor) -> int:

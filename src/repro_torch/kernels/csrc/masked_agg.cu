@@ -10,8 +10,8 @@
 //    -> masked_agg_launch (the same two routes);
 //  * masked_agg_pallas (one task: masks (N, d) as bool bytes or {0, 1} in
 //    fp32/bf16; membership derived here from gamma > 0, N_t = max(#members,
-//    1); outputs tau_hat and m_hat) -> masked_agg_single_launch, the bool
-//    kernel at T = 1 with the member list built from gamma on the device.
+//    1); outputs tau_hat and m_hat) -> masked_agg_single_launch, the
+//    member-row route below.
 // Per task t and coordinate j, over the member clients n (ascending):
 //   votes  = sum_n mem * (m & pos - m & neg),   a_num = |votes|
 //   m_hat  = 1 if a_num / N_t >= rho else a_num / N_t
@@ -69,8 +69,33 @@
 // per (task, coordinate range), with gamma * lambda and the member flags
 // as fp32 first written by masked_agg_prep_kernel in the same C call.
 //
-// The first design (the wide-N route of both layouts and the single-task
-// kernel):
+// One task (kernel 8; masked_agg_lists_kernel + masked_agg_single_kernel,
+// one C call, every mask kind):
+//  * what bounds it: the member rows' bytes (9 of 32 rows at the serve
+//    round's task: bf16 unified and bool masks, 97 MB) and the two fp32
+//    outputs (29 MB) at d = 3,588,168, 0.0375 ms; kernel 5's tile route
+//    would stage all N unified rows of a tile, 3.5x the unified bytes;
+//  * the lists kernel writes the member list once (one warp: gamma > 0,
+//    ascending n, gamma * lambda rounded once, N_t = max(count, 1)); the
+//    wrapper passes the SM count, so the call queries nothing;
+//  * persistent blocks walk tiles of 2048 coordinates, each thread 8
+//    consecutive ones, reading only member rows: per member one 16-byte
+//    load of bf16 unified (two of fp32) and 8 mask values (8 bytes of
+//    bool), the loads of a chunk of members issued together and the next
+//    chunk's issued before this chunk's sums (4 members a chunk for bf16
+//    unified and bool masks, 2 for wider kinds); scalar loads where a
+//    tensor's rows are not so aligned;
+//  * two blocks a SM: their 128 registers a thread hold both chunks
+//    without spilling (three blocks a SM capped them at 80 and spilled,
+//    10 % slower; contiguous ranges a block in place of the tile walk
+//    were slower still);
+//  * the sums run in ascending member order with __fadd_rn / __fmul_rn,
+//    as the plain version and the batched kernels do; m_hat comes from a
+//    table of v / N_t over the vote counts v <= count (the same division
+//    on the same values, once a block); tau_hat and m_hat go out as
+//    16-byte __stcs stores, scalar at d's end or unaligned outputs.
+//
+// The first design (the wide-N route of both layouts):
 //  * rows with members[n, t] == 0 are skipped — their masks are zero and
 //    their gamma is zero, so they add nothing.  The TPU kernels' BlockSpecs
 //    stream all N unified rows for every task; at N = 32, T = 30 and
@@ -103,17 +128,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int UNROLL = 4;                // member rows loaded together
 constexpr int GROUPS = 4;                // coordinate blocks per pass
 
-__device__ __forceinline__ bool mask_set(uint8_t v) { return v != 0; }
-__device__ __forceinline__ bool mask_set(float v) { return v != 0.f; }
-__device__ __forceinline__ bool mask_set(__nv_bfloat16 v) {
-  return __bfloat162float(v) != 0.f;
-}
-
 // PACKED: masks are uint32 words and out2 gets a_num; else masks are
 // MaskT values (0/1 bytes in the batched bool layout) and out2 gets m_hat.
-// SINGLE (T = 1): ``mem`` holds gamma and ``gl`` lambda; a row is a member
-// iff gamma > 0 and its weight is gamma * lambda, rounded once.
-template <typename T, typename MaskT, bool PACKED, bool SINGLE>
+template <typename T, typename MaskT, bool PACKED>
 __global__ void __launch_bounds__(BLOCK)
 masked_agg_kernel(const T* __restrict__ unified,
                   const MaskT* __restrict__ masks,
@@ -133,14 +150,13 @@ masked_agg_kernel(const T* __restrict__ unified,
     int count = 0;
     for (int base = 0; base < N; base += 32) {
       const int n = base + lane;
-      const float raw = n < N ? mem[n * T_ + t] : 0.f;
-      const float m = SINGLE ? (raw > 0.f ? 1.f : 0.f) : raw;
+      const float m = n < N ? mem[n * T_ + t] : 0.f;
       const unsigned bal = __ballot_sync(FULL, m != 0.f);
       if (m != 0.f) {
         const int at = count + __popc(bal & ((1u << lane) - 1u));
         s_idx[at] = n;
         s_mem[at] = m;
-        s_gl[at] = SINGLE ? __fmul_rn(raw, gl[n]) : gl[n * T_ + t];
+        s_gl[at] = gl[n * T_ + t];
       }
       count += __popc(bal);
     }
@@ -182,7 +198,7 @@ masked_agg_kernel(const T* __restrict__ unified,
             if constexpr (PACKED)
               w[q][c] = masks[(n * T_ + t) * n_words + (jc[c] >> 5)];
             else
-              w[q][c] = mask_set(masks[(n * T_ + t) * d + jc[c]]);
+              w[q][c] = masks[(n * T_ + t) * d + jc[c]] != 0;
             u[q][c] = to_f32(unified[n * d + jc[c]]);
           }
         }
@@ -220,7 +236,7 @@ masked_agg_kernel(const T* __restrict__ unified,
   }
 }
 
-template <typename MaskT, bool PACKED, bool SINGLE>
+template <typename MaskT, bool PACKED>
 int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
            const void* mem, int N, int T_, long long d, float rho,
            void* tau_out, void* out2, void* stream) {
@@ -247,11 +263,11 @@ int launch(const void* unified, int u_bf16, const void* masks, const void* gl,
   auto* o2 = static_cast<float*>(out2);
   auto* mk = static_cast<const MaskT*>(masks);
   if (u_bf16)
-    masked_agg_kernel<__nv_bfloat16, MaskT, PACKED, SINGLE>
+    masked_agg_kernel<__nv_bfloat16, MaskT, PACKED>
         <<<grid, BLOCK, smem, s>>>(static_cast<const __nv_bfloat16*>(unified),
                                    mk, g, m, N, T_, d, n_words, rho, to, o2);
   else
-    masked_agg_kernel<float, MaskT, PACKED, SINGLE><<<grid, BLOCK, smem, s>>>(
+    masked_agg_kernel<float, MaskT, PACKED><<<grid, BLOCK, smem, s>>>(
         static_cast<const float*>(unified), mk, g, m, N, T_, d, n_words, rho,
         to, o2);
   return static_cast<int>(cudaGetLastError());
@@ -284,7 +300,9 @@ int tile_width(int N, int elt) {
 // The member lists, one row of 4 + 4 * max(N, 4) words a task: count,
 // N_t = max(sum of member weights in ascending order, 1) as fp32, then
 // {n, weight, gamma * lambda (rounded once), 0} for each member,
-// ascending, and zero entries after them.  One warp a task.
+// ascending, and zero entries after them.  One warp a task.  The member
+// weights are mem_f, or mem_b as 0/1; with neither (one task, kernel 8)
+// a row is a member of weight 1 iff gamma > 0.
 __global__ void __launch_bounds__(BLOCK)
 masked_agg_lists_kernel(const float* __restrict__ lams,
                         const float* __restrict__ gammas,
@@ -301,8 +319,10 @@ masked_agg_lists_kernel(const float* __restrict__ lams,
   for (int n0 = 0; n0 < N; n0 += 32) {
     const int n = n0 + lane;
     const long long at = static_cast<long long>(n) * T_ + t;
-    const float m = n < N ? (mem_f ? mem_f[at] : (mem_b[at] ? 1.f : 0.f))
-                          : 0.f;
+    const float m = n >= N  ? 0.f
+                    : mem_f ? mem_f[at]
+                    : mem_b ? (mem_b[at] ? 1.f : 0.f)
+                            : (gammas[at] > 0.f ? 1.f : 0.f);
     const unsigned bal = __ballot_sync(FULL, m != 0.f);
     if (m != 0.f) {
       int4 e;
@@ -770,13 +790,242 @@ int round_launch(const void* unified, int u_bf16, const void* masks,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if constexpr (BYTES)
-    return launch<uint8_t, false, false>(unified, u_bf16, masks, gl,
-                                         gl + count, N, T_, d, rho, tau_out,
-                                         out2, stream);
+    return launch<uint8_t, false>(unified, u_bf16, masks, gl, gl + count, N,
+                                  T_, d, rho, tau_out, out2, stream);
   else
-    return launch<uint32_t, true, false>(unified, u_bf16, masks, gl,
-                                        gl + count, N, T_, d, rho, tau_out,
-                                        out2, stream);
+    return launch<uint32_t, true>(unified, u_bf16, masks, gl, gl + count, N,
+                                  T_, d, rho, tau_out, out2, stream);
+}
+
+// -- one task's member-row route (kernel 8) ---------------------------
+
+constexpr int SINGLE_BLOCKS = 2;          // blocks a SM
+constexpr int SINGLE_TILE = 8 * BLOCK;    // coordinates a tile: 8 a thread
+constexpr int MH_TABLE = 1024;            // m_hat table: vote counts 0..1023
+
+// The raw bytes of 8 consecutive V values (the words they fill), loaded
+// together so that a chunk's loads are all in flight before the first is
+// used: 16-byte (or 8-byte, for bytes) streaming loads where ``vec``
+// (every row's 8 values aligned to that), else one value a load, zero past
+// the m valid ones.
+template <typename V>
+struct Raw8 {
+  uint32_t w[2 * sizeof(V)];
+};
+__device__ __forceinline__ uint32_t raw_of(uint8_t v) { return v; }
+__device__ __forceinline__ uint32_t raw_of(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ uint32_t raw_of(float v) {
+  return __float_as_uint(v);
+}
+template <typename V>
+__device__ __forceinline__ void load8(const V* p, bool vec, int m,
+                                      Raw8<V>& r) {
+  if (vec && m >= 8) {
+    if constexpr (sizeof(V) == 1) {
+      const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+      r.w[0] = a.x;
+      r.w[1] = a.y;
+    } else {
+#pragma unroll
+      for (int i = 0; i < static_cast<int>(sizeof(V)) / 2; ++i) {
+        const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p) + i);
+        r.w[4 * i] = a.x;
+        r.w[4 * i + 1] = a.y;
+        r.w[4 * i + 2] = a.z;
+        r.w[4 * i + 3] = a.w;
+      }
+    }
+  } else {
+    constexpr int per = 4 / static_cast<int>(sizeof(V));  // values a word
+#pragma unroll
+    for (int i = 0; i < 2 * static_cast<int>(sizeof(V)); ++i) r.w[i] = 0u;
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c < m) r.w[c / per] |= raw_of(p[c]) << (8 * sizeof(V) * (c % per));
+  }
+}
+// Value c of 8 raw unified values as fp32 (bf16 -> fp32 is exact).
+__device__ __forceinline__ float raw_f32(const Raw8<float>& r, int c) {
+  return __uint_as_float(r.w[c]);
+}
+__device__ __forceinline__ float raw_f32(const Raw8<__nv_bfloat16>& r,
+                                         int c) {
+  const uint32_t w = r.w[c / 2];
+  return __uint_as_float(c % 2 ? w & 0xffff0000u : w << 16);
+}
+// The 8 mask values as bits: bool bytes (0 or 1) as kernel 5 turns them,
+// fp32 / bf16 {0, 1} by value != 0.
+__device__ __forceinline__ uint32_t raw_bits(const Raw8<uint8_t>& r) {
+  return byte_bits(r.w[0]) | (byte_bits(r.w[1]) << 4);
+}
+template <typename V>
+__device__ __forceinline__ uint32_t raw_bits(const Raw8<V>& r) {
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) bits |= (raw_f32(r, c) != 0.f ? 1u : 0u) << c;
+  return bits;
+}
+
+// Whether every row's 8 values at a thread's coordinates (8 t) can be
+// loaded as Raw8 vectors: p and each row's start aligned to them.
+template <typename V>
+bool rows_vec(const V* p, long long d) {
+  constexpr long long a = 8 * sizeof(V) < 16 ? 8 * sizeof(V) : 16;
+  return reinterpret_cast<uintptr_t>(p) % a == 0 &&
+         (d * static_cast<long long>(sizeof(V))) % a == 0;
+}
+
+// One task: unified (N, d), masks (N, d) of MaskT, and its member list
+// (masked_agg_lists_kernel's row: count, N_t, {n, 1, gamma * lambda, 0}
+// a member, ascending).  Persistent blocks walk tiles of SINGLE_TILE
+// coordinates; a thread owns 8 consecutive ones and reads only the member
+// rows, a chunk of CH members' 8 unified values and 8 mask values loaded
+// together, the next chunk's loads issued before this chunk's sums.
+template <typename T, typename MaskT>
+__global__ void __launch_bounds__(BLOCK, SINGLE_BLOCKS)
+masked_agg_single_kernel(const T* __restrict__ unified,
+                         const MaskT* __restrict__ masks,
+                         const int* __restrict__ list, long long d, float rho,
+                         int vec_u, int vec_m, int vec_o,
+                         float* __restrict__ tau_out,
+                         float* __restrict__ mhat_out) {
+  constexpr int CH = sizeof(T) + sizeof(MaskT) <= 3 ? 4 : 2;
+  struct Member {
+    Raw8<T> u;
+    Raw8<MaskT> m;
+    float gl;                             // gamma * lambda
+  };
+  __shared__ float mh_tab[MH_TABLE];
+  const int count = list[0];
+  const float n_t1 = __int_as_float(list[1]);
+  const int4* entries = reinterpret_cast<const int4*>(list + 4);
+  // m_hat of each vote count a_num = v <= count (the member weights are
+  // 1, so a_num is one): the same division on the same values
+  const bool table = count < MH_TABLE;
+  for (int v = threadIdx.x; v <= count && v < MH_TABLE; v += BLOCK) {
+    const float alpha = __fdiv_rn(static_cast<float>(v), n_t1);
+    mh_tab[v] = alpha >= rho ? 1.f : alpha;
+  }
+  __syncthreads();
+
+  const long long n_tiles = (d + SINGLE_TILE - 1) / SINGLE_TILE;
+  for (long long tl = blockIdx.x; tl < n_tiles; tl += gridDim.x) {
+    const long long j = tl * SINGLE_TILE + 8LL * threadIdx.x;
+    if (j >= d) continue;
+    const int m = d - j < 8 ? static_cast<int>(d - j) : 8;  // coordinates
+    auto fetch = [&](int k, Member& f) {
+      const int4 e = __ldg(entries + k);
+      f.gl = __int_as_float(e.z);
+      const long long at = e.x * d + j;
+      load8(unified + at, vec_u, m, f.u);
+      load8(masks + at, vec_m, m, f.m);
+    };
+    float votes[8], acc[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) votes[c] = acc[c] = 0.f;
+    // one member's sums, in member order (its weight 1: the vote is
+    // sp - sn, exactly weight * (sp - sn))
+    auto add = [&](const Member& f) {
+      const uint32_t bits = raw_bits(f.m);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float u = raw_f32(f.u, c);
+        const bool set = (bits >> c) & 1u;
+        const float sp = (set && u > 0.f) ? 1.f : 0.f;
+        const float sn = (set && u < 0.f) ? 1.f : 0.f;
+        votes[c] = __fadd_rn(votes[c], sp - sn);
+        acc[c] = __fadd_rn(acc[c], __fmul_rn(f.gl, __fmul_rn(u, sp + sn)));
+      }
+    };
+    Member a[CH], b[CH];
+    auto fetch_chunk = [&](int k0, Member (&f)[CH]) {
+#pragma unroll
+      for (int q = 0; q < CH; ++q)
+        if (k0 + q < count) fetch(k0 + q, f[q]);
+    };
+    auto add_chunk = [&](int k0, const Member (&f)[CH]) {
+#pragma unroll
+      for (int q = 0; q < CH; ++q)
+        if (k0 + q < count) add(f[q]);
+    };
+    fetch_chunk(0, a);
+    for (int k0 = 0; k0 < count; k0 += 2 * CH) {
+      fetch_chunk(k0 + CH, b);
+      add_chunk(k0, a);
+      fetch_chunk(k0 + 2 * CH, a);
+      add_chunk(k0 + CH, b);
+    }
+
+    float tv[8], mv[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float a_num = fabsf(votes[c]);
+      float m_hat;
+      if (table) {
+        m_hat = mh_tab[static_cast<int>(a_num)];
+      } else {
+        const float alpha = __fdiv_rn(a_num, n_t1);
+        m_hat = alpha >= rho ? 1.f : alpha;
+      }
+      tv[c] = __fmul_rn(acc[c], m_hat);
+      mv[c] = m_hat;
+    }
+    if (vec_o && m == 8) {                // j is a multiple of 8
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        __stcs(reinterpret_cast<float4*>(tau_out + j) + i,
+               make_float4(tv[4 * i], tv[4 * i + 1], tv[4 * i + 2],
+                           tv[4 * i + 3]));
+        __stcs(reinterpret_cast<float4*>(mhat_out + j) + i,
+               make_float4(mv[4 * i], mv[4 * i + 1], mv[4 * i + 2],
+                           mv[4 * i + 3]));
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c < m) {
+          tau_out[j + c] = tv[c];
+          mhat_out[j + c] = mv[c];
+        }
+    }
+  }
+}
+
+template <typename T, typename MaskT>
+int launch_single(const T* u, const void* masks, const float* lam,
+                  const float* gam, int N, long long d, float rho, int sms,
+                  int* list, float* tau, float* mhat, cudaStream_t s) {
+  masked_agg_lists_kernel<<<1, BLOCK, 0, s>>>(lam, gam, nullptr, nullptr, N,
+                                              1, list);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto* mk = static_cast<const MaskT*>(masks);
+  const long long n_tiles = (d + SINGLE_TILE - 1) / SINGLE_TILE;
+  const long long resident = static_cast<long long>(SINGLE_BLOCKS) * sms;
+  const unsigned grid =
+      static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
+  const int vec_o = ((reinterpret_cast<uintptr_t>(tau) |
+                      reinterpret_cast<uintptr_t>(mhat)) & 15) == 0;
+  masked_agg_single_kernel<T, MaskT><<<grid, BLOCK, 0, s>>>(
+      u, mk, list, d, rho, rows_vec(u, d), rows_vec(mk, d), vec_o, tau, mhat);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int single_by_mask(const T* u, const void* masks, int mask_kind,
+                   const float* lam, const float* gam, int N, long long d,
+                   float rho, int sms, int* list, float* tau, float* mhat,
+                   cudaStream_t s) {
+  if (mask_kind == 0)
+    return launch_single<T, uint8_t>(u, masks, lam, gam, N, d, rho, sms,
+                                     list, tau, mhat, s);
+  if (mask_kind == 1)
+    return launch_single<T, float>(u, masks, lam, gam, N, d, rho, sms, list,
+                                   tau, mhat, s);
+  return launch_single<T, __nv_bfloat16>(u, masks, lam, gam, N, d, rho, sms,
+                                         list, tau, mhat, s);
 }
 
 }  // namespace
@@ -819,23 +1068,28 @@ extern "C" int masked_agg_launch(const void* unified, int u_bf16,
 // One task: unified (N, d); masks (N, d) of mask_kind 0 = uint8 0/1 (a
 // torch.bool tensor), 1 = fp32 {0, 1}, 2 = bf16 {0, 1}; lam and gamma (N,)
 // fp32.  Members are the rows with gamma > 0; outputs tau_out and mhat_out
-// (d,) fp32.
+// (d,) fp32.  sms: the card's SM count; ws: a workspace of ws_words =
+// 4 + 4 * max(N, 4) words (the member list), needing no fill.
 extern "C" int masked_agg_single_launch(const void* unified, int u_bf16,
                                         const void* masks, int mask_kind,
                                         const void* lam, const void* gamma,
                                         int N, long long d, float rho,
+                                        int sms, void* ws, long long ws_words,
                                         void* tau_out, void* mhat_out,
                                         void* stream) {
-  if (mask_kind == 0)
-    return launch<uint8_t, false, true>(unified, u_bf16, masks, lam, gamma, N,
-                                        1, d, rho, tau_out, mhat_out, stream);
-  if (mask_kind == 1)
-    return launch<float, false, true>(unified, u_bf16, masks, lam, gamma, N, 1,
-                                      d, rho, tau_out, mhat_out, stream);
-  if (mask_kind == 2)
-    return launch<__nv_bfloat16, false, true>(unified, u_bf16, masks, lam,
-                                              gamma, N, 1, d, rho, tau_out,
-                                              mhat_out, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || N > 4000 || d < 1 || sms < 1 || mask_kind < 0 ||
+      mask_kind > 2 || ws == nullptr || ws_words != list_words(N, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* lm = static_cast<const float*>(lam);
+  auto* gm = static_cast<const float*>(gamma);
+  auto* list = static_cast<int*>(ws);
+  auto* tau = static_cast<float*>(tau_out);
+  auto* mhat = static_cast<float*>(mhat_out);
+  if (u_bf16)
+    return single_by_mask(static_cast<const __nv_bfloat16*>(unified), masks,
+                          mask_kind, lm, gm, N, d, rho, sms, list, tau, mhat,
+                          s);
+  return single_by_mask(static_cast<const float*>(unified), masks, mask_kind,
+                        lm, gm, N, d, rho, sms, list, tau, mhat, s);
 }
-

@@ -1,4 +1,4 @@
-// Eq. 5 raw sign dots, from packed sign bit-planes or from dense fp32.
+// Eq. 5: raw sign dots from packed sign bit-planes, S from dense fp32.
 //
 // Replaces two TPU kernels of src/repro/kernels/sign_sim.py:
 //  * sign_sim_packed_pallas (popcount algebra over (pos, nz) words)
@@ -7,8 +7,9 @@
 //      with both = nz_t & nz_t';
 //  * sign_sim_pallas (sgn(tau) . sgn(tau)^T over dense (T, d) fp32, the
 //    bool/fp32 A/B layout's Eq. 5) -> sign_sim_launch.
-// Both give the exact integer sgn(tau_t) . sgn(tau_t'); the caller
-// normalises by d: S = (dots / d + 1) / 2.
+// Both sum the exact integer sgn(tau_t) . sgn(tau_t'); the packed call
+// returns it (the caller normalises by d), the dense call S = (dots / d +
+// 1) / 2.
 //
 // The packed kernel, T <= 64 (the tensor-core route; one C call launches
 // sign_sim_packed_mma_kernel and sign_sim_packed_sum_kernel):
@@ -52,7 +53,32 @@
 // below, after sign_sim_packed_zero_kernel clears its int32 sums; the sum
 // kernel converts them), in the same C call.
 //
-// The first design (the packed route for T > 64, and the dense kernel):
+// The dense kernel, T <= 64 (sign_sim_dense_mma_kernel + the same sum
+// kernel, one C call): kernel 3's tensor-core route without its hard part.
+//  * what bounds it on the H100: the T * d fp32 values, read once (159 MB,
+//    0.0475 ms at the full-width bool round); the pair products, T(T+1)/2
+//    a coordinate, are int8 tensor-core work two orders below that;
+//  * a thread's A-fragment register holds 4 consecutive k values of one
+//    row (k columns 4 tig + 16 h), so it is one 16-byte load of 4 fp32
+//    values, turned into 4 int8 signs (v > 0) - (v < 0) a byte; registers
+//    0 and 2 of rows r..r+7 are also their B fragment, so the Gram product
+//    needs no second operand, and only the upper-triangle 16 x 8 tiles are
+//    multiplied (6 at T = 30);
+//  * each block (two a SM; one for T > 32, whose accumulators take the
+//    registers) owns one contiguous range of a multiple of 32 coordinates;
+//    its warps take k-steps in turn and load the fragments straight from
+//    device memory (16-byte streaming loads where every row is 16-byte
+//    aligned: x aligned and d a multiple of 4, as at the round's d; else
+//    4-byte loads), two k-steps' loads in flight before the first product;
+//  * the warps' fragments are summed in shared memory into one int32
+//    partial a pair a block (store_partials, shared with kernel 3), and the
+//    sum kernel writes S = 1/2 (dots / d + 1) itself, in the rounding torch
+//    gives ref.sim_from_dots on the card: no zero fill, no atomics, no
+//    torch launch after the call.
+// T > 64 keeps the first design (sign_sim_kernel) as a second route, its
+// fill and S in the same C call; route 0 forces it at any T.
+//
+// The first design (the packed route for T > 64, and the dense one):
 // what bounds it on the H100 is device-memory bytes — the packed planes
 // are 2 * T * w words, the dense input T * d fp32 values, each read once,
 // and T(T+1)/2 pairs cost a few integer ops per word.  Design against that:
@@ -215,6 +241,43 @@ __device__ __forceinline__ int pair_index(int a, int b, int T_) {
   return a * T_ - a * (a - 1) / 2 + (b - a);
 }
 
+// int32 entries of one warp's accumulator fragments over the MT * (MT + 1)
+// upper-triangle 16 x 8 tiles of 16 * MT task rows.
+__host__ __device__ constexpr int frag_entries(int MT) {
+  return MT * (MT + 1) * 4 * 32;
+}
+
+// Both tensor-core routes' block epilogue: red holds the MMA_WARPS warps'
+// fragments side by side (warp v's entry (tile i, register q, lane l) at
+// red[v * frag_entries(MT) + (i * 4 + q) * 32 + l]); each entry is summed
+// over the warps (int32: exact in any order) and written as the block's
+// partial of its pair, ws[blockIdx.x * T(T+1)/2 + pair_index(row, col)],
+// where row <= col < T (a contiguous row a block, so that blocks share no
+// sector but at their rows' ends).
+template <int MT>
+__device__ __forceinline__ void store_partials(const int* red, int T_,
+                                               int* __restrict__ ws) {
+  constexpr int NT = 2 * MT;
+  constexpr int FRAG = frag_entries(MT);
+  for (int i = threadIdx.x; i < FRAG; i += MMA_THREADS) {
+    int sum = 0;
+#pragma unroll
+    for (int v = 0; v < MMA_WARPS; ++v) sum += red[v * FRAG + i];
+    const int l = i & 31, q = (i >> 5) & 3;
+    int tile = i >> 7, mt = 0;             // tile -> (mt, nt >= 2 mt)
+    while (tile >= NT - 2 * mt) {
+      tile -= NT - 2 * mt;
+      ++mt;
+    }
+    const int nt = 2 * mt + tile;
+    const int row = 16 * mt + (l >> 2) + 8 * (q >> 1);
+    const int col = 8 * nt + 2 * (l & 3) + (q & 1);
+    if (row <= col && col < T_)
+      ws[static_cast<long long>(blockIdx.x) * (T_ * (T_ + 1) / 2) +
+         pair_index(row, col, T_)] = sum;
+  }
+}
+
 // pos, nz (T, w) words, T <= 16 * MT.  Block blk owns the words
 // [blk * W, min((blk + 1) * W, w)), W a multiple of 4; it writes its sum
 // of every pair (a <= b) to ws[blk * T(T+1)/2 + pair_index(a, b)] (a
@@ -361,34 +424,129 @@ sign_sim_packed_mma_kernel(const uint32_t* __restrict__ pos,
   cp_async_wait<0>();
   __syncthreads();                        // every stage read
 
-  // the warps' fragments side by side in shared memory, then each
-  // fragment entry summed over the 8 warps (int32: exact in any order) and
-  // written as the block's partial of its pair, where row <= col < T
+  // the warps' fragments side by side in shared memory (each fragment
+  // entry once: the odd offsets' 4x sums divided out exactly)
   int* red = reinterpret_cast<int*>(sm);
-  constexpr int FRAG = TILES * 4 * 32;     // a warp's accumulator entries
 #pragma unroll
   for (int i = 0; i < TILES; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) red[warp * FRAG + (i * 4 + q) * 32 + lane] =
-        acc[0][i][q] + (acc[1][i][q] >> 2);   // exact: a multiple of 4
+    for (int q = 0; q < 4; ++q)
+      red[warp * frag_entries(MT) + (i * 4 + q) * 32 + lane] =
+          acc[0][i][q] + (acc[1][i][q] >> 2);   // exact: a multiple of 4
   __syncthreads();
-  for (int i = tid; i < FRAG; i += MMA_THREADS) {
-    int sum = 0;
+  store_partials<MT>(red, T_, ws);
+}
+
+// -- the dense tensor-core route (T <= 64) --------------------------------
+
+// The int8 signs of 4 fp32 values, byte c from the c-th: +1, -1 or 0
+// ((v > 0) - (v < 0), as the first design takes them).
+__device__ __forceinline__ uint32_t sign_bytes(float4 v) {
+  auto sg = [](float x) {
+    return static_cast<uint32_t>((x > 0.f) - (x < 0.f)) & 0xffu;
+  };
+  return sg(v.x) | (sg(v.y) << 8) | (sg(v.z) << 16) | (sg(v.w) << 24);
+}
+
+// Shared-memory bytes of the dense mma kernel: the warps' fragments.
+constexpr size_t dense_smem(int MT) {
+  return static_cast<size_t>(MMA_WARPS) * frag_entries(MT) * 4;
+}
+
+// x (T, d) fp32, T <= 16 * MT.  Block blk owns the coordinates
+// [blk * W, min((blk + 1) * W, d)), W a multiple of 32 (one k-step of
+// mma.sync.m16n8k32.s8), and writes its sum of every pair (a <= b) as
+// store_partials does.  VEC: x 16-byte aligned and d a multiple of 4, so
+// every row's k-step starts 16-byte aligned (else 4-byte loads).
+template <int MT, bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS, MT == 4 ? 1 : 2)
+sign_sim_dense_mma_kernel(const float* __restrict__ x, int T_, long long d,
+                          long long W, int* __restrict__ ws) {
+  constexpr int NT = 2 * MT;               // 8-column tiles
+  constexpr int TILES = MT * (MT + 1);     // upper-triangle 16 x 8 tiles
+  constexpr int U = MT == 4 ? 1 : 2;       // k-steps a warp loads at once
+  extern __shared__ __align__(16) int red[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const long long j0 = blockIdx.x * W;
+  const long long j1 = j0 + W < d ? j0 + W : d;
+  const long long steps = (j1 - j0 + 31) / 32;
+  // this thread's rows g + 8 j (j < 2 MT) at column j0 + 4 tig; null
+  // past T (their operands stay zero)
+  const float* row[2 * MT];
 #pragma unroll
-    for (int v = 0; v < MMA_WARPS; ++v) sum += red[v * FRAG + i];
-    const int l = i & 31, q = (i >> 5) & 3;
-    int tile = i >> 7, mt = 0;             // tile -> (mt, nt >= 2 mt)
-    while (tile >= NT - 2 * mt) {
-      tile -= NT - 2 * mt;
-      ++mt;
-    }
-    const int nt = 2 * mt + tile;
-    const int row = 16 * mt + (l >> 2) + 8 * (q >> 1);
-    const int col = 8 * nt + 2 * (l & 3) + (q & 1);
-    if (row <= col && col < T_)
-      ws[static_cast<long long>(blockIdx.x) * (T_ * (T_ + 1) / 2) +
-         pair_index(row, col, T_)] = sum;
+  for (int j = 0; j < 2 * MT; ++j) {
+    const int r = 8 * j + g;
+    row[j] = r < T_ ? x + static_cast<long long>(r) * d + j0 + 4 * tig
+                    : nullptr;
   }
+  int acc[TILES][4];
+#pragma unroll
+  for (int i = 0; i < TILES; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0;
+
+  // k-step s of the block: register h of task tile mt's A fragment holds
+  // row 16 mt + g + 8 (h & 1) at k columns 4 tig + 16 (h >> 1) .. + 3 --
+  // 4 consecutive fp32 values, one 16-byte load (v[row group][h >> 1])
+  auto load = [&](long long s, float4 (&v)[2 * MT][2]) {
+    const long long k = 32 * s;
+    const bool whole = j0 + k + 32 <= j1;
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row[j] != nullptr) {
+          const float* p = row[j] + k + 16 * h;
+          if (VEC && whole) {
+            f = __ldcs(reinterpret_cast<const float4*>(p));
+          } else {
+            const long long c = j0 + k + 16 * h + 4 * tig;
+            f.x = c < j1 ? p[0] : 0.f;
+            f.y = c + 1 < j1 ? p[1] : 0.f;
+            f.z = c + 2 < j1 ? p[2] : 0.f;
+            f.w = c + 3 < j1 ? p[3] : 0.f;
+          }
+        }
+        v[j][h] = f;
+      }
+  };
+  // the signs as int8 A fragments, and the Gram product of the
+  // upper-triangle tiles: the B fragment of columns 8 nt .. 8 nt + 7 is
+  // registers 0 and 2 (nt even) or 1 and 3 (nt odd) of task tile nt / 2
+  auto product = [&](const float4 (&v)[2 * MT][2]) {
+    uint32_t fa[MT][4];
+#pragma unroll
+    for (int j = 0; j < 2 * MT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fa[j / 2][j % 2 + 2 * h] = sign_bytes(v[j][h]);
+    int tile = 0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 2 * mt; nt < NT; ++nt, ++tile)
+        mma_s8(acc[tile], fa[mt], fa[nt / 2][nt % 2], fa[nt / 2][nt % 2 + 2]);
+  };
+  // the warps take k-steps in turn, U at a time: their loads are all in
+  // flight before the first product
+  for (long long s = warp; s < steps; s += MMA_WARPS * U) {
+    float4 v[U][2 * MT][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s + u * MMA_WARPS < steps) load(s + u * MMA_WARPS, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (s + u * MMA_WARPS < steps) product(v[u]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < TILES; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      red[warp * frag_entries(MT) + (i * 4 + q) * 32 + lane] = acc[i][q];
+  __syncthreads();
+  store_partials<MT>(red, T_, ws);
 }
 
 // Clears the first design's int32 sums (the route for T > 64).
@@ -399,13 +557,17 @@ sign_sim_packed_zero_kernel(int* __restrict__ sums, int count) {
 }
 
 // One warp a pair (a <= b): the sum of its n_blk partials, ws[i * P + p]
-// for i < n_blk (the tensor-core route: p = pair_index(a, b) in rows of
-// P = T(T+1)/2; the first design's (T, T) sums: p = a * T + b, n_blk = 1),
-// in int32 (exact in any order), written as fp32 to dots[a, b] and
-// dots[b, a].
+// for i < n_blk (the tensor-core routes: p = pair_index(a, b) in rows of
+// P = T(T+1)/2; the first designs' (T, T) sums: p = a * T + b, n_blk = 1),
+// in int32 (exact in any order), written as fp32 to out[a, b] and
+// out[b, a]: the dots (sim = 0), or S = 0.5 * (dots * inv_d + 1) (sim =
+// 1) with one rounding a product and an add, as torch computes
+// ref.sim_from_dots on the card (its division by the scalar d is a
+// product with the fp32 reciprocal inv_d = 1 / d, rounded once).
 __global__ void __launch_bounds__(BLOCK)
 sign_sim_packed_sum_kernel(const int* __restrict__ ws, int T_, int n_blk,
-                           int square, float* __restrict__ dots) {
+                           int square, int sim, float inv_d,
+                           float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * (BLOCK / 32) + (threadIdx.x >> 5);
   if (p >= T_ * T_) return;               // uniform over the warp
@@ -419,28 +581,74 @@ sign_sim_packed_sum_kernel(const int* __restrict__ ws, int T_, int n_blk,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   if (lane == 0) {
-    const float v = static_cast<float>(s);
-    dots[a * T_ + b] = v;
-    dots[b * T_ + a] = v;
+    float v = static_cast<float>(s);
+    if (sim) v = 0.5f * __fadd_rn(__fmul_rn(v, inv_d), 1.f);   // exact halving
+    out[a * T_ + b] = v;
+    out[b * T_ + a] = v;
   }
+}
+
+// The sum kernel over n_blk partial rows (or the (T, T) sums, square).
+cudaError_t launch_sum(const int* ws, int T_, int n_blk, int square, int sim,
+                       float inv_d, float* out, cudaStream_t s) {
+  sign_sim_packed_sum_kernel<<<(T_ * T_ + BLOCK / 32 - 1) / (BLOCK / 32),
+                               BLOCK, 0, s>>>(ws, T_, n_blk, square, sim,
+                                              inv_d, out);
+  return cudaGetLastError();
+}
+
+// Clears a first design's int32 (T, T) sums.
+cudaError_t launch_zero(int* sums, int count, cudaStream_t s) {
+  sign_sim_packed_zero_kernel<<<(count + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(
+      sums, count);
+  return cudaGetLastError();
+}
+
+// Opts kern in to ``bytes`` of dynamic shared memory once, then launches
+// it on ``blocks`` blocks.
+template <typename Kern, typename... Args>
+cudaError_t launch_opted(Kern kern, bool& opted_in, size_t bytes, int blocks,
+                         cudaStream_t s, Args... args) {
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  kern<<<static_cast<unsigned>(blocks), MMA_THREADS, bytes, s>>>(args...);
+  return cudaGetLastError();
 }
 
 template <int MT>
 cudaError_t launch_mma(const uint32_t* pos, const uint32_t* nz, int T_,
                        long long w, int blocks, long long W, int* ws,
                        cudaStream_t s) {
-  auto kern = sign_sim_packed_mma_kernel<MT>;
   static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(mma_smem(MT)));
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  kern<<<static_cast<unsigned>(blocks), MMA_THREADS, mma_smem(MT), s>>>(
-      pos, nz, T_, w, W, ws);
-  return cudaGetLastError();
+  return launch_opted(sign_sim_packed_mma_kernel<MT>, opted_in, mma_smem(MT),
+                      blocks, s, pos, nz, T_, w, W, ws);
+}
+
+template <int MT, bool VEC>
+cudaError_t launch_dense_mma(const float* x, int T_, long long d, int blocks,
+                             long long W, int* ws, cudaStream_t s) {
+  static bool opted_in = false;
+  return launch_opted(sign_sim_dense_mma_kernel<MT, VEC>, opted_in,
+                      dense_smem(MT), blocks, s, x, T_, d, W, ws);
+}
+
+template <bool VEC>
+cudaError_t launch_dense_mma(const float* x, int T_, long long d, int blocks,
+                             long long W, int* ws, cudaStream_t s) {
+  return T_ <= 16   ? launch_dense_mma<1, VEC>(x, T_, d, blocks, W, ws, s)
+         : T_ <= 32 ? launch_dense_mma<2, VEC>(x, T_, d, blocks, W, ws, s)
+                    : launch_dense_mma<4, VEC>(x, T_, d, blocks, W, ws, s);
+}
+
+// Whether ``blocks`` blocks of W each cover [0, n) once.
+bool covers(int blocks, long long W, long long n) {
+  return W >= 1 && blocks >= 1 && static_cast<long long>(blocks) * W >= n &&
+         static_cast<long long>(blocks - 1) * W < n;
 }
 
 }  // namespace
@@ -457,14 +665,11 @@ extern "C" int sign_sim_packed_launch(const void* pos, const void* nz, int T_,
                                       long long W, void* ws,
                                       long long ws_words, void* dots,
                                       void* stream) {
-  if (T_ < 1 || w < 1 || W < 1 || blocks < 1 ||
-      static_cast<long long>(blocks) * W < w ||
-      static_cast<long long>(blocks - 1) * W >= w || ws == nullptr)
+  if (T_ < 1 || w < 1 || !covers(blocks, W, w) || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* p = static_cast<const uint32_t*>(pos);
   auto* z = static_cast<const uint32_t*>(nz);
-  auto* out = static_cast<float*>(dots);
   int* sums = static_cast<int*>(ws);
   const int pairs = T_ * (T_ + 1) / 2;
   cudaError_t e;
@@ -479,9 +684,7 @@ extern "C" int sign_sim_packed_launch(const void* pos, const void* nz, int T_,
     const size_t smem = 2ull * T_ * (W + 1) * sizeof(uint32_t);
     if (smem > 48 * 1024 || ws_words != static_cast<long long>(T_) * T_)
       return static_cast<int>(cudaErrorInvalidValue);
-    sign_sim_packed_zero_kernel<<<(T_ * T_ + BLOCK - 1) / BLOCK, BLOCK, 0,
-                                  s>>>(sums, T_ * T_);
-    e = cudaGetLastError();
+    e = launch_zero(sums, T_ * T_, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     sign_sim_packed_kernel<<<static_cast<unsigned>(blocks), BLOCK, smem, s>>>(
         p, z, T_, w, static_cast<int>(W), sums);
@@ -490,24 +693,51 @@ extern "C" int sign_sim_packed_launch(const void* pos, const void* nz, int T_,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  sign_sim_packed_sum_kernel<<<(T_ * T_ + BLOCK / 32 - 1) / (BLOCK / 32),
-                               BLOCK, 0, s>>>(sums, T_, route == 1 ? blocks : 1,
-                                              route == 0, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_sum(sums, T_, route == 1 ? blocks : 1,
+                                     route == 0, 0, 0.f,
+                                     static_cast<float*>(dots), s));
 }
 
-// x (T, d) fp32; dots (T, T) int32, zeroed by the caller.  WW sign words
-// (4 * WW coordinates) per block; T * (WW + 1) * 4 bytes of shared memory
-// must fit in 48 KB.
-extern "C" int sign_sim_launch(const void* x, int T_, long long d, int WW,
-                               void* dots, void* stream) {
-  const size_t smem = 1ull * T_ * (WW + 1) * sizeof(int);
-  if (T_ < 1 || d < 1 || WW < 1 || smem > 48 * 1024)
+// x (T, d) fp32; sim (T, T) fp32 out, S = 0.5 * (dots * inv_d + 1) with
+// inv_d the fp32 reciprocal of d.  route 1, the tensor cores (T <= 64):
+// ``blocks`` blocks of W coordinates each (W a multiple of 32, blocks * W
+// >= d > (blocks - 1) * W), ws of blocks * T(T+1)/2 int32 partials.
+// route 0, the first design (any T): W = 4 * WW coordinates a block, T *
+// (WW + 1) * 4 bytes of shared memory within 48 KB, blocks = ceil(d / W),
+// ws of T * T int32 sums.  ws needs no fill.  Returns cudaGetLastError().
+extern "C" int sign_sim_launch(const void* x, int T_, long long d, int route,
+                               int blocks, long long W, float inv_d, void* ws,
+                               long long ws_words, void* sim, void* stream) {
+  if (T_ < 1 || d < 1 || !covers(blocks, W, d) || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_blocks = (d + 4LL * WW - 1) / (4LL * WW);
-  if (n_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  sign_sim_kernel<<<static_cast<unsigned>(n_blocks), BLOCK, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), T_, d, WW, static_cast<int*>(dots));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* xf = static_cast<const float*>(x);
+  int* sums = static_cast<int*>(ws);
+  const int pairs = T_ * (T_ + 1) / 2;
+  cudaError_t e;
+  if (route == 1) {
+    if (T_ > 64 || W % 32 != 0 ||
+        ws_words != static_cast<long long>(blocks) * pairs)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && d % 4 == 0;
+    e = vec ? launch_dense_mma<true>(xf, T_, d, blocks, W, sums, s)
+            : launch_dense_mma<false>(xf, T_, d, blocks, W, sums, s);
+  } else if (route == 0) {
+    const long long WW = W / 4;
+    const size_t smem = 1ull * T_ * (WW + 1) * sizeof(int);
+    if (W % 4 != 0 || smem > 48 * 1024 ||
+        ws_words != static_cast<long long>(T_) * T_)
+      return static_cast<int>(cudaErrorInvalidValue);
+    e = launch_zero(sums, T_ * T_, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sign_sim_kernel<<<static_cast<unsigned>(blocks), BLOCK, smem, s>>>(
+        xf, T_, d, static_cast<int>(WW), sums);
+    e = cudaGetLastError();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(launch_sum(sums, T_, route == 1 ? blocks : 1,
+                                     route == 0, 1, inv_d,
+                                     static_cast<float*>(sim), s));
 }

@@ -23,7 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import bitpack, ref
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import (CudaKernel, require_cuda, sm_count,
+                                      stream_handle)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 KERNEL = CudaKernel("masked_agg_batched_packed", "masked_agg.cu",
@@ -36,7 +37,8 @@ KERNEL_BOOL = CudaKernel("masked_agg_batched", "masked_agg.cu",
                           _LL, _P, _P, _P])
 KERNEL_SINGLE = CudaKernel("masked_agg", "masked_agg.cu",
                            "masked_agg_single_launch",
-                           [_P, _I, _P, _I, _P, _P, _I, _LL, _F, _P, _P, _P])
+                           [_P, _I, _P, _I, _P, _P, _I, _LL, _F, _I, _P, _LL,
+                            _P, _P, _P])
 
 plain = ref.masked_agg_batched_packed_ref
 plain_bool = ref.masked_agg_batched_ref
@@ -64,6 +66,22 @@ def packed_workspace(n: int, t: int, tile: int) -> int:
     member lists, T rows of ``4 + 4 * max(N, 4)``; the wide-N route's
     fp32 γ·λ and member weights, ``2 * N * T``."""
     return t * (4 + 4 * max(n, 4)) if tile else 2 * n * t
+
+
+SINGLE_TILE = 2048         # coordinates a tile of the single-task kernel
+SINGLE_BLOCKS_PER_SM = 2
+
+
+def single_workspace(n: int) -> int:
+    """4-byte words of the single-task C call's workspace: one member list
+    row (:func:`packed_workspace` at T = 1 on the tile route)."""
+    return packed_workspace(n, 1, 1)
+
+
+def single_grid(d: int, sms: int) -> int:
+    """Blocks of the single-task kernel: persistent, at most
+    :data:`SINGLE_BLOCKS_PER_SM` a SM, never more than its tiles."""
+    return min(-(-d // SINGLE_TILE), SINGLE_BLOCKS_PER_SM * sms)
 
 
 def masked_agg_batched_packed(unified, mask_words, lams, gammas, members,
@@ -106,9 +124,10 @@ _MASK_KINDS = {torch.bool: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def masked_agg_cuda(unified, masks, lams, gammas, rho: float):
-    """The kernel path of :func:`masked_agg`: membership and N_t are
-    derived from gamma inside the kernel (no host round trip); the masks
-    are read in their own dtype (no cast pass)."""
+    """The kernel path of :func:`masked_agg`: one C call builds the member
+    list from gamma > 0 on the card (no host round trip) and streams only
+    the member rows; the masks are read in their own dtype (no cast
+    pass)."""
     require_cuda(unified, "unified", (torch.float32, torch.bfloat16), 2)
     require_cuda(masks, "masks", tuple(_MASK_KINDS), 2)
     n, d = unified.shape
@@ -122,14 +141,17 @@ def masked_agg_cuda(unified, masks, lams, gammas, rho: float):
         require_cuda(x, name, (torch.float32,), 1)
         if tuple(x.shape) != (n,):
             raise ValueError(f"{name} {tuple(x.shape)} != {(n,)}")
-    tau = torch.empty((d,), dtype=torch.float32, device=unified.device)
+    dev = unified.device
+    ws = torch.empty((single_workspace(n),), dtype=torch.int32, device=dev)
+    tau = torch.empty((d,), dtype=torch.float32, device=dev)
     m_hat = torch.empty_like(tau)
-    with torch.cuda.device(unified.device):
+    with torch.cuda.device(dev):
         KERNEL_SINGLE.launch(
             unified.data_ptr(), int(unified.dtype == torch.bfloat16),
             masks.data_ptr(), _MASK_KINDS[masks.dtype], lam.data_ptr(),
-            gam.data_ptr(), n, d, float(rho), tau.data_ptr(),
-            m_hat.data_ptr(), stream_handle(unified))
+            gam.data_ptr(), n, d, float(rho), sm_count(dev.index),
+            ws.data_ptr(), ws.numel(), tau.data_ptr(), m_hat.data_ptr(),
+            stream_handle(unified))
     return tau, m_hat
 
 

@@ -10,27 +10,30 @@ version (:func:`repro_torch.kernels.ref.sign_sim_packed_ref`,
 :func:`~repro_torch.kernels.ref.sign_sim_ref`) agree exactly, and S is
 bitwise the same in both layouts.
 
-The packed kernel has two routes, chosen by T in the wrapper
-(:func:`packed_plan`): T <= 64 takes the int8 tensor cores (each block
-owns one word range; a sum kernel adds the blocks' int32 partials in
-the same C call), T > 64 the first design (pairs on ``__popc``).
+Each kernel has two routes, chosen by T in the wrapper
+(:func:`packed_plan`, :func:`dense_plan`): T <= 64 takes the int8 tensor
+cores (each block owns one word or coordinate range; a sum kernel adds
+the blocks' int32 partials in the same C call, and for the dense kernel
+writes S), T > 64 the first design (pairs on ``__popc`` / ``__dp4a``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import (CudaKernel, require_cuda, sm_count,
+                                      stream_handle)
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 KERNEL = CudaKernel("sign_sim_packed", "sign_sim.cu", "sign_sim_packed_launch",
                     [_P, _P, _I, _LL, _I, _I, _LL, _P, _LL, _P, _P])
 KERNEL_DENSE = CudaKernel("sign_sim", "sign_sim.cu", "sign_sim_launch",
-                          [_P, _I, _LL, _I, _P, _P])
+                          [_P, _I, _LL, _I, _I, _LL, _F, _P, _LL, _P, _P])
 
 plain = ref.sign_sim_packed_ref
 plain_dense = ref.sign_sim_ref
@@ -81,14 +84,57 @@ def packed_smem(t: int) -> int:
 
 
 def packed_workspace(t: int, blocks: int, route: str) -> int:
-    """int32 words of the packed C call's workspace: one partial a block
-    and pair on the tensor-core route, the (T, T) sums on the first."""
+    """int32 words of either C call's workspace: one partial a block and
+    pair on the tensor-core route ("mma"), the (T, T) sums on the first
+    designs ("popc", "dp4a")."""
     return blocks * (t * (t + 1) // 2) if route == "mma" else t * t
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+DENSE_ROUTES = ("dp4a", "mma")   # index = the dense C call's route argument
+DENSE_K = 32           # coordinates of one k-step (mma.sync.m16n8k32.s8)
+
+
+def dense_blocks_per_sm(t: int) -> int:
+    """Blocks a SM of the dense tensor-core route: two, one for T > 32
+    (whose 20 tiles' accumulators take a block's registers)."""
+    return 1 if t > 32 else 2
+
+
+def dense_plan(t: int, d: int, sms: int = 132, route: str | None = None):
+    """The dense kernel's launch plan for (T, d) fp32 on a card of ``sms``
+    SMs: (blocks, coordinates a block, route).  By default T <= 64 takes
+    the tensor cores ("mma"): :func:`dense_blocks_per_sm` blocks a SM,
+    each owning one range of a multiple of :data:`DENSE_K` coordinates,
+    the ranges covering [0, d) once; T > 64 the first design ("dp4a",
+    4 · :func:`sign_words_per_block` coordinates a block).
+    ``route="dp4a"`` takes the first design at any T."""
+    if route not in (None, *DENSE_ROUTES):
+        raise ValueError(f"unknown route {route!r}; expected one of "
+                         f"{DENSE_ROUTES}")
+    if route == "mma" and t > MMA_MAX_T:
+        raise ValueError(f"the tensor cores take T <= {MMA_MAX_T}, got {t}")
+    if route == "dp4a" or t > MMA_MAX_T:
+        per = 4 * sign_words_per_block(t)
+        return -(-d // per), per, "dp4a"
+    per = -(-d // (dense_blocks_per_sm(t) * sms))
+    per = max(DENSE_K, -(-per // DENSE_K) * DENSE_K)
+    return -(-d // per), per, "mma"
+
+
+def dense_smem(t: int) -> int:
+    """Shared-memory bytes of a dense tensor-core block for ``t`` tasks:
+    its 8 warps' int32 accumulator fragments over the upper-triangle
+    16 x 8 tiles of 16, 32 or 64 rows (``dense_smem`` in
+    ``csrc/sign_sim.cu``)."""
+    mt = 1 if t <= 16 else 2 if t <= 32 else 4
+    return 8 * mt * (mt + 1) * 4 * 32 * 4
+
+
+def reciprocal(d: int) -> float:
+    """fl32(1 / fl32(d)): the factor by which torch divides a CUDA tensor
+    by the Python scalar d (``ref.sim_from_dots`` on the card), which the
+    dense C call's S takes."""
+    return float(np.float32(1.0) / np.float32(d))
 
 
 def sign_words_per_block(t: int) -> int:
@@ -129,7 +175,7 @@ def sign_sim_packed_cuda(pos: torch.Tensor, nz: torch.Tensor,
     if words_per_block(t) < 1 or w < 1:
         raise ValueError(f"sign_sim_packed takes T <= {_SMEM // 16} and "
                          f"w >= 1, got {(t, w)}")
-    blocks, per, route = packed_plan(t, w, _sm_count(pos.device.index),
+    blocks, per, route = packed_plan(t, w, sm_count(pos.device.index),
                                      route)
     ws = torch.empty((packed_workspace(t, blocks, route),), dtype=torch.int32,
                      device=pos.device)
@@ -141,16 +187,25 @@ def sign_sim_packed_cuda(pos: torch.Tensor, nz: torch.Tensor,
     return dots
 
 
-def sign_sim_cuda(tau_hats: torch.Tensor) -> torch.Tensor:
-    """The kernel path of :func:`sign_sim`."""
+def sign_sim_cuda(tau_hats: torch.Tensor,
+                  route: str | None = None) -> torch.Tensor:
+    """The kernel path of :func:`sign_sim`: one C call, whose output is S
+    (no fill, no torch launch after it).  ``route`` is
+    :func:`dense_plan`'s: "dp4a" runs the first design at any T, so the
+    two routes can be held against each other."""
     require_cuda(tau_hats, "tau_hats", (torch.float32,), 2)
     t, d = tau_hats.shape
-    blk = sign_words_per_block(t)
-    if blk < 1 or d < 1:
+    if sign_words_per_block(t) < 1 or d < 1:
         raise ValueError(f"sign_sim takes T <= {_SMEM // 8} and d >= 1, got "
                          f"{(t, d)}")
-    dots = torch.zeros((t, t), dtype=torch.int32, device=tau_hats.device)
+    blocks, per, route = dense_plan(t, d, sm_count(tau_hats.device.index),
+                                    route)
+    ws = torch.empty((packed_workspace(t, blocks, route),), dtype=torch.int32,
+                     device=tau_hats.device)
+    sim = torch.empty((t, t), dtype=torch.float32, device=tau_hats.device)
     with torch.cuda.device(tau_hats.device):
-        KERNEL_DENSE.launch(tau_hats.data_ptr(), t, d, blk, dots.data_ptr(),
-                            stream_handle(tau_hats))
-    return ref.sim_from_dots(dots, d)
+        KERNEL_DENSE.launch(tau_hats.data_ptr(), t, d,
+                            DENSE_ROUTES.index(route), blocks, per,
+                            reciprocal(d), ws.data_ptr(), ws.numel(),
+                            sim.data_ptr(), stream_handle(tau_hats))
+    return sim

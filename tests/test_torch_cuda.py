@@ -941,3 +941,136 @@ def test_cuda_mlstm_run_to_run_bitwise(cuda, b, h, s, dk, dv, chunk, dtype):
     assert torch.equal(one[0], two[0])
     for a, w in zip(one[1], two[1]):
         assert torch.equal(a, w)
+
+
+# -- kernel 6: the dense tensor-core route and the first design -------------
+
+def dense_signs(seed, cuda, t, d):
+    """(T, d) fp32 on the card with zeros, negative zeros and (T > 1) an
+    all-zero row."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((t, d), generator=g, device=cuda)
+    x[x.abs() < 0.3] = 0.0
+    x[torch.rand((t, d), generator=g, device=cuda) < 0.1] = -0.0
+    if t > 1:
+        x[t // 2] = 0.0
+    return x
+
+
+def assert_sign_sim_dense_bitwise(x):
+    """S of both routes bitwise the plain version, the packed form
+    (``ops.sign_sim_packed`` on the same signs) and run to run."""
+    t, d = x.shape
+    got = sign_sim.sign_sim_cuda(x)
+    again = sign_sim.sign_sim_cuda(x)
+    first = sign_sim.sign_sim_cuda(x, route="dp4a")
+    want = sign_sim.plain_dense(x)
+    packed = ops.sign_sim_packed(*bitpack.sign_planes(x), d)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (t, t)
+    assert torch.equal(got, want) and torch.equal(got, packed)
+    assert torch.equal(again, got) and torch.equal(first, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 33, 4100, 50000, 1_327_140])
+@pytest.mark.parametrize("t", range(1, 66))
+def test_cuda_sign_sim_dense_routes_bitwise(cuda, t, d):
+    """The tensor cores for T <= 64 and the first design at any T."""
+    assert sign_sim.dense_plan(t, d)[2] == ("mma" if t <= 64 else "dp4a")
+    assert_sign_sim_dense_bitwise(dense_signs(7 * t + d, cuda, t, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 3])
+@pytest.mark.parametrize("t,d", [(30, 33), (30, 4100), (64, 4100),
+                                 (17, 50_001)])
+def test_cuda_sign_sim_dense_unaligned_rows(cuda, t, d, shift):
+    """Rows that start 4 or 12 bytes past 16-byte alignment (and d not a
+    multiple of 4): the fragments come by 4-byte loads; bitwise."""
+    x = offset_view(dense_signs(d + shift, cuda, t, d), shift)
+    assert x.data_ptr() % 16 != 0
+    assert_sign_sim_dense_bitwise(x)
+
+
+@pytest.mark.cuda
+def test_cuda_sign_sim_dense_refusal_raises(cuda, monkeypatch):
+    """No fallback: a plan whose blocks do not cover d once is refused;
+    the wrapper raises and counts no launch."""
+    x = dense_signs(0, cuda, 30, 4100)
+    plan = sign_sim.dense_plan
+    monkeypatch.setattr(sign_sim, "dense_plan",
+                        lambda t, d, sms, route=None: (1, 32, "mma"))
+    before = sign_sim.KERNEL_DENSE.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sign_sim.sign_sim_cuda(x)
+    assert sign_sim.KERNEL_DENSE.launches == before
+    monkeypatch.setattr(sign_sim, "dense_plan", plan)
+    sign_sim.sign_sim_cuda(x)
+    assert sign_sim.KERNEL_DENSE.launches == before + 1
+
+
+# -- kernel 8: the member-row route ------------------------------------------
+
+def single_task(seed, cuda, n, n_mem, d, u_dtype, mask_dtype, shift=0):
+    """One task on the card: unified rows with zeros, masks 0.7 dense,
+    gamma > 0 on ``n_mem`` random rows and 0 on the rest (which keep a
+    mask); unified and masks ``shift`` elements past alignment."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    u = torch.randn((n, d), generator=g, device=cuda)
+    u[torch.rand((n, d), generator=g, device=cuda) < 0.1] = 0.0
+    masks = torch.rand((n, d), generator=g, device=cuda) < 0.7
+    lams = torch.rand(n, generator=g, device=cuda) + 0.5
+    sizes = torch.randint(10, 200, (n,), generator=g, device=cuda).float()
+    sizes[torch.randperm(n, generator=g, device=cuda)[n_mem:]] = 0.0
+    gam = sizes / torch.clamp(sizes.sum(), min=1.0)
+    uni, mk = u.to(u_dtype), masks.to(mask_dtype)
+    if shift:
+        uni, mk = offset_view(uni, shift), offset_view(mk, shift)
+    return uni, mk, lams, gam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.float32,
+                                        torch.bfloat16])
+@pytest.mark.parametrize("n,n_mem,d,shift", [
+    (1, 1, 7, 0), (1, 1, 4100, 0), (32, 9, 7, 0), (32, 9, 4100, 0),
+    (32, 9, 3_588_168, 0), (4000, 123, 4100, 0), (4000, 4000, 7, 0),
+    (5, 0, 4100, 0), (32, 9, 4100, 1), (32, 9, 33, 1)])
+def test_cuda_masked_agg_single_member_rows_bitwise(cuda, n, n_mem, d, shift,
+                                                    mask_dtype, u_dtype):
+    """Kernel 8 bitwise against its plain version and the batched bool
+    kernel's row of the same task, and run to run: one member, 9 of 32,
+    123 and all of 4000 (past the m_hat table), no member at all, d at
+    the serve round's width and below a tile, tensors offset by one
+    element."""
+    uni, mk, lams, gam = single_task(n + d + shift, cuda, n, n_mem, d,
+                                     u_dtype, mask_dtype, shift)
+    got = masked_agg.masked_agg_cuda(uni, mk, lams, gam, 0.4)
+    again = masked_agg.masked_agg_cuda(uni, mk, lams, gam, 0.4)
+    want = masked_agg.plain_single(uni, mk, lams, gam, 0.4)
+    mem = gam > 0
+    row = masked_agg.masked_agg_batched_cuda(
+        uni, ((mk != 0) & mem[:, None])[:, None].contiguous(), lams[:, None],
+        gam[:, None], mem[:, None], 0.4)
+    torch.cuda.synchronize()
+    for a, b, w, r in zip(got, again, want, row):
+        assert torch.equal(a, w) and torch.equal(a, r[0])
+        assert torch.equal(b, a)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_agg_single_refusal_raises(cuda, monkeypatch):
+    """No fallback: a workspace that does not hold the member list is
+    refused; the wrapper raises and counts no launch."""
+    args = single_task(0, cuda, 32, 9, 4100, torch.bfloat16, torch.bool)
+    size = masked_agg.single_workspace
+    monkeypatch.setattr(masked_agg, "single_workspace", lambda n: 4)
+    before = masked_agg.KERNEL_SINGLE.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        masked_agg.masked_agg_cuda(*args, 0.4)
+    assert masked_agg.KERNEL_SINGLE.launches == before
+    monkeypatch.setattr(masked_agg, "single_workspace", size)
+    masked_agg.masked_agg_cuda(*args, 0.4)
+    assert masked_agg.KERNEL_SINGLE.launches == before + 1
