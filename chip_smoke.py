@@ -30,8 +30,9 @@ Phases (any failure raises and the script exits nonzero):
 4. bool    — the bool/fp32 A/B layout at the same width, on bf16-valued
              task vectors: each of its kernels (``fused_unify``,
              ``masked_agg_batched``, ``sign_sim``, and ``unify`` for one
-             client of K = 4) against its plain version, bitwise, and
-             timed (``masked_agg_batched`` also run to run, by device
+             client of K = 4, fp32 and bf16, in fp32 bit patterns and run
+             to run) against its plain version, bitwise, and timed with
+             its device time (``masked_agg_batched`` also run to run, by device
              time, and its τ̂ against ``masked_agg_batched_packed``'s on
              the same bits; ``sign_sim``, whose T <= 64 route runs the
              int8 tensor cores and writes S in the same C call, also run
@@ -90,8 +91,12 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-8. summary — a ``kernels:`` line, one JSON line with every kernel's
-             numbers, and the last line ``{"ok": true, "device": …}``.
+8. summary — the host µs a call of every kernel wrapper and of the
+             call path's pieces (``time.perf_counter_ns`` over 10,000
+             calls on small inputs, :func:`host_costs`), a ``kernels:``
+             line, one JSON line with every kernel's numbers
+             (``host_us`` among them), and the last line ``{"ok": true,
+             "device": …}``.
 
 The script needs a CUDA device and the rest of the repository: without
 either it exits nonzero before printing any result.  ``--only round``
@@ -101,8 +106,11 @@ round-kernel change); ``--only bool`` runs setup and the bool phase
 alone (kernels 4–7 and the bool round: a quick loop for a change to
 them); ``--only devtime`` times kernels 3–8 alone by device function
 (rows 4–7 at the full-width bool round, 8 on 9 member rows of 32 at
-d = 3,588,168), any fill or conversion of a wrapper listed apart (it
-also runs from the root of an earlier checkout, to measure it); ``--only
+d = 3,588,168), any fill or conversion of a wrapper listed apart, then
+kernel 7 warm and with a cold L2 (a 256 MB fill or read before each
+call) and the host µs a call of every wrapper and of the call path's
+pieces (it also runs from the root of an earlier checkout, to measure
+it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change).  None of them prints the summary or the "ok"
 line.
@@ -137,13 +145,19 @@ def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` CUDA-event-timed calls."""
+def time_ms(torch, fn, reps: int = REPS, warmup: int = 3,
+            before=None) -> float:
+    """Median device time of ``fn`` over ``reps`` CUDA-event-timed calls;
+    ``before`` (an L2 flush), if given, runs and is waited for ahead of
+    each timed call, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
+            torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -635,6 +649,10 @@ def bool_phase(torch, dev):
     got = fused_unify.fused_unify_cuda(tv, valid)
     want = fused_unify.plain_bool(tv, valid)
     same("fused_unify", got, want)
+    # its wrapper's fill and ref._tree_total's adds count in its device time
+    _, _, per_fn = device_ms(
+        torch, "fused_unify", lambda: fused_unify.fused_unify_cuda(tv, valid),
+        apart=True)
     row("fused_unify", "fused_unify.cu", "src/repro/kernels/fused_unify.py:60",
         got, want,
         time_ms(torch, lambda: fused_unify.fused_unify_cuda(tv, valid)),
@@ -642,19 +660,46 @@ def bool_phase(torch, dev):
         # valid slot rows and flags read; fp32 unified, mask bytes, num
         # and den written
         n_valid * D * 4 + N * K_MAX + N * D * 4 + N * K_MAX * D
-        + 2 * N * K_MAX * 4, 10 * n_valid * D)
+        + 2 * N * K_MAX * 4, 10 * n_valid * D,
+        dev=(sum(per_fn.values()), per_fn))
 
-    # -- unify: one client of the most slots ------------------------------
+    # -- unify: one client of the most slots, fp32 and bf16 ----------------
     k1 = max(ks)
     x1 = tv[ks.index(k1), :k1]
-    got = (fused_unify.unify_cuda(x1),)
-    want = (fused_unify.plain_unify(x1),)
-    same("unify", got, want)
-    row("unify", "fused_unify.cu", "src/repro/kernels/unify.py:37", got, want,
-        time_ms(torch, lambda: fused_unify.unify_cuda(x1)),
-        time_ms(torch, lambda: fused_unify.plain_unify(x1), reps=5),
-        k1 * D * 4 + D * 4, 4 * k1 * D)
-    log(f"  (unify at K={k1}, d={D})")
+
+    def unify_row(name, x, fp32_out=None):
+        """Kernel 7 on ``x`` against its plain version and run to run in
+        fp32 bit patterns (and against ``fp32_out``, the output of the
+        same values in fp32), timed; returns its output."""
+        got = fused_unify.unify_cuda(x)
+        again = fused_unify.unify_cuda(x)
+        want = fused_unify.plain_unify(x)
+        torch.cuda.synchronize()
+        pairs = [("", got, want), (" run to run", again, want)]
+        if fp32_out is not None:
+            pairs.append((" vs fp32 input", got, fp32_out))
+        for what, a, b in pairs:
+            check_equal(torch, f"{name}{what} (fp32 bits)",
+                        a.view(torch.int32), b.view(torch.int32))
+        vec, blocks, per, route = fused_unify.unify_plan(
+            k1, D, x.dtype, (x.data_ptr() % 8) // x.element_size())
+        row(name, "fused_unify.cu", "src/repro/kernels/unify.py:37",
+            (got,), (want,),
+            time_ms(torch, lambda: fused_unify.unify_cuda(x)),
+            time_ms(torch, lambda: fused_unify.plain_unify(x), reps=5),
+            k1 * D * x.element_size() + D * 4, 4 * k1 * D,
+            dev=device_ms(torch, "unify",
+                          lambda: fused_unify.unify_cuda(x))[::2])
+        log(f"  ({name} at K={k1}, d={D}; {route} route, V={vec}, "
+            f"{blocks} blocks, tiles of {per}; fp32 bits identical to the "
+            f"plain version, run to run)")
+        return got
+
+    # bf16-valued task vectors: the bf16 copy holds the same values
+    fp32_out = unify_row("unify", x1)
+    unify_row("unify bf16", x1.to(torch.bfloat16), fp32_out)
+    rows["unify"]["bf16"] = rows.pop("unify bf16")
+    del fp32_out                            # not held through the round
 
     # -- masked_agg_batched (bool) ----------------------------------------
     uni, masks, lams = ops.fused_unify(tv, valid)
@@ -776,6 +821,144 @@ def bool_phase(torch, dev):
     return rows, counts
 
 
+FLUSH_BYTES = 256 << 20        # more than twice the H100's 50 MB L2
+HOST_CALLS = 10_000
+UNIFY_REPS = 101               # a cold call is cheap: more reps steady the median
+
+
+def unify_cold(torch, dev, x1):
+    """Kernel 7 (``fused_unify.unify_cuda``) on ``x1`` (K, d) fp32 and on
+    its bf16 copy: warm (its input left in L2 by the call before, as for
+    every other row) and cold.  Before each cold call a 256 MB buffer
+    goes through L2 once: overwritten by one fill ("fill": L2 then holds
+    the fill's dirty lines, written back while the kernel runs) or read
+    by one sum ("read": clean lines).  The flush is waited for outside
+    the CUDA events, and its device time is listed apart from the
+    kernel's.  Returns {dtype: numbers}."""
+    from repro_torch.kernels import fused_unify
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    flushes = {"fill": lambda: flush.fill_(1.0), "read": flush.sum}
+    out = {}
+    for name, x in (("fp32", x1), ("bf16", x1.to(torch.bfloat16))):
+        k, d = x.shape
+        b_ms, _ = bound(k * d * x.element_size() + d * 4, 4 * k * d)
+        row = {"bound_ms": b_ms}
+        for how, before in (("warm", None), *flushes.items()):
+            def call():
+                return fused_unify.unify_cuda(x)
+
+            def flushed():
+                before()
+                return call()
+            ms = time_ms(torch, call, reps=UNIFY_REPS, before=before)
+            own, _, per = device_ms(torch, "unify",
+                                    call if before is None else flushed,
+                                    apart=True)
+            row[how] = dict(ms=ms, device_ms=own, by_function={
+                fn_name(key): v for key, v in per.items()})
+            log(f"unify {name} (K={k} d={d}) {how}: {ms:.4f} ms a call, "
+                f"device {own:.4f} ms ({100 * b_ms / own:.0f} % of the "
+                f"{b_ms:.4f} ms bound); " + ", ".join(
+                    f"{fn_name(key)} {v:.4f}" for key, v in per.items()))
+        out[name] = row
+    return out
+
+
+def host_us(torch, fn, n: int = HOST_CALLS, batches: int = 10) -> float:
+    """Host µs a call of ``fn``: ``time.perf_counter_ns`` over ``n``
+    calls (after 100 to warm up) in ``batches`` runs of equal length, the
+    least batch mean (the host is shared, and what other work adds only
+    ever lengthens a batch).  The device is kept ahead: callers pass
+    inputs small enough that the device time of a call is below its host
+    time, so the launch queue never fills."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(batches):
+        t0 = time.perf_counter_ns()
+        for _ in range(n // batches):
+            fn()
+        best = min(best, time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+    return best / (n // batches) / 1e3
+
+
+def host_costs(torch, dev):
+    """Host µs a call of every kernel wrapper on small inputs (device
+    time well under the host's), and of the pieces of a wrapper's call
+    path (the device guard, the stream lookup, the output allocation, a
+    bound kernel's load), each over :data:`HOST_CALLS` calls.  Pieces an
+    earlier checkout lacks are left out.  Returns {name: µs}."""
+    from repro_torch.kernels import (bitpack, build, fused_unify, masked_agg,
+                                     mlstm_chunk, modulated_matmul,
+                                     sign_sim)
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    b, k, d, n, t = 2, 4, 4096, 4, 3
+    tv = torch.randn((b, k, d), generator=g, device=dev)
+    valid = torch.ones((b, k), dtype=torch.bool, device=dev)
+    x1 = tv[0].contiguous()
+    uni = torch.randn((n, d), generator=g, device=dev)
+    masks = torch.rand((n, t, d), generator=g, device=dev) < 0.7
+    words = bitpack.pack_bits(masks)
+    lams = torch.rand((n, t), generator=g, device=dev) + 0.5
+    member = torch.ones((n, t), dtype=torch.bool, device=dev)
+    gam = torch.full((n, t), 1.0 / n, device=dev)
+    uni_h = uni.to(torch.bfloat16)
+    m1, l1, g1 = (a[:, 0].contiguous() for a in (masks, lams, gam))
+    tau = torch.randn((t, d), generator=g, device=dev)
+    pos, nz = bitpack.sign_planes(tau)
+    xm = torch.randn((2, 1, 896), generator=g, device=dev)
+    base = torch.randn((896, 16), generator=g, device=dev)
+    taum = base.to(torch.bfloat16)
+    wm = torch.randint(-2 ** 31, 2 ** 31 - 1, (2, 896 * 16 // 32),
+                       generator=g, device=dev, dtype=torch.int32)
+    lm = torch.rand(2, generator=g, device=dev)
+    margs, mst = mlstm_inputs(torch, dev, g, 1, 1, 64, 16, 16,
+                              torch.float32, True)
+    wrappers = {
+        "fused_unify_packed": lambda: fused_unify.fused_unify_packed_cuda(
+            tv, valid),
+        "masked_agg_batched_packed": lambda: (
+            masked_agg.masked_agg_batched_packed_cuda(
+                uni_h, words, lams, gam, member, d, 0.4)),
+        "sign_sim_packed": lambda: sign_sim.sign_sim_packed_cuda(pos, nz),
+        "fused_unify": lambda: fused_unify.fused_unify_cuda(tv, valid),
+        "masked_agg_batched": lambda: masked_agg.masked_agg_batched_cuda(
+            uni, masks, lams, gam, member, 0.4),
+        "sign_sim": lambda: sign_sim.sign_sim_cuda(tau),
+        "unify": lambda: fused_unify.unify_cuda(x1),
+        "masked_agg": lambda: masked_agg.masked_agg_cuda(
+            uni, m1, l1, g1, 0.4),
+        "modulated_matmul": lambda: modulated_matmul.modulated_matmul_cuda(
+            xm, base, taum, wm, lm),
+        "mlstm_chunkwise": lambda: mlstm_chunk.mlstm_chunkwise_cuda(
+            *margs, mst, chunk=64)}
+    pieces = {
+        "torch.cuda.device enter/exit": lambda: _enter(torch.cuda.device(
+            dev)),
+        "torch.cuda.current_stream().cuda_stream": lambda: (
+            torch.cuda.current_stream(dev).cuda_stream),
+        "torch.empty((d,))": lambda: torch.empty((d,), dtype=torch.float32,
+                                                 device=dev),
+        "CudaKernel.load() once bound": fused_unify.KERNEL_UNIFY.load,
+        "build.stream_handle": lambda: build.stream_handle(x1)}
+    if hasattr(build, "on_device"):
+        pieces["build.on_device enter/exit"] = lambda: _enter(
+            build.on_device(x1))
+    out = {}
+    for label, group in (("wrapper", wrappers), ("piece", pieces)):
+        for name, fn in group.items():
+            out[name] = host_us(torch, fn)
+            log(f"host {label} {name}: {out[name]:.3f} us a call")
+    return out
+
+
+def _enter(ctx) -> None:
+    with ctx:
+        pass
+
+
 def devtime_phase(torch, dev):
     """Kernels 3-8 alone (4: ``fused_unify_cuda``, 5: bool
     ``masked_agg_batched_cuda``, 6: ``sign_sim_cuda``, 7: ``unify_cuda``
@@ -783,12 +966,14 @@ def devtime_phase(torch, dev):
     there and on seeded random planes of the xLSTM round's width,
     w = 376,827; 8: ``masked_agg_cuda`` on seeded bf16 unified rows at
     the qwen2 round's d = 3,588,168, N = 32 of which 9 members, the rest
-    with a mask and gamma = 0): ms a call and device time by function,
-    any other launch of a wrapper (a fill, a conversion) listed apart.  It
-    calls only entry points that every slice of the port since the serve
-    slice has, so it also measures an earlier checkout of the package:
-    copy this script into that checkout's root and run it there with
-    ``--only devtime``.  Returns the numbers as a dict."""
+    with a mask and gamma = 0): ms a call, device time by function, any
+    other launch of a wrapper (a fill, a conversion) listed apart; then
+    kernel 7 with a cold L2 (:func:`unify_cold`) and the host µs a call
+    of every wrapper and of the call path's pieces (:func:`host_costs`).  It calls only entry
+    points that every slice of the port since the serve slice has (or
+    checks that a piece exists), so it also measures an earlier checkout
+    of the package: copy this script into that checkout's root and run
+    it there with ``--only devtime``.  Returns the numbers as a dict."""
     from repro_torch.kernels import (bitpack, fused_unify, masked_agg, ops,
                                      sign_sim)
     tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev)
@@ -838,6 +1023,8 @@ def devtime_phase(torch, dev):
             fn_name(k): v for k, v in per.items()})
         log(f"{name}: {ms:.4f} ms a call, device {own:.4f} ms; "
             + ", ".join(f"{fn_name(k)} {v:.4f}" for k, v in per.items()))
+    out["unify_cold"] = unify_cold(torch, dev, x1)
+    out["host_us"] = host_costs(torch, dev)
     return out
 
 
@@ -2025,6 +2212,8 @@ def main() -> int:
                                  "first_design_device_ms")}
     serve_rows["mlstm_chunkwise"] = xlstm_row
     serve_counts["mlstm_chunkwise"] = xlstm_counts["mlstm_chunkwise"]
+    log("== host cost of every wrapper ==")
+    host = host_costs(torch, dev)
     kernels, checks = [], {}
     paths = {"unify": "ops.unify, once",
              "masked_agg": "ops.masked_agg, once (serve phase)",
@@ -2037,6 +2226,7 @@ def main() -> int:
     for name, row in (list(rows.items()) + list(bool_rows.items())
                       + list(serve_rows.items())):
         checks[name] = row.pop("check")
+        row["host_us"] = host[name]
         counts = (round_counts if name in rows else
                   serve_counts if name in serve_rows else bool_counts)
         kernels.append(dict(
@@ -2050,6 +2240,7 @@ def main() -> int:
     log("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} ({k['path']}; app "
         f"{k['app_launches']}) check=pass ms={fmt(k['ms'])} "
+        f"device_ms={fmt(k['device_ms'])} host_us={k['host_us']:.2f} "
         f"bound_ms={fmt(k['bound_ms'])} plain_ms={fmt(k['plain_ms'])} "
         f"library_ms={fmt(k['library_ms'])} [{checks[k['name']]}]"
         for k in kernels))

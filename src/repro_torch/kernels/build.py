@@ -13,6 +13,7 @@ refused launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -130,9 +131,26 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """A context in which ``t``'s device is the current one, for a launch:
+    a shared no-op when it already is (the usual case: no device swap),
+    ``torch.cuda.device`` (two device swaps) only when it is not."""
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(idx)
+
+
 def stream_handle(t: torch.Tensor) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer:
+    the raw handle, read without building a ``torch.cuda.Stream`` (the
+    call Inductor's generated code makes; ``tests/test_torch_cuda.py``
+    holds it to ``torch.cuda.current_stream().cuda_stream``, inside a
+    ``torch.cuda.stream`` block too)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:

@@ -63,10 +63,26 @@
 // lambda blocks before using any, mask bytes stored by each lane, the
 // lambda partials through per-slot shuffle trees into a buffer that the
 // wrapper sums by ref._tree_total.
-// unify_launch: one thread per coordinate; up to 16 slots are loaded into
-// registers together and elected as above; more slots take two passes over
-// the slot rows (sum, then aligned max), the second from cache.  Bound:
-// the (K, d) stack read once and d values written.
+// unify_launch (kernel 7, Eq. 2 for one client).  Bound: the (K, d) stack
+// read once and d fp32 values written (26.5 MB at K = 4, d = 1,327,140
+// fp32: 7.9 us at 3.35 TB/s), with no reuse, so the design keeps enough
+// loads in flight and spends no grid on tails:
+//  * "vec" route (K <= 16): a thread loads V values of each slot row at
+//    once, V * sizeof(T) <= 8 bytes (2 fp32 or 4 bf16), V the widest
+//    width every row start x + k*d allows (unify_vec, mirrored by
+//    fused_unify.unify_plan: gcd(8 / sizeof(T), the element offset of x,
+//    d); so V divides d and there is no tail).  The K loads are all
+//    issued before the election, which is the register elect<KM> of the
+//    first design, in the same order; out goes as V-wide stores.  One
+//    block a tile of 256 vectors.  Measured no better, so not kept:
+//    __ldcs loads (faster only when L2 is full of dirty lines, slower
+//    warm), 16-byte loads, a grid sized to the card (one resident wave
+//    walking the tiles), more blocks a SM, blocks of 128 or 512, two
+//    vectors a thread in flight, streaming stores (PERF.md §6, design
+//    steps of kernel 7);
+//  * "wide" route (K > 16): the first design, one thread a coordinate, the
+//    slot sum and the aligned max in two passes over the rows, the second
+//    from cache.
 #include "launch.cuh"
 #include "stage.cuh"
 
@@ -482,16 +498,75 @@ fused_unify_tree_kernel(const float* __restrict__ part, long long n,
                       ((ws[4] + ws[5]) + (ws[6] + ws[7]));
 }
 
-template <typename T, int KM>
+// Kernel 7 (unify_launch, the "vec" route).  Thread-wide loads: V values
+// of a row, V * sizeof(T) <= 8 bytes, in 32-bit words (bf16 value c is
+// the low half of word c / 2 when c is even).
+template <int BYTES>
+__device__ __forceinline__ void load_row(const void* p,
+                                         uint32_t (&w)[(BYTES + 3) / 4]) {
+  if constexpr (BYTES == 8) {
+    const uint2 v = *static_cast<const uint2*>(p);
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (BYTES == 4) {
+    w[0] = *static_cast<const unsigned int*>(p);
+  } else {
+    w[0] = *static_cast<const unsigned short*>(p);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float word_value(const uint32_t* w, int c) {
+  if constexpr (sizeof(T) == 4)
+    return __uint_as_float(w[c]);
+  else
+    return __uint_as_float((c & 1) ? (w[c >> 1] & 0xffff0000u)
+                                   : (w[c >> 1] << 16));
+}
+
+// V results as one V-wide store
+template <int V>
+__device__ __forceinline__ void store_out(float* p, const float (&r)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    *p = r[0];
+  }
+}
+
+constexpr int UNIFY_VEC_BYTES = 8;
+
+// One vector of V coordinates a thread (one tile of BLOCK vectors a
+// block): the K row loads are all issued before the first is used, then
+// elect<KM> per coordinate in register order, exactly as the first design.
+template <typename T, int KM, int V>
 __global__ void __launch_bounds__(BLOCK)
 unify_kernel(const T* __restrict__ x, int K, long long d,
              float* __restrict__ out) {
-  const long long j = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (j >= d) return;
-  float xv[KM];
+  constexpr int BYTES = V * static_cast<int>(sizeof(T));
+  constexpr int W = (BYTES + 3) / 4;
+  const long long i = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
+  if (i >= d / V) return;
+  uint32_t raw[KM][W];
 #pragma unroll
-  for (int k = 0; k < KM; ++k) xv[k] = k < K ? to_f32(x[k * d + j]) : 0.f;
-  out[j] = elect<KM>(xv, K);
+  for (int k = 0; k < KM; ++k) {
+    if (k < K) {
+      load_row<BYTES>(x + k * d + i * V, raw[k]);
+    } else {
+#pragma unroll
+      for (int w = 0; w < W; ++w) raw[k][w] = 0u;
+    }
+  }
+  float r[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    float xv[KM];
+#pragma unroll
+    for (int k = 0; k < KM; ++k) xv[k] = word_value<T>(raw[k], c);
+    r[c] = elect<KM>(xv, K);
+  }
+  store_out<V>(out + i * V, r);
 }
 
 // more slots than registers hold: the same order in two passes
@@ -619,21 +694,52 @@ int launch_packed(const void* x, int x_bf16, const uint8_t* v, int B, int K,
                                     u, w, p, n_blk, o, s);
 }
 
+// The load width V of the "vec" route (fused_unify.unify_plan mirrors
+// it): the widest of 8 / elt, 4 / elt, ... that x's element offset from
+// an 8-byte boundary and d are multiples of; 1 on the "wide" route.
+int unify_vec(int K, long long d, int elt, unsigned long long ptr) {
+  if (K > KMAX) return 1;
+  long long v = UNIFY_VEC_BYTES / elt;
+  const long long off = static_cast<long long>(ptr % UNIFY_VEC_BYTES) / elt;
+  while (off % v || d % v) v >>= 1;      // gcd with powers of two
+  return static_cast<int>(v);
+}
+
+// every V that unify_vec returns has a case here; any other is refused
+static_assert(UNIFY_VEC_BYTES == 8, "launch_unify_km launches V <= 4");
+
+template <typename T, int KM>
+cudaError_t launch_unify_km(const T* x, int K, long long d, int vec,
+                            unsigned grid, float* out, cudaStream_t s) {
+  switch (vec) {
+    case 1:
+      unify_kernel<T, KM, 1><<<grid, BLOCK, 0, s>>>(x, K, d, out);
+      return cudaSuccess;
+    case 2:
+      unify_kernel<T, KM, 2><<<grid, BLOCK, 0, s>>>(x, K, d, out);
+      return cudaSuccess;
+    case 4:
+      if constexpr (sizeof(T) == 2) {
+        unify_kernel<T, KM, 4><<<grid, BLOCK, 0, s>>>(x, K, d, out);
+        return cudaSuccess;
+      }
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-void launch_unify(const T* x, int K, long long d, float* out, cudaStream_t s) {
-  const unsigned grid = static_cast<unsigned>((d + BLOCK - 1) / BLOCK);
-  if (K <= 1)
-    unify_kernel<T, 1><<<grid, BLOCK, 0, s>>>(x, K, d, out);
-  else if (K <= 2)
-    unify_kernel<T, 2><<<grid, BLOCK, 0, s>>>(x, K, d, out);
-  else if (K <= 4)
-    unify_kernel<T, 4><<<grid, BLOCK, 0, s>>>(x, K, d, out);
-  else if (K <= 8)
-    unify_kernel<T, 8><<<grid, BLOCK, 0, s>>>(x, K, d, out);
-  else if (K <= KMAX)
-    unify_kernel<T, KMAX><<<grid, BLOCK, 0, s>>>(x, K, d, out);
-  else
-    unify_wide_kernel<T><<<grid, BLOCK, 0, s>>>(x, K, d, out);
+cudaError_t launch_unify(const T* x, int K, long long d, int vec,
+                         unsigned grid, float* out, cudaStream_t s) {
+  if (K <= 1) return launch_unify_km<T, 1>(x, K, d, vec, grid, out, s);
+  if (K <= 2) return launch_unify_km<T, 2>(x, K, d, vec, grid, out, s);
+  if (K <= 4) return launch_unify_km<T, 4>(x, K, d, vec, grid, out, s);
+  if (K <= 8) return launch_unify_km<T, 8>(x, K, d, vec, grid, out, s);
+  if (K <= KMAX)
+    return launch_unify_km<T, KMAX>(x, K, d, vec, grid, out, s);
+  if (vec != 1) return cudaErrorInvalidValue;
+  unify_wide_kernel<T><<<grid, BLOCK, 0, s>>>(x, K, d, out);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -687,16 +793,31 @@ extern "C" int fused_unify_launch(const void* x, int x_bf16, const void* valid,
 }
 
 // Eq. 2 for one client: x (K, d) fp32 (x_bf16 = 0) or bf16 (x_bf16 = 1),
-// any K >= 1; out (d,) fp32.  Returns cudaGetLastError().
+// any K >= 1; out (d,) fp32, aligned for V-wide stores.  V is unify_vec's
+// width for x's address.  Returns cudaGetLastError().
 extern "C" int unify_launch(const void* x, int x_bf16, int K, long long d,
                             void* out, void* stream) {
   if (K < 1 || d < 1 || (d + BLOCK - 1) / BLOCK > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = unify_vec(K, d, x_bf16 ? 2 : 4,
+                            reinterpret_cast<unsigned long long>(x));
+  if (reinterpret_cast<unsigned long long>(out) % (4 * vec))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float*>(out);
-  if (x_bf16)
-    launch_unify(static_cast<const __nv_bfloat16*>(x), K, d, o, s);
-  else
-    launch_unify(static_cast<const float*>(x), K, d, o, s);
-  return static_cast<int>(cudaGetLastError());
+  const auto grid = static_cast<unsigned>((d / vec + BLOCK - 1) / BLOCK);
+  const cudaError_t err =
+      x_bf16 ? launch_unify(static_cast<const __nv_bfloat16*>(x), K, d, vec,
+                            grid, o, s)
+             : launch_unify(static_cast<const float*>(x), K, d, vec, grid,
+                            o, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// unify_vec for a caller (fused_unify.unify_plan's card test): the load
+// width unify_launch takes for a stack of K rows of d elt-byte values at
+// address ptr.
+extern "C" int unify_vec_width(int K, long long d, int elt,
+                               unsigned long long ptr) {
+  return unify_vec(K, d, elt, ptr);
 }

@@ -23,11 +23,13 @@ bit, and λ is bitwise the same in both layouts.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import bitpack, ref
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import (CudaKernel, on_device, require_cuda,
+                                      stream_handle)
 
 KMAX = 16          # slots a lane keeps in registers (csrc/fused_unify.cu)
 
@@ -82,6 +84,31 @@ def lambda_blocks(d: int) -> int:
     return -(-d // ref.LAMBDA_BLOCK)
 
 
+UNIFY_BLOCK = 256        # threads of a unify block
+UNIFY_VEC_BYTES = 8      # the widest load a thread makes of one row
+UNIFY_ROUTES = ("vec", "wide")
+
+
+def unify_plan(k: int, d: int, dtype: torch.dtype, ptr_offset: int):
+    """Kernel 7's launch plan for (K, d) ``dtype`` rows whose first
+    element lies ``ptr_offset`` elements past an 8-byte boundary: (V,
+    blocks, coordinates a block, route).
+
+    K <= :data:`KMAX` takes the "vec" route: a thread loads V values of
+    every row at once (2 fp32 or 4 bf16 at most), V the largest width
+    every row start ``ptr_offset + k·d`` allows: gcd(8 / element size,
+    ``ptr_offset``, d), so V divides d and the vectors cover [0, d) with
+    no tail; block b takes the tile of ``UNIFY_BLOCK`` vectors b.  K >
+    KMAX takes the first design ("wide"): one coordinate a thread, two
+    passes over the rows.  The C launch computes V itself
+    (``unify_vec`` in ``csrc/fused_unify.cu``); this is its mirror, held
+    to it by a card test."""
+    vec = 1 if k > KMAX else math.gcd(
+        math.gcd(UNIFY_VEC_BYTES // dtype.itemsize, ptr_offset), d)
+    return (vec, -(-(d // vec) // UNIFY_BLOCK), UNIFY_BLOCK * vec,
+            UNIFY_ROUTES[k > KMAX])
+
+
 def _launch_fused(kernel: CudaKernel, task_vectors: torch.Tensor,
                   valid: torch.Tensor, uni: torch.Tensor,
                   masks: torch.Tensor):
@@ -93,7 +120,7 @@ def _launch_fused(kernel: CudaKernel, task_vectors: torch.Tensor,
     # the tree's power-of-two length: one tree over both
     n_pad = ref.next_pow2(-(-d // ref.LAMBDA_BLOCK))
     parts = torch.zeros((2, b, k, n_pad), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with on_device(task_vectors):
         kernel.launch(task_vectors.data_ptr(),
                       int(task_vectors.dtype == torch.bfloat16),
                       valid.data_ptr(), b, k, d, uni.data_ptr(),
@@ -130,7 +157,7 @@ def fused_unify_packed_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
     n_blk = lambda_blocks(d)
     part = torch.empty((2, b, k, n_blk), dtype=torch.float32, device=dev)
     num_den = torch.empty((2, b, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with on_device(task_vectors):
         KERNEL.launch(task_vectors.data_ptr(),
                       int(task_vectors.dtype == torch.bfloat16),
                       valid.data_ptr(), b, k, d, uni.data_ptr(),
@@ -151,13 +178,15 @@ def fused_unify_cuda(task_vectors: torch.Tensor, valid: torch.Tensor):
 
 
 def unify_cuda(task_vectors: torch.Tensor) -> torch.Tensor:
-    """The kernel path of :func:`unify` (CUDA tensors only)."""
+    """The kernel path of :func:`unify` (CUDA tensors only): one
+    allocation and one launch, at the load width the C call takes from
+    the stack's address (:func:`unify_plan`)."""
     require_cuda(task_vectors, "task_vectors", _IN_DTYPES, 2)
     k, d = task_vectors.shape
     if k < 1 or d < 1:
         raise ValueError(f"unify takes K >= 1 and d >= 1, got {(k, d)}")
     out = torch.empty((d,), dtype=torch.float32, device=task_vectors.device)
-    with torch.cuda.device(task_vectors.device):
+    with on_device(task_vectors):
         KERNEL_UNIFY.launch(task_vectors.data_ptr(),
                             int(task_vectors.dtype == torch.bfloat16), k, d,
                             out.data_ptr(), stream_handle(task_vectors))

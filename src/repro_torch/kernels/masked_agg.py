@@ -23,8 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import bitpack, ref
-from repro_torch.kernels.build import (CudaKernel, require_cuda, sm_count,
-                                      stream_handle)
+from repro_torch.kernels.build import (CudaKernel, on_device, require_cuda,
+                                      sm_count, stream_handle)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 KERNEL = CudaKernel("masked_agg_batched_packed", "masked_agg.cu",
@@ -145,7 +145,7 @@ def masked_agg_cuda(unified, masks, lams, gammas, rho: float):
     ws = torch.empty((single_workspace(n),), dtype=torch.int32, device=dev)
     tau = torch.empty((d,), dtype=torch.float32, device=dev)
     m_hat = torch.empty_like(tau)
-    with torch.cuda.device(dev):
+    with on_device(unified):
         KERNEL_SINGLE.launch(
             unified.data_ptr(), int(unified.dtype == torch.bfloat16),
             masks.data_ptr(), _MASK_KINDS[masks.dtype], lam.data_ptr(),
@@ -185,7 +185,7 @@ def _launch_round(kernel: CudaKernel, unified, masks, lams, gammas, members,
     ws = torch.empty((ws_words,), dtype=torch.int32, device=dev)
     tau = torch.empty((t, d), dtype=torch.float32, device=dev)
     out2 = torch.empty_like(tau)
-    with torch.cuda.device(dev):
+    with on_device(unified):
         kernel.launch(unified.data_ptr(), int(unified.dtype == torch.bfloat16),
                       masks.data_ptr(), lam.data_ptr(), gam.data_ptr(),
                       mem.data_ptr(), int(mem.dtype == torch.float32), n, t,

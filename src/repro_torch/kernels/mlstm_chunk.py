@@ -26,7 +26,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import (CudaKernel, on_device, require_cuda,
+                                      stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("mlstm_chunkwise", "mlstm_chunk.cu", "mlstm_chunk_launch",
@@ -193,7 +194,7 @@ def mlstm_chunkwise_cuda(q, k, v, i_pre, f_pre, state, *, chunk: int,
     n1 = torch.empty_like(n0)
     m1 = torch.empty_like(m0)
     ws, wsw = _workspaces(q, chunk)
-    with torch.cuda.device(q.device):
+    with on_device(q):
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       int(q.dtype == torch.bfloat16), i_pre.data_ptr(),
                       f_pre.data_ptr(), C0.data_ptr(), n0.data_ptr(),
@@ -212,7 +213,7 @@ def mlstm_chunk_prepass_cuda(q, k, i_pre, f_pre, n0, m0, *, chunk: int):
     b, h, s, dk = q.shape
     n1, m1 = torch.empty_like(n0), torch.empty_like(m0)
     ws, wsw = _workspaces(q, chunk, zero=True)
-    with torch.cuda.device(q.device):
+    with on_device(q):
         PREPASS.launch(q.data_ptr(), k.data_ptr(),
                        int(q.dtype == torch.bfloat16), i_pre.data_ptr(),
                        f_pre.data_ptr(), n0.data_ptr(), m0.data_ptr(),

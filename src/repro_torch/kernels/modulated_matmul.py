@@ -21,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import bitpack, ref
-from repro_torch.kernels.build import CudaKernel, require_cuda, stream_handle
+from repro_torch.kernels.build import (CudaKernel, on_device, require_cuda,
+                                      stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("modulated_matmul", "modulated_matmul.cu",
@@ -98,7 +99,7 @@ def modulated_matmul_cuda(x, base, tau, words, lam) -> torch.Tensor:
     ws_shape = decode_workspace_shape(b, s, k, n)
     ws = (None if ws_shape is None else
           torch.empty(ws_shape, dtype=torch.float32, device=x.device))
-    with torch.cuda.device(x.device):
+    with on_device(x):
         KERNEL.launch(x.data_ptr(), base.data_ptr(), tau.data_ptr(),
                       int(tau.dtype == torch.bfloat16), words.data_ptr(),
                       lam.data_ptr(), b, s, k, n, decode_chunks(k)[0],

@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import (CudaKernel, require_cuda, sm_count,
-                                      stream_handle)
+from repro_torch.kernels.build import (CudaKernel, on_device, require_cuda,
+                                      sm_count, stream_handle)
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -180,7 +180,7 @@ def sign_sim_packed_cuda(pos: torch.Tensor, nz: torch.Tensor,
     ws = torch.empty((packed_workspace(t, blocks, route),), dtype=torch.int32,
                      device=pos.device)
     dots = torch.empty((t, t), dtype=torch.float32, device=pos.device)
-    with torch.cuda.device(pos.device):
+    with on_device(pos):
         KERNEL.launch(pos.data_ptr(), nz.data_ptr(), t, w,
                       ROUTES.index(route), blocks, per, ws.data_ptr(),
                       ws.numel(), dots.data_ptr(), stream_handle(pos))
@@ -203,7 +203,7 @@ def sign_sim_cuda(tau_hats: torch.Tensor,
     ws = torch.empty((packed_workspace(t, blocks, route),), dtype=torch.int32,
                      device=tau_hats.device)
     sim = torch.empty((t, t), dtype=torch.float32, device=tau_hats.device)
-    with torch.cuda.device(tau_hats.device):
+    with on_device(tau_hats):
         KERNEL_DENSE.launch(tau_hats.data_ptr(), t, d,
                             DENSE_ROUTES.index(route), blocks, per,
                             reciprocal(d), ws.data_ptr(), ws.numel(),

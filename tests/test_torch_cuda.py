@@ -8,14 +8,16 @@ so it runs on a machine with the card and torch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (bitpack, fused_unify, masked_agg,  # noqa
-                                 mlstm_chunk, modulated_matmul, ops, ref,
-                                 sign_sim)
+from repro_torch.kernels import (bitpack, build, fused_unify,  # noqa
+                                 masked_agg, mlstm_chunk, modulated_matmul,
+                                 ops, ref, sign_sim)
 
 
 def slot_stack(seed, b, k, d):
@@ -354,15 +356,134 @@ def test_cuda_fused_unify_bool_matches_plain(cuda, dtype, b, k, d):
     assert torch.equal(got[2], packed[2]) and torch.equal(got[3], packed[3])
 
 
+def unify_stack(seed, k, d):
+    """(K, d) fp32 slot rows (full fp32 precision: the low 16 bits of the
+    random values are set), with special columns every 16: all +0.0, all
+    -0.0, ±a alternating (ties in |x|; an exact-zero sum at even K), ties
+    with a positive majority, +0.0 / -0.0 mixed, and -0.0 in slot 0
+    only."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((k, d)).astype(np.float32)
+    kind = np.arange(d) % 16
+    a, slot = np.float32(0.75), np.arange(k)[:, None]
+    x[:, kind == 0] = 0.0
+    x[:, kind == 1] = -0.0
+    x[:, kind == 2] = np.where(slot % 2 == 0, a, -a)
+    x[:, kind == 3] = np.where(slot % 3 == 2, -a, a)
+    x[:, kind == 4] = np.where(slot % 2 == 0, np.float32(-0.0),
+                               np.float32(0.0))
+    x[0, kind == 5] = -0.0
+    return x
+
+
+def fp32_bits(x):
+    return x.view(torch.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 4, 16, 40])
-@pytest.mark.parametrize("d", [33, 300, 4100])
-def test_cuda_unify_matches_plain(cuda, k, d):
-    x = torch.from_numpy(np.random.default_rng(k * d).standard_normal(
-        (k, d)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 3, 4, 16, 17, 40])
+@pytest.mark.parametrize("d", [1, 7, 33, 300, 4100, 65_540, 1_327_140])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_cuda_unify_matches_plain(cuda, dtype, k, d, offset):
+    """Kernel 7 bitwise its plain version (fp32 bit patterns, so +0.0 and
+    -0.0 differ) on both routes (K <= 16 and K > 16), the stack starting
+    ``offset`` elements into its buffer (every load width); zero, -0.0,
+    tie and cancelling columns; run to run; one launch a call."""
+    buf = torch.empty(offset + k * d, dtype=dtype, device=cuda)
+    x = buf[offset:].view(k, d)
+    x.copy_(torch.from_numpy(unify_stack(k * d + offset, k, d)))
+    before = fused_unify.KERNEL_UNIFY.launches
     got = fused_unify.unify_cuda(x)
+    assert fused_unify.KERNEL_UNIFY.launches == before + 1
+    again = fused_unify.unify_cuda(x)
+    want = fused_unify.plain_unify(x)
     torch.cuda.synchronize()
-    assert torch.equal(got, fused_unify.plain_unify(x))
+    assert got.dtype == torch.float32 and got.shape == (d,)
+    assert torch.equal(fp32_bits(got), fp32_bits(want))
+    assert torch.equal(fp32_bits(again), fp32_bits(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cpu", "non-contiguous", "K = 0", "fp16",
+                                  "1-d"])
+def test_cuda_unify_refuses(cuda, case):
+    """What kernel 7 does not take raises before any launch."""
+    x = torch.randn((4, 64), device=cuda)
+    bad = {"cpu": x.cpu(), "non-contiguous": x.t(), "K = 0": x[:0],
+           "fp16": x.half(), "1-d": x[0]}[case]
+    before = fused_unify.KERNEL_UNIFY.launches
+    with pytest.raises(ValueError):
+        fused_unify.unify_cuda(bad)
+    assert fused_unify.KERNEL_UNIFY.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 4, 16, 17])
+def test_cuda_unify_plan_is_the_launch_width(cuda, dtype, k):
+    """``fused_unify.unify_plan`` mirrors the load width the C launch
+    takes (``unify_vec_width``) at every row alignment and d mod 8."""
+    lib = ctypes.CDLL(str(build.build(["fused_unify.cu"])["fused_unify.cu"]))
+    width = lib.unify_vec_width
+    width.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_ulonglong]
+    width.restype = ctypes.c_int
+    size = torch.empty((), dtype=dtype).element_size()
+    for d in (1, 2, 3, 4, 5, 7, 8, 33, 4100, 1_327_140):
+        for offset in range(4):
+            ptr = 256 + offset * size
+            assert width(k, d, size, ptr) == fused_unify.unify_plan(
+                k, d, dtype, (ptr % 8) // size)[0], (d, offset)
+
+
+@pytest.mark.cuda
+def test_cuda_unify_refuses_an_unaligned_out(cuda):
+    """An out that V-wide stores cannot write is refused with the launch
+    error, and nothing is counted."""
+    x = torch.randn((4, 4100), device=cuda)          # V = 2
+    out = torch.empty(4101, device=cuda)[1:]
+    before = fused_unify.KERNEL_UNIFY.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused_unify.KERNEL_UNIFY.launch(x.data_ptr(), 0, 4, 4100,
+                                        out.data_ptr(),
+                                        build.stream_handle(x))
+    assert fused_unify.KERNEL_UNIFY.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_stream_handle_is_the_current_stream(cuda):
+    """``build.stream_handle`` reads the raw current stream without a
+    Stream object: the same handle as ``current_stream().cuda_stream``
+    outside and inside a ``torch.cuda.stream`` block."""
+    x = torch.zeros(8, device=cuda)
+    outside = torch.cuda.current_stream().cuda_stream
+    assert build.stream_handle(x) == outside
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        assert build.stream_handle(x) == s.cuda_stream
+        assert torch.cuda.current_stream().cuda_stream == s.cuda_stream
+    assert s.cuda_stream != outside
+    assert build.stream_handle(x) == outside
+
+
+@pytest.mark.cuda
+def test_cuda_unify_is_ordered_on_the_current_stream(cuda):
+    """A kernel launched inside ``with torch.cuda.stream(s)`` runs on s:
+    its input is written on s behind ~30 ms of sleep, so a launch on any
+    other stream would read the zeros before the copy."""
+    k, d = 4, 1_327_140
+    src = torch.from_numpy(unify_stack(7, k, d)).to(cuda)
+    want = fused_unify.plain_unify(src)
+    x = torch.zeros_like(src)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        x.copy_(src)
+        got = fused_unify.unify_cuda(x)
+    s.synchronize()
+    assert torch.equal(fp32_bits(got), fp32_bits(want))
 
 
 def bool_round(seed, n, t, d):
