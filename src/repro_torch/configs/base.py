@@ -7,8 +7,9 @@ hyper-parameters, the same values as the JAX package's twin.
 smoke-test variant (2 layers, d_model <= 128, fp32) of the same family.
 Dtypes are torch dtypes; bf16 is the default, as in the JAX package.
 
-Ported so far: the dense family (qwen2-0.5b) and the ssm family
-(xlstm-1.3b); ``load_arch`` of another name raises.
+Ported so far: the dense family (qwen2-0.5b), the ssm family
+(xlstm-1.3b) and the moe family without MLA (granite-moe-3b-a800m);
+``load_arch`` of another name raises.
 """
 
 from __future__ import annotations
@@ -196,4 +197,4 @@ def load_arch(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
-PORTED_ARCHS = ("qwen2-0.5b", "xlstm-1.3b")
+PORTED_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "granite-moe-3b-a800m")

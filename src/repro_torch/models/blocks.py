@@ -37,7 +37,9 @@ class Block(Module):
                   lead: Sequence[int] = ()):
         out = {"mixer": self.mixer.lora_init(generator, rank, device, lead)}
         if self.ffn is not None and hasattr(self.ffn, "lora_init"):
-            out["ffn"] = self.ffn.lora_init(generator, rank, device, lead)
+            ffn = self.ffn.lora_init(generator, rank, device, lead)
+            if ffn:     # an MoE without a shared expert adapts no FFN leaf
+                out["ffn"] = ffn
         return out
 
     def _ffn_apply(self, params, x, lora, mode):

@@ -3,8 +3,9 @@
 ``build_model`` returns an :class:`ArchModel` with the uniform interface
 the serving path relies on: ``init`` / ``lora_init``, ``forward``,
 ``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
-dense family (qwen2-0.5b) and the ssm family (xlstm-1.3b, alternating
-mLSTM / sLSTM blocks); the other families raise.
+dense family (qwen2-0.5b), the ssm family (xlstm-1.3b, alternating
+mLSTM / sLSTM blocks) and the moe family with attention (granite-moe-
+3b-a800m; MLA raises); the other families raise.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from repro_torch.models.blocks import Block, SSMBlockAdapter
 from repro_torch.models.lm import LM
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.mlp import SwiGLU
+from repro_torch.nn.moe import MoE
 from repro_torch.nn.ssm import MLSTMBlock, SLSTMBlock
 
 
@@ -60,13 +62,20 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
     sliding window, as in the JAX package."""
     window = cfg.window_for_shape(shape) if shape is not None else None
     dt = cfg.dtype
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        if cfg.family == "moe" and cfg.use_mla:
+            raise ValueError(f"{cfg.name}: MLA attention (use_mla=True) is "
+                             f"not ported yet")
         mixer = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
                           rope=True, rope_base=cfg.rope_base, window=window,
                           dtype=dt)
-        block = Block(cfg.d_model, mixer,
-                      SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt), dtype=dt)
+        ffn = (SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt)
+               if cfg.family == "dense" else
+               MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                   n_shared=cfg.n_shared_experts, shared_d_ff=cfg.shared_d_ff,
+                   capacity_factor=cfg.moe_capacity_factor, dtype=dt))
+        block = Block(cfg.d_model, mixer, ffn, dtype=dt)
         lm = LM(vocab=cfg.vocab, d_model=cfg.d_model, n_units=cfg.n_layers,
                 unit_blocks=[("blk", block)],
                 tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
@@ -85,4 +94,4 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                 tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
         return ArchModel(cfg, lm, "lm")
     raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
-                     f"dense, ssm)")
+                     f"dense, ssm, moe)")

@@ -1195,3 +1195,45 @@ def test_cuda_masked_agg_single_refusal_raises(cuda, monkeypatch):
     monkeypatch.setattr(masked_agg, "single_workspace", size)
     masked_agg.masked_agg_cuda(*args, 0.4)
     assert masked_agg.KERNEL_SINGLE.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_experts,cf", [(4, 8.0), (8, 1.25)])
+def test_cuda_granite_reduced_fused_matches_plain(cuda, n_experts, cf):
+    """The reduced granite (fp32, 2 layers) on the card: one serving
+    downlink → store → a fused generate of 4 requests over 3 tasks, with
+    kernel 9 on every LoRA site (4 × n_layers launches a forward), gives
+    the tokens of the same generate through the plain versions (mode
+    "ref"); at 8 experts and cf 1.25 an expert holds 56 rows of a
+    prefill whose mean load is 40, so rows may drop."""
+    import dataclasses
+
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    from repro_torch.serve import (GenerationConfig, ModulatorStore,
+                                   MultiTenantDecoder)
+    cfg = dataclasses.replace(load_arch("granite-moe-3b-a800m").reduced(),
+                              n_experts=n_experts, moe_capacity_factor=cf)
+    m = cfg.build(device=cuda)
+    params, lora0 = m.init(0), m.lora_init(1)
+    space = TaskVectorSpace.from_tree(lora0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    server = MaTUServer(MaTUServerConfig(n_tasks=4), device=cuda)
+    server.last_task_vectors = 0.05 * torch.randn((4, space.d), generator=g,
+                                                  device=cuda)
+    store = ModulatorStore(space, lora0, capacity=4, device=cuda)
+    store.ingest(server.serving_downlink(fingerprint=space.fingerprint))
+    prompts = torch.randint(1, cfg.vocab, (4, 40), generator=g, device=cuda)
+    gen = GenerationConfig(max_new_tokens=6)
+    ids = [2, 0, 3, 2]
+    ops.reset_launch_counts()
+    out = MultiTenantDecoder(m, params, store, fused=True, cfg=gen,
+                             device=cuda).generate(prompts, ids)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modulated_matmul"] == (
+        4 * cfg.n_layers * gen.max_new_tokens)
+    ref_out = MultiTenantDecoder(m, params, store, fused=True, cfg=gen,
+                                 mode="ref", device=cuda).generate(prompts,
+                                                                   ids)
+    assert torch.equal(out, ref_out)

@@ -82,8 +82,17 @@ def test_reduced_config_matches_jax():
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
         load_arch("hymba-1.5b")
-    cfg = load_arch("qwen2-0.5b").reduced()
-    cfg.family = "moe"
+    for family in ("hybrid", "audio", "vlm"):
+        cfg = load_arch("qwen2-0.5b").reduced()
+        cfg.family = family
+        with pytest.raises(ValueError, match="not ported"):
+            cfg.build(device="cpu")
+
+
+def test_moe_with_mla_raises():
+    cfg = load_arch("granite-moe-3b-a800m").reduced()
+    cfg.build(device="cpu")
+    cfg.use_mla = True
     with pytest.raises(ValueError, match="not ported"):
         cfg.build(device="cpu")
 
