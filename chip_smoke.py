@@ -89,7 +89,25 @@ Phases (any failure raises and the script exits nonzero):
              plain versions, and fp32, where fused and dense-routed decode
              must agree token for token unless a router near-tie flip
              (printed with its layer and margin) comes first.
-8. xlstm   — multi-tenant serving of xlstm-1.3b at full width (24
+8. whisper — multi-tenant serving of whisper-large-v3 at full width (32
+             encoder + 32 decoder layers, d_model 1280, 20 heads, d_ff
+             5120, vocab 51,866, 1,500 frames; random weights and frame
+             embeddings from a seed): kernel 9 at its factor shapes
+             (1280, 16), (5120, 16) and (16, 1280), S = 1, 4, 16 and
+             1,500, as in the serve phase; one round at d = 14,418,176
+             (kernels 1–3 there against their plain versions bitwise and
+             timed), ``serving_downlink`` → ``ModulatorStore``, then
+             ``route_batch(fused=True)`` and a bf16 greedy generate through
+             ``prefill_step`` (encoder over the frames, decoder over
+             4-token prompts, both caches filled) and ``decode_fn`` (B = 8
+             over 7 tasks, 32 new tokens) whose kernel-9 launches are
+             counted (512 at prefill: 3 encoder and 5 decoder sites, two
+             factors each, 32 layers; 320 a decode step); encoder,
+             prefill and decode-step walls, profiled encoder, prefill
+             and decode windows, peak memory, the caches' bytes, bf16
+             prefill logits against the plain versions, and fp32, where
+             fused and dense-routed decode must agree token for token.
+9. xlstm   — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -108,7 +126,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-9. summary — the host µs a call of every kernel wrapper and of the
+10. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -129,8 +147,9 @@ call) and the host µs a call of every wrapper and of the call path's
 pieces (it also runs from the root of an earlier checkout, to measure
 it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
-for a kernel-10 change); ``--only granite`` runs setup and the granite
-phase alone.  None of them prints the summary or the "ok" line.
+for a kernel-10 change); ``--only granite`` and ``--only whisper`` run
+setup and the granite or whisper phase alone.  None of them prints the
+summary or the "ok" line.
 """
 
 from __future__ import annotations
@@ -1100,6 +1119,7 @@ def app_phase(torch, dev):
 
 SERVE_ARCH = "qwen2-0.5b"
 SERVE_D = 3_588_168            # its LoRA task-vector size at rank 16
+SERVE_FINGERPRINT = "012bb33d0fb8e26e"
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
 # the three LoRA factor shapes of one layer: wq/wo a, down a, every b
 SERVE_LEAVES = [(896, 16), (4864, 16), (16, 896)]
@@ -1470,164 +1490,338 @@ def _rel_l2(torch, a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
+# -- the serving phases' shared steps -------------------------------------
+
+
+def build_served(torch, dev, cfg, seed, want, shape=""):
+    """``cfg``'s model on the card, its parameters and LoRA factors
+    random from ``seed``, and its task-vector space; raises unless its
+    (d, fingerprint) is ``want`` (None: a reduced configuration, not
+    checked).  ``shape`` is the family's part of the log line.  Returns
+    (model, generator, params, lora0, space)."""
+    from repro_torch.common.tree import TaskVectorSpace, tree_leaves
+    t_build = time.perf_counter()
+    model = cfg.build(device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init(g)
+    lora0 = model.lora_init(g)
+    space = TaskVectorSpace.from_tree(lora0)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    log(f"{cfg.name} ({cfg.dtype}): {n_params} parameters{shape}, LoRA d = "
+        f"{space.d} on {cfg.lora_targets()}, layout {space.fingerprint}, "
+        f"built in {time.perf_counter() - t_build:.2f} s")
+    if want is not None and (space.d, space.fingerprint) != want:
+        raise AssertionError(f"LoRA d {space.d} / layout {space.fingerprint}"
+                             f" != {want[0]} / {want[1]}")
+    return model, g, params, lora0, space
+
+
+def serve_requests(torch, dev, cfg, g, b, s, seed=SEED + 6):
+    """B requests over B - 1 tasks (the last repeats the first's task)
+    and their (B, S) prompts.  Returns (task ids, prompts)."""
+    gcpu = torch.Generator().manual_seed(seed)
+    ids = torch.randperm(T, generator=gcpu)[:b - 1].tolist()
+    ids.append(ids[0])
+    return ids, torch.randint(1, cfg.vocab, (b, s), generator=g, device=dev)
+
+
+def decoder_generate(prompts, ids, new):
+    """``gen(model, params, store, fused=True, mode=None)`` -> tokens
+    (B, S + new): ``MultiTenantDecoder.generate``, greedy, the serving
+    entry point of the one-stack families."""
+    from repro_torch.serve import GenerationConfig, MultiTenantDecoder
+    gen_cfg = GenerationConfig(max_new_tokens=new)
+
+    def gen(model, params, store, fused=True, mode=None):
+        return MultiTenantDecoder(model, params, store, fused=fused,
+                                  cfg=gen_cfg, mode=mode,
+                                  device=model.device).generate(prompts, ids)
+    return gen
+
+
+def served_prefill(model, params, batch, new):
+    """``prefill(lora tree, mode=None)`` -> (last-token logits, cache):
+    ``batch`` into a fresh cache of the generate's length."""
+    b, s = batch["tokens"].shape
+
+    def prefill(lora, mode=None):
+        return model.prefill_step(params, lora, batch,
+                                  model.init_cache(b, s + new + 8), mode=mode)
+    return prefill
+
+
+def round_to_store(torch, dev, label, space, lora0):
+    """The main path's first half, from launch counts set to 0: one MaTU
+    round at the model's d (:func:`serve_round`), its serving downlink
+    and a store that ingests it, timed.  Returns (server, round data,
+    store, ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ModulatorStore
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server, round_data = serve_round(torch, dev, space)
+    store = ModulatorStore(space, lora0, capacity=T, device=dev)
+    store.ingest(server.serving_downlink(packed=True,
+                                         fingerprint=space.fingerprint))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    rep = store.storage_report()
+    log(f"{label}main path: round + downlink + ingest {ms:.1f} ms (T={T}, "
+        f"N={N}, d={space.d}); store {rep['tasks']} tasks in "
+        f"{rep['resident_bytes']} B vs {rep['checkpoint_bytes']} B of "
+        f"checkpoints ({rep['ratio']:.2f}x)")
+    return server, round_data, store, ms
+
+
+def counted_generate(torch, label, cfg, prompts, ids, generate, want, new,
+                     what="fused, bf16"):
+    """The main path's second half: ``generate()`` -> tokens (B, S +
+    new), timed, its serve-kernel launches held to ``want`` exactly,
+    every packed-round kernel launched since the counts were set to 0,
+    the prompts at the head of in-vocabulary tokens.  Returns (tokens,
+    launches, ms, peak GiB)."""
+    from repro_torch.kernels import ops
+    b, s = prompts.shape
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    out = generate()
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = ops.launch_counts()
+    launches = {k: counts[k] - before[k] for k in ops.SERVE_KERNELS}
+    if launches != want:
+        raise AssertionError(f"{label}generate launched {launches}, "
+                             f"expected {want}")
+    if min(counts[k] for k in ops.PACKED_ROUND_KERNELS) < 1:
+        raise AssertionError(f"{label}round: a round kernel was not "
+                             f"launched: {counts}")
+    if out.shape != (b, s + new) or \
+            not torch.equal(out[:, :s], prompts.to(out.dtype)) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"{label}generate: bad output tokens")
+    log(f"{label}generate ({what}, B={b}, tasks {ids}, prompt {s}, {new} "
+        f"new): wall {1e3 * t_gen:.1f} ms, {b * new / t_gen:.1f} tokens/s, "
+        f"peak device memory {peak:.3f} GiB, launches {launches}; round "
+        f"kernels {counts}")
+    return out, launches, 1e3 * t_gen, peak
+
+
+def step_walls(torch, label, model, params, store, ids, prefill, s):
+    """The fused route, three prefills through it and eight decode steps
+    after the last, each timed between synchronises.  Returns (routed
+    tree, the last prefill's logits, the cache after the steps, the
+    first generated token (B, 1), prefill ms, step ms)."""
+    from repro_torch.serve.router import route_batch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lora = route_batch(store, ids, fused=True)
+    torch.cuda.synchronize()
+    route_ms = 1e3 * (time.perf_counter() - t0)
+    pre_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(lora)
+        torch.cuda.synchronize()
+        pre_ms.append(1e3 * (time.perf_counter() - t0))
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    step_ms = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.decode_fn(params, lora, {"tokens": tok}, cache,
+                                   s + i)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"{label}route (fused) {route_ms:.2f} ms; prefill "
+        f"{[round(x, 2) for x in pre_ms]} ms; decode steps "
+        f"{[round(x, 3) for x in step_ms]} ms (median "
+        f"{statistics.median(step_ms):.3f})")
+    return lora, logits, cache, tok, pre_ms, step_ms
+
+
+def decode_window(torch, label, model, params, lora, tok, cache, s,
+                  per_step):
+    """Four decode steps from ``cache`` (positions s .. s + 3) under the
+    profiler, and kernel 9's share of them (``per_step`` launches a
+    step).  Returns (wall ms, busy ms)."""
+    def four_steps():
+        c = cache
+        for i in range(4):
+            _, c = model.decode_fn(params, lora, {"tokens": tok}, c, s + i)
+
+    wall, busy, ops_ = profile_window(torch, f"{label}4 decode steps",
+                                      four_steps)
+    mm_decode_summary(f"{label}decode", ops_, 4 * per_step, wall, busy)
+    return wall, busy
+
+
+def bf16_gate(torch, label, logits_k, logits_p, bound, flip=None):
+    """bf16 prefill logits through the kernels against the same routed
+    tree through the plain versions: finite, and within ``bound`` rel L2
+    unless an MoE router flip between the two runs (``flip``, from
+    :func:`routing_diff`) explains it.  Returns the rel L2."""
+    rel = _rel_l2(torch, logits_k, logits_p)
+    log(f"{label}bf16 prefill logits, kernels vs plain versions: rel L2 "
+        f"{rel:.3e} (bound {bound}), max|err| "
+        f"{max_abs(torch, logits_k, logits_p)}")
+    if not torch.isfinite(logits_k).all():
+        raise AssertionError(f"{label}bf16 prefill logits not finite")
+    if not rel <= bound:
+        if flip is None:
+            raise AssertionError(f"{label}bf16 prefill logits: rel L2 {rel}"
+                                 f" with no router flip behind it")
+        log(f"{label}bf16 prefill logits beyond the bound after a "
+            f"{flip_text(flip)}: a near-tie flip, documented, not a fault")
+    return rel
+
+
+def token_agreements(torch, label, gen, model, params, store, out, s):
+    """Printed, not required: the share of the fused generate's tokens
+    that the same route through the plain versions, and the dense-routed
+    route (its adapter rounds to bf16, the fused weights stay fp32),
+    generate too."""
+    agree = [float((gen(model, params, store, **kw)[:, s:] == out[:, s:])
+                   .float().mean())
+             for kw in ({"mode": "ref"}, {"fused": False})]
+    log(f"{label}bf16 generated-token agreement with the fused route: plain "
+        f"versions {agree[0]:.4f}, dense-routed {agree[1]:.4f} (printed, "
+        f"not required)")
+
+
+def fp32_check(torch, dev, cfg32, server, ids, batch, gen, new, seed,
+               label="", root=("units", "blk")):
+    """The same configuration in fp32, weights from ``seed``: fused
+    (kernel) and dense-routed generates (``gen``) give identical tokens,
+    prefill logits of ``batch`` agree within the JAX package's bar, and
+    every factor of layer 0 at ``cfg32.lora_targets()`` (paths under
+    ``root`` of the routed tree) built by the kernel with x = I equals
+    the dense adapter leaf bit for bit.  In an
+    MoE model the two routes' LoRA products sum in other orders, so a
+    near-tie can route a token to another expert: a token or logit
+    difference passes only where such a router flip comes first, and is
+    printed with its forward, layer and margin; any other difference
+    fails."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ModulatorStore
+    from repro_torch.serve.router import route_batch
+    model, _, params, lora0, space = build_served(torch, dev, cfg32, seed,
+                                                  None)
+    store = ModulatorStore(space, lora0, capacity=T, device=dev)
+    store.ingest(server.serving_downlink(packed=True,
+                                         fingerprint=space.fingerprint))
+    prefill = served_prefill(model, params, batch, new)
+    b, s = batch["tokens"].shape
+    outs, logits, gen_tr, pre_tr = {}, {}, {}, {}
+    for fused in (True, False):
+        with RoutingTrace(torch, model) as gen_tr[fused]:
+            outs[fused] = gen(model, params, store, fused=fused)
+        with RoutingTrace(torch, model) as pre_tr[fused]:
+            logits[fused], _ = prefill(route_batch(store, ids, fused=fused))
+    torch.cuda.synchronize()
+    agree = float((outs[True] == outs[False]).float().mean())
+    log(f"{label}fp32: fused vs dense-routed tokens identical: "
+        f"{torch.equal(outs[True], outs[False])} (agreement {agree:.4f}); "
+        f"prefill logits max|err| {max_abs(torch, logits[True], logits[False])}"
+        f", rel L2 {_rel_l2(torch, logits[True], logits[False]):.3e}")
+    flip = routing_diff(torch, gen_tr[True], gen_tr[False], cfg32.n_layers)
+    if gen_tr[True].moe is not None:
+        log(f"{label}fp32 routing, fused vs dense-routed: "
+            + (flip_text(flip) if flip else "identical in every layer and "
+               "forward"))
+    if not torch.equal(outs[True], outs[False]):
+        first = int((outs[True] != outs[False])[:, s:].any(0).nonzero()[0])
+        if flip is None or flip["forward"] > first:
+            check_equal(torch, f"{label}fp32 fused vs dense-routed tokens",
+                        outs[True], outs[False])
+        log(f"{label}fp32 tokens differ from generated token {first} on, "
+            f"after the router flip above: a near-tie flip, documented, "
+            f"not a fault")
+    if not torch.allclose(logits[True], logits[False], rtol=FP32_RTOL,
+                          atol=FP32_ATOL):
+        pflip = routing_diff(torch, pre_tr[True], pre_tr[False],
+                             cfg32.n_layers)
+        if pflip is None:
+            raise AssertionError(f"{label}fp32 prefill logits beyond rtol "
+                                 f"{FP32_RTOL}, atol {FP32_ATOL}")
+        log(f"{label}fp32 prefill logits beyond rtol {FP32_RTOL} after a "
+            f"{flip_text(pflip)}: documented, not a fault")
+    trees = []
+    for fused in (True, False):
+        tree = route_batch(store, ids, fused=fused)
+        for key in root:
+            tree = tree[key]
+        trees.append(tree)
+    sites = cfg32.lora_targets()
+    for site in sites:
+        fs, ds = trees
+        for key in site.split("/"):
+            fs, ds = fs[key], ds[key]
+        for f in ("a", "b"):
+            k = fs[f]["base"].shape[1]
+            eye = torch.eye(k, device=dev).expand(b, k, k).contiguous()
+            w = ops.modulated_matmul(eye, fs[f]["base"][0], fs[f]["tau"][0],
+                                     fs[f]["words"][0], fs["lam"][0])
+            check_equal(torch, f"{label}fp32 fused weight {site}/{f} layer 0"
+                        f" vs dense adapter", w, ds[f][0])
+            del eye, w
+    log(f"{label}fp32: {2 * len(sites)} fused factor weights of layer 0 "
+        f"(x = I) equal the dense adapter leaves bit for bit")
+    del model, params, store
+
+
 def serve_phase(torch, dev, cfg=None):
     """Multi-tenant serving at full width (see the module docstring).
     Returns (rows, launches by kernel)."""
     from dataclasses import replace
-    from repro_torch.common.tree import TaskVectorSpace, tree_leaves
     from repro_torch.configs.base import load_arch
-    from repro_torch.kernels import ops
-    from repro_torch.serve import (GenerationConfig, ModulatorStore,
-                                   MultiTenantDecoder)
-    from repro_torch.serve.router import route_batch
 
     per = serve_kernel_checks(torch, dev)
     rows = {}
 
     full = cfg is None
     cfg = cfg or load_arch(SERVE_ARCH)
-    t_build = time.perf_counter()
-    model = cfg.build(device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    params = model.init(g)
-    lora0 = model.lora_init(g)
-    space = TaskVectorSpace.from_tree(lora0)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in tree_leaves(params))
-    log(f"{cfg.name} ({cfg.dtype}): {n_params} parameters, LoRA d = "
-        f"{space.d}, layout {space.fingerprint}, built in "
-        f"{time.perf_counter() - t_build:.2f} s")
-    if full and space.d != SERVE_D:
-        raise AssertionError(f"LoRA d {space.d} != {SERVE_D}")
+    b, s, new = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 4,
+        (SERVE_D, SERVE_FINGERPRINT) if full else None)
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s)
+    batch = {"tokens": prompts}
+    gen = decoder_generate(prompts, ids, new)
+    per_fwd = launches_per_forward(cfg)
 
     # -- the main path: round -> serving downlink -> store -> generate ------
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server, round_data = serve_round(torch, dev, space)
-    dl = server.serving_downlink(packed=True, fingerprint=space.fingerprint)
-    store = ModulatorStore(space, lora0, capacity=T, device=dev)
-    store.ingest(dl)
-    torch.cuda.synchronize()
-    t_round = time.perf_counter() - t0
-    gcpu = torch.Generator().manual_seed(SEED + 6)
-    ids = torch.randperm(T, generator=gcpu)[:SERVE_B - 1].tolist()
-    ids.append(ids[0])
-    prompts = torch.randint(1, cfg.vocab, (SERVE_B, SERVE_PROMPT),
-                            generator=g, device=dev)
-    gen_cfg = GenerationConfig(max_new_tokens=SERVE_NEW)
-    fused = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
-                               device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    mm_before = ops.launch_counts()["modulated_matmul"]
-    t0 = time.perf_counter()
-    out = fused.generate(prompts, ids)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    counts = ops.launch_counts()
-    per_fwd = launches_per_forward(cfg)
-    mm_launches = counts["modulated_matmul"] - mm_before
-    if mm_launches != per_fwd * SERVE_NEW:
-        raise AssertionError(f"generate launched modulated_matmul "
-                             f"{mm_launches} times, expected "
-                             f"{per_fwd} x {SERVE_NEW}")
-    if min(counts[k] for k in ops.PACKED_ROUND_KERNELS) < 1:
-        raise AssertionError(f"serve round: a round kernel was not "
-                             f"launched: {counts}")
-    if out.shape != (SERVE_B, SERVE_PROMPT + SERVE_NEW) or \
-            not torch.equal(out[:, :SERVE_PROMPT], prompts.to(out.dtype)) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        raise AssertionError("generate: bad output tokens")
-    rep = store.storage_report()
-    log(f"serve main path: round + downlink + ingest {1e3 * t_round:.1f} ms "
-        f"(T={T}, N={N}, d={space.d}); store {rep['tasks']} tasks in "
-        f"{rep['resident_bytes']} B vs {rep['checkpoint_bytes']} B of "
-        f"checkpoints ({rep['ratio']:.2f}x)")
-    log(f"generate (fused, bf16, B={SERVE_B}, tasks {ids}, prompt "
-        f"{SERVE_PROMPT}, {SERVE_NEW} new): wall {1e3 * t_gen:.1f} ms, "
-        f"{SERVE_B * SERVE_NEW / t_gen:.1f} tokens/s, peak device memory "
-        f"{peak / 2**30:.3f} GiB, launches {counts}")
-    serve_counts = dict(counts)
-    serve_counts["modulated_matmul"] = mm_launches
-
+    server, round_data, store, _ = round_to_store(torch, dev, "", space,
+                                                  lora0)
+    out, serve_counts, _, _ = counted_generate(
+        torch, "", cfg, prompts, ids, lambda: gen(model, params, store),
+        {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}, new)
     rows["masked_agg"], serve_counts["masked_agg"] = single_task_check(
         torch, dev, round_data, server)
     del round_data
 
     # -- step times, and profiled prefill / decode windows -------------------
-    lora = fused.route(ids)
-    max_len = SERVE_PROMPT + SERVE_NEW + 8
-
-    def prefill(lora_tree, mode=None):
-        cache = model.init_cache(SERVE_B, max_len)
-        logits, cache = model.prefill_step(params, lora_tree,
-                                           {"tokens": prompts}, cache,
-                                           mode=mode)
-        return logits, cache
-
-    t0 = time.perf_counter()
-    route_batch(store, ids, fused=True)
-    torch.cuda.synchronize()
-    t_route = time.perf_counter() - t0
-    pre_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits_k, cache = prefill(lora)
-        torch.cuda.synchronize()
-        pre_ms.append(1e3 * (time.perf_counter() - t0))
-    tok = torch.argmax(logits_k, -1).to(torch.int32)[:, None]
-    step_ms = []
-    for i in range(8):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, cache = model.decode_fn(params, lora, {"tokens": tok}, cache,
-                                   SERVE_PROMPT + i)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-    log(f"route (fused) {1e3 * t_route:.2f} ms; prefill {pre_ms} ms; decode "
-        f"steps {[round(x, 3) for x in step_ms]} ms (median "
-        f"{statistics.median(step_ms):.3f})")
-    _, _, pre_ops = profile_window(torch, "prefill", lambda: prefill(lora))
-    cache = prefill(lora)[1]
-
-    def four_steps():
-        c = cache
-        for i in range(4):
-            _, c = model.decode_fn(params, lora, {"tokens": tok}, c,
-                                   SERVE_PROMPT + i)
-
-    dec_wall, dec_busy, dec_ops = profile_window(torch, "4 decode steps",
-                                                 four_steps)
-    mm_decode_summary("decode", dec_ops, 4 * per_fwd, dec_wall, dec_busy)
+    prefill = served_prefill(model, params, batch, new)
+    lora, logits_k, cache, tok, _, _ = step_walls(torch, "", model, params,
+                                                  store, ids, prefill, s)
     del cache
+    profile_window(torch, "prefill", lambda: prefill(lora))
+    decode_window(torch, "", model, params, lora, tok, prefill(lora)[1], s,
+                  per_fwd)
 
     # -- the same routed tree through the plain versions --------------------
-    logits_p, _ = prefill(lora, mode="ref")
-    rel = _rel_l2(torch, logits_k, logits_p)
-    out_p = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
-                               mode="ref", device=dev).generate(prompts, ids)
-    agree = float((out_p[:, SERVE_PROMPT:] == out[:, SERVE_PROMPT:])
-                  .float().mean())
-    log(f"bf16 prefill logits, kernels vs plain versions: rel L2 {rel:.3e} "
-        f"(bound {BF16_LOGIT_REL_L2}), max|err| "
-        f"{max_abs(torch, logits_k, logits_p)}; generated-token agreement "
-        f"{agree:.4f}")
-    if not rel <= BF16_LOGIT_REL_L2 or not torch.isfinite(logits_k).all():
-        raise AssertionError(f"bf16 prefill logits: rel L2 {rel}")
-    out_d = MultiTenantDecoder(model, params, store, cfg=gen_cfg,
-                               device=dev).generate(prompts, ids)
-    agree_d = float((out_d[:, SERVE_PROMPT:] == out[:, SERVE_PROMPT:])
-                    .float().mean())
-    log(f"bf16 dense-routed decoder: token agreement with fused {agree_d:.4f} "
-        f"(printed, not required: the dense adapter rounds to bf16, the "
-        f"fused weights stay fp32)")
-    del model, params, lora0, store, lora, fused, logits_k, logits_p
+    bf16_gate(torch, "", logits_k, prefill(lora, mode="ref")[0],
+              BF16_LOGIT_REL_L2)
+    token_agreements(torch, "", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k
     torch.cuda.empty_cache()
 
-    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server,
-               prompts, ids, gen_cfg)
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
+               batch, gen, new, SEED + 7)
     del server
     torch.cuda.empty_cache()
 
@@ -1665,93 +1859,11 @@ def serve_phase(torch, dev, cfg=None):
     return rows, serve_counts
 
 
-def fp32_check(torch, dev, cfg32, server, prompts, ids, gen_cfg,
-               label=""):
-    """The same configuration in fp32: fused (kernel) and dense-routed
-    decode give identical tokens, prefill logits agree within the JAX
-    package's bar, and every factor of layer 0 built by the kernel with
-    x = I equals the dense adapter leaf bit for bit (the sites of
-    ``cfg32.lora_targets()``).  In an MoE model the two routes' LoRA
-    products sum in other orders, so a near-tie can route a token to
-    another expert: a token or logit difference passes only where such a
-    router flip comes first, and is printed with its forward, layer and
-    margin; any other difference fails."""
-    from repro_torch.common.tree import TaskVectorSpace
-    from repro_torch.kernels import ops
-    from repro_torch.serve import ModulatorStore, MultiTenantDecoder
-    from repro_torch.serve.router import route_batch
-    model = cfg32.build(device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 7)
-    params = model.init(g)
-    lora0 = model.lora_init(g)
-    space = TaskVectorSpace.from_tree(lora0)
-    store = ModulatorStore(space, lora0, capacity=T, device=dev)
-    store.ingest(server.serving_downlink(packed=True,
-                                         fingerprint=space.fingerprint))
-    b, s = prompts.shape
-    outs, logits, gen_tr, pre_tr = {}, {}, {}, {}
-    for fused in (True, False):
-        dec = MultiTenantDecoder(model, params, store, fused=fused,
-                                 cfg=gen_cfg, device=dev)
-        with RoutingTrace(torch, model) as gen_tr[fused]:
-            outs[fused] = dec.generate(prompts, ids)
-        cache = model.init_cache(b, s + gen_cfg.max_new_tokens + 8)
-        with RoutingTrace(torch, model) as pre_tr[fused]:
-            logits[fused], _ = model.prefill_step(
-                params, dec.route(ids), {"tokens": prompts}, cache)
-    torch.cuda.synchronize()
-    agree = float((outs[True] == outs[False]).float().mean())
-    log(f"{label}fp32: fused vs dense-routed tokens identical: "
-        f"{torch.equal(outs[True], outs[False])} (agreement {agree:.4f}); "
-        f"prefill logits max|err| {max_abs(torch, logits[True], logits[False])}"
-        f", rel L2 {_rel_l2(torch, logits[True], logits[False]):.3e}")
-    flip = routing_diff(torch, gen_tr[True], gen_tr[False], cfg32.n_layers)
-    if gen_tr[True].moe is not None:
-        log(f"{label}fp32 routing, fused vs dense-routed: "
-            + (flip_text(flip) if flip else "identical in every layer and "
-               "forward"))
-    if not torch.equal(outs[True], outs[False]):
-        first = int((outs[True] != outs[False])[:, s:].any(0).nonzero()[0])
-        if flip is None or flip["forward"] > first:
-            check_equal(torch, f"{label}fp32 fused vs dense-routed tokens",
-                        outs[True], outs[False])
-        log(f"{label}fp32 tokens differ from generated token {first} on, "
-            f"after the router flip above: a near-tie flip, documented, "
-            f"not a fault")
-    if not torch.allclose(logits[True], logits[False], rtol=FP32_RTOL,
-                          atol=FP32_ATOL):
-        pflip = routing_diff(torch, pre_tr[True], pre_tr[False],
-                             cfg32.n_layers)
-        if pflip is None:
-            raise AssertionError(f"{label}fp32 prefill logits beyond rtol "
-                                 f"{FP32_RTOL}, atol {FP32_ATOL}")
-        log(f"{label}fp32 prefill logits beyond rtol {FP32_RTOL} after a "
-            f"{flip_text(pflip)}: documented, not a fault")
-    fused_t = route_batch(store, ids, fused=True)["units"]["blk"]
-    dense_t = route_batch(store, ids)["units"]["blk"]
-    n_checked = 0
-    for target in cfg32.lora_targets():
-        site = target.split("/")
-        fs, ds = fused_t, dense_t
-        for key in site:
-            fs, ds = fs[key], ds[key]
-        for f in ("a", "b"):
-            k = fs[f]["base"].shape[1]
-            eye = torch.eye(k, device=dev).expand(b, k, k).contiguous()
-            w = ops.modulated_matmul(eye, fs[f]["base"][0], fs[f]["tau"][0],
-                                     fs[f]["words"][0], fs["lam"][0])
-            check_equal(torch, f"{label}fp32 fused weight {'/'.join(site)}/"
-                        f"{f} layer 0 vs dense adapter", w, ds[f][0])
-            n_checked += 1
-    log(f"{label}fp32: {n_checked} fused factor weights of layer 0 (x = I) "
-        f"equal the dense adapter leaves bit for bit")
-    del model, params, store
-
-
 # -- xlstm phase: multi-tenant xlstm-1.3b at full width -----------------------
 
 XLSTM_ARCH = "xlstm-1.3b"
 XLSTM_D = 12_058_464           # its LoRA task-vector size at rank 16
+XLSTM_FINGERPRINT = "03df97f531d3589f"
 XLSTM_B, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 32
 XLSTM_RAGGED = 500             # a prompt length that pads the last chunk
 XLSTM_RAGGED3 = 700            # three chunks of 256, the last one ragged
@@ -1966,120 +2078,48 @@ def xlstm_phase(torch, dev, cfg=None):
     docstring).  Returns (kernel 10's row, launches by kernel, kernel 3's
     row at the round's d)."""
     from dataclasses import replace
-    from repro_torch.common.tree import TaskVectorSpace, tree_leaves
     from repro_torch.configs.base import load_arch
-    from repro_torch.kernels import bitpack, ops
-    from repro_torch.serve import (GenerationConfig, ModulatorStore,
-                                   MultiTenantDecoder)
+    from repro_torch.kernels import bitpack
 
     full = cfg is None
     cfg = cfg or load_arch(XLSTM_ARCH)
     row = mlstm_kernel_checks(torch, dev, cfg)
     torch.cuda.empty_cache()
 
-    t_build = time.perf_counter()
-    model = cfg.build(device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    params = model.init(g)
-    lora0 = model.lora_init(g)
-    space = TaskVectorSpace.from_tree(lora0)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in tree_leaves(params))
-    log(f"{cfg.name} ({cfg.dtype}): {n_params} parameters, "
-        f"{cfg.n_layers // 2} (mLSTM, sLSTM) units, LoRA d = {space.d} in "
-        f"{len(space.leaves)} manifest leaves, layout {space.fingerprint}, "
-        f"built in {time.perf_counter() - t_build:.2f} s")
-    if full and space.d != XLSTM_D:
-        raise AssertionError(f"LoRA d {space.d} != {XLSTM_D}")
+    n_units = cfg.n_layers // 2
+    b, s, new = XLSTM_B, XLSTM_PROMPT, XLSTM_NEW
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 9,
+        (XLSTM_D, XLSTM_FINGERPRINT) if full else None,
+        shape=f", {n_units} (mLSTM, sLSTM) units")
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s, seed=SEED + 10)
+    batch = {"tokens": prompts}
+    gen = decoder_generate(prompts, ids, new)
 
     # -- the main path: round -> serving downlink -> store -> generate ------
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server, round_data = serve_round(torch, dev, space)
+    server, round_data, store, _ = round_to_store(torch, dev, "xlstm ",
+                                                  space, lora0)
     del round_data
-    dl = server.serving_downlink(packed=True, fingerprint=space.fingerprint)
-    store = ModulatorStore(space, lora0, capacity=T, device=dev)
-    store.ingest(dl)
-    torch.cuda.synchronize()
-    t_round = time.perf_counter() - t0
     # kernel 3 at this width, on the sign planes of the round's task
     # vectors (a launch of its own, not the main path's)
     tvs = server.last_task_vectors
     wide = sign_sim_packed_check(torch, *bitpack.sign_planes(tvs), tvs)
     del tvs
     torch.cuda.empty_cache()
-    gcpu = torch.Generator().manual_seed(SEED + 10)
-    ids = torch.randperm(T, generator=gcpu)[:XLSTM_B - 1].tolist()
-    ids.append(ids[0])
-    prompts = torch.randint(1, cfg.vocab, (XLSTM_B, XLSTM_PROMPT),
-                            generator=g, device=dev)
-    gen_cfg = GenerationConfig(max_new_tokens=XLSTM_NEW)
-    fused = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
-                               device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    out = fused.generate(prompts, ids)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    counts = ops.launch_counts()
-    launches = {k: counts[k] - before[k] for k in ops.SERVE_KERNELS}
-    n_units = cfg.n_layers // 2
-    want = {"modulated_matmul": 8 * n_units * XLSTM_NEW,
-            "mlstm_chunkwise": n_units}
-    if launches != want:
-        raise AssertionError(f"xlstm generate launched {launches}, expected "
-                             f"{want} (8 x {n_units} kernel-9 launches per "
-                             f"forward, {XLSTM_NEW} forwards; kernel 10 once "
-                             f"per mLSTM layer at prefill)")
-    if min(counts[k] for k in ops.PACKED_ROUND_KERNELS) < 1:
-        raise AssertionError(f"xlstm round: a round kernel was not "
-                             f"launched: {counts}")
-    if out.shape != (XLSTM_B, XLSTM_PROMPT + XLSTM_NEW) or \
-            not torch.equal(out[:, :XLSTM_PROMPT], prompts.to(out.dtype)) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        raise AssertionError("xlstm generate: bad output tokens")
-    rep = store.storage_report()
-    log(f"xlstm main path: round + downlink + ingest {1e3 * t_round:.1f} ms "
-        f"(T={T}, N={N}, d={space.d}); store {rep['tasks']} tasks in "
-        f"{rep['resident_bytes']} B vs {rep['checkpoint_bytes']} B of "
-        f"checkpoints ({rep['ratio']:.2f}x)")
-    log(f"xlstm generate (fused, bf16, B={XLSTM_B}, tasks {ids}, prompt "
-        f"{XLSTM_PROMPT}, {XLSTM_NEW} new): wall {1e3 * t_gen:.1f} ms, "
-        f"{XLSTM_B * XLSTM_NEW / t_gen:.1f} tokens/s, peak device memory "
-        f"{peak / 2**30:.3f} GiB, launches {launches}")
+    # kernel 9 eight times a unit a forward, kernel 10 once an mLSTM
+    # layer at prefill
+    out, launches, _, _ = counted_generate(
+        torch, "xlstm ", cfg, prompts, ids, lambda: gen(model, params, store),
+        {"modulated_matmul": 8 * n_units * new, "mlstm_chunkwise": n_units},
+        new)
 
     # -- step times, per-block split, profiled prefill / decode windows -----
-    lora = fused.route(ids)
-    max_len = XLSTM_PROMPT + XLSTM_NEW + 8
-
-    def prefill(lora_tree, mode=None):
-        cache = model.init_cache(XLSTM_B, max_len)
-        return model.prefill_step(params, lora_tree, {"tokens": prompts},
-                                  cache, mode=mode)
-
-    pre_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits_k, cache = prefill(lora)
-        torch.cuda.synchronize()
-        pre_ms.append(1e3 * (time.perf_counter() - t0))
-    tok = torch.argmax(logits_k, -1).to(torch.int32)[:, None]
-    step_ms = []
-    for i in range(8):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, cache = model.decode_fn(params, lora, {"tokens": tok}, cache,
-                                   XLSTM_PROMPT + i)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
+    prefill = served_prefill(model, params, batch, new)
+    lora, logits_k, cache, tok, pre_ms, step_ms = step_walls(
+        torch, "xlstm ", model, params, store, ids, prefill, s)
+    del cache
     walls = block_prefill_walls(torch, model, params, lora, prompts)
-    log(f"xlstm prefill {[round(x, 1) for x in pre_ms]} ms; decode steps "
-        f"{[round(x, 3) for x in step_ms]} ms (median "
-        f"{statistics.median(step_ms):.3f}); one layer's prefill: "
+    log("xlstm one layer's prefill: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
         + f" (x {n_units} layers each)")
     _, _, pre_ops = profile_window(torch, "xlstm prefill",
@@ -2092,39 +2132,18 @@ def xlstm_phase(torch, dev, cfg=None):
         f"{len(k10)} device functions: " + ", ".join(
             f"{ms:.3f} ms x{calls} {re.search(r'mlstm_\w*', k).group(0)}"
             for k, (ms, calls) in k10.items()))
-    cache = prefill(lora)[1]
-
-    def four_steps():
-        c = cache
-        for i in range(4):
-            _, c = model.decode_fn(params, lora, {"tokens": tok}, c,
-                                   XLSTM_PROMPT + i)
-
-    dec_wall, dec_busy, dec_ops = profile_window(
-        torch, "xlstm 4 decode steps", four_steps)
-    mm_decode_summary("xlstm decode", dec_ops, 4 * 8 * n_units, dec_wall,
-                      dec_busy)
-    del cache
+    decode_window(torch, "xlstm ", model, params, lora, tok,
+                  prefill(lora)[1], s, 8 * n_units)
 
     # -- the same routed tree through the plain versions --------------------
-    logits_p, _ = prefill(lora, mode="ref")
-    rel = _rel_l2(torch, logits_k, logits_p)
-    out_p = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
-                               mode="ref", device=dev).generate(prompts, ids)
-    agree = float((out_p[:, XLSTM_PROMPT:] == out[:, XLSTM_PROMPT:])
-                  .float().mean())
-    log(f"xlstm bf16 prefill logits, kernels vs plain versions: rel L2 "
-        f"{rel:.3e} (bound {XLSTM_BF16_LOGIT_REL_L2}), max|err| "
-        f"{max_abs(torch, logits_k, logits_p)}; generated-token agreement "
-        f"{agree:.4f} (printed, not required)")
-    if not rel <= XLSTM_BF16_LOGIT_REL_L2 or \
-            not torch.isfinite(logits_k).all():
-        raise AssertionError(f"xlstm bf16 prefill logits: rel L2 {rel}")
-    del model, params, lora0, store, lora, fused, logits_k, logits_p
+    bf16_gate(torch, "xlstm ", logits_k, prefill(lora, mode="ref")[0],
+              XLSTM_BF16_LOGIT_REL_L2)
+    token_agreements(torch, "xlstm ", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k
     torch.cuda.empty_cache()
 
-    xlstm_fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server,
-                     prompts, ids, gen_cfg)
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
+               batch, gen, new, SEED + 11, label="xlstm ", root=("units",))
     del server
     torch.cuda.empty_cache()
     row["prefill_ms"] = pre_ms
@@ -2132,63 +2151,6 @@ def xlstm_phase(torch, dev, cfg=None):
     row["decode_step_ms"] = statistics.median(step_ms)
     row["xlstm_modulated_matmul_launches"] = launches["modulated_matmul"]
     return row, launches, wide
-
-
-def xlstm_fp32_check(torch, dev, cfg32, server, prompts, ids, gen_cfg):
-    """xlstm-1.3b in fp32: fused (kernel 9) and dense-routed decode give
-    identical tokens, prefill logits agree within the JAX package's bar,
-    and every aligned fused factor of layer 0 built with x = I equals the
-    dense adapter leaf bit for bit."""
-    from repro_torch.common.tree import TaskVectorSpace
-    from repro_torch.kernels import ops
-    from repro_torch.serve import ModulatorStore, MultiTenantDecoder
-    from repro_torch.serve.router import route_batch
-    model = cfg32.build(device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    params = model.init(g)
-    lora0 = model.lora_init(g)
-    space = TaskVectorSpace.from_tree(lora0)
-    store = ModulatorStore(space, lora0, capacity=T, device=dev)
-    store.ingest(server.serving_downlink(packed=True,
-                                         fingerprint=space.fingerprint))
-    outs, logits = {}, {}
-    for fused in (True, False):
-        dec = MultiTenantDecoder(model, params, store, fused=fused,
-                                 cfg=gen_cfg, device=dev)
-        outs[fused] = dec.generate(prompts, ids)
-        cache = model.init_cache(XLSTM_B, XLSTM_PROMPT + XLSTM_NEW + 8)
-        logits[fused], _ = model.prefill_step(
-            params, dec.route(ids), {"tokens": prompts}, cache)
-    torch.cuda.synchronize()
-    agree = float((outs[True] == outs[False]).float().mean())
-    log(f"xlstm fp32: fused vs dense-routed tokens identical: "
-        f"{torch.equal(outs[True], outs[False])} (agreement {agree:.4f}); "
-        f"prefill logits max|err| {max_abs(torch, logits[True], logits[False])}"
-        f", rel L2 {_rel_l2(torch, logits[True], logits[False]):.3e}")
-    check_equal(torch, "xlstm fp32 fused vs dense-routed tokens", outs[True],
-                outs[False])
-    if not torch.allclose(logits[True], logits[False], rtol=FP32_RTOL,
-                          atol=FP32_ATOL):
-        raise AssertionError(f"xlstm fp32 prefill logits beyond rtol "
-                             f"{FP32_RTOL}, atol {FP32_ATOL}")
-    fused_t = route_batch(store, ids, fused=True)["units"]
-    dense_t = route_batch(store, ids)["units"]
-    n_checked = 0
-    for unit, site in (("mlstm", "up"), ("mlstm", "down"), ("slstm", "wx"),
-                       ("slstm", "ffn_down")):
-        fs, ds = fused_t[unit][site], dense_t[unit][site]
-        for f in ("a", "b"):
-            k = fs[f]["base"].shape[1]
-            eye = torch.eye(k, device=dev).expand(XLSTM_B, k, k).contiguous()
-            w = ops.modulated_matmul(eye, fs[f]["base"][0], fs[f]["tau"][0],
-                                     fs[f]["words"][0], fs["lam"][0])
-            check_equal(torch, f"xlstm fp32 fused weight {unit}/{site}/{f} "
-                        f"layer 0 vs dense adapter", w, ds[f][0])
-            n_checked += 1
-            del eye, w
-    log(f"xlstm fp32: {n_checked} fused factor weights of layer 0 (x = I) "
-        f"equal the dense adapter leaves bit for bit")
-    del model, params, store
 
 
 # -- granite phase: multi-tenant granite-moe-3b-a800m at full width ----------
@@ -2211,7 +2173,8 @@ class RoutingTrace:
     def __init__(self, torch, model):
         from repro_torch.nn.moe import MoE
         self.torch = torch
-        self.moe = next((b.ffn for _, b in model.model.unit_blocks
+        blocks = getattr(model.model, "unit_blocks", ())   # none in encdec
+        self.moe = next((b.ffn for _, b in blocks
                          if isinstance(getattr(b, "ffn", None), MoE)), None)
         self.calls = []
 
@@ -2387,13 +2350,7 @@ def granite_phase(torch, dev, cfg=None):
     the module docstring).  Returns a dict of its numbers: launches by
     kernel, walls, memory, drops and kernels 1–3 at the round's d."""
     from dataclasses import replace
-    from repro_torch.common.tree import TaskVectorSpace, tree_leaves
     from repro_torch.configs.base import load_arch
-    from repro_torch.kernels import ops
-    from repro_torch.serve import (GenerationConfig, ModulatorStore,
-                                   MultiTenantDecoder)
-    from repro_torch.serve.router import route_batch
-
     from repro_torch.kernels.modulated_matmul import DECODE_MAX_S
 
     full = cfg is None
@@ -2409,112 +2366,35 @@ def granite_phase(torch, dev, cfg=None):
         f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={GRANITE_PROMPT}) "
         f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
         f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
-    t_build = time.perf_counter()
-    model = cfg.build(device=dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 12)
-    params = model.init(g)
-    lora0 = model.lora_init(g)
-    space = TaskVectorSpace.from_tree(lora0)
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in tree_leaves(params))
-    log(f"{cfg.name} ({cfg.dtype}): {n_params} parameters, {cfg.n_layers} "
-        f"layers of {cfg.n_experts} experts (top-{cfg.top_k}, capacity "
-        f"factor {cfg.moe_capacity_factor}), LoRA d = {space.d} on "
-        f"{cfg.lora_targets()}, layout {space.fingerprint}, built in "
-        f"{time.perf_counter() - t_build:.2f} s")
-    if full and (space.d, space.fingerprint) != (GRANITE_D,
-                                                  GRANITE_FINGERPRINT):
-        raise AssertionError(f"LoRA d {space.d} / layout {space.fingerprint}"
-                             f" != {GRANITE_D} / {GRANITE_FINGERPRINT}")
     b, s, new = GRANITE_B, GRANITE_PROMPT, GRANITE_NEW
-    gcpu = torch.Generator().manual_seed(SEED + 6)
-    ids = torch.randperm(T, generator=gcpu)[:b - 1].tolist()
-    ids.append(ids[0])
-    prompts = torch.randint(1, cfg.vocab, (b, s), generator=g, device=dev)
-    gen_cfg = GenerationConfig(max_new_tokens=new)
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 12,
+        (GRANITE_D, GRANITE_FINGERPRINT) if full else None,
+        shape=f", {cfg.n_layers} layers of {cfg.n_experts} experts (top-"
+        f"{cfg.top_k}, capacity factor {cfg.moe_capacity_factor})")
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s)
+    batch = {"tokens": prompts}
+    gen = decoder_generate(prompts, ids, new)
     per_fwd = launches_per_forward(cfg)
 
     # -- the main path: round -> serving downlink -> store -> generate ------
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server, round_data = serve_round(torch, dev, space)
-    dl = server.serving_downlink(packed=True, fingerprint=space.fingerprint)
-    store = ModulatorStore(space, lora0, capacity=T, device=dev)
-    store.ingest(dl)
-    torch.cuda.synchronize()
-    t_round = time.perf_counter() - t0
-    fused = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
-                               device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    out = fused.generate(prompts, ids)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    counts = ops.launch_counts()
-    launches = {k: counts[k] - before[k] for k in ops.SERVE_KERNELS}
-    want = {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}
-    if launches != want:
-        raise AssertionError(f"granite generate launched {launches}, "
-                             f"expected {want} ({per_fwd} kernel-9 launches "
-                             f"a forward, {new} forwards)")
-    if min(counts[k] for k in ops.PACKED_ROUND_KERNELS) < 1:
-        raise AssertionError(f"granite round: a round kernel was not "
-                             f"launched: {counts}")
-    if out.shape != (b, s + new) or \
-            not torch.equal(out[:, :s], prompts.to(out.dtype)) or \
-            int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        raise AssertionError("granite generate: bad output tokens")
-    rep = store.storage_report()
-    log(f"granite main path: round + downlink + ingest {1e3 * t_round:.1f} "
-        f"ms (T={T}, N={N}, d={space.d}); store {rep['tasks']} tasks in "
-        f"{rep['resident_bytes']} B vs {rep['checkpoint_bytes']} B of "
-        f"checkpoints ({rep['ratio']:.2f}x)")
-    log(f"granite generate (fused, bf16, B={b}, tasks {ids}, prompt {s}, "
-        f"{new} new): wall {1e3 * t_gen:.1f} ms, {b * new / t_gen:.1f} "
-        f"tokens/s, peak device memory {peak / 2**30:.3f} GiB, launches "
-        f"{launches}; round kernels {counts}")
+    server, round_data, store, round_ms = round_to_store(
+        torch, dev, "granite ", space, lora0)
+    out, launches, gen_ms, peak = counted_generate(
+        torch, "granite ", cfg, prompts, ids,
+        lambda: gen(model, params, store),
+        {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}, new)
     at_d = round_kernels_at(torch, dev, server, round_data)
     del round_data
 
     # -- step times, the layer split, drops, profiled windows ---------------
-    lora = fused.route(ids)
-
-    def prefill(lora_tree, mode=None):
-        cache = model.init_cache(b, s + new + 8)
-        return model.prefill_step(params, lora_tree, {"tokens": prompts},
-                                  cache, mode=mode)
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    route_batch(store, ids, fused=True)
-    torch.cuda.synchronize()
-    t_route = time.perf_counter() - t0
-    pre_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits_k, cache = prefill(lora)
-        torch.cuda.synchronize()
-        pre_ms.append(1e3 * (time.perf_counter() - t0))
-    tok = torch.argmax(logits_k, -1).to(torch.int32)[:, None]
-    step_ms = []
-    for i in range(8):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, cache = model.decode_fn(params, lora, {"tokens": tok}, cache,
-                                   s + i)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
+    prefill = served_prefill(model, params, batch, new)
+    lora, _, cache, tok, pre_ms, step_ms = step_walls(
+        torch, "granite ", model, params, store, ids, prefill, s)
+    del cache
     attn_ms, moe_ms = layer_split(torch, model, params, lora, prompts)
-    log(f"granite route (fused) {1e3 * t_route:.2f} ms; prefill "
-        f"{[round(x, 2) for x in pre_ms]} ms; decode steps "
-        f"{[round(x, 3) for x in step_ms]} ms (median "
-        f"{statistics.median(step_ms):.3f}); layer 0's prefill: attention "
-        f"{attn_ms:.3f} ms, MoE {moe_ms:.3f} ms (median of 3; x "
-        f"{cfg.n_layers} layers)")
+    log(f"granite layer 0's prefill: attention {attn_ms:.3f} ms, MoE "
+        f"{moe_ms:.3f} ms (median of 3; x {cfg.n_layers} layers)")
     with RoutingTrace(torch, model) as tr_k:
         logits_k, _ = prefill(lora)
     kept, routed = tr_k.kept()
@@ -2525,56 +2405,29 @@ def granite_phase(torch, dev, cfg=None):
         f"B*S = {b * s})")
     pre_wall, pre_busy, _ = profile_window(torch, "granite prefill",
                                            lambda: prefill(lora))
-    cache = prefill(lora)[1]
-
-    def four_steps():
-        c = cache
-        for i in range(4):
-            _, c = model.decode_fn(params, lora, {"tokens": tok}, c, s + i)
-
-    dec_wall, dec_busy, dec_ops = profile_window(
-        torch, "granite 4 decode steps", four_steps)
-    mm_decode_summary("granite decode", dec_ops, 4 * per_fwd, dec_wall,
-                      dec_busy)
-    del cache
+    dec_wall, dec_busy = decode_window(torch, "granite ", model, params,
+                                       lora, tok, prefill(lora)[1], s,
+                                       per_fwd)
 
     # -- the same routed tree through the plain versions --------------------
     with RoutingTrace(torch, model) as tr_p:
         logits_p, _ = prefill(lora, mode="ref")
-    rel = _rel_l2(torch, logits_k, logits_p)
     flip = routing_diff(torch, tr_k, tr_p, cfg.n_layers)
-    out_p = MultiTenantDecoder(model, params, store, fused=True, cfg=gen_cfg,
-                               mode="ref", device=dev).generate(prompts, ids)
-    agree = float((out_p[:, s:] == out[:, s:]).float().mean())
-    log(f"granite bf16 prefill logits, kernels vs plain versions: rel L2 "
-        f"{rel:.3e} (bound {BF16_LOGIT_REL_L2}), max|err| "
-        f"{max_abs(torch, logits_k, logits_p)}; generated-token agreement "
-        f"{agree:.4f} (printed, not required); prefill routing: "
+    log("granite bf16 prefill routing, kernels vs plain versions: "
         + (flip_text(flip) if flip else "identical in every layer"))
-    if not torch.isfinite(logits_k).all():
-        raise AssertionError("granite bf16 prefill logits not finite")
-    if not rel <= BF16_LOGIT_REL_L2:
-        if flip is None:
-            raise AssertionError(f"granite bf16 prefill logits: rel L2 {rel}"
-                                 f" with no router flip behind it")
-        log(f"granite bf16 prefill logits beyond the bound after a {flip_text(flip)}: "
-            f"a near-tie flip, documented, not a fault")
-    out_d = MultiTenantDecoder(model, params, store, cfg=gen_cfg,
-                               device=dev).generate(prompts, ids)
-    agree_d = float((out_d[:, s:] == out[:, s:]).float().mean())
-    log(f"granite bf16 dense-routed decoder: token agreement with fused "
-        f"{agree_d:.4f} (printed, not required: the dense adapter rounds to "
-        f"bf16, the fused weights stay fp32)")
-    del model, params, lora0, store, lora, fused, logits_k, logits_p
+    rel = bf16_gate(torch, "granite ", logits_k, logits_p, BF16_LOGIT_REL_L2,
+                    flip)
+    token_agreements(torch, "granite ", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k, logits_p
     torch.cuda.empty_cache()
 
-    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server,
-               prompts, ids, gen_cfg, label="granite ")
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
+               batch, gen, new, SEED + 7, label="granite ")
     del server
     torch.cuda.empty_cache()
-    return dict(launches=launches, generate_ms=1e3 * t_gen,
-                tokens_per_s=b * new / t_gen, peak_gib=peak / 2**30,
-                round_ms=1e3 * t_round, prefill_ms=pre_ms,
+    return dict(launches=launches, generate_ms=gen_ms,
+                tokens_per_s=b * new / gen_ms * 1e3, peak_gib=peak,
+                round_ms=round_ms, prefill_ms=pre_ms,
                 decode_step_ms=statistics.median(step_ms),
                 layer0_attention_ms=attn_ms, layer0_moe_ms=moe_ms,
                 prefill_kept=kept, prefill_routed=routed,
@@ -2582,6 +2435,159 @@ def granite_phase(torch, dev, cfg=None):
                 decode4_busy_ms=dec_busy, decode4_wall_ms=dec_wall,
                 bf16_rel_l2=rel, at_d=at_d,
                 modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
+
+
+# -- whisper phase: multi-tenant whisper-large-v3 at full width -------------
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_D = 14_418_176         # its LoRA task-vector size at rank 16
+WHISPER_FINGERPRINT = "a2829b09233f62cc"
+WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 8, 4, 32
+# a layer's kernel-9 launches: an encoder layer's attn/wq and attn/wo
+# a-factors (1280, 16), mlp/down's (5120, 16) and three b-factors
+# (16, 1280); a decoder layer's four attention a-factors (self and
+# cross wq, wo), mlp/down's a and five b-factors
+WHISPER_ENC_MIX = {(1280, 16): 2, (5120, 16): 1, (16, 1280): 3}
+WHISPER_DEC_MIX = {(1280, 16): 4, (5120, 16): 1, (16, 1280): 5}
+
+
+def encdec_launches(cfg):
+    """(prefill, decode step) kernel-9 launches of an encoder-decoder
+    model: two factors a LoRA site, every site word-aligned at rank 16;
+    the prefill runs the encoder's sites and the decoder's, a decode
+    step the decoder's alone."""
+    n_enc = sum(t.startswith("encoder/") for t in cfg.lora_targets())
+    n_dec = sum(t.startswith("decoder/") for t in cfg.lora_targets())
+    return 2 * (n_enc + n_dec) * cfg.n_layers, 2 * n_dec * cfg.n_layers
+
+
+def whisper_generate(torch, model, params, lora, prompts, audio, new,
+                     mode=None):
+    """whisper's serving loop (the JAX package serves it the same way,
+    through ``prefill_step`` and ``decode_fn``): encode and prefill,
+    then ``new - 1`` greedy decode steps.  Returns tokens (B, S + new)
+    int32."""
+    b, s = prompts.shape
+    cache = model.init_cache(b, s + new + 8)
+    logits, cache = model.prefill_step(
+        params, lora, {"tokens": prompts, "audio_embeds": audio}, cache,
+        mode=mode)
+    out = [torch.argmax(logits, -1).to(torch.int32)]
+    for pos in range(s, s + new - 1):
+        logits, cache = model.decode_fn(params, lora,
+                                        {"tokens": out[-1][:, None]}, cache,
+                                        pos, mode=mode)
+        out.append(torch.argmax(logits, -1).to(torch.int32))
+    return torch.cat([prompts.to(torch.int32), torch.stack(out, 1)], 1)
+
+
+def whisper_phase(torch, dev, cfg=None):
+    """Multi-tenant serving of whisper-large-v3 at full width (see the
+    module docstring).  Returns a dict of its numbers: launches, walls,
+    memory and kernels 1–3 at the round's d."""
+    from dataclasses import replace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.kernels.modulated_matmul import DECODE_MAX_S
+    from repro_torch.serve.router import route_batch
+
+    full = cfg is None
+    cfg = cfg or load_arch(WHISPER_ARCH)
+    b, s, new = WHISPER_B, WHISPER_PROMPT, WHISPER_NEW
+    frames = cfg.enc_frames
+    per = serve_kernel_checks(torch, dev, [
+        (kn, tuple(sorted({1, s, DECODE_MAX_S, frames})), True)
+        for kn in WHISPER_ENC_MIX])
+    mm_enc = mm_row(per, frames, WHISPER_ENC_MIX)
+    mm_dec = mm_row(per, 1, WHISPER_DEC_MIX)
+    mm_dpre = mm_row(per, s, WHISPER_DEC_MIX)
+    log(f"modulated_matmul per whisper layer (bf16 tau): encoder (6 "
+        f"launches, S={frames}) {mm_enc['ms']:.4f} ms of calls (device "
+        f"{mm_enc['device_ms']:.4f} ms), plain {mm_enc['plain_ms']:.4f} ms, "
+        f"bound {mm_enc['bound_ms']:.5f} ms; decoder decode (10 launches, "
+        f"S=1) {mm_dec['ms']:.4f} ms (device {mm_dec['device_ms']:.4f} ms), "
+        f"plain {mm_dec['plain_ms']:.4f} ms, bound {mm_dec['bound_ms']:.5f} "
+        f"ms; decoder prefill (S={s}) {mm_dpre['ms']:.4f} ms (device "
+        f"{mm_dpre['device_ms']:.4f} ms), plain {mm_dpre['plain_ms']:.4f} "
+        f"ms, bound {mm_dpre['bound_ms']:.5f} ms")
+    torch.cuda.empty_cache()
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 13,
+        (WHISPER_D, WHISPER_FINGERPRINT) if full else None,
+        shape=f", {cfg.n_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"{frames} frames")
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s)
+    audio = torch.randn((b, frames, cfg.d_model), generator=g, device=dev)
+    batch = {"tokens": prompts, "audio_embeds": audio}
+    pre_n, dec_n = encdec_launches(cfg)
+
+    def gen(model, params, store, fused=True, mode=None):
+        return whisper_generate(torch, model, params,
+                                route_batch(store, ids, fused=fused),
+                                prompts, audio, new, mode=mode)
+
+    # -- the main path: round -> serving downlink -> store -> generate ------
+    server, round_data, store, round_ms = round_to_store(
+        torch, dev, "whisper ", space, lora0)
+    out, launches, gen_ms, peak = counted_generate(
+        torch, "whisper ", cfg, prompts, ids,
+        lambda: gen(model, params, store),
+        {"modulated_matmul": pre_n + dec_n * (new - 1), "mlstm_chunkwise": 0},
+        new, what=f"route + prefill + {new - 1} decode steps; fused, bf16, "
+        f"{frames} frames")
+    at_d = round_kernels_at(torch, dev, server, round_data)
+    del round_data
+
+    # -- encoder, prefill and decode-step walls, profiled windows -----------
+    prefill = served_prefill(model, params, batch, new)
+    lora, logits_k, cache, tok, pre_ms, step_ms = step_walls(
+        torch, "whisper ", model, params, store, ids, prefill, s)
+    cross_bytes = sum(x.numel() * x.element_size()
+                      for x in cache["cross"].values())
+    self_bytes = sum(x.numel() * x.element_size()
+                     for x in cache["self"].values())
+    del cache
+    enc_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.model.encode(params, audio, lora=lora)
+        torch.cuda.synchronize()
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"whisper encoder {[round(x, 2) for x in enc_ms]} ms, so the "
+        f"decoder's prefill ~{statistics.median(pre_ms) - statistics.median(enc_ms):.2f}"
+        f" ms; caches: cross {cross_bytes} B, self {self_bytes} B")
+    enc_wall, enc_busy, _ = profile_window(
+        torch, "whisper encoder", lambda: model.model.encode(params, audio,
+                                                             lora=lora))
+    pre_wall, pre_busy, pre_ops = profile_window(torch, "whisper prefill",
+                                                 lambda: prefill(lora))
+    mm_decode_summary("whisper prefill", pre_ops, pre_n, pre_wall, pre_busy)
+    dec_wall, dec_busy = decode_window(torch, "whisper ", model, params,
+                                       lora, tok, prefill(lora)[1], s, dec_n)
+
+    # -- the same routed tree through the plain versions --------------------
+    rel = bf16_gate(torch, "whisper ", logits_k,
+                    prefill(lora, mode="ref")[0], BF16_LOGIT_REL_L2)
+    token_agreements(torch, "whisper ", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k
+    torch.cuda.empty_cache()
+
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
+               batch, gen, new, SEED + 14, label="whisper ", root=())
+    del server
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_launches=pre_n,
+                decode_step_launches=dec_n, generate_ms=gen_ms,
+                tokens_per_s=b * new / gen_ms * 1e3, peak_gib=peak,
+                cross_cache_bytes=cross_bytes, round_ms=round_ms,
+                encoder_ms=enc_ms, prefill_ms=pre_ms,
+                decode_step_ms=statistics.median(step_ms),
+                encoder_busy_ms=enc_busy, encoder_wall_ms=enc_wall,
+                prefill_busy_ms=pre_busy, prefill_wall_ms=pre_wall,
+                decode4_busy_ms=dec_busy, decode4_wall_ms=dec_wall,
+                bf16_rel_l2=rel, at_d=at_d,
+                modulated_matmul_layer={"encoder": mm_enc, "decode": mm_dec,
+                                        "decoder_prefill": mm_dpre})
 
 
 def main() -> int:
@@ -2640,10 +2646,18 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "whisper"]:
+        # the whisper phase alone: a quick loop for the audio family's
+        # serving path; no summary, no "ok" line
+        log("== whisper phase alone ==")
+        out = whisper_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
-              f"--only round, --only bool, --only devtime, --only mlstm or "
-              f"--only granite", file=sys.stderr)
+              f"--only round, --only bool, --only devtime, --only mlstm, "
+              f"--only granite or --only whisper", file=sys.stderr)
         return 2
     log("== kernel phase ==")
     rows = kernel_phase(torch, dev)
@@ -2660,6 +2674,8 @@ def main() -> int:
     # device event for granite's kernel-9 windows, six in a row
     log("== granite phase ==")
     granite = granite_phase(torch, dev)
+    log("== whisper phase ==")
+    whisper = whisper_phase(torch, dev)
     log("== xlstm phase ==")
     xlstm_row, xlstm_counts, sim_wide = xlstm_phase(torch, dev)
     rows["sign_sim_packed"]["at_xlstm_round_d"] = {
@@ -2670,7 +2686,10 @@ def main() -> int:
     serve_counts["mlstm_chunkwise"] = xlstm_counts["mlstm_chunkwise"]
     for name, at_d in granite.pop("at_d").items():
         rows[name]["at_granite_round_d"] = at_d
+    for name, at_d in whisper.pop("at_d").items():
+        rows[name]["at_whisper_round_d"] = at_d
     serve_rows["modulated_matmul"]["granite"] = granite
+    serve_rows["modulated_matmul"]["whisper"] = whisper
     log("== host cost of every wrapper ==")
     host = host_costs(torch, dev)
     kernels, checks = [], {}
@@ -2681,7 +2700,9 @@ def main() -> int:
                                  f"{xlstm_counts['modulated_matmul']} more in "
                                  "the xlstm generate, "
                                  f"{granite['launches']['modulated_matmul']}"
-                                 " in the granite generate)",
+                                 " in the granite generate, "
+                                 f"{whisper['launches']['modulated_matmul']}"
+                                 " in the whisper generate)",
              "mlstm_chunkwise": "one full-width bf16 xlstm-1.3b generate "
                                 "(xlstm phase)"}
     for name, row in (list(rows.items()) + list(bool_rows.items())

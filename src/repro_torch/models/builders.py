@@ -4,8 +4,10 @@
 the serving path relies on: ``init`` / ``lora_init``, ``forward``,
 ``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
 dense family (qwen2-0.5b), the ssm family (xlstm-1.3b, alternating
-mLSTM / sLSTM blocks) and the moe family with attention (granite-moe-
-3b-a800m; MLA raises); the other families raise.
+mLSTM / sLSTM blocks), the moe family with attention (granite-moe-
+3b-a800m; MLA raises) and the audio family (whisper-large-v3, an
+:class:`~repro_torch.models.encdec.EncDecLM`, whose prefill batch also
+carries ``"audio_embeds"``); the other families raise.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 from repro_torch.common.device import DeviceLike
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models.blocks import Block, SSMBlockAdapter
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import LM
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.mlp import SwiGLU
@@ -25,10 +28,10 @@ from repro_torch.nn.ssm import MLSTMBlock, SLSTMBlock
 class ArchModel:
     """Uniform facade over an LM for one (config, shape) pair."""
 
-    def __init__(self, cfg: ArchConfig, model: LM, kind: str):
+    def __init__(self, cfg: ArchConfig, model, kind: str):
         self.cfg = cfg
         self.model = model
-        self.kind = kind  # "lm"
+        self.kind = kind  # "lm" | "encdec"
 
     @property
     def device(self):
@@ -41,7 +44,13 @@ class ArchModel:
         return self.model.lora_init(generator, self.cfg.lora_rank,
                                     device=device)
 
-    def forward(self, params, tokens, *, lora=None, mode=None):
+    def forward(self, params, tokens, *, lora=None, mode=None,
+                audio_embeds=None):
+        """Full-sequence logits; an encdec model also takes the frame
+        embeddings ``audio_embeds`` (B, T_enc, d)."""
+        if self.kind == "encdec":
+            return self.model.forward(params, tokens, audio_embeds,
+                                      lora=lora, mode=mode)
         return self.model.forward(params, tokens, lora=lora, mode=mode)
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
@@ -93,5 +102,13 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                 unit_blocks=[("mlstm", mlstm), ("slstm", slstm)],
                 tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
         return ArchModel(cfg, lm, "lm")
+    if cfg.family == "audio":           # whisper: encoder-decoder
+        max_dec = max(448, shape.seq_len if shape is not None else 448)
+        model = EncDecLM(vocab=cfg.vocab, d_model=cfg.d_model,
+                         n_enc_layers=cfg.n_layers, n_dec_layers=cfg.n_layers,
+                         n_heads=cfg.n_heads, d_ff=cfg.d_ff,
+                         max_dec_len=max_dec, enc_frames=cfg.enc_frames,
+                         dtype=dt, device=device)
+        return ArchModel(cfg, model, "encdec")
     raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
-                     f"dense, ssm, moe)")
+                     f"dense, ssm, moe, audio)")

@@ -1,19 +1,27 @@
-"""Grouped-query attention with RoPE, sliding windows and a KV cache.
+"""Grouped-query attention with RoPE, sliding windows, a KV cache and
+cross-attention (whisper's decoder).
 
 Three execution paths, as in the JAX package:
 
-* ``__call__``     full-sequence (materialised scores);
+* ``__call__``     full-sequence; ``impl`` picks materialised scores
+                   ("full") or a loop over query chunks of ``q_chunk``
+                   rows ("chunked"; "auto": full only when the queries
+                   fit one chunk), which bounds the scores' memory;
 * ``prefill``      full-sequence, and writes the KV cache;
 * ``decode_step``  one token against the cache; a ring buffer when a
                    sliding window is configured.
+
+Cross-attention (``cross=True``: no rope, not causal) takes its keys and
+values from ``kv_input``; at serving time ``init_cross_cache`` projects
+them once and ``cross_decode_step`` attends the decoder's queries to
+them.
 
 The cache is preallocated ((B, S_cache, KV, D) keys and values plus
 ``kpos``, the position held in each slot, -1 when empty) and updated in
 place: PyTorch's idiom, where the JAX package returns a new cache.
 Softmax math is fp32 whatever the activation dtype, with a -1e30 mask.
 Heads are grouped as ``h = kv · group + g``, so query head h reads KV
-head h // group.  The JAX package's chunked query loop (``impl``) and
-cross-attention (whisper) are not ported yet.
+head h // group.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ class Attention(Module):
                  head_dim: Optional[int] = None, qkv_bias: bool = False,
                  out_bias: bool = False, rope: bool = True,
                  rope_base: float = 10000.0, window: Optional[int] = None,
-                 causal: bool = True, dtype=torch.float32):
+                 causal: bool = True, cross: bool = False,
+                 q_chunk: int = 512, dtype=torch.float32):
         if n_heads % n_kv_heads:
             raise ValueError(f"{n_heads} heads do not group over "
                              f"{n_kv_heads} KV heads")
@@ -48,10 +57,11 @@ class Attention(Module):
         self.n_kv = n_kv_heads
         self.head_dim = head_dim or d_model // n_heads
         self.group = n_heads // n_kv_heads
-        self.rope = rope
+        self.rope = rope and not cross
         self.rope_base = rope_base
         self.window = window
-        self.causal = causal
+        self.causal = causal and not cross
+        self.q_chunk = q_chunk
         self.dtype = dtype
         hd = self.head_dim
         self.wq = Dense(d_model, n_heads * hd, bias=qkv_bias, dtype=dtype)
@@ -72,12 +82,20 @@ class Attention(Module):
                 "wo": self.wo.lora_init(generator, rank, device, lead)}
 
     # -- projections -----------------------------------------------------
-    def _qkv(self, params, x, positions, lora, mode):
+    def _q(self, params, x, lora, mode):
         lora = lora or {}
-        q = _split_heads(self.wq(params["wq"], x, lora.get("wq"), mode=mode),
-                         self.n_heads, self.head_dim)
-        k = _split_heads(self.wk(params["wk"], x), self.n_kv, self.head_dim)
-        v = _split_heads(self.wv(params["wv"], x), self.n_kv, self.head_dim)
+        return _split_heads(self.wq(params["wq"], x, lora.get("wq"),
+                                    mode=mode), self.n_heads, self.head_dim)
+
+    def _kv(self, params, kv_input):
+        return (_split_heads(self.wk(params["wk"], kv_input), self.n_kv,
+                             self.head_dim),
+                _split_heads(self.wv(params["wv"], kv_input), self.n_kv,
+                             self.head_dim))
+
+    def _qkv(self, params, x, positions, lora, mode, kv_input=None):
+        q = self._q(params, x, lora, mode)
+        k, v = self._kv(params, x if kv_input is None else kv_input)
         if self.rope and positions is not None:
             q = apply_rope(q, positions, base=self.rope_base)
             k = apply_rope(k, positions, base=self.rope_base)
@@ -115,19 +133,47 @@ class Attention(Module):
         return ctx.reshape(b, qlen, self.n_heads, self.head_dim)
 
     # -- full sequence -----------------------------------------------------
-    def _full(self, q, k, v, positions):
-        s = q.shape[1]
+    def _attend(self, q, k, v, positions, cross: bool, impl: str):
+        """The context of q against k/v by ``impl``'s rule: materialised
+        scores when impl is "full" or the queries fit one chunk, else
+        :meth:`_chunked`.  Query positions are ``positions[0]`` or
+        0..S-1; key positions equal them for self-attention and are
+        0..S_kv-1 for cross-attention."""
+        if impl not in ("full", "chunked", "auto"):
+            raise ValueError(f"impl must be full, chunked or auto, got "
+                             f"{impl!r}")
+        q_chunk = self.q_chunk
+        s_q, s_k = q.shape[1], k.shape[1]
         q_pos = (positions[0] if positions is not None
-                 else torch.arange(s, device=q.device))
-        mask = (self._mask(q_pos, q_pos)
-                if (self.causal or self.window) else None)
-        return self._sdpa(q, k, v, mask)
+                 else torch.arange(s_q, device=q.device))
+        k_pos = torch.arange(s_k, device=q.device) if cross else q_pos
+        if impl == "full" or s_q <= q_chunk:
+            mask = (self._mask(q_pos, k_pos)
+                    if (self.causal or self.window) else None)
+            return self._sdpa(q, k, v, mask)
+        return self._chunked(q, k, v, q_pos, k_pos, q_chunk)
+
+    def _chunked(self, q, k, v, q_pos, k_pos, q_chunk: int):
+        """The JAX package's scan over query chunks as a loop: scores
+        (B, KV, G, q_chunk, S_kv) a chunk.  The reference pads the last
+        chunk with masked rows and slices them away; here the last chunk
+        is just shorter, and the rows kept are the same."""
+        out = []
+        for c0 in range(0, q.shape[1], q_chunk):
+            qp = q_pos[c0:c0 + q_chunk]
+            mask = (self._mask(qp, k_pos)
+                    if (self.causal or self.window) else None)
+            out.append(self._sdpa(q[:, c0:c0 + q_chunk], k, v, mask))
+        return torch.cat(out, dim=1)
 
     def __call__(self, params, x, *, positions=None, lora=None,
+                 kv_input=None, impl: str = "full",
                  mode: Optional[str] = None):
-        """x (B, S, d) -> (B, S, d)."""
-        q, k, v = self._qkv(params, x, positions, lora, mode)
-        return self._out(params, self._full(q, k, v, positions), lora, mode)
+        """x (B, S, d) -> (B, S, d); cross-attention reads its keys and
+        values from ``kv_input`` (B, S_kv, d)."""
+        q, k, v = self._qkv(params, x, positions, lora, mode, kv_input)
+        ctx = self._attend(q, k, v, positions, kv_input is not None, impl)
+        return self._out(params, ctx, lora, mode)
 
     # -- serving -----------------------------------------------------------
     def cache_len(self, max_len: int) -> int:
@@ -146,11 +192,13 @@ class Attention(Module):
 
     def prefill(self, params, x, cache, *, positions=None, lora=None,
                 mode: Optional[str] = None):
-        """Full-sequence attention, and the cache filled in place (the
-        trailing window, slot = pos % window, when the prompt is longer
-        than the cache).  q, k and v are computed once."""
+        """Full-sequence attention by the "chunked" rule, and the cache
+        filled in place (the trailing window, slot = pos % window, when
+        the prompt is longer than the cache).  q, k and v are computed
+        once."""
         q, k, v = self._qkv(params, x, positions, lora, mode)
-        y = self._out(params, self._full(q, k, v, positions), lora, mode)
+        y = self._out(params, self._attend(q, k, v, positions, False,
+                                           "chunked"), lora, mode)
         s_cache = cache["k"].shape[1]
         s = k.shape[1]
         if s >= s_cache:
@@ -186,3 +234,19 @@ class Attention(Module):
             valid &= (pos - kpos) < self.window
         ctx = self._sdpa(q, cache["k"], cache["v"], valid[None, :])
         return self._out(params, ctx, lora, mode), cache
+
+    # -- cross-attention serving (whisper) ----------------------------------
+    def init_cross_cache(self, params, enc_out):
+        """Keys and values of the encoder output, projected once and read
+        by every decode step: {"k", "v"} (B, S_enc, KV, D).  ``wk`` and
+        ``wv`` carry no LoRA."""
+        k, v = self._kv(params, enc_out)
+        return {"k": k, "v": v}
+
+    def cross_decode_step(self, params, x, cross_cache, *, lora=None,
+                          mode: Optional[str] = None):
+        """x (B, S, d) against the cross cache, unmasked: one token at a
+        decode step, the prompt at the decoder's prefill."""
+        q = self._q(params, x, lora, mode)
+        ctx = self._sdpa(q, cross_cache["k"], cross_cache["v"], None)
+        return self._out(params, ctx, lora, mode)

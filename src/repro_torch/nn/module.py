@@ -171,3 +171,26 @@ class RMSNorm(Module):
         y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True)
                               + self.eps)
         return (y * params["scale"].float()).to(dt)
+
+
+class LayerNorm(Module):
+    """The JAX package's LayerNorm: fp32 mean and ``mean((x - mu)^2)``,
+    then ``(x - mu) · rsqrt(var + eps) · scale + bias`` cast back (not
+    ``F.layer_norm``, whose variance is computed another way)."""
+
+    def __init__(self, dim: int, *, eps: float = 1e-5, dtype=torch.float32):
+        self.dim, self.eps, self.dtype = dim, eps, dtype
+
+    def init(self, generator=None, device=None, lead: Sequence[int] = ()):
+        shape = tuple(lead) + (self.dim,)
+        return {"scale": torch.ones(shape, dtype=self.dtype, device=device),
+                "bias": torch.zeros(shape, dtype=self.dtype, device=device)}
+
+    def __call__(self, params, x):
+        dt = x.dtype
+        x32 = x.float()
+        mu = torch.mean(x32, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + self.eps)
+        return (y * params["scale"].float()
+                + params["bias"].float()).to(dt)

@@ -9,6 +9,8 @@ so it runs on a machine with the card and torch alone:
 """
 
 import ctypes
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +20,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import (bitpack, build, fused_unify,  # noqa
                                  masked_agg, mlstm_chunk, modulated_matmul,
                                  ops, ref, sign_sim)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke
+
+# the reduced whisper's bf16 prefill logits, kernels against the plain
+# versions: rel L2 at most this.  On an H100 it reads 4.06e-3, and 0.377
+# with the modulation term dropped (PERF.md, PR 24): the bar sits ~4x
+# above the first and 25x below the second
+WHISPER_BF16_REL_L2 = 1.5e-2
 
 
 def slot_stack(seed, b, k, d):
@@ -1237,3 +1247,126 @@ def test_cuda_granite_reduced_fused_matches_plain(cuda, n_experts, cf):
                                  mode="ref", device=cuda).generate(prompts,
                                                                    ids)
     assert torch.equal(out, ref_out)
+
+
+# whisper-large-v3's three LoRA factor shapes at rank 16: the attention
+# a-factors, mlp/down's a-factor and every b-factor
+WHISPER_LEAVES = [(1280, 16), (5120, 16), (16, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 4, 1500])
+@pytest.mark.parametrize("k,n", WHISPER_LEAVES)
+def test_cuda_modulated_matmul_whisper_shapes(cuda, k, n, s, tau_dtype):
+    """Kernel 9 at whisper's factor shapes, B = 8: S = 1 and 4 (the decode
+    route: decode steps and the decoder's 4-token prefill) and S = 1,500
+    (the prefill route over the encoder's frames, a ragged last S-tile of
+    12 rows): the product within MM_RTOL of |x| @ |w|, and with x = I the
+    effective weights bitwise the plain ``base + (λ·m)·τ``."""
+    args = mm_args(k + n + s, cuda, 8, s, k, n, tau_dtype)
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert got.shape == (8, s, n) and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+    if s == 1:
+        eye = torch.eye(k, device=cuda).expand(8, k, k).contiguous()
+        w = modulated_matmul.modulated_matmul_cuda(eye, *args[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(w, w_eff)
+
+
+def _whisper_rig(cuda, dtype):
+    """The reduced whisper (2 + 2 layers, 16 frames) on the card in
+    ``dtype`` at rank 16, one serving downlink of 4 tasks in its store,
+    4-token prompts and seeded frame embeddings."""
+    import dataclasses
+
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    from repro_torch.serve import ModulatorStore
+    cfg = dataclasses.replace(load_arch("whisper-large-v3").reduced(),
+                              dtype=dtype, lora_rank=16)
+    m = cfg.build(device=cuda)
+    params, lora0 = m.init(0), m.lora_init(1)
+    space = TaskVectorSpace.from_tree(lora0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    server = MaTUServer(MaTUServerConfig(n_tasks=4), device=cuda)
+    server.last_task_vectors = 0.05 * torch.randn((4, space.d), generator=g,
+                                                  device=cuda)
+    store = ModulatorStore(space, lora0, capacity=4, device=cuda)
+    store.ingest(server.serving_downlink(fingerprint=space.fingerprint))
+    prompts = torch.randint(1, cfg.vocab, (4, 4), generator=g, device=cuda)
+    audio = torch.randn((4, cfg.enc_frames, cfg.d_model), generator=g,
+                        device=cuda)
+    return m, params, store, prompts, audio
+
+
+def _whisper_prefill(m, params, lora, prompts, audio, mode=None):
+    """The reduced whisper's prefill logits (B, V)."""
+    cache = m.init_cache(prompts.shape[0], prompts.shape[1] + 8)
+    return m.prefill_step(params, lora, {"tokens": prompts,
+                                         "audio_embeds": audio}, cache,
+                          mode=mode)[0]
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_reduced_fp32_fused_equals_dense_routed(cuda):
+    """The reduced whisper in fp32 on the card: a mixed batch (tasks 2, 0,
+    3, 2) gives the same greedy tokens (``chip_smoke.whisper_generate``)
+    on the fused route (kernel 9 on all 8 sites: 2·(3 + 5)·2 launches at
+    prefill, 2·5·2 a decode step) and the dense-routed one."""
+    from chip_smoke import whisper_generate
+    from repro_torch.serve import route_batch
+    m, params, store, prompts, audio = _whisper_rig(cuda, torch.float32)
+    ids = [2, 0, 3, 2]
+    ops.reset_launch_counts()
+    fused = whisper_generate(torch, m, params,
+                             route_batch(store, ids, fused=True), prompts,
+                             audio, 6)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modulated_matmul"] == 32 + 20 * 5
+    dense = whisper_generate(torch, m, params, route_batch(store, ids),
+                             prompts, audio, 6)
+    assert torch.equal(fused, dense)
+
+
+def _without_tau(tree):
+    """A routed tree whose fused sites carry τ = 0: the weights a kernel
+    that dropped the λ·m·τ term would use."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: torch.zeros_like(v) if k == "tau" else _without_tau(v)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_reduced_bf16_kernels_match_plain(cuda,
+                                                       record_property):
+    """The reduced whisper in bf16 on the card, fused route: the prefill
+    logits through the kernels within rel L2 WHISPER_BF16_REL_L2 of the
+    same route through the plain versions (the LoRA products sum in
+    another order in fp32 before the bf16 cast), and the same route with
+    the modulation term dropped (τ = 0) beyond it, so the bar tells a
+    kernel that lost that term from a right one.  Both readings are
+    recorded as properties of the test."""
+    from repro_torch.serve import route_batch
+    m, params, store, prompts, audio = _whisper_rig(cuda, torch.bfloat16)
+    lora = route_batch(store, [2, 0, 3, 2], fused=True)
+    got = _whisper_prefill(m, params, lora, prompts, audio)
+    want = _whisper_prefill(m, params, lora, prompts, audio, mode="ref")
+    wrong = _whisper_prefill(m, params, _without_tau(lora), prompts, audio,
+                             mode="ref")
+    rel, rel_wrong = _rel_l2(got, want), _rel_l2(wrong, want)
+    record_property("rel_l2", rel)
+    record_property("rel_l2_without_tau", rel_wrong)
+    assert torch.isfinite(got).all()
+    assert rel <= WHISPER_BF16_REL_L2 < rel_wrong
