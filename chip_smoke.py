@@ -107,7 +107,27 @@ Phases (any failure raises and the script exits nonzero):
              and decode windows, peak memory, the caches' bytes, bf16
              prefill logits against the plain versions, and fp32, where
              fused and dense-routed decode must agree token for token.
-9. xlstm   — multi-tenant serving of xlstm-1.3b at full width (24
+9. hymba   — multi-tenant serving of hymba-1.5b at full width (32
+             layers of attention (25 heads, kv 5, a 2,048-token sliding
+             window) beside a Mamba branch (d_inner 3,200, d_state 16),
+             SwiGLU d_ff 5,504, vocab 32,001; random weights from a
+             seed): kernel 9 at its five factor shapes (1600, 16),
+             (3200, 16), (5504, 16), (16, 1600), (16, 6400), S = 1 and
+             2,040, as in the serve phase; one round at d = 13,467,808
+             (kernels 1–3 there against their plain versions bitwise and
+             timed), ``serving_downlink`` → ``ModulatorStore``, one bf16
+             fused generate (B = 8 over 7 tasks, 2,040-token prompts, 32
+             new tokens) whose kernel-9 launches are counted (320 a
+             forward: five sites, two factors each, 32 layers); its decode
+             steps wrap the attention's 2,048-slot ring, and every
+             layer's ring is checked slot for slot after it; prefill and
+             decode-step walls, layer 0's attention and Mamba branch walls
+             at S = 2,040, a profiled window of layer 0's Mamba branch and
+             of 4 decode steps, bf16 logits against the plain versions at
+             the prefill and at a decode step past the wrap, and fp32,
+             where fused and dense-routed decode must agree token for
+             token.
+10. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -126,7 +146,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-10. summary — the host µs a call of every kernel wrapper and of the
+11. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -147,8 +167,8 @@ call) and the host µs a call of every wrapper and of the call path's
 pieces (it also runs from the root of an earlier checkout, to measure
 it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
-for a kernel-10 change); ``--only granite`` and ``--only whisper`` run
-setup and the granite or whisper phase alone.  None of them prints the
+for a kernel-10 change); ``--only granite``, ``--only whisper`` and ``--only
+hymba`` run setup and the granite, whisper or hymba phase alone.  None of them prints the
 summary or the "ok" line.
 """
 
@@ -1660,22 +1680,24 @@ def decode_window(torch, label, model, params, lora, tok, cache, s,
     return wall, busy
 
 
-def bf16_gate(torch, label, logits_k, logits_p, bound, flip=None):
-    """bf16 prefill logits through the kernels against the same routed
-    tree through the plain versions: finite, and within ``bound`` rel L2
-    unless an MoE router flip between the two runs (``flip``, from
-    :func:`routing_diff`) explains it.  Returns the rel L2."""
+def bf16_gate(torch, label, logits_k, logits_p, bound, flip=None,
+              what="prefill"):
+    """bf16 logits (of the prefill, or ``what`` else) through the kernels
+    against the same routed tree through the plain versions: finite, and
+    within ``bound`` rel L2 unless an MoE router flip between the two
+    runs (``flip``, from :func:`routing_diff`) explains it.  Returns the
+    rel L2."""
     rel = _rel_l2(torch, logits_k, logits_p)
-    log(f"{label}bf16 prefill logits, kernels vs plain versions: rel L2 "
+    log(f"{label}bf16 {what} logits, kernels vs plain versions: rel L2 "
         f"{rel:.3e} (bound {bound}), max|err| "
         f"{max_abs(torch, logits_k, logits_p)}")
     if not torch.isfinite(logits_k).all():
-        raise AssertionError(f"{label}bf16 prefill logits not finite")
+        raise AssertionError(f"{label}bf16 {what} logits not finite")
     if not rel <= bound:
         if flip is None:
-            raise AssertionError(f"{label}bf16 prefill logits: rel L2 {rel}"
+            raise AssertionError(f"{label}bf16 {what} logits: rel L2 {rel}"
                                  f" with no router flip behind it")
-        log(f"{label}bf16 prefill logits beyond the bound after a "
+        log(f"{label}bf16 {what} logits beyond the bound after a "
             f"{flip_text(flip)}: a near-tie flip, documented, not a fault")
     return rel
 
@@ -2590,6 +2612,197 @@ def whisper_phase(torch, dev, cfg=None):
                                         "decoder_prefill": mm_dpre})
 
 
+# -- hymba phase: multi-tenant hymba-1.5b at full width ----------------------
+
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_D = 13_467_808           # its LoRA task-vector size at rank 16
+HYMBA_FINGERPRINT = "4bc1bfd3518aa5c5"
+# 2,040-token prompts fill 2,040 of the attention's 2,048 ring slots at
+# prefill; the decode steps (positions 2,040-2,070) wrap it at 2,048
+HYMBA_B, HYMBA_PROMPT, HYMBA_NEW = 8, 2040, 32
+# a layer's kernel-9 launches: the a-factors (1600, 16) of attn/wq,
+# attn/wo and mamba/in_proj, mamba/out_proj's (3200, 16), ffn/down's
+# (5504, 16); the b-factors (16, 1600) of wq, wo, out_proj and down, and
+# in_proj's (16, 6400)
+HYMBA_LAYER_MIX = {(1600, 16): 3, (3200, 16): 1, (5504, 16): 1,
+                   (16, 1600): 4, (16, 6400): 1}
+# the last position of the decode run whose logits the second bf16 gate
+# reads: three steps past the wrap
+HYMBA_GATE_POS = 2050
+
+
+def keeping_caches(model, fn):
+    """``fn()`` with every cache ``model.init_cache`` makes in it kept:
+    returns (fn's result, [caches])."""
+    caches, real = [], model.init_cache
+
+    def keep(*a, **kw):
+        caches.append(real(*a, **kw))
+        return caches[-1]
+
+    model.init_cache = keep
+    try:
+        return fn(), caches
+    finally:
+        del model.init_cache
+
+
+def ring_check(torch, label, kpos, last: int) -> None:
+    """Every layer's ``kpos`` (L, W) after positions 0..``last`` were
+    written (last >= W - 1): slot i holds the largest position p <=
+    last with p % W == i, exactly."""
+    w = kpos.shape[1]
+    slots = torch.arange(w, device=kpos.device)
+    want = (last - (last - slots) % w).to(torch.int32)
+    check_equal(torch, f"{label}ring kpos", kpos,
+                want[None].expand_as(kpos))
+    wrap = last - w + 1
+    log(f"{label}ring after the generate: every layer's kpos exactly slots "
+        f"[0..{wrap - 1}] -> {w}..{last}, [{wrap}..{w - 1}] -> "
+        f"{wrap}..{w - 1} (window {w}, positions 0..{last} written)")
+
+
+def hybrid_branch_walls(torch, model, params, lora, prompts, reps: int = 3):
+    """Host wall of layer 0's prefill branches, median of ``reps``, each
+    from a fresh one-layer cache and ending in a synchronise: the
+    attention's ``prefill`` and the Mamba branch's ``forward``.  Returns
+    (attention ms, Mamba ms, a function that runs the Mamba branch)."""
+    lm = model.model
+    b, s = prompts.shape
+    x = lm._embed_in(params, prompts)
+    positions = lm._default_positions(b, s)
+    _, blk, p, l, _ = next(lm._layers(params, lora))[0]
+    mix, pm, lr = blk.mixer, p["mixer"], l["mixer"]
+    xn = blk.norm1(p["norm1"], x)
+    attn, mamba = [], []
+    for _ in range(reps):
+        c = mix.init_cache(b, s + 8, device=x.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mix.attn.prefill(pm["attn"], xn, c["attn"], positions=positions,
+                         lora=lr["attn"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mix.mamba.forward(pm["mamba"], xn, lora=lr["mamba"],
+                          state=c["mamba"])
+        torch.cuda.synchronize()
+        attn.append(1e3 * (t1 - t0))
+        mamba.append(1e3 * (time.perf_counter() - t1))
+        del c
+    return (statistics.median(attn), statistics.median(mamba),
+            lambda: mix.mamba.forward(pm["mamba"], xn, lora=lr["mamba"]))
+
+
+def forced_decode(model, params, lora, prefill, tokens, s, last,
+                  mode=None):
+    """Prefill, then decode steps at positions s..``last`` fed the given
+    tokens (B, >= last - s + 1; teacher forcing, so two routes read the
+    same inputs).  Returns the last step's logits."""
+    _, cache = prefill(lora, mode=mode)
+    for pos in range(s, last + 1):
+        logits, cache = model.decode_fn(
+            params, lora, {"tokens": tokens[:, pos - s:pos - s + 1]}, cache,
+            pos, mode=mode)
+    return logits
+
+
+def hymba_phase(torch, dev, cfg=None):
+    """Multi-tenant serving of hymba-1.5b at full width (see the module
+    docstring).  Returns a dict of its numbers: launches, walls, memory,
+    the ring check and kernels 1–3 at the round's d."""
+    from dataclasses import replace
+    from repro_torch.configs.base import load_arch
+
+    full = cfg is None
+    cfg = cfg or load_arch(HYMBA_ARCH)
+    b, s, new = HYMBA_B, HYMBA_PROMPT, HYMBA_NEW
+    per = serve_kernel_checks(torch, dev, [(kn, (1, s), True)
+                                           for kn in HYMBA_LAYER_MIX])
+    mm_dec = mm_row(per, 1, HYMBA_LAYER_MIX)
+    mm_pre = mm_row(per, s, HYMBA_LAYER_MIX)
+    log(f"modulated_matmul per hymba layer (10 launches, bf16 tau): decode "
+        f"(S=1) {mm_dec['ms']:.4f} ms of calls (device "
+        f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
+        f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={s}) "
+        f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
+        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+    torch.cuda.empty_cache()
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 15,
+        (HYMBA_D, HYMBA_FINGERPRINT) if full else None,
+        shape=f", {cfg.n_layers} layers of attention (window "
+        f"{cfg.hybrid_window}) ‖ Mamba (d_state {cfg.ssm_state})")
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s)
+    batch = {"tokens": prompts}
+    gen = decoder_generate(prompts, ids, new)
+    per_fwd = launches_per_forward(cfg)
+
+    # -- the main path: round -> serving downlink -> store -> generate ------
+    server, round_data, store, round_ms = round_to_store(
+        torch, dev, "hymba ", space, lora0)
+    (out, launches, gen_ms, peak), caches = keeping_caches(
+        model, lambda: counted_generate(
+            torch, "hymba ", cfg, prompts, ids,
+            lambda: gen(model, params, store),
+            {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}, new))
+    (cache,) = caches
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for br in cache["blk"].values() for x in br.values())
+    ring_check(torch, "hymba ", cache["blk"]["attn"]["kpos"], s + new - 2)
+    if not all(bool(torch.isfinite(x).all())
+               for x in cache["blk"]["mamba"].values()):
+        raise AssertionError("hymba Mamba cache not finite after the "
+                             "generate")
+    log(f"hymba cache: {cache_bytes} B (attention ring and Mamba states)")
+    del cache, caches
+    at_d = round_kernels_at(torch, dev, server, round_data)
+    del round_data
+
+    # -- step times, layer 0's branches, profiled windows -------------------
+    prefill = served_prefill(model, params, batch, new)
+    lora, logits_k, cache, tok, pre_ms, step_ms = step_walls(
+        torch, "hymba ", model, params, store, ids, prefill, s)
+    del cache
+    attn_ms, mamba_ms, mamba_fn = hybrid_branch_walls(torch, model, params,
+                                                      lora, prompts)
+    log(f"hymba layer 0's prefill (S={s}): attention branch {attn_ms:.3f} "
+        f"ms, Mamba branch {mamba_ms:.3f} ms (median of 3; x {cfg.n_layers}"
+        f" layers)")
+    mb_wall, mb_busy, _ = profile_window(
+        torch, "hymba layer 0 Mamba branch prefill", mamba_fn)
+    del mamba_fn
+    dec_wall, dec_busy = decode_window(torch, "hymba ", model, params, lora,
+                                       tok, prefill(lora)[1], s, per_fwd)
+
+    # -- the same routed tree through the plain versions --------------------
+    rel = bf16_gate(torch, "hymba ", logits_k, prefill(lora, mode="ref")[0],
+                    BF16_LOGIT_REL_L2)
+    fed = out[:, s:]
+    rel_wrap = bf16_gate(
+        torch, "hymba ", *(forced_decode(model, params, lora, prefill, fed,
+                                         s, HYMBA_GATE_POS, mode=m)
+                           for m in (None, "ref")),
+        BF16_LOGIT_REL_L2,
+        what=f"decode-step (position {HYMBA_GATE_POS}, past the wrap)")
+    token_agreements(torch, "hymba ", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k
+    torch.cuda.empty_cache()
+
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
+               batch, gen, new, SEED + 16, label="hymba ")
+    del server
+    torch.cuda.empty_cache()
+    return dict(launches=launches, generate_ms=gen_ms,
+                tokens_per_s=b * new / gen_ms * 1e3, peak_gib=peak,
+                cache_bytes=cache_bytes, round_ms=round_ms,
+                prefill_ms=pre_ms, decode_step_ms=statistics.median(step_ms),
+                layer0_attention_ms=attn_ms, layer0_mamba_ms=mamba_ms,
+                layer0_mamba_busy_ms=mb_busy, layer0_mamba_wall_ms=mb_wall,
+                decode4_busy_ms=dec_busy, decode4_wall_ms=dec_wall,
+                bf16_rel_l2=rel, bf16_rel_l2_past_wrap=rel_wrap, at_d=at_d,
+                modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2654,10 +2867,19 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "hymba"]:
+        # the hymba phase alone: a quick loop for the hybrid family's
+        # serving path; no summary, no "ok" line
+        log("== hymba phase alone ==")
+        out = hymba_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
-              f"--only granite or --only whisper", file=sys.stderr)
+              f"--only granite, --only whisper or --only hymba",
+              file=sys.stderr)
         return 2
     log("== kernel phase ==")
     rows = kernel_phase(torch, dev)
@@ -2676,6 +2898,8 @@ def main() -> int:
     granite = granite_phase(torch, dev)
     log("== whisper phase ==")
     whisper = whisper_phase(torch, dev)
+    log("== hymba phase ==")
+    hymba = hymba_phase(torch, dev)
     log("== xlstm phase ==")
     xlstm_row, xlstm_counts, sim_wide = xlstm_phase(torch, dev)
     rows["sign_sim_packed"]["at_xlstm_round_d"] = {
@@ -2688,8 +2912,11 @@ def main() -> int:
         rows[name]["at_granite_round_d"] = at_d
     for name, at_d in whisper.pop("at_d").items():
         rows[name]["at_whisper_round_d"] = at_d
+    for name, at_d in hymba.pop("at_d").items():
+        rows[name]["at_hymba_round_d"] = at_d
     serve_rows["modulated_matmul"]["granite"] = granite
     serve_rows["modulated_matmul"]["whisper"] = whisper
+    serve_rows["modulated_matmul"]["hymba"] = hymba
     log("== host cost of every wrapper ==")
     host = host_costs(torch, dev)
     kernels, checks = [], {}
@@ -2702,7 +2929,9 @@ def main() -> int:
                                  f"{granite['launches']['modulated_matmul']}"
                                  " in the granite generate, "
                                  f"{whisper['launches']['modulated_matmul']}"
-                                 " in the whisper generate)",
+                                 " in the whisper generate, "
+                                 f"{hymba['launches']['modulated_matmul']}"
+                                 " in the hymba generate)",
              "mlstm_chunkwise": "one full-width bf16 xlstm-1.3b generate "
                                 "(xlstm phase)"}
     for name, row in (list(rows.items()) + list(bool_rows.items())

@@ -1,8 +1,8 @@
-"""Blocks with a uniform full-sequence / prefill / decode API: the
-pre-norm residual transformer ``Block`` and ``SSMBlockAdapter``, which
-fits the xLSTM blocks (their own norms and residuals) to the same API
-(the JAX package's ``models/blocks.py``; its hybrid mixer comes with
-the hymba slice)."""
+"""Blocks with a uniform full-sequence / prefill / decode API (the JAX
+package's ``models/blocks.py``): the pre-norm residual transformer
+``Block``; ``SSMBlockAdapter``, which fits the xLSTM blocks (their own
+norms and residuals) to the same API; and ``HybridMixer``, hymba's
+parallel attention and Mamba branches, a ``Block``'s mixer."""
 
 from __future__ import annotations
 
@@ -116,3 +116,73 @@ class SSMBlockAdapter(Module):
                     mode=None):
         return self.inner.decode_step(params, x, cache, pos, lora=lora,
                                       mode=mode)
+
+
+class HybridMixer(Module):
+    """Hymba-style parallel attention ‖ Mamba heads on the same input:
+    each branch's output RMS-normalised, scaled by its β and the two
+    averaged (arXiv:2411.13676 §2).  Its cache is {"attn", "mamba"}."""
+
+    def __init__(self, d_model: int, attn: Module, mamba: Module, *,
+                 dtype=torch.float32):
+        self.d_model, self.attn, self.mamba, self.dtype = (d_model, attn,
+                                                           mamba, dtype)
+        self.norm_a = RMSNorm(d_model, dtype=dtype)
+        self.norm_m = RMSNorm(d_model, dtype=dtype)
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        return {"attn": self.attn.init(generator, device, lead),
+                "mamba": self.mamba.init(generator, device, lead),
+                "norm_a": self.norm_a.init(None, device, lead),
+                "norm_m": self.norm_m.init(None, device, lead),
+                "beta": torch.ones(tuple(lead) + (2,), dtype=self.dtype,
+                                   device=device)}
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = ()):
+        return {"attn": self.attn.lora_init(generator, rank, device, lead),
+                "mamba": self.mamba.lora_init(generator, rank, device, lead)}
+
+    def _fuse(self, params, ya, ym):
+        """0.5·(β0·norm_a(ya) + β1·norm_m(ym)), in the model dtype."""
+        ya = self.norm_a(params["norm_a"], ya)
+        ym = self.norm_m(params["norm_m"], ym)
+        beta = params["beta"]
+        return 0.5 * (beta[0] * ya + beta[1] * ym)
+
+    def __call__(self, params, x, *, positions=None, lora=None, mode=None):
+        lora = lora or {}
+        ya = self.attn(params["attn"], x, positions=positions,
+                       lora=lora.get("attn"), mode=mode)
+        ym = self.mamba(params["mamba"], x, lora=lora.get("mamba"),
+                        mode=mode)
+        return self._fuse(params, ya, ym)
+
+    def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
+                   lead: Sequence[int] = ()):
+        return {"attn": self.attn.init_cache(batch, max_len, dtype, device,
+                                             lead),
+                "mamba": self.mamba.init_cache(batch, max_len, dtype, device,
+                                               lead)}
+
+    def prefill(self, params, x, cache, *, positions=None, lora=None,
+                mode=None):
+        """Attention by the "chunked" rule filling its cache, the Mamba
+        branch continuing from the cache's state; both in place."""
+        lora = lora or {}
+        ya, ca = self.attn.prefill(params["attn"], x, cache["attn"],
+                                   positions=positions,
+                                   lora=lora.get("attn"), mode=mode)
+        ym, cm = self.mamba.forward(params["mamba"], x,
+                                    lora=lora.get("mamba"),
+                                    state=cache["mamba"], mode=mode)
+        return self._fuse(params, ya, ym), {"attn": ca, "mamba": cm}
+
+    def decode_step(self, params, x, cache, pos: int, *, lora=None,
+                    mode=None):
+        lora = lora or {}
+        ya, ca = self.attn.decode_step(params["attn"], x, cache["attn"], pos,
+                                       lora=lora.get("attn"), mode=mode)
+        ym, cm = self.mamba.decode_step(params["mamba"], x, cache["mamba"],
+                                        lora=lora.get("mamba"), mode=mode)
+        return self._fuse(params, ya, ym), {"attn": ca, "mamba": cm}

@@ -5,9 +5,12 @@ the serving path relies on: ``init`` / ``lora_init``, ``forward``,
 ``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
 dense family (qwen2-0.5b), the ssm family (xlstm-1.3b, alternating
 mLSTM / sLSTM blocks), the moe family with attention (granite-moe-
-3b-a800m; MLA raises) and the audio family (whisper-large-v3, an
-:class:`~repro_torch.models.encdec.EncDecLM`, whose prefill batch also
-carries ``"audio_embeds"``); the other families raise.
+3b-a800m; MLA raises), the hybrid family (hymba-1.5b: attention with a
+sliding window beside a Mamba branch, a
+:class:`~repro_torch.models.blocks.HybridMixer`) and the audio family
+(whisper-large-v3, an :class:`~repro_torch.models.encdec.EncDecLM`, whose
+prefill batch also carries ``"audio_embeds"``); the other families
+raise.
 """
 
 from __future__ import annotations
@@ -16,13 +19,13 @@ from typing import Optional
 
 from repro_torch.common.device import DeviceLike
 from repro_torch.configs.base import ArchConfig, ShapeSpec
-from repro_torch.models.blocks import Block, SSMBlockAdapter
+from repro_torch.models.blocks import Block, HybridMixer, SSMBlockAdapter
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import LM
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.mlp import SwiGLU
 from repro_torch.nn.moe import MoE
-from repro_torch.nn.ssm import MLSTMBlock, SLSTMBlock
+from repro_torch.nn.ssm import Mamba, MLSTMBlock, SLSTMBlock
 
 
 class ArchModel:
@@ -64,6 +67,12 @@ class ArchModel:
                                       pos, mode=mode)
 
 
+def _attention(cfg: ArchConfig, window: Optional[int]) -> Attention:
+    return Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias, rope=True,
+                     rope_base=cfg.rope_base, window=window, dtype=cfg.dtype)
+
+
 def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                 device: DeviceLike = "cuda") -> ArchModel:
     """The model of ``cfg`` on ``device`` (default CUDA; raises without a
@@ -75,10 +84,7 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
         if cfg.family == "moe" and cfg.use_mla:
             raise ValueError(f"{cfg.name}: MLA attention (use_mla=True) is "
                              f"not ported yet")
-        mixer = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                          head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias,
-                          rope=True, rope_base=cfg.rope_base, window=window,
-                          dtype=dt)
+        mixer = _attention(cfg, window)
         ffn = (SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt)
                if cfg.family == "dense" else
                MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
@@ -102,6 +108,17 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                 unit_blocks=[("mlstm", mlstm), ("slstm", slstm)],
                 tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
         return ArchModel(cfg, lm, "lm")
+    if cfg.family == "hybrid":          # hymba: parallel attention ‖ Mamba
+        attn = _attention(cfg, window if window is not None
+                          else cfg.hybrid_window)
+        mamba = Mamba(cfg.d_model, d_state=cfg.ssm_state, dtype=dt)
+        mixer = HybridMixer(cfg.d_model, attn, mamba, dtype=dt)
+        block = Block(cfg.d_model, mixer, SwiGLU(cfg.d_model, cfg.d_ff,
+                                                 dtype=dt), dtype=dt)
+        lm = LM(vocab=cfg.vocab, d_model=cfg.d_model, n_units=cfg.n_layers,
+                unit_blocks=[("blk", block)],
+                tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
+        return ArchModel(cfg, lm, "lm")
     if cfg.family == "audio":           # whisper: encoder-decoder
         max_dec = max(448, shape.seq_len if shape is not None else 448)
         model = EncDecLM(vocab=cfg.vocab, d_model=cfg.d_model,
@@ -111,4 +128,4 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                          dtype=dt, device=device)
         return ArchModel(cfg, model, "encdec")
     raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
-                     f"dense, ssm, moe, audio)")
+                     f"dense, ssm, moe, hybrid, audio)")

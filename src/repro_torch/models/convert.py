@@ -3,8 +3,10 @@
 tensors, checked leaf for leaf against the port model's own tree.
 
 Both packages keep parameters as nested dicts with the same keys and the
-same (in, out) weight layout, so the conversion is a per-leaf copy; any
-difference in paths or shapes raises.
+same (in, out) weight layout, so the conversion is a per-leaf copy into
+the dtype of the port model's own leaf (so the fp32 ``a_log`` and ``d``
+of a Mamba stay fp32 inside a bf16 model); any difference in paths or
+shapes raises.
 """
 
 from __future__ import annotations

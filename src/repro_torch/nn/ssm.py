@@ -1,5 +1,5 @@
-"""Recurrent sequence mixers of xLSTM: the mLSTM and sLSTM blocks (the
-JAX package's ``nn/ssm.py``; its Mamba comes with the hymba slice).
+"""Recurrent sequence mixers: the mLSTM and sLSTM blocks of xLSTM and
+hymba's Mamba branch (the JAX package's ``nn/ssm.py``).
 
 * mLSTM runs chunkwise-parallel at prefill
   (:func:`repro_torch.kernels.mlstm_chunk.mlstm_chunkwise`: the CUDA
@@ -7,13 +7,17 @@ JAX package's ``nn/ssm.py``; its Mamba comes with the hymba slice).
   ``mode="ref"``) and one stabilised recurrent step per decoded token.
 * sLSTM has a true hidden-to-gate recurrence: a Python loop over time
   (where the JAX package runs a ``lax.scan``).
+* Mamba is a diagonal selective state-space recurrence: a Python loop
+  over time as well (the JAX package's ``lax.scan``; it has no Pallas
+  kernel), whose terms that do not depend on the state are computed a
+  block of steps at a time; decode is the same forward at S = 1.
 
-Both blocks keep their residuals and norms, and update the cache they
-are given in place (PyTorch's idiom; the JAX blocks return a new
-state): after ``forward(..., state=cache)`` the cache holds the state
-the JAX block returns.  Where the JAX package rounds to the model
-dtype, so does the port: the mLSTM q·k scores, w and w @ v (inside
-``mlstm_chunkwise``) and the sLSTM recurrent product.
+The blocks update the cache they are given in place (PyTorch's idiom;
+the JAX blocks return a new state): after ``forward(..., state=cache)``
+the cache holds the state the JAX block returns.  Where the JAX package
+rounds to the model dtype, so does the port: the mLSTM q·k scores, w
+and w @ v (inside ``mlstm_chunkwise``), the sLSTM recurrent product, and
+Mamba's projections, conv and gates (its recurrence is fp32).
 """
 
 from __future__ import annotations
@@ -52,6 +56,19 @@ def mlstm_recurrent_step(state, q, k, v, i_pre, f_pre):
     num = torch.einsum("bhd,bhdv->bhv", q, C)
     denom = torch.maximum(qn.abs(), torch.exp(-m_new))[..., None]
     return (C, n, m_new), (num / denom).to(v.dtype)
+
+
+def _silu(x):
+    """``jax.nn.silu`` op for op: x · (1 / (1 + exp(-x))), each op
+    rounding to x's dtype (torch's ``silu`` rounds a bf16 result once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` op for op: max(x, 0) + log1p(exp(-|x|)), each
+    op rounding to x's dtype (torch's ``softplus`` returns x itself above
+    its threshold of 20; ``logaddexp`` rounds a bf16 result once)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def causal_conv1d(x, w, *, state=None):
@@ -310,5 +327,137 @@ class SLSTMBlock(Module):
 
     def decode_step(self, params, x, cache, pos=None, *, lora=None,
                     mode: Optional[str] = None):
+        del pos
+        return self.forward(params, x, lora=lora, state=cache, mode=mode)
+
+
+# Mamba's scan computes exp(dt·a) and (dt·x)·B for this many steps at a
+# time, outside its loop over time (per element the same ops as the
+# step-by-step form, so the same bits)
+MAMBA_SCAN_BLOCK = 64
+
+
+class Mamba(Module):
+    """Selective state-space branch (hymba's): in_proj -> (x, z); x ->
+    causal conv -> silu -> x_proj -> (dt_low, B, C); dt = softplus(
+    dt_proj(dt_low)); per step h = exp(dt·a)·h + (dt·x)·B and y = Σ_n
+    h·C in fp32, a = -exp(a_log); then (y + x·d)·silu(z) -> out_proj.
+    ``a_log`` and ``d`` are fp32 whatever the model dtype."""
+
+    def __init__(self, d_model: int, *, d_state: int = 16,
+                 dtype=torch.float32):
+        self.d_model = d_model
+        self.d_state = d_state
+        self.d_inner = 2 * d_model     # expand 2, the JAX Mamba's default
+        self.conv_kernel = 4
+        self.dt_rank = max(16, d_model // 16)
+        self.dtype = dtype
+        self.in_proj = Dense(d_model, 2 * self.d_inner, dtype=dtype)
+        self.x_proj = Dense(self.d_inner, self.dt_rank + 2 * d_state,
+                            dtype=dtype)
+        self.dt_proj = Dense(self.dt_rank, self.d_inner, bias=True,
+                             dtype=dtype)
+        self.out_proj = Dense(self.d_inner, d_model, dtype=dtype,
+                              scale=1.0 / math.sqrt(self.d_inner))
+
+    def init(self, generator, device=None, lead: Sequence[int] = ()):
+        lead = tuple(lead)
+        a = torch.arange(1, self.d_state + 1, dtype=torch.float32,
+                         device=device)
+        return {
+            "in_proj": self.in_proj.init(generator, device, lead),
+            "conv": {"w": _normal(generator,
+                                  lead + (self.conv_kernel, self.d_inner),
+                                  device, 0.1, self.dtype)},
+            "x_proj": self.x_proj.init(generator, device, lead),
+            "dt_proj": self.dt_proj.init(generator, device, lead),
+            "a_log": torch.log(a).expand(
+                lead + (self.d_inner, self.d_state)).contiguous(),
+            "d": torch.ones(lead + (self.d_inner,), dtype=torch.float32,
+                            device=device),
+            "out_proj": self.out_proj.init(generator, device, lead),
+        }
+
+    def lora_init(self, generator, rank: int, device=None,
+                  lead: Sequence[int] = ()):
+        return {"in_proj": self.in_proj.lora_init(generator, rank, device,
+                                                  lead),
+                "out_proj": self.out_proj.lora_init(generator, rank, device,
+                                                    lead)}
+
+    def init_cache(self, batch: int, max_len: int = 0, dtype=None,
+                   device=None, lead: Sequence[int] = ()):
+        dtype = dtype or self.dtype
+        lead = tuple(lead)
+        return {"ssm": torch.zeros(lead + (batch, self.d_inner,
+                                           self.d_state), device=device),
+                "conv": torch.zeros(lead + (batch, self.conv_kernel - 1,
+                                            self.d_inner),
+                                    dtype=dtype, device=device)}
+
+    def _inputs(self, params, x, lora, conv_state, mode):
+        """In the model dtype: in_proj, the conv, silu, x_proj, dt_proj
+        and softplus; dt, B and C then go to fp32."""
+        lora = lora or {}
+        xz = self.in_proj(params["in_proj"], x, lora.get("in_proj"),
+                          mode=mode)
+        xi, z = torch.chunk(xz, 2, dim=-1)
+        xc, conv_state = causal_conv1d(xi, params["conv"]["w"],
+                                       state=conv_state)
+        xc = _silu(xc)
+        proj = self.x_proj(params["x_proj"], xc)
+        r, n = self.dt_rank, self.d_state
+        dt = _softplus(self.dt_proj(params["dt_proj"], proj[..., :r]))
+        return (xc, z, dt.float(), proj[..., r:r + n].float(),
+                proj[..., r + n:].float(), conv_state)
+
+    @staticmethod
+    def _scan(a, xc, dt, bmat, cmat, h):
+        """The fp32 recurrence over S steps from state h (B, Din, N):
+        returns (final h, ys (B, S, Din) fp32).  exp(dt·a) and (dt·x)·B
+        are computed for MAMBA_SCAN_BLOCK steps at a time, time-major so
+        each step reads contiguous rows."""
+        dt_t = dt.transpose(0, 1).contiguous()                  # (S, B, Din)
+        dx_t = (dt * xc.float()).transpose(0, 1).contiguous()   # dt·x
+        b_t = bmat.transpose(0, 1).contiguous()                 # (S, B, N)
+        c_t = cmat.transpose(0, 1)[..., None].contiguous()      # (S, B, N, 1)
+        ys = []
+        for t0 in range(0, dt_t.shape[0], MAMBA_SCAN_BLOCK):
+            t1 = min(t0 + MAMBA_SCAN_BLOCK, dt_t.shape[0])
+            da = torch.exp(dt_t[t0:t1, ..., None] * a)          # (L, B, Din, N)
+            dbx = dx_t[t0:t1, ..., None] * b_t[t0:t1, :, None, :]
+            for da_i, dbx_i, c_i in zip(da, dbx, c_t[t0:t1]):
+                h = da_i * h + dbx_i
+                ys.append(torch.bmm(h, c_i))                     # (B, Din, 1)
+        return h, torch.stack(ys, dim=1)[..., 0]
+
+    def forward(self, params, x, *, lora=None, state=None,
+                mode: Optional[str] = None):
+        """x (B, S, d) -> (y, state); a given ``state`` (the cache) is
+        read and then overwritten in place with the final ssm and conv
+        states."""
+        lora = lora or {}
+        st = state if state is not None else self.init_cache(
+            x.shape[0], dtype=x.dtype, device=x.device)
+        xc, z, dt, bmat, cmat, conv_state = self._inputs(
+            params, x, lora, st["conv"], mode)
+        a = -torch.exp(params["a_log"])                         # (Din, N)
+        h, ys = self._scan(a, xc, dt, bmat, cmat, st["ssm"])
+        y = ys.to(x.dtype) + xc * params["d"].to(x.dtype)
+        y = y * _silu(z)
+        out = self.out_proj(params["out_proj"], y, lora.get("out_proj"),
+                            mode=mode)
+        _write(st, ssm=h, conv=conv_state)
+        return out, st
+
+    prefill = forward
+
+    def __call__(self, params, x, *, lora=None, mode: Optional[str] = None):
+        return self.forward(params, x, lora=lora, mode=mode)[0]
+
+    def decode_step(self, params, x, cache, pos=None, *, lora=None,
+                    mode: Optional[str] = None):
+        """x (B, 1, d) -> (y, cache): the forward at S = 1 from the cache,
+        updated in place."""
         del pos
         return self.forward(params, x, lora=lora, state=cache, mode=mode)

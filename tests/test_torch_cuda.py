@@ -28,6 +28,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # chip_smoke
 # with the modulation term dropped (PERF.md, PR 24): the bar sits ~4x
 # above the first and 25x below the second
 WHISPER_BF16_REL_L2 = 1.5e-2
+# the reduced hymba's bf16 logits (prefill, and a decode step past the
+# ring's wrap), kernels against the plain versions: rel L2 at most this.
+# On an H100 both read 0.0 (the LoRA products' fp32 sums, in another
+# order, round to the same bf16 values at this size), and 0.66 / 0.58
+# with the modulation term dropped (PERF.md §6): the bar is a third
+# of the reduced whisper's, over 100x below the τ = 0 readings
+HYMBA_BF16_REL_L2 = 5e-3
 
 
 def slot_stack(seed, b, k, d):
@@ -1370,3 +1377,119 @@ def test_cuda_whisper_reduced_bf16_kernels_match_plain(cuda,
     record_property("rel_l2_without_tau", rel_wrong)
     assert torch.isfinite(got).all()
     assert rel <= WHISPER_BF16_REL_L2 < rel_wrong
+
+
+# hymba-1.5b's five LoRA factor shapes at rank 16: the a-factors of
+# attn/wq, attn/wo and mamba/in_proj, mamba/out_proj's, ffn/down's; the
+# b-factors of wq, wo, out_proj and down, and in_proj's
+HYMBA_LEAVES = [(1600, 16), (3200, 16), (5504, 16), (16, 1600), (16, 6400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2040])
+@pytest.mark.parametrize("k,n", HYMBA_LEAVES)
+def test_cuda_modulated_matmul_hymba_shapes(cuda, k, n, s, tau_dtype):
+    """Kernel 9 at hymba's factor shapes, B = 8: S = 1 (the decode route)
+    and S = 2,040 (the prefill route over the prompt, a ragged last
+    S-tile): the product within MM_RTOL of |x| @ |w|, and with x = I the
+    effective weights bitwise the plain ``base + (λ·m)·τ``."""
+    args = mm_args(k + n + s, cuda, 8, s, k, n, tau_dtype)
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert got.shape == (8, s, n) and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+    if s == 1:
+        eye = torch.eye(k, device=cuda).expand(8, k, k).contiguous()
+        w = modulated_matmul.modulated_matmul_cuda(eye, *args[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(w, w_eff)
+
+
+def _hymba_rig(cuda, dtype):
+    """The reduced hymba (2 layers, window 16) on the card in ``dtype`` at
+    rank 16, one serving downlink of 4 tasks in its store, and 12-token
+    prompts (the decode steps from position 12 wrap the 16-slot ring)."""
+    import dataclasses
+
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    from repro_torch.serve import ModulatorStore
+    cfg = dataclasses.replace(load_arch("hymba-1.5b").reduced(),
+                              dtype=dtype, lora_rank=16)
+    m = cfg.build(device=cuda)
+    params, lora0 = m.init(0), m.lora_init(1)
+    space = TaskVectorSpace.from_tree(lora0)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    server = MaTUServer(MaTUServerConfig(n_tasks=4), device=cuda)
+    server.last_task_vectors = 0.05 * torch.randn((4, space.d), generator=g,
+                                                  device=cuda)
+    store = ModulatorStore(space, lora0, capacity=4, device=cuda)
+    store.ingest(server.serving_downlink(fingerprint=space.fingerprint))
+    prompts = torch.randint(1, cfg.vocab, (4, 12), generator=g, device=cuda)
+    return m, params, store, prompts
+
+
+@pytest.mark.cuda
+def test_cuda_hymba_reduced_fp32_fused_equals_dense_routed(cuda):
+    """The reduced hymba in fp32 on the card: a mixed batch (tasks 2, 0,
+    3, 2) of 12-token prompts and 8 new tokens (decode positions 12-18,
+    past the ring's wrap at 16) gives the same greedy tokens on the fused
+    route (kernel 9 on all five sites: 2·5·2 launches a forward) and the
+    dense-routed one, and every layer's ring holds positions 16-18 in
+    slots 0-2 after it."""
+    from chip_smoke import keeping_caches
+    from repro_torch.serve import GenerationConfig, MultiTenantDecoder
+    m, params, store, prompts = _hymba_rig(cuda, torch.float32)
+    ids, gen = [2, 0, 3, 2], GenerationConfig(max_new_tokens=8)
+    ops.reset_launch_counts()
+    fused, caches = keeping_caches(m, lambda: MultiTenantDecoder(
+        m, params, store, fused=True, cfg=gen,
+        device=cuda).generate(prompts, ids))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modulated_matmul"] == 2 * 5 * 2 * 8
+    dense, more = keeping_caches(m, lambda: MultiTenantDecoder(
+        m, params, store, cfg=gen, device=cuda).generate(prompts, ids))
+    assert torch.equal(fused, dense)
+    want = torch.tensor([16, 17, 18] + list(range(3, 16)), dtype=torch.int32)
+    for c in caches + more:
+        assert torch.equal(c["blk"]["attn"]["kpos"].cpu(),
+                           want[None].expand(2, 16))
+
+
+@pytest.mark.cuda
+def test_cuda_hymba_reduced_bf16_kernels_match_plain(cuda, record_property):
+    """The reduced hymba in bf16 on the card, fused route: the prefill
+    logits of 12-token prompts, and the logits at position 18 after
+    seven decode steps past the 16-slot ring's wrap (the same seeded
+    tokens fed to both), through the kernels within rel L2
+    HYMBA_BF16_REL_L2 of the same route through the plain versions; the
+    same route with the modulation term dropped (τ = 0) beyond it.  The
+    readings are recorded as properties of the test."""
+    from chip_smoke import forced_decode
+    from repro_torch.serve import route_batch
+    m, params, store, prompts = _hymba_rig(cuda, torch.bfloat16)
+    lora = route_batch(store, [2, 0, 3, 2], fused=True)
+    fed = torch.randint(1, m.cfg.vocab, (4, 7), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+
+    def prefill(lora, mode=None):
+        cache = m.init_cache(4, 28)
+        return m.prefill_step(params, lora, {"tokens": prompts}, cache,
+                              mode=mode)
+
+    runs = {"prefill": lambda lora, mode: prefill(lora, mode)[0],
+            "decode": lambda lora, mode: forced_decode(
+                m, params, lora, prefill, fed, 12, 18, mode=mode)}
+    for name, run in runs.items():
+        got, want = run(lora, None), run(lora, "ref")
+        wrong = run(_without_tau(lora), "ref")
+        rel, rel_wrong = _rel_l2(got, want), _rel_l2(wrong, want)
+        record_property(f"{name}_rel_l2", rel)
+        record_property(f"{name}_rel_l2_without_tau", rel_wrong)
+        assert torch.isfinite(got).all()
+        assert rel <= HYMBA_BF16_REL_L2 < rel_wrong, name

@@ -81,8 +81,8 @@ def test_reduced_config_matches_jax():
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        load_arch("hymba-1.5b")
-    for family in ("hybrid", "vlm", "vit"):
+        load_arch("qwen2-vl-7b")
+    for family in ("vlm", "vit"):
         cfg = load_arch("qwen2-0.5b").reduced()
         cfg.family = family
         with pytest.raises(ValueError, match="not ported"):
