@@ -127,7 +127,28 @@ Phases (any failure raises and the script exits nonzero):
              the prefill and at a decode step past the wrap, and fp32,
              where fused and dense-routed decode must agree token for
              token.
-10. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+10. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
+             layers, d_model 3,584, 28 heads (kv 4), SwiGLU d_ff 18,944,
+             vocab 152,064, M-RoPE sections (16, 24, 24); random weights
+             and 1,024 vision embeddings a request from a seed, the
+             vision encoder a stub as in the JAX package): kernel 9 at
+             its factor shapes (3584, 16), (18944, 16), (16, 3584), S = 1
+             and 1,152, as in the serve phase; one round at d =
+             16,515,156 (kernels 1–3 there against their plain versions
+             bitwise and timed), ``serving_downlink`` →
+             ``ModulatorStore``, then ``route_batch(fused=True)`` and a
+             bf16 greedy generate through ``prefill_step`` (each request
+             a 32 × 32 grid of vision embeddings prepended to 128 text
+             tokens at Qwen2-VL's (t, h, w) positions) and ``decode_fn``
+             (B = 8 over 7 tasks, 32 new tokens) whose kernel-9 launches
+             are counted (168 a forward: three sites, two factors each,
+             28 layers); every layer's ``kpos`` after it; prefill and
+             decode-step walls, profiled prefill and decode windows, the
+             prefill logits at the grid positions against text positions
+             (they must differ: M-RoPE live), bf16 logits against the
+             plain versions, and fp32, where fused and dense-routed
+             decode must agree token for token.
+11. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -146,7 +167,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-11. summary — the host µs a call of every kernel wrapper and of the
+12. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -167,9 +188,9 @@ call) and the host µs a call of every wrapper and of the call path's
 pieces (it also runs from the root of an earlier checkout, to measure
 it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
-for a kernel-10 change); ``--only granite``, ``--only whisper`` and ``--only
-hymba`` run setup and the granite, whisper or hymba phase alone.  None of them prints the
-summary or the "ok" line.
+for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
+hymba`` and ``--only vlm`` run setup and the granite, whisper, hymba or
+vlm phase alone.  None of them prints the summary or the "ok" line.
 """
 
 from __future__ import annotations
@@ -1560,10 +1581,39 @@ def decoder_generate(prompts, ids, new):
     return gen
 
 
+def prompt_length(batch) -> int:
+    """A prefill batch's sequence length: its tokens and a vlm's prepended
+    ``extra_embeds`` (whisper's ``audio_embeds`` feed its encoder, not
+    this sequence)."""
+    s = batch["tokens"].shape[1]
+    return s + (batch["extra_embeds"].shape[1] if "extra_embeds" in batch
+                else 0)
+
+
+def served_generate(torch, model, params, lora, batch, new, mode=None):
+    """The serving loop of the models whose prefill batch carries more
+    than tokens (whisper's frames; the vlm's images and positions), as
+    the JAX package serves them, through ``prefill_step`` and
+    ``decode_fn`` (its decoder is token-only): prefill ``batch``, then
+    ``new - 1`` greedy decode steps from position :func:`prompt_length`
+    on.  Returns tokens (B, S + new) int32, S the batch's tokens."""
+    prompts = batch["tokens"]
+    n = prompt_length(batch)
+    cache = model.init_cache(prompts.shape[0], n + new + 8)
+    logits, cache = model.prefill_step(params, lora, batch, cache, mode=mode)
+    out = [torch.argmax(logits, -1).to(torch.int32)]
+    for pos in range(n, n + new - 1):
+        logits, cache = model.decode_fn(params, lora,
+                                        {"tokens": out[-1][:, None]}, cache,
+                                        pos, mode=mode)
+        out.append(torch.argmax(logits, -1).to(torch.int32))
+    return torch.cat([prompts.to(torch.int32), torch.stack(out, 1)], 1)
+
+
 def served_prefill(model, params, batch, new):
     """``prefill(lora tree, mode=None)`` -> (last-token logits, cache):
     ``batch`` into a fresh cache of the generate's length."""
-    b, s = batch["tokens"].shape
+    b, s = batch["tokens"].shape[0], prompt_length(batch)
 
     def prefill(lora, mode=None):
         return model.prefill_step(params, lora, batch,
@@ -2276,20 +2326,28 @@ def round_kernels_at(torch, dev, server, round_data):
     uni, words, lams, tasks, valid, sizes, ks = round_data
     d = uni.shape[1]
     packed = _pack(torch, dev, server, round_data)
+    # the kernel round's outputs wait on the host while the plain round,
+    # whose fp32 unify takes several (N, K, d) temporaries, runs
+    fields = ("tau_hats", "alpha_num", "n_held", "similarity",
+              "task_vectors", "down_masks", "down_unified")
     out_k = server.engine.run_packed(packed)
+    tvs = out_k.task_vectors
+    got = {f: getattr(out_k, f).cpu() for f in fields}
+    del out_k
     out_p = server.engine.run_packed(packed, mode="ref")
-    torch.cuda.synchronize()
-    for f in ("tau_hats", "alpha_num", "n_held", "similarity",
-              "task_vectors"):
-        check_equal(torch, f"round at d={d} {f}", getattr(out_k, f),
-                    getattr(out_p, f))
+    want = {f: getattr(out_p, f).cpu() for f in fields}
+    del out_p
+    for f in fields[:5]:
+        check_equal(torch, f"round at d={d} {f}", got[f], want[f])
+    on_host = valid.cpu()
     check_equal(torch, f"round at d={d} downlink words",
-                out_k.down_masks[valid], out_p.down_masks[valid])
+                got["down_masks"][on_host], want["down_masks"][on_host])
     check_equal(torch, f"round at d={d} downlink bf16 bits",
-                bf16_bits(torch, out_k.down_unified),
-                bf16_bits(torch, out_p.down_unified))
+                bf16_bits(torch, got["down_unified"]),
+                bf16_bits(torch, want["down_unified"]))
+    del got, want
     out = {}
-    slots = out_k.task_vectors[torch.clamp(tasks.long(), max=T - 1)]
+    slots = tvs[torch.clamp(tasks.long(), max=T - 1)]
     got = fused_unify.fused_unify_packed_cuda(slots, valid)
     want = fused_unify.plain(slots, valid)
     torch.cuda.synchronize()
@@ -2324,7 +2382,6 @@ def round_kernels_at(torch, dev, server, round_data):
                             lambda: masked_agg.masked_agg_batched_packed_cuda(
                                 *args))[0])
     del got, want, args
-    tvs = out_k.task_vectors
     row = sign_sim_packed_check(torch, *bitpack.sign_planes(tvs), tvs)
     out["sign_sim_packed"] = {k: row[k] for k in ("ms", "device_ms",
                                                   "plain_ms", "bound_ms")}
@@ -2335,7 +2392,7 @@ def round_kernels_at(torch, dev, server, round_data):
         f"{out['masked_agg_batched_packed']['ms']:.4f} ms (device "
         f"{out['masked_agg_batched_packed']['device_ms']:.4f}), kernel 3 "
         f"{row['ms']:.4f} ms (device {row['device_ms']:.4f})")
-    del out_k, out_p, packed, tvs
+    del packed, tvs
     torch.cuda.empty_cache()
     return out
 
@@ -2483,26 +2540,6 @@ def encdec_launches(cfg):
     return 2 * (n_enc + n_dec) * cfg.n_layers, 2 * n_dec * cfg.n_layers
 
 
-def whisper_generate(torch, model, params, lora, prompts, audio, new,
-                     mode=None):
-    """whisper's serving loop (the JAX package serves it the same way,
-    through ``prefill_step`` and ``decode_fn``): encode and prefill,
-    then ``new - 1`` greedy decode steps.  Returns tokens (B, S + new)
-    int32."""
-    b, s = prompts.shape
-    cache = model.init_cache(b, s + new + 8)
-    logits, cache = model.prefill_step(
-        params, lora, {"tokens": prompts, "audio_embeds": audio}, cache,
-        mode=mode)
-    out = [torch.argmax(logits, -1).to(torch.int32)]
-    for pos in range(s, s + new - 1):
-        logits, cache = model.decode_fn(params, lora,
-                                        {"tokens": out[-1][:, None]}, cache,
-                                        pos, mode=mode)
-        out.append(torch.argmax(logits, -1).to(torch.int32))
-    return torch.cat([prompts.to(torch.int32), torch.stack(out, 1)], 1)
-
-
 def whisper_phase(torch, dev, cfg=None):
     """Multi-tenant serving of whisper-large-v3 at full width (see the
     module docstring).  Returns a dict of its numbers: launches, walls,
@@ -2543,9 +2580,9 @@ def whisper_phase(torch, dev, cfg=None):
     pre_n, dec_n = encdec_launches(cfg)
 
     def gen(model, params, store, fused=True, mode=None):
-        return whisper_generate(torch, model, params,
-                                route_batch(store, ids, fused=fused),
-                                prompts, audio, new, mode=mode)
+        return served_generate(torch, model, params,
+                               route_batch(store, ids, fused=fused), batch,
+                               new, mode=mode)
 
     # -- the main path: round -> serving downlink -> store -> generate ------
     server, round_data, store, round_ms = round_to_store(
@@ -2803,6 +2840,151 @@ def hymba_phase(torch, dev, cfg=None):
                 modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
 
 
+# -- vlm phase: multi-tenant qwen2-vl-7b at full width ------------------------
+
+VLM_ARCH = "qwen2-vl-7b"
+VLM_D = 16_515_156             # its LoRA task-vector size at rank 16
+VLM_FINGERPRINT = "5ecc74948787cc41"
+# 8 requests, each an image of VLM_GRID patches (1,024 = the config's
+# vision_tokens) followed by 128 text tokens, and 32 new tokens
+VLM_B, VLM_PROMPT, VLM_NEW = 8, 128, 32
+VLM_GRID = (32, 32)
+# a layer's kernel-9 launches: the a-factors (3584, 16) of mixer/wq and
+# mixer/wo, ffn/down's (18944, 16), and three b-factors (16, 3584)
+VLM_LAYER_MIX = {(3584, 16): 2, (18944, 16): 1, (16, 3584): 3}
+
+
+def vlm_positions(torch, b, grid, n_txt, device=None):
+    """Qwen2-VL's M-RoPE positions of an image followed by text, (B,
+    gh·gw + n_txt, 3) int32: vision token i at (t, h, w) = (0, i // gw,
+    i % gw) on the (gh, gw) patch grid, text token j at max(gh, gw) + j
+    on all three coordinates."""
+    gh, gw = grid
+    i = torch.arange(gh * gw, device=device)
+    img = torch.stack([torch.zeros_like(i), i // gw, i % gw], dim=-1)
+    txt = torch.arange(max(gh, gw), max(gh, gw) + n_txt, device=device)
+    pos = torch.cat([img, torch.stack([txt, txt, txt], dim=-1)])
+    return pos.to(torch.int32)[None].expand(b, -1, -1)
+
+
+def vlm_phase(torch, dev, cfg=None):
+    """Multi-tenant serving of qwen2-vl-7b at full width (see the module
+    docstring).  Returns a dict of its numbers: launches, walls, memory,
+    the M-RoPE check and kernels 1–3 at the round's d."""
+    from dataclasses import replace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.nn.rope import text_mrope_positions
+    from repro_torch.serve.router import route_batch
+
+    full = cfg is None
+    cfg = cfg or load_arch(VLM_ARCH)
+    b, s, new = VLM_B, VLM_PROMPT, VLM_NEW
+    n_img = VLM_GRID[0] * VLM_GRID[1]
+    if n_img != cfg.vision_tokens:
+        raise AssertionError(f"a {VLM_GRID} grid is {n_img} patches, the "
+                             f"config {cfg.vision_tokens}")
+    n = n_img + s
+    per = serve_kernel_checks(torch, dev, [(kn, (1, n), True)
+                                           for kn in VLM_LAYER_MIX])
+    mm_dec = mm_row(per, 1, VLM_LAYER_MIX)
+    mm_pre = mm_row(per, n, VLM_LAYER_MIX)
+    log(f"modulated_matmul per vlm layer (6 launches, bf16 tau): decode "
+        f"(S=1) {mm_dec['ms']:.4f} ms of calls (device "
+        f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
+        f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={n}) "
+        f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
+        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+    torch.cuda.empty_cache()
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 17, (VLM_D, VLM_FINGERPRINT) if full else None,
+        shape=f", {cfg.n_layers} layers, M-RoPE sections "
+        f"{cfg.mrope_sections}, {n_img} vision tokens")
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s)
+    images = (0.02 * torch.randn((b, n_img, cfg.d_model), generator=g,
+                                 device=dev)).to(torch.bfloat16)
+    positions = vlm_positions(torch, b, VLM_GRID, s, dev)
+    batch = {"tokens": prompts, "extra_embeds": images,
+             "positions": positions}
+    per_fwd = launches_per_forward(cfg)
+
+    def gen(model, params, store, fused=True, mode=None):
+        return served_generate(torch, model, params,
+                               route_batch(store, ids, fused=fused), batch,
+                               new, mode=mode)
+
+    # -- the main path: round -> serving downlink -> store -> generate ------
+    server, round_data, store, round_ms = round_to_store(
+        torch, dev, "vlm ", space, lora0)
+    (out, launches, gen_ms, peak), caches = keeping_caches(
+        model, lambda: counted_generate(
+            torch, "vlm ", cfg, prompts, ids,
+            lambda: gen(model, params, store),
+            {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}, new,
+            what=f"route + prefill + {new - 1} decode steps; fused, bf16, "
+            f"{n_img} vision + {s} text tokens"))
+    (cache,) = caches
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in cache["blk"].values())
+    kpos = cache["blk"]["kpos"]
+    slots = torch.arange(kpos.shape[1], device=kpos.device)
+    want = torch.where(slots < n + new - 1, slots, -1).to(torch.int32)
+    check_equal(torch, "vlm cache kpos", kpos, want[None].expand_as(kpos))
+    log(f"vlm cache: {cache_bytes} B; every layer's kpos holds positions "
+        f"0..{n + new - 2} in their slots, {kpos.shape[1]} slots")
+    del cache, caches, kpos
+
+    # -- step times, profiled windows ----------------------------------------
+    prefill = served_prefill(model, params, batch, new)
+    lora, logits_k, cache, tok, pre_ms, step_ms = step_walls(
+        torch, "vlm ", model, params, store, ids, prefill, n)
+    del cache
+    pre_wall, pre_busy, pre_ops = profile_window(torch, "vlm prefill",
+                                                 lambda: prefill(lora))
+    mm_decode_summary("vlm prefill", pre_ops, per_fwd, pre_wall, pre_busy)
+    dec_wall, dec_busy = decode_window(torch, "vlm ", model, params, lora,
+                                       tok, prefill(lora)[1], n, per_fwd)
+
+    # -- M-RoPE is live: the image's grid positions against text positions --
+    flat = text_mrope_positions(
+        torch.arange(n, device=dev, dtype=torch.int32)[None].expand(b, n))
+    logits_flat = served_prefill(model, params, dict(batch, positions=flat),
+                                 new)(lora)[0]
+    rel_m = _rel_l2(torch, logits_flat, logits_k)
+    same_top = float((logits_flat.argmax(-1) == logits_k.argmax(-1))
+                     .float().mean())
+    log(f"vlm M-RoPE: prefill logits at the grid positions against the "
+        f"same prompts at text positions 0..{n - 1}: rel L2 {rel_m:.3e}, "
+        f"top-1 agreement {same_top:.3f}")
+    if torch.equal(logits_flat, logits_k):
+        raise AssertionError("vlm prefill logits do not depend on the "
+                             "image's M-RoPE grid positions")
+    del logits_flat
+
+    # -- the same routed tree through the plain versions --------------------
+    rel = bf16_gate(torch, "vlm ", logits_k, prefill(lora, mode="ref")[0],
+                    BF16_LOGIT_REL_L2)
+    token_agreements(torch, "vlm ", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k, prefill
+    torch.cuda.empty_cache()
+    # the round re-run through the plain versions at this d needs the
+    # card's memory without the 14 GiB model beside it
+    at_d = round_kernels_at(torch, dev, server, round_data)
+    del round_data
+
+    fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
+               batch, gen, new, SEED + 18, label="vlm ")
+    del server
+    torch.cuda.empty_cache()
+    return dict(launches=launches, generate_ms=gen_ms,
+                tokens_per_s=b * new / gen_ms * 1e3, peak_gib=peak,
+                cache_bytes=cache_bytes, round_ms=round_ms,
+                prefill_ms=pre_ms, decode_step_ms=statistics.median(step_ms),
+                prefill_busy_ms=pre_busy, prefill_wall_ms=pre_wall,
+                decode4_busy_ms=dec_busy, decode4_wall_ms=dec_wall,
+                mrope_rel_l2=rel_m, bf16_rel_l2=rel, at_d=at_d,
+                modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2875,10 +3057,18 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "vlm"]:
+        # the vlm phase alone: a quick loop for the vlm family's serving
+        # path; no summary, no "ok" line
+        log("== vlm phase alone ==")
+        out = vlm_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
-              f"--only granite, --only whisper or --only hymba",
+              f"--only granite, --only whisper, --only hymba or --only vlm",
               file=sys.stderr)
         return 2
     log("== kernel phase ==")
@@ -2900,6 +3090,8 @@ def main() -> int:
     whisper = whisper_phase(torch, dev)
     log("== hymba phase ==")
     hymba = hymba_phase(torch, dev)
+    log("== vlm phase ==")
+    vlm = vlm_phase(torch, dev)
     log("== xlstm phase ==")
     xlstm_row, xlstm_counts, sim_wide = xlstm_phase(torch, dev)
     rows["sign_sim_packed"]["at_xlstm_round_d"] = {
@@ -2914,9 +3106,12 @@ def main() -> int:
         rows[name]["at_whisper_round_d"] = at_d
     for name, at_d in hymba.pop("at_d").items():
         rows[name]["at_hymba_round_d"] = at_d
+    for name, at_d in vlm.pop("at_d").items():
+        rows[name]["at_vlm_round_d"] = at_d
     serve_rows["modulated_matmul"]["granite"] = granite
     serve_rows["modulated_matmul"]["whisper"] = whisper
     serve_rows["modulated_matmul"]["hymba"] = hymba
+    serve_rows["modulated_matmul"]["vlm"] = vlm
     log("== host cost of every wrapper ==")
     host = host_costs(torch, dev)
     kernels, checks = [], {}
@@ -2931,7 +3126,9 @@ def main() -> int:
                                  f"{whisper['launches']['modulated_matmul']}"
                                  " in the whisper generate, "
                                  f"{hymba['launches']['modulated_matmul']}"
-                                 " in the hymba generate)",
+                                 " in the hymba generate, "
+                                 f"{vlm['launches']['modulated_matmul']}"
+                                 " in the vlm generate)",
              "mlstm_chunkwise": "one full-width bf16 xlstm-1.3b generate "
                                 "(xlstm phase)"}
     for name, row in (list(rows.items()) + list(bool_rows.items())

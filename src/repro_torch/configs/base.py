@@ -9,8 +9,8 @@ Dtypes are torch dtypes; bf16 is the default, as in the JAX package.
 
 Ported so far: the dense family (qwen2-0.5b), the ssm family
 (xlstm-1.3b), the moe family without MLA (granite-moe-3b-a800m), the
-audio family (whisper-large-v3) and the hybrid family (hymba-1.5b);
-``load_arch`` of another name raises.
+audio family (whisper-large-v3), the hybrid family (hymba-1.5b) and the
+vlm family (qwen2-vl-7b); ``load_arch`` of another name raises.
 """
 
 from __future__ import annotations
@@ -199,4 +199,4 @@ def load_arch(name: str) -> ArchConfig:
 
 
 PORTED_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "granite-moe-3b-a800m",
-                "whisper-large-v3", "hymba-1.5b")
+                "whisper-large-v3", "hymba-1.5b", "qwen2-vl-7b")

@@ -3,7 +3,9 @@
 ``build_model`` returns an :class:`ArchModel` with the uniform interface
 the serving path relies on: ``init`` / ``lora_init``, ``forward``,
 ``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
-dense family (qwen2-0.5b), the ssm family (xlstm-1.3b, alternating
+dense family (qwen2-0.5b), the vlm family (qwen2-vl-7b: the dense
+stack with M-RoPE, whose prefill batch also carries ``"extra_embeds"``
+and (B, S, 3) ``"positions"``), the ssm family (xlstm-1.3b, alternating
 mLSTM / sLSTM blocks), the moe family with attention (granite-moe-
 3b-a800m; MLA raises), the hybrid family (hymba-1.5b: attention with a
 sliding window beside a Mamba branch, a
@@ -48,13 +50,16 @@ class ArchModel:
                                     device=device)
 
     def forward(self, params, tokens, *, lora=None, mode=None,
-                audio_embeds=None):
+                audio_embeds=None, extra_embeds=None, positions=None):
         """Full-sequence logits; an encdec model also takes the frame
-        embeddings ``audio_embeds`` (B, T_enc, d)."""
+        embeddings ``audio_embeds`` (B, T_enc, d), a vlm the prepended
+        ``extra_embeds`` (B, S_img, d) and (B, S, 3) ``positions``."""
         if self.kind == "encdec":
             return self.model.forward(params, tokens, audio_embeds,
                                       lora=lora, mode=mode)
-        return self.model.forward(params, tokens, lora=lora, mode=mode)
+        return self.model.forward(params, tokens, lora=lora, mode=mode,
+                                  extra_embeds=extra_embeds,
+                                  positions=positions)
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
         return self.model.init_cache(batch, max_len, dtype)
@@ -70,7 +75,9 @@ class ArchModel:
 def _attention(cfg: ArchConfig, window: Optional[int]) -> Attention:
     return Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                      head_dim=cfg.head_dim, qkv_bias=cfg.qkv_bias, rope=True,
-                     rope_base=cfg.rope_base, window=window, dtype=cfg.dtype)
+                     rope_base=cfg.rope_base,
+                     mrope_sections=cfg.mrope_sections, window=window,
+                     dtype=cfg.dtype)
 
 
 def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
@@ -80,20 +87,22 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
     sliding window, as in the JAX package."""
     window = cfg.window_for_shape(shape) if shape is not None else None
     dt = cfg.dtype
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         if cfg.family == "moe" and cfg.use_mla:
             raise ValueError(f"{cfg.name}: MLA attention (use_mla=True) is "
                              f"not ported yet")
         mixer = _attention(cfg, window)
         ffn = (SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt)
-               if cfg.family == "dense" else
+               if cfg.family != "moe" else
                MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
                    n_shared=cfg.n_shared_experts, shared_d_ff=cfg.shared_d_ff,
                    capacity_factor=cfg.moe_capacity_factor, dtype=dt))
         block = Block(cfg.d_model, mixer, ffn, dtype=dt)
         lm = LM(vocab=cfg.vocab, d_model=cfg.d_model, n_units=cfg.n_layers,
                 unit_blocks=[("blk", block)],
-                tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
+                tie_embeddings=cfg.tie_embeddings,
+                mrope=cfg.mrope_sections is not None, dtype=dt,
+                device=device)
         return ArchModel(cfg, lm, "lm")
     if cfg.family == "ssm":             # xLSTM: alternating mLSTM/sLSTM pairs
         if cfg.n_layers % 2:
@@ -128,4 +137,4 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                          dtype=dt, device=device)
         return ArchModel(cfg, model, "encdec")
     raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
-                     f"dense, ssm, moe, hybrid, audio)")
+                     f"dense, vlm, ssm, moe, hybrid, audio)")

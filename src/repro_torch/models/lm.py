@@ -13,6 +13,11 @@ Entry points:
 * ``prefill(params, lora, batch, cache)``       fills the caches, last-token logits
 * ``decode_step(params, lora, tokens, cache, pos)``  one token with the cache
 
+A vision-language model (``mrope=True``) prepends ``extra_embeds`` (B,
+S_img, d_model) to the token embeddings in ``forward`` and ``prefill``,
+and its default positions are (B, S, 3), three equal coordinates; its
+decode steps take tokens alone.
+
 ``mode`` ("ref" or None) reaches every ``Dense`` and from there
 ``ops``, so a whole forward can run through the kernels' plain
 versions.  Loss and training (chunked cross-entropy) are not ported yet.
@@ -52,11 +57,12 @@ def as_generator(seed_or_gen, device: torch.device) -> torch.Generator:
 class LM(Module):
     def __init__(self, *, vocab: int, d_model: int, n_units: int,
                  unit_blocks: List[Tuple[str, Module]],
-                 tie_embeddings: bool = False, dtype=torch.float32,
-                 device: DeviceLike = "cuda"):
+                 tie_embeddings: bool = False, mrope: bool = False,
+                 dtype=torch.float32, device: DeviceLike = "cuda"):
         self.vocab, self.d_model, self.n_units = vocab, d_model, n_units
         self.unit_blocks = unit_blocks
         self.tie = tie_embeddings
+        self.mrope = mrope
         self.dtype = dtype
         self.device = resolve_device(device)
         self.embed = Embedding(vocab, d_model, dtype=dtype)
@@ -86,8 +92,13 @@ class LM(Module):
                           for name, blk in self.unit_blocks}}
 
     # -- shared pieces -------------------------------------------------------
-    def _embed_in(self, params, tokens):
-        return self.embed(params["embed"], tokens).to(self.dtype)
+    def _embed_in(self, params, tokens, extra_embeds=None):
+        """Token embeddings (B, S, d), with ``extra_embeds`` (B, S_img,
+        d), cast to the model dtype, prepended."""
+        x = self.embed(params["embed"], tokens).to(self.dtype)
+        if extra_embeds is not None:
+            x = torch.cat([extra_embeds.to(self.dtype), x], dim=1)
+        return x
 
     def _head(self, params, x):
         x = self.final_norm(params["final_norm"], x)
@@ -97,7 +108,8 @@ class LM(Module):
 
     def _default_positions(self, b: int, s: int, offset: int = 0):
         pos = torch.arange(offset, offset + s, device=self.device)
-        return pos[None].expand(b, s)
+        pos = pos[None].expand(b, s)
+        return torch.stack([pos, pos, pos], dim=-1) if self.mrope else pos
 
     def _layers(self, params, lora, cache=None):
         """Per layer, per unit block: (name, block, params, lora, cache)
@@ -114,10 +126,12 @@ class LM(Module):
 
     # -- full-sequence forward -----------------------------------------------
     def forward(self, params, tokens, *, lora=None, positions=None,
-                mode: Optional[str] = None, return_hidden: bool = False):
-        """tokens (B, S) -> logits (B, S, V) (or the final hidden state)."""
-        b, s = tokens.shape
-        x = self._embed_in(params, tokens)
+                extra_embeds=None, mode: Optional[str] = None,
+                return_hidden: bool = False):
+        """tokens (B, S_txt) -> logits (B, S, V) (or the final hidden
+        state); S = S_img + S_txt with ``extra_embeds`` (B, S_img, d)."""
+        x = self._embed_in(params, tokens, extra_embeds)
+        b, s = x.shape[0], x.shape[1]
         if positions is None:
             positions = self._default_positions(b, s)
         for unit in self._layers(params, lora):
@@ -134,11 +148,12 @@ class LM(Module):
 
     def prefill(self, params, lora, batch, cache, *,
                 mode: Optional[str] = None):
-        """batch {"tokens": (B, S)} -> (last-token logits (B, V), cache);
-        the cache is filled in place."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed_in(params, tokens)
+        """batch {"tokens": (B, S_txt)}, optionally "extra_embeds" (B,
+        S_img, d) and "positions" (B, S) or (B, S, 3), S = S_img + S_txt
+        -> (last-token logits (B, V), cache); the cache is filled in
+        place."""
+        x = self._embed_in(params, batch["tokens"], batch.get("extra_embeds"))
+        b, s = x.shape[0], x.shape[1]
         positions = batch.get("positions")
         if positions is None:
             positions = self._default_positions(b, s)

@@ -1,5 +1,5 @@
-"""Grouped-query attention with RoPE, sliding windows, a KV cache and
-cross-attention (whisper's decoder).
+"""Grouped-query attention with RoPE (or Qwen2-VL's M-RoPE), sliding
+windows, a KV cache and cross-attention (whisper's decoder).
 
 Three execution paths, as in the JAX package:
 
@@ -22,6 +22,11 @@ place: PyTorch's idiom, where the JAX package returns a new cache.
 Softmax math is fp32 whatever the activation dtype, with a -1e30 mask.
 Heads are grouped as ``h = kv · group + g``, so query head h reads KV
 head h // group.
+
+Positions are (B, S), or (B, S, 3) (t, h, w) coordinates when
+``mrope_sections`` is set.  They rotate q and k; the causal and window
+masks read ``positions[0]`` only when positions are (B, S), and 0..S-1
+otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,7 +51,9 @@ class Attention(Module):
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, *,
                  head_dim: Optional[int] = None, qkv_bias: bool = False,
                  out_bias: bool = False, rope: bool = True,
-                 rope_base: float = 10000.0, window: Optional[int] = None,
+                 rope_base: float = 10000.0,
+                 mrope_sections: Optional[Sequence[int]] = None,
+                 window: Optional[int] = None,
                  causal: bool = True, cross: bool = False,
                  q_chunk: int = 512, dtype=torch.float32):
         if n_heads % n_kv_heads:
@@ -59,6 +66,8 @@ class Attention(Module):
         self.group = n_heads // n_kv_heads
         self.rope = rope and not cross
         self.rope_base = rope_base
+        self.mrope_sections = (tuple(mrope_sections)
+                               if mrope_sections is not None else None)
         self.window = window
         self.causal = causal and not cross
         self.q_chunk = q_chunk
@@ -97,8 +106,10 @@ class Attention(Module):
         q = self._q(params, x, lora, mode)
         k, v = self._kv(params, x if kv_input is None else kv_input)
         if self.rope and positions is not None:
-            q = apply_rope(q, positions, base=self.rope_base)
-            k = apply_rope(k, positions, base=self.rope_base)
+            q = apply_rope(q, positions, base=self.rope_base,
+                           mrope_sections=self.mrope_sections)
+            k = apply_rope(k, positions, base=self.rope_base,
+                           mrope_sections=self.mrope_sections)
         return q, k, v
 
     def _out(self, params, ctx, lora, mode):
@@ -136,15 +147,17 @@ class Attention(Module):
     def _attend(self, q, k, v, positions, cross: bool, impl: str):
         """The context of q against k/v by ``impl``'s rule: materialised
         scores when impl is "full" or the queries fit one chunk, else
-        :meth:`_chunked`.  Query positions are ``positions[0]`` or
-        0..S-1; key positions equal them for self-attention and are
-        0..S_kv-1 for cross-attention."""
+        :meth:`_chunked`.  Query positions are ``positions[0]`` for (B,
+        S) positions and 0..S-1 otherwise (none, or M-RoPE's (B, S, 3));
+        key positions equal them for self-attention and are 0..S_kv-1
+        for cross-attention."""
         if impl not in ("full", "chunked", "auto"):
             raise ValueError(f"impl must be full, chunked or auto, got "
                              f"{impl!r}")
         q_chunk = self.q_chunk
         s_q, s_k = q.shape[1], k.shape[1]
         q_pos = (positions[0] if positions is not None
+                 and positions.dim() == 2
                  else torch.arange(s_q, device=q.device))
         k_pos = torch.arange(s_k, device=q.device) if cross else q_pos
         if impl == "full" or s_q <= q_chunk:
@@ -217,10 +230,12 @@ class Attention(Module):
 
     def decode_step(self, params, x, cache, pos: int, *, lora=None,
                     mode: Optional[str] = None):
-        """x (B, 1, d); ``pos`` the position of this token (an int).  The
+        """x (B, 1, d); ``pos`` the position of this token (an int), on
+        all three M-RoPE coordinates when ``mrope_sections`` is set.  The
         cache is updated in place."""
         b = x.shape[0]
-        positions = torch.full((b, 1), pos, dtype=torch.int64,
+        shape = (b, 1) if self.mrope_sections is None else (b, 1, 3)
+        positions = torch.full(shape, pos, dtype=torch.int64,
                                device=x.device)
         q, k, v = self._qkv(params, x, positions, lora, mode)
         s_cache = cache["k"].shape[1]

@@ -35,6 +35,13 @@ WHISPER_BF16_REL_L2 = 1.5e-2
 # with the modulation term dropped (PERF.md §6): the bar is a third
 # of the reduced whisper's, over 100x below the τ = 0 readings
 HYMBA_BF16_REL_L2 = 5e-3
+# the reduced vlm's bf16 prefill logits (an image of 8 patches and 12
+# tokens at Qwen2-VL's positions), kernels against the plain versions:
+# rel L2 at most this.  On an H100 it reads 0.0 (every factor on the
+# prefill route, which sums as the plain version does), and 0.601 with
+# the modulation term dropped (PERF.md §6): hymba's bar, over
+# 100x below the τ = 0 reading
+VLM_BF16_REL_L2 = 5e-3
 
 
 def slot_stack(seed, b, k, d):
@@ -1328,21 +1335,21 @@ def _rel_l2(a, b) -> float:
 @pytest.mark.cuda
 def test_cuda_whisper_reduced_fp32_fused_equals_dense_routed(cuda):
     """The reduced whisper in fp32 on the card: a mixed batch (tasks 2, 0,
-    3, 2) gives the same greedy tokens (``chip_smoke.whisper_generate``)
+    3, 2) gives the same greedy tokens (``chip_smoke.served_generate``)
     on the fused route (kernel 9 on all 8 sites: 2·(3 + 5)·2 launches at
     prefill, 2·5·2 a decode step) and the dense-routed one."""
-    from chip_smoke import whisper_generate
+    from chip_smoke import served_generate
     from repro_torch.serve import route_batch
     m, params, store, prompts, audio = _whisper_rig(cuda, torch.float32)
     ids = [2, 0, 3, 2]
     ops.reset_launch_counts()
-    fused = whisper_generate(torch, m, params,
-                             route_batch(store, ids, fused=True), prompts,
-                             audio, 6)
+    batch = {"tokens": prompts, "audio_embeds": audio}
+    fused = served_generate(torch, m, params,
+                            route_batch(store, ids, fused=True), batch, 6)
     torch.cuda.synchronize()
     assert ops.launch_counts()["modulated_matmul"] == 32 + 20 * 5
-    dense = whisper_generate(torch, m, params, route_batch(store, ids),
-                             prompts, audio, 6)
+    dense = served_generate(torch, m, params, route_batch(store, ids),
+                            batch, 6)
     assert torch.equal(fused, dense)
 
 
@@ -1493,3 +1500,116 @@ def test_cuda_hymba_reduced_bf16_kernels_match_plain(cuda, record_property):
         record_property(f"{name}_rel_l2_without_tau", rel_wrong)
         assert torch.isfinite(got).all()
         assert rel <= HYMBA_BF16_REL_L2 < rel_wrong, name
+
+
+# qwen2-vl-7b's three LoRA factor shapes at rank 16: the a-factors of
+# mixer/wq and mixer/wo, ffn/down's, and the b-factors
+VLM_LEAVES = [(3584, 16), (18944, 16), (16, 3584)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 1152])
+@pytest.mark.parametrize("k,n", VLM_LEAVES)
+def test_cuda_modulated_matmul_vlm_shapes(cuda, k, n, s, tau_dtype):
+    """Kernel 9 at qwen2-vl-7b's factor shapes, B = 8: S = 1 (the decode
+    route) and S = 1,152 (1,024 vision and 128 text tokens: the prefill
+    route, a ragged last S-tile; K = 18,944 the largest yet): the
+    product within MM_RTOL of |x| @ |w|, and with x = I the effective
+    weights bitwise the plain ``base + (λ·m)·τ``."""
+    args = mm_args(k + n + s, cuda, 8, s, k, n, tau_dtype)
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert got.shape == (8, s, n) and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+    if s == 1:
+        eye = torch.eye(k, device=cuda).expand(8, k, k).contiguous()
+        w = modulated_matmul.modulated_matmul_cuda(eye, *args[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(w, w_eff)
+
+
+def _vlm_rig(cuda, dtype):
+    """The reduced vlm (2 layers, sections (4, 6, 6)) on the card in
+    ``dtype`` at rank 16, one serving downlink of 4 tasks in its store,
+    and 4 requests: a 2 × 4 grid of seeded vision embeddings before 12
+    tokens, at Qwen2-VL's positions (``chip_smoke.vlm_positions``)."""
+    import dataclasses
+
+    from chip_smoke import vlm_positions
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    from repro_torch.serve import ModulatorStore
+    cfg = dataclasses.replace(load_arch("qwen2-vl-7b").reduced(),
+                              dtype=dtype, lora_rank=16)
+    m = cfg.build(device=cuda)
+    params, lora0 = m.init(0), m.lora_init(1)
+    space = TaskVectorSpace.from_tree(lora0)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    server = MaTUServer(MaTUServerConfig(n_tasks=4), device=cuda)
+    server.last_task_vectors = 0.05 * torch.randn((4, space.d), generator=g,
+                                                  device=cuda)
+    store = ModulatorStore(space, lora0, capacity=4, device=cuda)
+    store.ingest(server.serving_downlink(fingerprint=space.fingerprint))
+    prompts = torch.randint(1, cfg.vocab, (4, 12), generator=g, device=cuda)
+    images = 0.02 * torch.randn((4, cfg.vision_tokens, cfg.d_model),
+                                generator=g, device=cuda)
+    positions = vlm_positions(torch, 4, (2, 4), 12, cuda)
+    return m, params, store, prompts, images, positions
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_reduced_fp32_fused_equals_dense_routed(cuda):
+    """The reduced vlm in fp32 on the card: a mixed batch (tasks 2, 0, 3,
+    2) of images and prompts at the grid positions gives the same greedy
+    tokens (``chip_smoke.served_generate``, 6 new) on the fused route
+    (kernel 9 on all three sites: 2·3·2 launches a forward) and the
+    dense-routed one."""
+    from chip_smoke import served_generate
+    from repro_torch.serve import route_batch
+    m, params, store, prompts, images, positions = _vlm_rig(cuda,
+                                                            torch.float32)
+    ids = [2, 0, 3, 2]
+    ops.reset_launch_counts()
+    batch = {"tokens": prompts, "extra_embeds": images,
+             "positions": positions}
+    fused = served_generate(torch, m, params,
+                            route_batch(store, ids, fused=True), batch, 6)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modulated_matmul"] == 2 * 3 * 2 * 6
+    dense = served_generate(torch, m, params, route_batch(store, ids),
+                            batch, 6)
+    assert fused.shape == (4, 18)
+    assert torch.equal(fused, dense)
+
+
+@pytest.mark.cuda
+def test_cuda_vlm_reduced_bf16_kernels_match_plain(cuda, record_property):
+    """The reduced vlm in bf16 on the card, fused route: the prefill
+    logits of the images and prompts at the grid positions through the
+    kernels within rel L2 VLM_BF16_REL_L2 of the same route through the
+    plain versions; the same route with the modulation term dropped (τ =
+    0) beyond it.  Both readings are recorded as properties of the
+    test."""
+    from repro_torch.serve import route_batch
+    m, params, store, prompts, images, positions = _vlm_rig(cuda,
+                                                            torch.bfloat16)
+    lora = route_batch(store, [2, 0, 3, 2], fused=True)
+    batch = {"tokens": prompts, "extra_embeds": images,
+             "positions": positions}
+
+    def prefill(lora, mode=None):
+        return m.prefill_step(params, lora, batch, m.init_cache(4, 28),
+                              mode=mode)[0]
+
+    got, want = prefill(lora), prefill(lora, "ref")
+    wrong = prefill(_without_tau(lora), "ref")
+    rel, rel_wrong = _rel_l2(got, want), _rel_l2(wrong, want)
+    record_property("rel_l2", rel)
+    record_property("rel_l2_without_tau", rel_wrong)
+    assert torch.isfinite(got).all()
+    assert rel <= VLM_BF16_REL_L2 < rel_wrong

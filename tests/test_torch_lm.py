@@ -81,12 +81,11 @@ def test_reduced_config_matches_jax():
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        load_arch("qwen2-vl-7b")
-    for family in ("vlm", "vit"):
-        cfg = load_arch("qwen2-0.5b").reduced()
-        cfg.family = family
-        with pytest.raises(ValueError, match="not ported"):
-            cfg.build(device="cpu")
+        load_arch("deepseek-v2-236b")
+    cfg = load_arch("qwen2-0.5b").reduced()
+    cfg.family = "vit"
+    with pytest.raises(ValueError, match="not ported"):
+        cfg.build(device="cpu")
 
 
 def test_moe_with_mla_raises():

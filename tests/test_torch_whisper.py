@@ -71,7 +71,7 @@ from repro_torch.nn.module import LayerNorm  # noqa: E402
 from repro_torch.serve import ModulatorStore, route_batch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import whisper_generate  # noqa: E402  the serving loop
+from chip_smoke import served_generate  # noqa: E402  the serving loop
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -660,15 +660,15 @@ def jax_tokens(packed, fused):
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "bool"])
 def test_greedy_tokens_match_jax(packed, fused):
     """A mixed batch (tasks 2, 0, 3, 2) through the port's store, router,
-    model (plain versions) and ``chip_smoke.whisper_generate``'s greedy
+    model (plain versions) and ``chip_smoke.served_generate``'s greedy
     loop gives JAX's tokens on the same downlink layout, on both
     routes."""
     r = rig()
     _, store = stores(packed)
     lora = route_batch(store, IDS, fused=fused)
-    out = whisper_generate(torch, r["m"], r["params"], lora,
-                           torch.from_numpy(r["tokens"]),
-                           torch.from_numpy(r["audio"]), N_NEW,
-                           mode="ref").numpy()
+    batch = {"tokens": torch.from_numpy(r["tokens"]),
+             "audio_embeds": torch.from_numpy(r["audio"])}
+    out = served_generate(torch, r["m"], r["params"], lora, batch, N_NEW,
+                          mode="ref").numpy()
     assert out.shape == (N_TASKS, PROMPT + N_NEW)
     np.testing.assert_array_equal(out, jax_tokens(packed, fused))
