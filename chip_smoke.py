@@ -148,7 +148,31 @@ Phases (any failure raises and the script exits nonzero):
              (they must differ: M-RoPE live), bf16 logits against the
              plain versions, and fp32, where fused and dense-routed
              decode must agree token for token.
-11. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+11. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
+             cut in depth to 2 of its 60 layers (d_model 5,120, 128 heads
+             of Multi-head Latent Attention: q_lora 1,536, kv_lora 512,
+             nope 128 + rope 64, v 128; 160 routed experts of d_ff 1,536,
+             top-6, and 2 shared; vocab 102,400; random weights from a
+             seed): kernel 9 at its five factor shapes (5120, 16),
+             (16384, 16), (3072, 16), (16, 1536), (16, 5120), S = 1 and
+             640, as in the serve phase; one round at d = 1,163,270
+             (kernels 1–3 there against their plain versions bitwise and
+             timed), ``serving_downlink`` → ``ModulatorStore``, one bf16
+             fused generate (B = 8 over 7 tasks, 640-token prompts: one
+             full 512-row query chunk and one padded; 32 new tokens)
+             whose kernel-9 launches are counted (12 a forward:
+             ``mixer/wq_a``, ``mixer/wo`` and ``ffn/shared/down``, two
+             factors each, 2 layers); the MLA latent cache's bytes and
+             every layer's ``kpos``; prefill and decode-step walls, layer
+             0's prefill split into MLA and MoE, the prefill's capacity
+             drops, profiled prefill and decode windows, bf16 prefill
+             logits against the plain versions (a printed router flip
+             excuses a miss), layer 0's absorbed MLA decode against its
+             naive form (printed), and fp32, where fused and dense-routed
+             decode must agree token for token unless a router near-tie
+             flip comes first, and layer 0's absorbed decode must agree
+             with the naive form within rel L2 1e-4.
+12. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -167,7 +191,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-12. summary — the host µs a call of every kernel wrapper and of the
+13. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -189,8 +213,9 @@ pieces (it also runs from the root of an earlier checkout, to measure
 it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
-hymba`` and ``--only vlm`` run setup and the granite, whisper, hymba or
-vlm phase alone.  None of them prints the summary or the "ok" line.
+hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
+whisper, hymba, vlm or deepseek phase alone.  None of them prints the
+summary or the "ok" line.
 """
 
 from __future__ import annotations
@@ -216,6 +241,11 @@ SCALAR_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
 INT8_TC_OPS_PER_S = 1979e12
 REPS = 25
+# device_ms: idle host time inside a profiled window before and after
+# its calls (doubled for each window taken again), and the most
+# windows it takes
+PROFILE_MARGIN_S = 0.05
+PROFILE_WINDOWS = 8
 
 
 def log(msg: str = "") -> None:
@@ -1311,9 +1341,14 @@ def device_ms(torch, prefix: str, fn, n: int = 10, apart: bool = False):
     call (its count over ``n``, rounded: the profiler can drop an event
     of a long window, so a plain total over ``n`` would read low),
     summed.  Each function must be named with ``prefix`` (the kernel's
-    own).  A window in which the profiler reports no device event at all
-    (it has happened on the card for a window of 5 µs launches) is taken
-    again, up to three windows, each empty one logged.  ``apart``:
+    own).  Late in a long run on the card the profiler drops some or
+    all of a window's device events: taken again after an idle pause
+    outside it, one window came back empty eight times in a row; taken
+    again at once, with idle time inside it, every one has been filled.
+    So the calls run between two idle margins of ``PROFILE_MARGIN_S``,
+    and a window that reports no device event is logged and taken again
+    at once with margins twice as long, up to ``PROFILE_WINDOWS``
+    windows.  ``apart``:
     functions not so named (a fill, a conversion) are listed beside the
     kernel's, not refused, and left out of its sum.  Returns (ms a call,
     {device function: launches seen / n}, {device function: its ms a
@@ -1321,20 +1356,23 @@ def device_ms(torch, prefix: str, fn, n: int = 10, apart: bool = False):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for window in range(3):
+    for window in range(PROFILE_WINDOWS):
+        margin = PROFILE_MARGIN_S * 2 ** window
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(margin)
         on_card = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         if on_card:
             break
-        log(f"device_ms {prefix}: window {window} saw no device event; "
-            f"taken again")
+        log(f"device_ms {prefix}: window {window} (margins "
+            f"{margin * 1e3:g} ms) saw no device event; taken again")
     else:
         raise AssertionError(f"profiler saw no device function of {prefix} "
-                             f"in three windows")
+                             f"in {PROFILE_WINDOWS} windows")
     named = re.compile(r"(^|[\s:])" + re.escape(prefix))
     other = [e.key for e in on_card if not named.search(e.key)]
     if other and not apart:
@@ -1766,13 +1804,14 @@ def token_agreements(torch, label, gen, model, params, store, out, s):
 
 
 def fp32_check(torch, dev, cfg32, server, ids, batch, gen, new, seed,
-               label="", root=("units", "blk")):
+               label="", root=("units", "blk"), then=None):
     """The same configuration in fp32, weights from ``seed``: fused
     (kernel) and dense-routed generates (``gen``) give identical tokens,
     prefill logits of ``batch`` agree within the JAX package's bar, and
     every factor of layer 0 at ``cfg32.lora_targets()`` (paths under
     ``root`` of the routed tree) built by the kernel with x = I equals
-    the dense adapter leaf bit for bit.  In an
+    the dense adapter leaf bit for bit; then ``then(model, params,
+    store)``, if given, whose result it returns.  In an
     MoE model the two routes' LoRA products sum in other orders, so a
     near-tie can route a token to another expert: a token or logit
     difference passes only where such a router flip comes first, and is
@@ -1843,7 +1882,9 @@ def fp32_check(torch, dev, cfg32, server, ids, batch, gen, new, seed,
             del eye, w
     log(f"{label}fp32: {2 * len(sites)} fused factor weights of layer 0 "
         f"(x = I) equal the dense adapter leaves bit for bit")
+    out = then(model, params, store) if then is not None else None
     del model, params, store
+    return out
 
 
 def serve_phase(torch, dev, cfg=None):
@@ -2309,6 +2350,21 @@ def flip_text(flip) -> str:
             f"minus (k+1)-th {flip['cut_min']:.3e}")
 
 
+def traced_prefill(torch, label, model, prefill, lora, tokens: int):
+    """An MoE model's prefill through the kernels under a
+    :class:`RoutingTrace`, its capacity drops logged.  Returns (trace,
+    last-token logits, kept rows, routed rows)."""
+    with RoutingTrace(torch, model) as tr:
+        logits, _ = prefill(lora)
+    kept, routed = tr.kept()
+    cap = model.model.unit_blocks[0][1].ffn.capacity(tokens)
+    log(f"{label}prefill drops: {kept} of {routed} (token, choice) rows "
+        f"kept over {model.cfg.n_layers} layers ({routed - kept} dropped, "
+        f"{(routed - kept) / routed:.4%}; capacity {cap} rows an expert at "
+        f"B*S = {tokens})")
+    return tr, logits, kept, routed
+
+
 def launches_per_forward(cfg) -> int:
     """Kernel-9 launches a forward of a one-block-a-layer model: two
     factors a LoRA site, every site word-aligned at rank 16."""
@@ -2474,14 +2530,8 @@ def granite_phase(torch, dev, cfg=None):
     attn_ms, moe_ms = layer_split(torch, model, params, lora, prompts)
     log(f"granite layer 0's prefill: attention {attn_ms:.3f} ms, MoE "
         f"{moe_ms:.3f} ms (median of 3; x {cfg.n_layers} layers)")
-    with RoutingTrace(torch, model) as tr_k:
-        logits_k, _ = prefill(lora)
-    kept, routed = tr_k.kept()
-    cap = model.model.unit_blocks[0][1].ffn.capacity(b * s)
-    log(f"granite prefill drops: {kept} of {routed} (token, choice) rows "
-        f"kept over {cfg.n_layers} layers ({routed - kept} dropped, "
-        f"{(routed - kept) / routed:.4%}; capacity {cap} rows an expert at "
-        f"B*S = {b * s})")
+    tr_k, logits_k, kept, routed = traced_prefill(
+        torch, "granite ", model, prefill, lora, b * s)
     pre_wall, pre_busy, _ = profile_window(torch, "granite prefill",
                                            lambda: prefill(lora))
     dec_wall, dec_busy = decode_window(torch, "granite ", model, params,
@@ -2682,6 +2732,25 @@ def keeping_caches(model, fn):
         return fn(), caches
     finally:
         del model.init_cache
+
+
+def cache_check(torch, label, caches, last: int) -> int:
+    """The one cache a generate made (``caches`` from
+    :func:`keeping_caches`), written at positions 0..``last`` and never
+    wrapped: every layer's ``kpos`` holds each position in its own slot
+    and -1 in the rest, exactly.  Returns the cache's bytes."""
+    (cache,) = caches
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for x in cache["blk"].values())
+    kpos = cache["blk"]["kpos"]
+    slots = torch.arange(kpos.shape[1], device=kpos.device)
+    want = torch.where(slots <= last, slots, -1).to(torch.int32)
+    check_equal(torch, f"{label}cache kpos", kpos,
+                want[None].expand_as(kpos))
+    log(f"{label}cache: {cache_bytes} B ({', '.join(cache['blk'])}); every "
+        f"layer's kpos holds positions 0..{last} in their slots, -1 in the "
+        f"rest of its {kpos.shape[1]}")
+    return cache_bytes
 
 
 def ring_check(torch, label, kpos, last: int) -> None:
@@ -2922,16 +2991,8 @@ def vlm_phase(torch, dev, cfg=None):
             {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}, new,
             what=f"route + prefill + {new - 1} decode steps; fused, bf16, "
             f"{n_img} vision + {s} text tokens"))
-    (cache,) = caches
-    cache_bytes = sum(x.numel() * x.element_size()
-                      for x in cache["blk"].values())
-    kpos = cache["blk"]["kpos"]
-    slots = torch.arange(kpos.shape[1], device=kpos.device)
-    want = torch.where(slots < n + new - 1, slots, -1).to(torch.int32)
-    check_equal(torch, "vlm cache kpos", kpos, want[None].expand_as(kpos))
-    log(f"vlm cache: {cache_bytes} B; every layer's kpos holds positions "
-        f"0..{n + new - 2} in their slots, {kpos.shape[1]} slots")
-    del cache, caches, kpos
+    cache_bytes = cache_check(torch, "vlm ", caches, n + new - 2)
+    del caches
 
     # -- step times, profiled windows ----------------------------------------
     prefill = served_prefill(model, params, batch, new)
@@ -2982,6 +3043,160 @@ def vlm_phase(torch, dev, cfg=None):
                 prefill_busy_ms=pre_busy, prefill_wall_ms=pre_wall,
                 decode4_busy_ms=dec_busy, decode4_wall_ms=dec_wall,
                 mrope_rel_l2=rel_m, bf16_rel_l2=rel, at_d=at_d,
+                modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
+
+
+# -- deepseek phase: multi-tenant deepseek-v2-236b at full width ------------
+
+DS_ARCH = "deepseek-v2-236b"
+# the published widths, cut in depth to 2 of its 60 layers: 8,992,814,080
+# parameters, 16.75 GiB in bf16 (all 60 would be 445.9 GiB)
+DS_LAYERS = 2
+DS_D = 1_163_270               # its LoRA task-vector size at rank 16, 2 layers
+DS_FINGERPRINT = "aa8b21849ef6989e"
+# 640-token prompts: one full 512-row query chunk at prefill and one
+# padded by 384 rows
+DS_B, DS_PROMPT, DS_NEW = 8, 640, 32
+# a layer's kernel-9 launches: the a-factors of mixer/wq_a (5120, 16),
+# mixer/wo (16384, 16) and ffn/shared/down (3072, 16); the b-factors of
+# wq_a (16, 1536) and of wo and shared/down (16, 5120)
+DS_LAYER_MIX = {(5120, 16): 1, (16384, 16): 1, (3072, 16): 1,
+                (16, 1536): 1, (16, 5120): 2}
+# fp32, layer 0's MLA alone: one absorbed decode step against the naive
+# call at that row, ||y_abs - y_naive|| / ||y_naive|| at most this (the
+# two forms sum their products in other orders; on the CPU the reduced
+# deepseek's decode logits differ from the forward's by ~1e-6 of scale)
+DS_MLA_REL_L2 = 1e-4
+
+
+def mla_decode_check(torch, label, model, params, lora, prompts,
+                     bound=None):
+    """Layer 0's ``MLAttention`` alone, on the normed embeddings of
+    ``prompts`` (B, S) with the routed ``lora``: a prefill of positions
+    0..S-2 into a fresh latent cache, then one absorbed decode step at
+    S-1, against the naive call over all S at row S-1.  Returns the rel
+    L2; raises beyond ``bound`` if one is given."""
+    lm = model.model
+    b, s = prompts.shape
+    _, blk, p, l, _ = next(lm._layers(params, lora))[0]
+    mla, pm, lr = blk.mixer, p["mixer"], l.get("mixer")
+    x = blk.norm1(p["norm1"], lm._embed_in(params, prompts))
+    naive = mla(pm, x, lora=lr)[:, -1]
+    cache = mla.init_cache(b, s, device=x.device)
+    mla.prefill(pm, x[:, :-1], cache, lora=lr)
+    absorbed = mla.decode_step(pm, x[:, -1:], cache, s - 1, lora=lr)[0][:, 0]
+    rel = _rel_l2(torch, absorbed, naive)
+    log(f"{label}MLA layer 0 ({x.dtype}), absorbed decode at position "
+        f"{s - 1} after a {s - 1}-token prefill against the naive call: rel "
+        f"L2 {rel:.3e}, max|err| {max_abs(torch, absorbed, naive)}"
+        + (f" (bound {bound})" if bound is not None else " (printed)"))
+    if not torch.isfinite(absorbed).all():
+        raise AssertionError(f"{label}MLA absorbed decode not finite")
+    if bound is not None and not rel <= bound:
+        raise AssertionError(f"{label}MLA absorbed decode rel L2 {rel} "
+                             f"beyond {bound}")
+    return rel
+
+
+def deepseek_phase(torch, dev, cfg=None):
+    """Multi-tenant serving of deepseek-v2-236b at full width, 2 of its 60
+    layers (see the module docstring).  Returns a dict of its numbers:
+    launches, walls, memory, drops, the cache, MLA's absorbed decode
+    against its naive form and kernels 1–3 at the round's d."""
+    from dataclasses import replace
+    from repro_torch.configs.base import load_arch
+
+    full = cfg is None
+    cfg = cfg or replace(load_arch(DS_ARCH), n_layers=DS_LAYERS)
+    b, s, new = DS_B, DS_PROMPT, DS_NEW
+    per = serve_kernel_checks(torch, dev, [(kn, (1, s), True)
+                                           for kn in DS_LAYER_MIX])
+    mm_dec = mm_row(per, 1, DS_LAYER_MIX)
+    mm_pre = mm_row(per, s, DS_LAYER_MIX)
+    log(f"modulated_matmul per deepseek layer (6 launches, bf16 tau): "
+        f"decode (S=1) {mm_dec['ms']:.4f} ms of calls (device "
+        f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
+        f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={s}) "
+        f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
+        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+    torch.cuda.empty_cache()
+    model, g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 19,
+        (DS_D, DS_FINGERPRINT) if full else None,
+        shape=f", {cfg.n_layers} of 60 layers, {cfg.n_experts} experts "
+        f"top-{cfg.top_k} + {cfg.n_shared_experts} shared, MLA kv_lora "
+        f"{cfg.kv_lora_rank} / q_lora {cfg.q_lora_rank}")
+    ids, prompts = serve_requests(torch, dev, cfg, g, b, s)
+    batch = {"tokens": prompts}
+    gen = decoder_generate(prompts, ids, new)
+    per_fwd = launches_per_forward(cfg)
+
+    # -- the main path: round -> serving downlink -> store -> generate ------
+    server, round_data, store, round_ms = round_to_store(
+        torch, dev, "deepseek ", space, lora0)
+    (out, launches, gen_ms, peak), caches = keeping_caches(
+        model, lambda: counted_generate(
+            torch, "deepseek ", cfg, prompts, ids,
+            lambda: gen(model, params, store),
+            {"modulated_matmul": per_fwd * new, "mlstm_chunkwise": 0}, new))
+    at_d = round_kernels_at(torch, dev, server, round_data)
+    del round_data
+    cache_bytes = cache_check(torch, "deepseek ", caches, s + new - 2)
+    del caches
+
+    # -- step times, the layer split, drops, profiled windows ---------------
+    prefill = served_prefill(model, params, batch, new)
+    lora, _, cache, tok, pre_ms, step_ms = step_walls(
+        torch, "deepseek ", model, params, store, ids, prefill, s)
+    del cache
+    attn_ms, moe_ms = layer_split(torch, model, params, lora, prompts)
+    log(f"deepseek layer 0's prefill: MLA {attn_ms:.3f} ms, MoE "
+        f"{moe_ms:.3f} ms (median of 3; x {cfg.n_layers} layers)")
+    tr_k, logits_k, kept, routed = traced_prefill(
+        torch, "deepseek ", model, prefill, lora, b * s)
+    pre_wall, pre_busy, pre_ops = profile_window(
+        torch, "deepseek prefill", lambda: prefill(lora))
+    mm_decode_summary("deepseek prefill", pre_ops, per_fwd, pre_wall,
+                      pre_busy)
+    dec_wall, dec_busy = decode_window(torch, "deepseek ", model, params,
+                                       lora, tok, prefill(lora)[1], s,
+                                       per_fwd)
+
+    # -- the same routed tree through the plain versions --------------------
+    with RoutingTrace(torch, model) as tr_p:
+        logits_p, _ = prefill(lora, mode="ref")
+    flip = routing_diff(torch, tr_k, tr_p, cfg.n_layers)
+    log("deepseek bf16 prefill routing, kernels vs plain versions: "
+        + (flip_text(flip) if flip else "identical in every layer"))
+    rel = bf16_gate(torch, "deepseek ", logits_k, logits_p,
+                    BF16_LOGIT_REL_L2, flip)
+    mla_bf16 = mla_decode_check(torch, "deepseek ", model, params, lora,
+                                prompts)
+    token_agreements(torch, "deepseek ", gen, model, params, store, out, s)
+    del model, params, lora0, store, lora, logits_k, logits_p, prefill
+    torch.cuda.empty_cache()
+
+    def mla_fp32(model, params, store):
+        from repro_torch.serve.router import route_batch
+        return mla_decode_check(torch, "deepseek fp32 ", model, params,
+                                route_batch(store, ids, fused=True), prompts,
+                                DS_MLA_REL_L2)
+
+    mla_fp32_rel = fp32_check(torch, dev, replace(cfg, dtype=torch.float32),
+                              server, ids, batch, gen, new, SEED + 20,
+                              label="deepseek ", then=mla_fp32)
+    del server
+    torch.cuda.empty_cache()
+    return dict(launches=launches, generate_ms=gen_ms,
+                tokens_per_s=b * new / gen_ms * 1e3, peak_gib=peak,
+                cache_bytes=cache_bytes, round_ms=round_ms,
+                prefill_ms=pre_ms, decode_step_ms=statistics.median(step_ms),
+                layer0_mla_ms=attn_ms, layer0_moe_ms=moe_ms,
+                prefill_kept=kept, prefill_routed=routed,
+                prefill_busy_ms=pre_busy, prefill_wall_ms=pre_wall,
+                decode4_busy_ms=dec_busy, decode4_wall_ms=dec_wall,
+                bf16_rel_l2=rel, mla_bf16_rel_l2=mla_bf16,
+                mla_fp32_rel_l2=mla_fp32_rel, at_d=at_d,
                 modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
 
 
@@ -3065,11 +3280,19 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "deepseek"]:
+        # the deepseek phase alone: a quick loop for MLA's serving path; no
+        # summary, no "ok" line
+        log("== deepseek phase alone ==")
+        out = deepseek_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
-              f"--only granite, --only whisper, --only hymba or --only vlm",
-              file=sys.stderr)
+              f"--only granite, --only whisper, --only hymba, --only vlm or "
+              f"--only deepseek", file=sys.stderr)
         return 2
     log("== kernel phase ==")
     rows = kernel_phase(torch, dev)
@@ -3092,6 +3315,8 @@ def main() -> int:
     hymba = hymba_phase(torch, dev)
     log("== vlm phase ==")
     vlm = vlm_phase(torch, dev)
+    log("== deepseek phase ==")
+    deepseek = deepseek_phase(torch, dev)
     log("== xlstm phase ==")
     xlstm_row, xlstm_counts, sim_wide = xlstm_phase(torch, dev)
     rows["sign_sim_packed"]["at_xlstm_round_d"] = {
@@ -3108,10 +3333,13 @@ def main() -> int:
         rows[name]["at_hymba_round_d"] = at_d
     for name, at_d in vlm.pop("at_d").items():
         rows[name]["at_vlm_round_d"] = at_d
+    for name, at_d in deepseek.pop("at_d").items():
+        rows[name]["at_deepseek_round_d"] = at_d
     serve_rows["modulated_matmul"]["granite"] = granite
     serve_rows["modulated_matmul"]["whisper"] = whisper
     serve_rows["modulated_matmul"]["hymba"] = hymba
     serve_rows["modulated_matmul"]["vlm"] = vlm
+    serve_rows["modulated_matmul"]["deepseek"] = deepseek
     log("== host cost of every wrapper ==")
     host = host_costs(torch, dev)
     kernels, checks = [], {}
@@ -3128,7 +3356,9 @@ def main() -> int:
                                  f"{hymba['launches']['modulated_matmul']}"
                                  " in the hymba generate, "
                                  f"{vlm['launches']['modulated_matmul']}"
-                                 " in the vlm generate)",
+                                 " in the vlm generate, "
+                                 f"{deepseek['launches']['modulated_matmul']}"
+                                 " in the deepseek generate)",
              "mlstm_chunkwise": "one full-width bf16 xlstm-1.3b generate "
                                 "(xlstm phase)"}
     for name, row in (list(rows.items()) + list(bool_rows.items())

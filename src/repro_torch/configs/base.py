@@ -7,10 +7,11 @@ hyper-parameters, the same values as the JAX package's twin.
 smoke-test variant (2 layers, d_model <= 128, fp32) of the same family.
 Dtypes are torch dtypes; bf16 is the default, as in the JAX package.
 
-Ported so far: the dense family (qwen2-0.5b), the ssm family
-(xlstm-1.3b), the moe family without MLA (granite-moe-3b-a800m), the
-audio family (whisper-large-v3), the hybrid family (hymba-1.5b) and the
-vlm family (qwen2-vl-7b); ``load_arch`` of another name raises.
+Ported so far: the dense family (qwen2-0.5b, qwen2.5-3b, qwen2.5-32b,
+codeqwen1.5-7b), the ssm family (xlstm-1.3b), the moe family
+(granite-moe-3b-a800m; deepseek-v2-236b, with MLA), the audio family
+(whisper-large-v3), the hybrid family (hymba-1.5b) and the vlm family
+(qwen2-vl-7b); ``load_arch`` of another name (vit-b32) raises.
 """
 
 from __future__ import annotations
@@ -199,4 +200,6 @@ def load_arch(name: str) -> ArchConfig:
 
 
 PORTED_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "granite-moe-3b-a800m",
-                "whisper-large-v3", "hymba-1.5b", "qwen2-vl-7b")
+                "whisper-large-v3", "hymba-1.5b", "qwen2-vl-7b",
+                "deepseek-v2-236b", "qwen2.5-3b", "qwen2.5-32b",
+                "codeqwen1.5-7b")

@@ -3,11 +3,14 @@
 ``build_model`` returns an :class:`ArchModel` with the uniform interface
 the serving path relies on: ``init`` / ``lora_init``, ``forward``,
 ``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
-dense family (qwen2-0.5b), the vlm family (qwen2-vl-7b: the dense
-stack with M-RoPE, whose prefill batch also carries ``"extra_embeds"``
-and (B, S, 3) ``"positions"``), the ssm family (xlstm-1.3b, alternating
-mLSTM / sLSTM blocks), the moe family with attention (granite-moe-
-3b-a800m; MLA raises), the hybrid family (hymba-1.5b: attention with a
+dense family (qwen2-0.5b, the qwen2.5 configs, codeqwen1.5-7b), the vlm
+family (qwen2-vl-7b: the dense stack with M-RoPE, whose prefill batch
+also carries ``"extra_embeds"`` and (B, S, 3) ``"positions"``), the ssm
+family (xlstm-1.3b, alternating mLSTM / sLSTM blocks), the moe family
+with attention (granite-moe-3b-a800m) or with Multi-head Latent
+Attention (deepseek-v2-236b: an
+:class:`~repro_torch.nn.mla.MLAttention` mixer, routed and shared
+experts), the hybrid family (hymba-1.5b: attention with a
 sliding window beside a Mamba branch, a
 :class:`~repro_torch.models.blocks.HybridMixer`) and the audio family
 (whisper-large-v3, an :class:`~repro_torch.models.encdec.EncDecLM`, whose
@@ -25,6 +28,7 @@ from repro_torch.models.blocks import Block, HybridMixer, SSMBlockAdapter
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import LM
 from repro_torch.nn.attention import Attention
+from repro_torch.nn.mla import MLAttention
 from repro_torch.nn.mlp import SwiGLU
 from repro_torch.nn.moe import MoE
 from repro_torch.nn.ssm import Mamba, MLSTMBlock, SLSTMBlock
@@ -89,9 +93,13 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
     dt = cfg.dtype
     if cfg.family in ("dense", "vlm", "moe"):
         if cfg.family == "moe" and cfg.use_mla:
-            raise ValueError(f"{cfg.name}: MLA attention (use_mla=True) is "
-                             f"not ported yet")
-        mixer = _attention(cfg, window)
+            mixer = MLAttention(
+                cfg.d_model, cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+                kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
+                qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
+                rope_base=cfg.rope_base, window=window, dtype=dt)
+        else:
+            mixer = _attention(cfg, window)
         ffn = (SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt)
                if cfg.family != "moe" else
                MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,

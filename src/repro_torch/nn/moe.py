@@ -11,9 +11,10 @@ products are plain ``torch.bmm``: the JAX package computes them as
 ``jnp.einsum`` outside any Pallas kernel.
 
 Routed experts are frozen under PEFT; LoRA attaches to the shared
-expert's ``down`` only (none in granite).  The sharded forms
-(``_sharded_moe``, ``_chunked_local_moe``) and ``axes`` come with
-distribution.
+expert's ``down`` only (none in granite; deepseek-v2-236b's two shared
+experts of d_ff 1,536 are one SwiGLU of width 3,072, its LoRA site
+``ffn/shared/down``).  The sharded forms (``_sharded_moe``,
+``_chunked_local_moe``) and ``axes`` come with distribution.
 """
 
 from __future__ import annotations

@@ -42,6 +42,12 @@ HYMBA_BF16_REL_L2 = 5e-3
 # the modulation term dropped (PERF.md §6): hymba's bar, over
 # 100x below the τ = 0 reading
 VLM_BF16_REL_L2 = 5e-3
+# the reduced deepseek's bf16 prefill logits (MLA's naive prefill, four
+# experts top-2 and a shared one), kernels against the plain versions:
+# rel L2 at most this.  On an H100 it reads 0.0, and 0.547 with the
+# modulation term dropped (PERF.md §6): the vlm's bar, over 100x
+# below the τ = 0 reading
+DEEPSEEK_BF16_REL_L2 = 5e-3
 
 
 def slot_stack(seed, b, k, d):
@@ -1613,3 +1619,106 @@ def test_cuda_vlm_reduced_bf16_kernels_match_plain(cuda, record_property):
     record_property("rel_l2_without_tau", rel_wrong)
     assert torch.isfinite(got).all()
     assert rel <= VLM_BF16_REL_L2 < rel_wrong
+
+
+# deepseek-v2-236b's five distinct LoRA factor shapes at rank 16: the
+# a-factors of mixer/wq_a, mixer/wo and ffn/shared/down, and the
+# b-factors of wq_a (16, 1536) and of wo and shared/down (16, 5120)
+DEEPSEEK_LEAVES = [(5120, 16), (16384, 16), (3072, 16), (16, 1536),
+                   (16, 5120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 640])
+@pytest.mark.parametrize("k,n", DEEPSEEK_LEAVES)
+def test_cuda_modulated_matmul_deepseek_shapes(cuda, k, n, s, tau_dtype):
+    """Kernel 9 at deepseek-v2-236b's factor shapes, B = 8: S = 1 (the
+    decode route; K = 16,384 splits into 128 chunks) and S = 640 (the
+    prefill route over the prompt): the product within MM_RTOL of |x| @
+    |w|, and with x = I the effective weights bitwise the plain ``base +
+    (λ·m)·τ``."""
+    args = mm_args(k + n + s, cuda, 8, s, k, n, tau_dtype)
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert got.shape == (8, s, n) and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+    if s == 1:
+        eye = torch.eye(k, device=cuda).expand(8, k, k).contiguous()
+        w = modulated_matmul.modulated_matmul_cuda(eye, *args[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(w, w_eff)
+
+
+def _deepseek_rig(cuda, dtype):
+    """The reduced deepseek (2 layers, MLA ranks 32 / 16, 4 experts top-2
+    and a shared one) on the card in ``dtype`` at rank 16, one serving
+    downlink of 4 tasks in its store, and 12-token prompts."""
+    import dataclasses
+
+    from repro_torch.common.tree import TaskVectorSpace
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    from repro_torch.serve import ModulatorStore
+    cfg = dataclasses.replace(load_arch("deepseek-v2-236b").reduced(),
+                              dtype=dtype, lora_rank=16)
+    m = cfg.build(device=cuda)
+    params, lora0 = m.init(0), m.lora_init(1)
+    space = TaskVectorSpace.from_tree(lora0)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    server = MaTUServer(MaTUServerConfig(n_tasks=4), device=cuda)
+    server.last_task_vectors = 0.05 * torch.randn((4, space.d), generator=g,
+                                                  device=cuda)
+    store = ModulatorStore(space, lora0, capacity=4, device=cuda)
+    store.ingest(server.serving_downlink(fingerprint=space.fingerprint))
+    prompts = torch.randint(1, cfg.vocab, (4, 12), generator=g, device=cuda)
+    return m, params, store, prompts
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_reduced_fp32_fused_equals_dense_routed(cuda):
+    """The reduced deepseek in fp32 on the card: a mixed batch (tasks 2,
+    0, 3, 2) of 12-token prompts and 8 new tokens (MLA's naive prefill,
+    then its absorbed decode) gives the same greedy tokens on the fused
+    route (kernel 9 on all three sites: 2·3·2 launches a forward) and the
+    dense-routed one."""
+    from repro_torch.serve import GenerationConfig, MultiTenantDecoder
+    m, params, store, prompts = _deepseek_rig(cuda, torch.float32)
+    ids, gen = [2, 0, 3, 2], GenerationConfig(max_new_tokens=8)
+    ops.reset_launch_counts()
+    fused = MultiTenantDecoder(m, params, store, fused=True, cfg=gen,
+                               device=cuda).generate(prompts, ids)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["modulated_matmul"] == 2 * 3 * 2 * 8
+    dense = MultiTenantDecoder(m, params, store, cfg=gen,
+                               device=cuda).generate(prompts, ids)
+    assert fused.shape == (4, 20)
+    assert torch.equal(fused, dense)
+
+
+@pytest.mark.cuda
+def test_cuda_deepseek_reduced_bf16_kernels_match_plain(cuda,
+                                                        record_property):
+    """The reduced deepseek in bf16 on the card, fused route: the prefill
+    logits through the kernels within rel L2 DEEPSEEK_BF16_REL_L2 of the
+    same route through the plain versions; the same route with the
+    modulation term dropped (τ = 0) beyond it.  Both readings are
+    recorded as properties of the test."""
+    from repro_torch.serve import route_batch
+    m, params, store, prompts = _deepseek_rig(cuda, torch.bfloat16)
+    lora = route_batch(store, [2, 0, 3, 2], fused=True)
+
+    def prefill(lora, mode=None):
+        return m.prefill_step(params, lora, {"tokens": prompts},
+                              m.init_cache(4, 28), mode=mode)[0]
+
+    got, want = prefill(lora), prefill(lora, "ref")
+    wrong = prefill(_without_tau(lora), "ref")
+    rel, rel_wrong = _rel_l2(got, want), _rel_l2(wrong, want)
+    record_property("rel_l2", rel)
+    record_property("rel_l2_without_tau", rel_wrong)
+    assert torch.isfinite(got).all()
+    assert rel <= DEEPSEEK_BF16_REL_L2 < rel_wrong

@@ -81,19 +81,30 @@ def test_reduced_config_matches_jax():
 
 def test_unported_arch_and_family_raise():
     with pytest.raises(ValueError, match="not ported"):
-        load_arch("deepseek-v2-236b")
+        load_arch("vit-b32")
     cfg = load_arch("qwen2-0.5b").reduced()
     cfg.family = "vit"
     with pytest.raises(ValueError, match="not ported"):
         cfg.build(device="cpu")
 
 
-def test_moe_with_mla_raises():
-    cfg = load_arch("granite-moe-3b-a800m").reduced()
-    cfg.build(device="cpu")
-    cfg.use_mla = True
-    with pytest.raises(ValueError, match="not ported"):
-        cfg.build(device="cpu")
+def test_moe_with_mla_builds_an_mla_mixer():
+    """The reduced deepseek builds on the CPU: an ``MLAttention`` mixer
+    before the MoE, and LoRA adapters on exactly its three declared
+    targets."""
+    from repro_torch.common.tree import tree_leaves_with_path
+    from repro_torch.nn.mla import MLAttention
+    cfg = load_arch("deepseek-v2-236b").reduced()
+    m = cfg.build(device="cpu")
+    blk = m.model.unit_blocks[0][1]
+    assert isinstance(blk.mixer, MLAttention)
+    assert (blk.ffn.n_experts, blk.ffn.n_shared) == (4, 1)
+    assert cfg.lora_targets() == ("mixer/wq_a", "mixer/wo",
+                                  "ffn/shared/down")
+    paths = ["/".join(p) for p, _ in
+             tree_leaves_with_path(m.lora_init(device="meta"))]
+    cfg.check_lora_targets(paths)
+    assert len(paths) == 9
 
 
 def test_full_width_manifest_and_fingerprint_match_jax():
