@@ -72,7 +72,35 @@ Phases (any failure raises and the script exits nonzero):
              profiled prefill and decode window; then the same
              configuration in fp32, where fused and dense-routed decode
              must give identical tokens.
-7. granite — multi-tenant serving of granite-moe-3b-a800m at full width
+7. vit     — federated LoRA training of ViT-B/32 at full width (12
+             layers, d_model 768, 49 patches of 3,072; fp32, random
+             weights from a seed), LoRA d = 1,327,140: the synthetic
+             constellation at 3,072 built with its QRs and products on
+             the card in fp64, after one task built so is held against
+             numpy's (R within 1e-6, W bitwise); one local step on
+             the card against the same step on the CPU (loss within rtol
+             1e-5, every gradient leaf within rel L2 1e-4); then
+             ``ViTBackbone`` → ``FedSimulator`` (30 tasks in 6 groups,
+             32 clients of 3 tasks, 128 samples each) →
+             ``make_local_trainer`` (4 AdamW steps at B = 32 a slot) →
+             ``MaTUStrategy.aggregate_batch`` for 2 rounds, kernels 1–3
+             launched every round, every upload finite and nonzero,
+             accuracies in [0, 1]; round 1's trained uploads through the
+             kernels against the plain versions, bitwise (the clients'
+             unify, τ̂, S, task vectors, downlink words, bf16 values and
+             λ); each round's walls, one local step timed (median of
+             20) and profiled, and peak memory.
+8. lmtrain — LoRA training of qwen2-0.5b at full width (bf16, rank 16,
+             d = 3,588,168) through ``make_train_step`` (AdamW 5e-3, clip
+             1.0) on seeded B 4 × S 512 batches: chunked against
+             unchunked CE (rel 1e-5, fp32 head), LoRA gradients with and
+             without the layers' checkpoint twin (rel L2 1e-6); four
+             clients (tasks [0], [1], [2], [0, 2]) take 3 steps each on
+             a repeated batch (losses finite, the third below the
+             first), ``unify_with_modulators`` → ``ClientUpload`` → one
+             ``MaTUServer.round`` (kernels 1–3 launched); step wall,
+             tokens/s, round wall and peak memory.
+9. granite — multi-tenant serving of granite-moe-3b-a800m at full width
              (32 layers, d_model 1536, 24 heads (kv 8), 40 experts of
              d_ff 512, top-8, vocab 49,155; random weights from a seed):
              kernel 9 at its factor shapes (1536, 16) and (16, 1536), S =
@@ -89,7 +117,7 @@ Phases (any failure raises and the script exits nonzero):
              plain versions, and fp32, where fused and dense-routed decode
              must agree token for token unless a router near-tie flip
              (printed with its layer and margin) comes first.
-8. whisper — multi-tenant serving of whisper-large-v3 at full width (32
+10. whisper — multi-tenant serving of whisper-large-v3 at full width (32
              encoder + 32 decoder layers, d_model 1280, 20 heads, d_ff
              5120, vocab 51,866, 1,500 frames; random weights and frame
              embeddings from a seed): kernel 9 at its factor shapes
@@ -107,7 +135,7 @@ Phases (any failure raises and the script exits nonzero):
              and decode windows, peak memory, the caches' bytes, bf16
              prefill logits against the plain versions, and fp32, where
              fused and dense-routed decode must agree token for token.
-9. hymba   — multi-tenant serving of hymba-1.5b at full width (32
+11. hymba  — multi-tenant serving of hymba-1.5b at full width (32
              layers of attention (25 heads, kv 5, a 2,048-token sliding
              window) beside a Mamba branch (d_inner 3,200, d_state 16),
              SwiGLU d_ff 5,504, vocab 32,001; random weights from a
@@ -124,10 +152,10 @@ Phases (any failure raises and the script exits nonzero):
              decode-step walls, layer 0's attention and Mamba branch walls
              at S = 2,040, a profiled window of layer 0's Mamba branch and
              of 4 decode steps, bf16 logits against the plain versions at
-             the prefill and at a decode step past the wrap, and fp32,
-             where fused and dense-routed decode must agree token for
-             token.
-10. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
+             the prefill and at a decode step past the wrap, and fp32 on
+             the prompts' first 128 tokens, where fused and dense-routed
+             decode must agree token for token.
+12. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
              layers, d_model 3,584, 28 heads (kv 4), SwiGLU d_ff 18,944,
              vocab 152,064, M-RoPE sections (16, 24, 24); random weights
              and 1,024 vision embeddings a request from a seed, the
@@ -148,7 +176,7 @@ Phases (any failure raises and the script exits nonzero):
              (they must differ: M-RoPE live), bf16 logits against the
              plain versions, and fp32, where fused and dense-routed
              decode must agree token for token.
-11. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
+13. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
              cut in depth to 2 of its 60 layers (d_model 5,120, 128 heads
              of Multi-head Latent Attention: q_lora 1,536, kv_lora 512,
              nope 128 + rope 64, v 128; 160 routed experts of d_ff 1,536,
@@ -172,7 +200,7 @@ Phases (any failure raises and the script exits nonzero):
              decode must agree token for token unless a router near-tie
              flip comes first, and layer 0's absorbed decode must agree
              with the naive form within rel L2 1e-4.
-12. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+14. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -191,7 +219,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-13. summary — the host µs a call of every kernel wrapper and of the
+15. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -214,13 +242,15 @@ it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
-whisper, hymba, vlm or deepseek phase alone.  None of them prints the
-summary or the "ok" line.
+whisper, hymba, vlm or deepseek phase alone; ``--only vit`` and ``--only
+lmtrain`` the vit or lmtrain phase.  None of them prints the summary or
+the "ok" line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -1186,6 +1216,480 @@ def app_phase(torch, dev):
                                      "cross-group S")
     return counts
 
+# -- vit phase: federated LoRA training of ViT-B/32 at full width -----------
+
+VIT_D = 1_327_140              # ViT-B/32's LoRA task-vector size at rank 16
+VIT_FINGERPRINT = "8193ac2a083e3e4f"
+VIT_GROUPS, VIT_CLASSES, VIT_TASKS_PER_CLIENT = 6, 8, 3
+VIT_FED = dict(rounds=2, local_steps=4, batch_size=32, local_data=128,
+               eval_every=1)
+VIT_STEP_REPS = 20
+# the constellation's R built on the card (fp64 QRs) against numpy's:
+# fp64 rounding may move an fp32 entry by an ulp (< 1.2e-7 for |R| < 1)
+VIT_DATA_R_ATOL = 1e-6
+# one local step on the card against the CPU, fp32 without TF32 (cuBLAS
+# sums in another order than the CPU): the loss within this rtol, each
+# gradient leaf within this rel L2
+VIT_LOSS_RTOL, VIT_GRAD_REL_L2 = 1e-5, 1e-4
+
+
+def vit_data(torch, dev, feat_dim: int):
+    """The vit phase's data: the constellation (``T`` tasks in
+    ``VIT_GROUPS`` groups at ``feat_dim``) with its 36 QRs and 30
+    products of feat_dim² on the card in fp64, and the split.  The card
+    route is first held against numpy's (the JAX package's numbers) at
+    full width on a one-group, one-task constellation: R within
+    ``VIT_DATA_R_ATOL``, W bitwise.  Returns (constellation, split,
+    {what: seconds})."""
+    import numpy as np
+    from repro_torch.data.dirichlet import dirichlet_split
+    from repro_torch.data.synthetic import make_constellation
+    secs = {}
+    t0 = time.perf_counter()
+    one = dict(n_tasks=1, n_groups=1, feat_dim=feat_dim,
+               n_classes=VIT_CLASSES, seed=SEED)
+    (host,), (card,) = (make_constellation(**one).tasks,
+                        make_constellation(**one, device=dev).tasks)
+    err = float(np.abs(host.r - card.r).max())
+    secs["check"] = time.perf_counter() - t0
+    log(f"vit data: one task's R at feat_dim {feat_dim}, card (fp64 QR) vs "
+        f"numpy: max|err| {err:.3e} (bar {VIT_DATA_R_ATOL}), "
+        f"{int((host.r != card.r).sum())} of {host.r.size} entries differ; "
+        f"W bitwise {np.array_equal(host.w, card.w)}")
+    if err > VIT_DATA_R_ATOL or not np.array_equal(host.w, card.w):
+        raise AssertionError("vit data: the card's constellation is not "
+                             "numpy's")
+    t0 = time.perf_counter()
+    con = make_constellation(n_tasks=T, n_groups=VIT_GROUPS,
+                             feat_dim=feat_dim, n_classes=VIT_CLASSES,
+                             seed=SEED, device=dev)
+    split = dirichlet_split(n_clients=N, n_tasks=T, n_classes=VIT_CLASSES,
+                            zeta_t=0.5, tasks_per_client=VIT_TASKS_PER_CLIENT,
+                            seed=SEED)
+    secs["build"] = time.perf_counter() - t0
+    return con, split, secs
+
+
+def vit_step_flops(cfg, b: int) -> float:
+    """Operations of one local step of ``cfg``'s ViT at batch ``b``: the
+    forward's products (patch embedding, four d×d and two d×d_ff
+    products a token and layer, the attention's scores and sums) and
+    as many again for the backward to the activations, two operations a
+    multiply-add.  The frozen weights take no gradient, and the LoRA
+    products (rank 16) are left out."""
+    tok, d, L = cfg.n_patches + 1, cfg.d_model, cfg.n_layers
+    macs = (cfg.n_patches * cfg.patch_dim * d
+            + L * tok * (4 * d * d + 2 * d * cfg.d_ff)
+            + L * 2 * tok * tok * d)
+    return 2.0 * 2.0 * b * macs
+
+
+def vit_step_check(torch, dev, bb, x, y, n_classes: int, seed: int):
+    """One local step (the trainer's CE of a linear head on the LoRA
+    features) on the card against the same step on the CPU, in fp32:
+    the weights carried over from the card, the same τ (0.01·N(0, 1)),
+    head and batch.  The loss within ``VIT_LOSS_RTOL``, each LoRA
+    gradient leaf and the head's within ``VIT_GRAD_REL_L2``.  Returns
+    (loss rel err, {leaf: rel L2})."""
+    from repro_torch.common.tree import (tree_leaves, tree_leaves_with_path,
+                                         tree_map)
+    from repro_torch.fed.local import cross_entropy
+    from repro_torch.fed.testbed import ArchBackbone
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the step check needs fp32 products (no TF32)")
+    t0 = time.perf_counter()
+    to_np = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.detach().cpu().numpy(), tree)
+    cpu_bb = ArchBackbone.from_numpy(bb.arch, to_np(bb.params),
+                                     to_np(bb.lora0), reduced=bb.reduced,
+                                     device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    tv = 0.01 * torch.randn(bb.d, generator=g)
+    head = 0.1 * torch.randn((bb.feat_out, n_classes), generator=g)
+    out = []
+    for b, d in ((bb, dev), (cpu_bb, torch.device("cpu"))):
+        params = (tree_map(lambda p: p.clone().requires_grad_(True),
+                           b.space.unflatten(tv.to(d))),
+                  head.to(d).requires_grad_(True))
+        loss = cross_entropy(b.features_tree(params[0], x.to(d)), params[1],
+                             y.to(d))
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((float(loss.detach()),
+                    [gr.detach().cpu() for gr in grads]))
+    names = ["head" if p == ("1",) else "/".join(p[1:])
+             for p, _ in tree_leaves_with_path(params)]
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    rels = {n: _rel_l2(torch, a, c) for n, a, c in zip(names, g_card, g_cpu)}
+    worst = max(rels, key=rels.get)
+    log(f"vit step check (B={x.shape[0]}, card vs CPU, fp32, "
+        f"{time.perf_counter() - t0:.1f} s): loss {l_card:.7f} vs "
+        f"{l_cpu:.7f} (rel {loss_err:.3e}); gradient rel L2 worst "
+        f"{rels[worst]:.3e} ({worst}); " + ", ".join(
+            f"{n} {v:.2e}" for n, v in rels.items()))
+    if loss_err > VIT_LOSS_RTOL or rels[worst] > VIT_GRAD_REL_L2:
+        raise AssertionError(
+            f"vit step: card vs CPU loss rel {loss_err:.3e} (bar "
+            f"{VIT_LOSS_RTOL}), {worst} gradient rel L2 {rels[worst]:.3e} "
+            f"(bar {VIT_GRAD_REL_L2})")
+    return loss_err, rels
+
+
+def trained_round_check(torch, dev, server, batch):
+    """A round's real uploads (a ``RoundBatch`` of trained task vectors):
+    the clients' unify (kernel 1) against its plain version — unified
+    bf16 bits, mask words, λ — then the round through kernels 1–3
+    against the plain versions, bitwise, and timed
+    (:func:`round_kernels_at`).  Returns its numbers."""
+    from repro_torch.core.engine import batched_client_unify
+    tv, valid = batch.task_vectors, batch.valid
+    got = batched_client_unify(tv, valid, device=dev)
+    want = batched_client_unify(tv, valid, device=dev, mode="ref")
+    torch.cuda.synchronize()
+    check_equal(torch, "trained uploads' unified bf16 bits",
+                bf16_bits(torch, got[0]), bf16_bits(torch, want[0]))
+    check_equal(torch, "trained uploads' mask words", got[1], want[1])
+    check_equal(torch, "trained uploads' lambda", got[2], want[2])
+    del want
+    ks = [len(u.task_ids) for u in batch.uploads]
+    return round_kernels_at(torch, dev, server, (
+        got[0], got[1], got[2], batch.slot_tasks.to(dev), valid,
+        batch.slot_sizes.to(dev), ks))
+
+
+def vit_phase(torch, dev, reduced: bool = False):
+    """MaTU rounds with real local LoRA training of ViT-B/32 at full
+    width: ``ViTBackbone`` → ``FedSimulator`` → ``make_local_trainer``
+    (autograd, AdamW) → ``MaTUStrategy.aggregate_batch`` (kernels 1–3)
+    → downlinks → the next round.  Returns its numbers."""
+    from repro_torch.common.tree import tree_leaves, tree_like, tree_map
+    from repro_torch.fed.local import cross_entropy
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.fed.strategies import MaTUStrategy
+    from repro_torch.fed.testbed import ViTBackbone
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    bb = ViTBackbone(seed=SEED, reduced=reduced, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(bb.params))
+    log(f"ViT-B/32{' (reduced)' if reduced else ''}: {n_params} parameters "
+        f"(fp32), LoRA d = {bb.d}, layout {bb.fingerprint}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not reduced and (bb.d, bb.fingerprint) != (VIT_D, VIT_FINGERPRINT):
+        raise AssertionError(f"vit LoRA d {bb.d} / layout {bb.fingerprint} "
+                             f"!= {VIT_D} / {VIT_FINGERPRINT}")
+    cfg = FedConfig(seed=SEED, **VIT_FED)
+    con, split, data_s = vit_data(torch, dev, bb.cfg.patch_dim)
+    t0 = time.perf_counter()
+    strat = MaTUStrategy(T, bb.d, device=dev)
+    sim = FedSimulator(cfg, con, split, bb, strat, device=dev)
+    torch.cuda.synchronize()
+    log(f"vit set-up: {T} tasks in {VIT_GROUPS} groups, feat_dim "
+        f"{bb.cfg.patch_dim} (tiled across {bb.cfg.n_patches} patches), "
+        f"{N} clients x {VIT_TASKS_PER_CLIENT} tasks, {cfg.local_data} "
+        f"samples each: the card-vs-numpy check {data_s['check']:.1f} s, "
+        f"the constellation and split {data_s['build']:.1f} s, the "
+        f"simulator {time.perf_counter() - t0:.1f} s")
+
+    x, y = sim.local_data[(0, split.tasks[0][0])]
+    x, y = x[:cfg.batch_size], y[:cfg.batch_size]
+    vit_step_check(torch, dev, bb, x, y, VIT_CLASSES, SEED + 7)
+
+    # the main path: FedSimulator.run, its aggregations and evaluations
+    # timed on the way (each synchronised), round 1's uploads kept
+    rounds = []
+    agg, evaluate = strat.aggregate_batch, sim.evaluate
+
+    def timed_agg(batch):
+        for u in batch.uploads:
+            v = u.task_vectors
+            if not bool(torch.isfinite(v).all()) or \
+                    bool((v.abs().amax(dim=1) == 0).any()):
+                raise AssertionError(f"vit: client {u.client_id} uploads a "
+                                     f"non-finite or zero task vector")
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        agg(batch)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        rounds.append(dict(batch=batch if not rounds else None,
+                           agg_ms=1e3 * (time.perf_counter() - t),
+                           rose={k: after[k] - before[k]
+                                 for k in ops.PACKED_ROUND_KERNELS}))
+
+    def timed_eval():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        acc = evaluate()
+        torch.cuda.synchronize()
+        rounds[-1]["eval_ms"] = 1e3 * (time.perf_counter() - t)
+        rounds[-1]["end"] = time.perf_counter()
+        return acc
+
+    strat.aggregate_batch, sim.evaluate = timed_agg, timed_eval
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    hist = sim.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    strat.aggregate_batch, sim.evaluate = agg, evaluate
+    slots = sum(len(tasks) for tasks in split.tasks)
+    steps = cfg.rounds * slots * cfg.local_steps
+    start, walls = t_run, []
+    for r, info in enumerate(rounds):
+        wall = 1e3 * (info["end"] - start)
+        start = info["end"]
+        walls.append(dict(wall_ms=wall, agg_ms=info["agg_ms"],
+                          eval_ms=info["eval_ms"]))
+        train_ms = wall - info["agg_ms"] - info["eval_ms"]
+        log(f"vit round {r + 1}: wall {wall:.1f} ms (training {train_ms:.1f}"
+            f" ms for {slots * cfg.local_steps} steps, aggregate "
+            f"{info['agg_ms']:.2f} ms at d={bb.d}, evaluation "
+            f"{info['eval_ms']:.1f} ms), mean acc {hist.mean_acc[r]:.4f}, "
+            f"uplink {hist.uplink_bits_per_round[r]} bits, launches "
+            f"{info['rose']}")
+        if min(info["rose"].values()) < 1:
+            raise AssertionError(f"vit round {r + 1}: a kernel was not "
+                                 f"launched: {info['rose']}")
+    if len(rounds) != cfg.rounds or not all(
+            0.0 <= a <= 1.0 for acc in hist.task_acc for a in acc.values()):
+        raise AssertionError(f"vit: {len(rounds)} rounds, accuracies "
+                             f"{hist.task_acc}")
+    log(f"vit main path: {cfg.rounds} rounds, {steps} local steps (B="
+        f"{cfg.batch_size} x {bb.cfg.n_patches + 1} tokens) in "
+        f"{run_s:.2f} s, peak device memory {peak / 2**30:.3f} GiB, "
+        f"launches {launches}")
+
+    at_d = trained_round_check(torch, dev, strat.server, rounds[0]["batch"])
+    del rounds
+
+    # one local step (the trainer's body) timed alone and profiled
+    opt = adamw(cfg.lr)
+    g = torch.Generator().manual_seed(SEED + 8)
+    params = (bb.space.unflatten((0.01 * torch.randn(bb.d, generator=g))
+                                 .to(dev)),
+              sim.heads[0].clone())
+    state = [opt.init(params)]
+    held = [params]
+
+    def step():
+        ps = tree_map(lambda p: p.detach().requires_grad_(True), held[0])
+        loss = cross_entropy(bb.features_tree(ps[0], x), ps[1], y)
+        grads = torch.autograd.grad(loss, tree_leaves(ps))
+        held[0], state[0] = opt.update(tree_like(ps, grads), state[0], ps)
+
+    for _ in range(3):
+        step()
+    step_walls = []
+    for _ in range(VIT_STEP_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_walls.append(1e3 * (time.perf_counter() - t))
+    step_ms = float(statistics.median(step_walls))
+    flops = vit_step_flops(bb.cfg, cfg.batch_size)
+    b_ms, _ = bound(0.0, flops)
+    log(f"vit local step (B={cfg.batch_size}): median {step_ms:.3f} ms of "
+        f"{VIT_STEP_REPS} (min {min(step_walls):.3f}, max "
+        f"{max(step_walls):.3f}), "
+        f"{1e3 * cfg.batch_size / step_ms:.1f} examples/s, "
+        f"{flops / 1e12:.4f} TFLOP a step -> {flops / step_ms / 1e9:.2f} "
+        f"TFLOP/s; fp32 bound {b_ms:.3f} ms ({b_ms / step_ms:.3f} of it)")
+    wall_p, busy_p, ops_p = profile_window(torch, "vit local step", step)
+    torch.cuda.empty_cache()
+    return dict(launches=launches, at_d=at_d, step_ms=step_ms,
+                step_bound_ms=b_ms, examples_per_s=1e3 * cfg.batch_size
+                / step_ms, run_s=run_s, peak_gib=peak / 2**30,
+                mean_acc=hist.mean_acc, rounds=walls,
+                profile=dict(wall_ms=wall_p, busy_ms=busy_p))
+
+
+# -- lmtrain phase: LoRA training of qwen2-0.5b at full width ----------------
+
+LMTRAIN_B, LMTRAIN_S, LMTRAIN_STEPS = 4, 512, 3
+LMTRAIN_CLIENT_TASKS = [[0], [1], [2], [0, 2]]
+LMTRAIN_LR = 5e-3
+LMTRAIN_REGION = 4096          # the tokens one task's batches draw from
+LMTRAIN_CE_RTOL = 1e-5         # chunked against unchunked CE, fp32 head
+LMTRAIN_REMAT_REL_L2 = 1e-6    # LoRA gradients with and without remat
+
+
+def lm_task_batch(torch, dev, cfg, task: int, b: int, s: int, seed: int):
+    """A seeded (B, S) batch of task ``task``'s tokens (drawn from its
+    own region of the vocabulary, tasks 0–2); the labels are the next
+    tokens, the last one ignored."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    region = min(LMTRAIN_REGION, (cfg.vocab - 1) // 4)
+    lo = 1 + task * region
+    tok = torch.randint(lo, lo + region, (b, s), generator=g, device=dev)
+    labels = torch.cat([tok[:, 1:], torch.full((b, 1), -100,
+                                               dtype=tok.dtype, device=dev)],
+                       dim=1)
+    return {"tokens": tok, "labels": labels}
+
+
+def lmtrain_checks(torch, model, params, lora0, space, batch):
+    """On one batch: ``chunked_cross_entropy`` against the unchunked
+    ``cross_entropy`` on the same hidden states (the head in fp32), and
+    the LoRA gradients with and without the layers' checkpoint twin
+    (``remat``) on a perturbed LoRA tree (every leaf's gradient
+    nonzero).  Returns their readings."""
+    from repro_torch.common.tree import tree_leaves, tree_like, tree_map
+    from repro_torch.models.lm import chunked_cross_entropy, cross_entropy
+    lm = model.model
+    with torch.no_grad():
+        hidden = lm.forward(params, batch["tokens"], lora=lora0,
+                            return_hidden=True).float()
+        p32 = {k: tree_map(lambda t: t.float(), params[k])
+               for k in ("final_norm", "embed", "lm_head") if k in params}
+        head = lambda xc: lm._head(p32, xc)  # noqa: E731
+        chunked = float(chunked_cross_entropy(hidden, head, batch["labels"]))
+        full = float(cross_entropy(head(hidden), batch["labels"]))
+    del hidden
+    ce_rel = abs(chunked - full) / abs(full)
+    g = torch.Generator(device=lm.device).manual_seed(SEED + 31)
+    lora = space.unflatten(0.01 * torch.randn(space.d, generator=g,
+                                              device=lm.device))
+    lora = tree_map(torch.add, lora0, lora)
+    grads, peaks = {}, {}
+    for remat in (True, False):
+        lm.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lo = tree_map(lambda t: t.detach().requires_grad_(True), lora)
+        loss = model.loss(params, lo, batch)
+        grads[remat] = space.flatten(tree_like(
+            lo, torch.autograd.grad(loss, tree_leaves(lo))))
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+    lm.remat = True
+    remat_rel = _rel_l2(torch, grads[True], grads[False])
+    log(f"lmtrain checks: chunked CE {chunked:.7f} vs unchunked "
+        f"{full:.7f} (rel {ce_rel:.3e}, bar {LMTRAIN_CE_RTOL}); LoRA "
+        f"gradients with / without remat rel L2 {remat_rel:.3e} (bar "
+        f"{LMTRAIN_REMAT_REL_L2}); peak memory {peaks[True]:.3f} / "
+        f"{peaks[False]:.3f} GiB")
+    if ce_rel > LMTRAIN_CE_RTOL or remat_rel > LMTRAIN_REMAT_REL_L2:
+        raise AssertionError(f"lmtrain: chunked CE rel {ce_rel:.3e}, remat "
+                             f"gradient rel L2 {remat_rel:.3e}")
+    return dict(ce_rel=ce_rel, remat_rel_l2=remat_rel,
+                peak_gib_remat=peaks[True], peak_gib_no_remat=peaks[False])
+
+
+def lmtrain_phase(torch, dev, cfg=None):
+    """LoRA training of qwen2-0.5b at full width (``cfg``: another
+    config, e.g. the reduced one for a rehearsal) through
+    ``make_train_step`` (AdamW, clip 1.0), four clients of
+    ``LMTRAIN_CLIENT_TASKS`` taking ``LMTRAIN_STEPS`` steps each on a
+    repeated seeded batch, then ``unify_with_modulators`` →
+    ``ClientUpload`` → one ``MaTUServer.round`` (kernels 1–3).  Returns
+    its numbers."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core.client import ClientUpload
+    from repro_torch.core.server import MaTUServer, MaTUServerConfig
+    from repro_torch.core.unify import modulate, unify_with_modulators
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_train_step
+
+    full = cfg is None
+    cfg = cfg or load_arch(SERVE_ARCH)
+    model, _g, params, lora0, space = build_served(
+        torch, dev, cfg, SEED + 30, (SERVE_D, SERVE_FINGERPRINT) if full
+        else None, shape=", training")
+    b, s = LMTRAIN_B, LMTRAIN_S
+    checks = lmtrain_checks(torch, model, params, lora0, space,
+                            lm_task_batch(torch, dev, cfg, 0, b, s, SEED + 32))
+    step, opt = make_train_step(model, adamw(LMTRAIN_LR))
+    n_tasks = 1 + max(max(t) for t in LMTRAIN_CLIENT_TASKS)
+    server = MaTUServer(MaTUServerConfig(n_tasks=n_tasks), device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+    uploads, walls = [], []
+    for cid, tasks in enumerate(LMTRAIN_CLIENT_TASKS):
+        tvs = []
+        for t in tasks:
+            batch = lm_task_batch(torch, dev, cfg, t, b, s,
+                                  SEED + 40 + 10 * cid + t)
+            # no downlink before the first round: the pretrained point
+            lora = tree_map(torch.add, lora0, space.unflatten(torch.zeros(
+                space.d, device=dev)))
+            state = opt.init(lora)
+            losses = []
+            for _ in range(LMTRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lora, state, met = step(params, lora, state, batch)
+                losses.append(float(met["loss"]))
+                walls.append(1e3 * (time.perf_counter() - t0))
+            log(f"lmtrain client {cid} task {t}: losses " + ", ".join(
+                f"{v:.5f}" for v in losses))
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"lmtrain: a non-finite loss {losses}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"lmtrain client {cid} task {t}: step "
+                                     f"{LMTRAIN_STEPS}'s loss {losses[-1]} "
+                                     f"is not below step 1's {losses[0]} "
+                                     f"on the repeated batch")
+            tvs.append(space.flatten(tree_map(torch.sub, lora, lora0)))
+        unified, masks, lams = unify_with_modulators(torch.stack(tvs))
+        uploads.append(ClientUpload(cid, list(tasks), unified, masks, lams,
+                                    [b * s] * len(tasks),
+                                    fingerprint=space.fingerprint))
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    downs = server.round(uploads)
+    torch.cuda.synchronize()
+    round_ms = 1e3 * (time.perf_counter() - t0)
+    path_s = time.perf_counter() - t_path
+    after = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rose = {k: after[k] - before[k] for k in ops.PACKED_ROUND_KERNELS}
+    if min(rose.values()) < 1:
+        raise AssertionError(f"lmtrain round: a kernel was not launched: "
+                             f"{rose}")
+    tvo = server.last_task_vectors
+    if tvo.shape != (n_tasks, space.d) or not bool(torch.isfinite(tvo).all()):
+        raise AssertionError("lmtrain round: bad task vectors")
+    for cid, tasks in enumerate(LMTRAIN_CLIENT_TASKS):
+        dl = downs[cid]
+        for i in range(len(tasks)):
+            if not bool(torch.isfinite(modulate(dl.unified, dl.masks[i],
+                                                dl.lams[i])).all()):
+                raise AssertionError(f"lmtrain: client {cid}'s downlink "
+                                     f"start is not finite")
+    step_ms = float(statistics.median(walls))
+    held = [lora, state]
+
+    def one_step():
+        held[0], held[1], _ = step(params, held[0], held[1], batch)
+
+    wall_p, busy_p, _ = profile_window(torch, "lmtrain step", one_step)
+    log(f"lmtrain main path ({cfg.name}, {cfg.dtype}, B={b} x S={s}): "
+        f"{len(walls)} steps, median step {step_ms:.2f} ms (min "
+        f"{min(walls):.2f}, max {max(walls):.2f}), "
+        f"{1e3 * b * s / step_ms:.0f} tokens/s; round at d={space.d} "
+        f"{round_ms:.2f} ms, launches {rose}; {path_s:.2f} s in all, peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+    del params, lora0, uploads, downs, server, held, lora, state
+    torch.cuda.empty_cache()
+    return dict(launches=rose, step_ms=step_ms,
+                tokens_per_s=1e3 * b * s / step_ms, round_ms=round_ms,
+                peak_gib=peak / 2**30,
+                profile=dict(wall_ms=wall_p, busy_ms=busy_p), **checks)
+
+
 # -- serve phase: multi-tenant qwen2-0.5b at full width -----------------------
 
 SERVE_ARCH = "qwen2-0.5b"
@@ -1302,6 +1806,19 @@ def serve_kernel_checks(torch, dev, leaves=None):
                                             x, base, tau, words, lam))
                 route = ("modulated_matmul_splitk_kernel" if s <= dmax
                          else "modulated_matmul_kernel<")
+                # late in a long run the profiler can drop some of a
+                # window's events: a window without the route's launch
+                # is taken again, and the check fails only if none has it
+                for _ in range(PROFILE_WINDOWS - 1):
+                    if any(route in f for f in fns):
+                        break
+                    log(f"modulated_matmul S={s}: the profiler's window "
+                        f"shows no {route} launch (only {list(fns)}); "
+                        f"taken again")
+                    dev_ms, fns, _ = device_ms(
+                        torch, "modulated_matmul_",
+                        lambda: mm.modulated_matmul_cuda(x, base, tau, words,
+                                                         lam))
                 if not any(route in f for f in fns):
                     raise AssertionError(f"modulated_matmul S={s}: no "
                                          f"{route} launch among {list(fns)}")
@@ -2375,7 +2892,7 @@ def round_kernels_at(torch, dev, server, round_data):
     """Kernels 1–3 at the serve round's d, against their plain versions
     bitwise and timed by device function: the round re-run through the
     kernels and through the plain versions (τ̂, α_num, S, task vectors
-    and downlink bits equal); kernel 1 on the downlink's slots, kernel 2
+    and downlink bits and λ equal); kernel 1 on the downlink's slots, kernel 2
     on the round's dense inputs, kernel 3 on the task vectors' sign
     planes.  Returns {kernel name: its numbers at this d}."""
     from repro_torch.kernels import bitpack, fused_unify, masked_agg, ops
@@ -2385,7 +2902,7 @@ def round_kernels_at(torch, dev, server, round_data):
     # the kernel round's outputs wait on the host while the plain round,
     # whose fp32 unify takes several (N, K, d) temporaries, runs
     fields = ("tau_hats", "alpha_num", "n_held", "similarity",
-              "task_vectors", "down_masks", "down_unified")
+              "task_vectors", "down_masks", "down_unified", "down_lams")
     out_k = server.engine.run_packed(packed)
     tvs = out_k.task_vectors
     got = {f: getattr(out_k, f).cpu() for f in fields}
@@ -2398,6 +2915,8 @@ def round_kernels_at(torch, dev, server, round_data):
     on_host = valid.cpu()
     check_equal(torch, f"round at d={d} downlink words",
                 got["down_masks"][on_host], want["down_masks"][on_host])
+    check_equal(torch, f"round at d={d} downlink lambda",
+                got["down_lams"][on_host], want["down_lams"][on_host])
     check_equal(torch, f"round at d={d} downlink bf16 bits",
                 bf16_bits(torch, got["down_unified"]),
                 bf16_bits(torch, want["down_unified"]))
@@ -2442,7 +2961,7 @@ def round_kernels_at(torch, dev, server, round_data):
     out["sign_sim_packed"] = {k: row[k] for k in ("ms", "device_ms",
                                                   "plain_ms", "bound_ms")}
     log(f"round at d={d}: kernels vs plain versions identical (tau_hat, "
-        f"alpha_num, S, task vectors, downlink bits); kernel 1 "
+        f"alpha_num, S, task vectors, downlink bits and lambda); kernel 1 "
         f"{out['fused_unify_packed']['ms']:.4f} ms (device "
         f"{out['fused_unify_packed']['device_ms']:.4f}), kernel 2 "
         f"{out['masked_agg_batched_packed']['ms']:.4f} ms (device "
@@ -2716,6 +3235,11 @@ HYMBA_LAYER_MIX = {(1600, 16): 3, (3200, 16): 1, (5504, 16): 1,
 # the last position of the decode run whose logits the second bf16 gate
 # reads: three steps past the wrap
 HYMBA_GATE_POS = 2050
+# the fp32 fused-vs-dense check and the bf16 token agreements run on the
+# first 128 tokens of the prompts: at 2,040 they took too much of the
+# script's time limit once the training phases came (the bf16 gate past
+# the wrap keeps the full prompts)
+HYMBA_CHECK_PROMPT = 128
 
 
 def keeping_caches(model, fn):
@@ -2890,12 +3414,17 @@ def hymba_phase(torch, dev, cfg=None):
                            for m in (None, "ref")),
         BF16_LOGIT_REL_L2,
         what=f"decode-step (position {HYMBA_GATE_POS}, past the wrap)")
-    token_agreements(torch, "hymba ", gen, model, params, store, out, s)
+    s_chk = min(HYMBA_CHECK_PROMPT, s)
+    gen_chk = decoder_generate(prompts[:, :s_chk].contiguous(), ids, new)
+    token_agreements(torch, f"hymba ({s_chk}-token prompts) ", gen_chk,
+                     model, params, store, gen_chk(model, params, store),
+                     s_chk)
     del model, params, lora0, store, lora, logits_k
     torch.cuda.empty_cache()
 
     fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
-               batch, gen, new, SEED + 16, label="hymba ")
+               {"tokens": prompts[:, :s_chk].contiguous()}, gen_chk, new,
+               SEED + 16, label=f"hymba ({s_chk}-token prompts) ")
     del server
     torch.cuda.empty_cache()
     return dict(launches=launches, generate_ms=gen_ms,
@@ -3288,36 +3817,60 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "vit"]:
+        # the vit phase alone: a quick loop for the federated training
+        # path; no summary, no "ok" line
+        log("== vit phase alone ==")
+        out = vit_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "lmtrain"]:
+        # the lmtrain phase alone: a quick loop for the LM training path;
+        # no summary, no "ok" line
+        log("== lmtrain phase alone ==")
+        out = lmtrain_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
-              f"--only granite, --only whisper, --only hymba, --only vlm or "
-              f"--only deepseek", file=sys.stderr)
+              f"--only granite, --only whisper, --only hymba, --only vlm, "
+              f"--only deepseek, --only vit or --only lmtrain",
+              file=sys.stderr)
         return 2
-    log("== kernel phase ==")
+    def phase(name):
+        log(f"== {name} phase == (at {time.perf_counter() - t_start:.1f} s)")
+
+    phase("kernel")
     rows = kernel_phase(torch, dev)
-    log("== round phase ==")
+    phase("round")
     round_counts = round_phase(torch, dev)
-    log("== bool phase ==")
+    phase("bool")
     bool_rows, bool_counts = bool_phase(torch, dev)
-    log("== app phase ==")
+    phase("app")
     app_counts = app_phase(torch, dev)
-    log("== serve phase ==")
+    phase("serve")
     serve_rows, serve_counts = serve_phase(torch, dev)
+    phase("vit")
+    vit = vit_phase(torch, dev)
+    phase("lmtrain")
+    lmtrain = lmtrain_phase(torch, dev)
     # granite before xlstm: after the xlstm phase's profiled prefill
     # (~322,000 device kernels in one window) the profiler returned no
     # device event for granite's kernel-9 windows, six in a row
-    log("== granite phase ==")
+    phase("granite")
     granite = granite_phase(torch, dev)
-    log("== whisper phase ==")
+    phase("whisper")
     whisper = whisper_phase(torch, dev)
-    log("== hymba phase ==")
+    phase("hymba")
     hymba = hymba_phase(torch, dev)
-    log("== vlm phase ==")
+    phase("vlm")
     vlm = vlm_phase(torch, dev)
-    log("== deepseek phase ==")
+    phase("deepseek")
     deepseek = deepseek_phase(torch, dev)
-    log("== xlstm phase ==")
+    phase("xlstm")
     xlstm_row, xlstm_counts, sim_wide = xlstm_phase(torch, dev)
     rows["sign_sim_packed"]["at_xlstm_round_d"] = {
         k: sim_wide[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
@@ -3325,6 +3878,10 @@ def main() -> int:
                                  "first_design_device_ms")}
     serve_rows["mlstm_chunkwise"] = xlstm_row
     serve_counts["mlstm_chunkwise"] = xlstm_counts["mlstm_chunkwise"]
+    for name, at_d in vit.pop("at_d").items():
+        rows[name]["at_vit_round_d"] = dict(
+            at_d, vit_launches=vit["launches"][name],
+            lmtrain_launches=lmtrain["launches"][name])
     for name, at_d in granite.pop("at_d").items():
         rows[name]["at_granite_round_d"] = at_d
     for name, at_d in whisper.pop("at_d").items():
@@ -3340,7 +3897,8 @@ def main() -> int:
     serve_rows["modulated_matmul"]["hymba"] = hymba
     serve_rows["modulated_matmul"]["vlm"] = vlm
     serve_rows["modulated_matmul"]["deepseek"] = deepseek
-    log("== host cost of every wrapper ==")
+    log(f"== host cost of every wrapper == (at "
+        f"{time.perf_counter() - t_start:.1f} s)")
     host = host_costs(torch, dev)
     kernels, checks = [], {}
     paths = {"unify": "ops.unify, once",

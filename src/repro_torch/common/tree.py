@@ -55,6 +55,22 @@ def tree_add(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.add, a, b)
 
 
+def tree_like(tree: Tree, leaves) -> Tree:
+    """``tree``'s structure holding ``leaves`` (in canonical order, e.g.
+    what ``torch.autograd.grad`` returns for ``tree_leaves(tree)``)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(tree)
+
+
 class TaskVectorLayoutError(ValueError):
     """Client/server disagree on the task-vector layout (manifest
     fingerprint mismatch, or a tree that doesn't fit the manifest)."""

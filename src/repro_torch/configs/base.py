@@ -11,7 +11,10 @@ Ported so far: the dense family (qwen2-0.5b, qwen2.5-3b, qwen2.5-32b,
 codeqwen1.5-7b), the ssm family (xlstm-1.3b), the moe family
 (granite-moe-3b-a800m; deepseek-v2-236b, with MLA), the audio family
 (whisper-large-v3), the hybrid family (hymba-1.5b) and the vlm family
-(qwen2-vl-7b); ``load_arch`` of another name (vit-b32) raises.
+(qwen2-vl-7b).  ViT-B/32 has a config of its own
+(``configs/vit_b32.py``: a ``ViTConfig``, built by its ``build``), which
+``load_arch("vit-b32")`` returns; ``load_arch`` of a name with no config
+raises.
 """
 
 from __future__ import annotations
@@ -203,3 +206,16 @@ PORTED_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "granite-moe-3b-a800m",
                 "whisper-large-v3", "hymba-1.5b", "qwen2-vl-7b",
                 "deepseek-v2-236b", "qwen2.5-3b", "qwen2.5-32b",
                 "codeqwen1.5-7b")
+
+
+# Reduced model zoo for federated rounds: one representative arch per
+# family key.  ``fed.testbed.make_zoo_backbones`` builds an
+# ``ArchBackbone`` per entry (vit_b32 is a bespoke ``ViTConfig`` and is
+# special-cased there); a mixed round draws clients across families.
+ZOO_FAMILIES: Dict[str, str] = {
+    "lm": "qwen2-0.5b",             # dense decoder LM
+    "encdec": "whisper-large-v3",   # audio encoder-decoder
+    "vit": "vit_b32",               # vision transformer
+    "ssm": "xlstm-1.3b",            # recurrent xLSTM stack
+    "moe": "granite-moe-3b-a800m",  # sparse mixture-of-experts
+}

@@ -9,9 +9,12 @@ a group share R_g up to a small rotation (high sign agreement);
 conflicting group pairs use R_b = −R_a (systematic sign conflicts).
 
 The constellation itself is drawn with numpy from ``seed`` and is the
-JAX package's, number for number.  Samples are drawn with a
-``torch.Generator`` in place of ``jax.random``, so they follow the same
-law but not the same numbers.
+JAX package's, number for number.  With ``device=`` its QRs and
+products run there in fp64 (``torch.linalg.qr``, matmul) on the same
+draws: equal to numpy's within fp64 rounding, and at a wide
+``feat_dim`` far quicker on the card than on the host.  Samples are
+drawn with a ``torch.Generator`` in place of ``jax.random``, so they
+follow the same law but not the same numbers.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.common.device import DeviceLike, resolve_device
 
 
 @dataclass
@@ -46,12 +51,33 @@ class Constellation:
         return self.tasks[t].group
 
 
-def _small_rotation(rng, f: int, angle: float) -> np.ndarray:
-    a = rng.standard_normal((f, f))
+class _Linalg:
+    """Where the constellation's QRs and products run: numpy on the host
+    (``device`` None), or fp64 torch on ``device``."""
+
+    def __init__(self, device: Optional[DeviceLike]):
+        self.dev = None if device is None else resolve_device(device)
+
+    def array(self, a: np.ndarray):
+        return a if self.dev is None else torch.from_numpy(a).to(self.dev)
+
+    def eye(self, f: int):
+        return self.array(np.eye(f))
+
+    def q(self, a):
+        """Q of the (Householder) QR of ``a``."""
+        return (np.linalg.qr(a) if self.dev is None else torch.linalg.qr(a))[0]
+
+    def host32(self, a) -> np.ndarray:
+        return (a.astype(np.float32) if self.dev is None
+                else a.to(torch.float32).cpu().numpy())
+
+
+def _small_rotation(rng, f: int, angle: float, la: _Linalg):
+    a = la.array(rng.standard_normal((f, f)))
     skew = (a - a.T) / 2
     # first-order rotation exp(angle*skew) ≈ I + angle*skew (renormalised)
-    q, _ = np.linalg.qr(np.eye(f) + angle * skew)
-    return q
+    return la.q(la.eye(f) + angle * skew)
 
 
 def make_constellation(
@@ -64,23 +90,27 @@ def make_constellation(
     conflict_pairs: Optional[List[Tuple[int, int]]] = None,
     noise: float = 0.05,
     seed: int = 0,
+    device: Optional[DeviceLike] = None,
 ) -> Constellation:
     """Build ``n_tasks`` tasks in ``n_groups`` groups (round-robin);
-    ``conflict_pairs`` lists (a, b) group pairs with R_b = −R_a."""
+    ``conflict_pairs`` lists (a, b) group pairs with R_b = −R_a.
+    ``device``: None for numpy's QRs and products on the host (the JAX
+    package's numbers), or where to run them in fp64 instead."""
     rng = np.random.default_rng(seed)
+    la = _Linalg(device)
     group_r, group_w = [], []
     for _g in range(n_groups):
-        q, _ = np.linalg.qr(rng.standard_normal((feat_dim, feat_dim)))
-        group_r.append(q)
+        group_r.append(la.q(la.array(rng.standard_normal((feat_dim,
+                                                          feat_dim)))))
         group_w.append(rng.standard_normal((n_classes, feat_dim)))
     for (a, b) in conflict_pairs or []:
         group_r[b] = -group_r[a]  # sign-flipped input transform
     tasks = []
     for t in range(n_tasks):
         g = t % n_groups
-        r = group_r[g] @ _small_rotation(rng, feat_dim, within_group_angle)
+        r = group_r[g] @ _small_rotation(rng, feat_dim, within_group_angle, la)
         w = group_w[g] + 0.1 * rng.standard_normal((n_classes, feat_dim))
-        tasks.append(TaskSpec(t, g, r.astype(np.float32), w.astype(np.float32),
+        tasks.append(TaskSpec(t, g, la.host32(r), w.astype(np.float32),
                               noise))
     return Constellation(tasks, feat_dim, n_classes)
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common.tree import tree_leaves, tree_map
+from repro_torch.common.tree import tree_leaves, tree_like, tree_map
 from repro_torch.optim import adamw
 
 
@@ -53,19 +53,11 @@ def _make_trainer(features, to_model, to_flat, *, steps: int,
             loss = cross_entropy(features(params[0], x[idx]), params[1],
                                  y[idx])
             grads = torch.autograd.grad(loss, tree_leaves(params))
-            grads = _unflatten_like(params, grads)
+            grads = tree_like(params, grads)
             params, state = opt.update(grads, state, params)
         return to_flat(params[0]), params[1], loss.detach()
 
     return train
-
-
-def _unflatten_like(tree, leaves):
-    """Rebuild ``tree``'s structure from its leaves in canonical order."""
-    it = iter(leaves)
-    order = tree_leaves(tree)
-    by_id = {id(leaf): next(it) for leaf in order}
-    return tree_map(lambda p: by_id[id(p)], tree)
 
 
 def make_head(generator: torch.Generator, feat_out: int,

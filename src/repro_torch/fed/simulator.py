@@ -22,11 +22,13 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.tree import TaskVectorLayoutError, pad_vector
 from repro_torch.data.dirichlet import FedSplit
 from repro_torch.data.synthetic import (Constellation, eval_batch,
                                         sample_task_batch)
 from repro_torch.fed.local import make_head, make_local_trainer
 from repro_torch.fed.strategies import RoundBatch, Strategy, Upload
+from repro_torch.fed.testbed import round_up_d
 
 # stream tags of the seeded generators
 _SELECT, _TRAIN, _DATA, _HEAD = 0, 1, 2, 3
@@ -83,8 +85,16 @@ class FedSimulator:
     def __init__(self, cfg: FedConfig, constellation: Constellation,
                  split: FedSplit, backbone, strategy: Strategy, *,
                  device: DeviceLike = "cuda"):
-        """``backbone`` is moved to ``device`` (``nn.Module.to``); the
-        strategy must live on the same device."""
+        """``backbone``: one backbone shared by every client, or a
+        per-client mapping (a dict ``{client_id: backbone}`` or a list),
+        so one round mixes architectures.  Each client's delta flattens
+        through its own manifest and is zero-padded to the round's
+        common d (the largest d, rounded up to the word boundary);
+        holders of one task must share a manifest fingerprint (checked
+        here, and by the strategy before every aggregation), because
+        their rows merge coordinate by coordinate.  Backbones are moved
+        to ``device`` (``nn.Module.to``); the strategy must live on the
+        same device."""
         self.cfg = cfg
         self.con = constellation
         self.split = split
@@ -93,13 +103,56 @@ class FedSimulator:
         if strategy.device != self.device:
             raise ValueError(f"strategy runs on {strategy.device}, the "
                              f"simulator on {self.device}")
-        self.backbone = backbone.to(self.device)
-        self.d = backbone.d
         self.n_clients = len(split.tasks)
-        self.trainer = make_local_trainer(
-            backbone, steps=cfg.local_steps, batch_size=cfg.batch_size,
-            lr=cfg.lr)
         dev = self.device
+
+        # -- backbones: a per-client map; one shared object maps every
+        # client to it, keeps its own d and puts no fingerprint on the wire
+        self._mixed = isinstance(backbone, (dict, list, tuple))
+        if isinstance(backbone, (list, tuple)):
+            backbone = dict(enumerate(backbone))
+        elif not self._mixed:
+            backbone = dict.fromkeys(range(self.n_clients), backbone)
+        missing = set(range(self.n_clients)) - set(backbone)
+        if missing:
+            raise ValueError(f"per-client backbones missing clients "
+                             f"{sorted(missing)}")
+        self.backbones: Dict[int, object] = {
+            int(c): b.to(dev) for c, b in backbone.items()}
+        self.d = (round_up_d(max(b.d for b in self.backbones.values()))
+                  if self._mixed else backbone[0].d)
+
+        # per-task layout agreement, and the backbone a task evaluates
+        # through: every holder of a task flattens through one manifest
+        self._task_backbone: Dict[int, object] = {}
+        for t in range(self.con.n_tasks):
+            bbs = [self.backbones[c] for c in range(self.n_clients)
+                   if t in split.tasks[c]]
+            if not bbs:
+                continue
+            fps = {b.fingerprint for b in bbs}
+            if len(fps) > 1:
+                raise TaskVectorLayoutError(
+                    f"task {t} is held by clients with different "
+                    f"task-vector layouts {sorted(fps)}; holders of "
+                    f"one task must share a manifest")
+            if len({b.feat_out for b in bbs}) > 1:
+                raise ValueError(
+                    f"task {t} holders disagree on feat_out; the "
+                    f"shared head needs one feature width")
+            self._task_backbone[t] = bbs[0]
+        if self._mixed:
+            strategy.use_layouts({t: b.fingerprint
+                                  for t, b in self._task_backbone.items()})
+
+        # one trainer per distinct backbone object
+        self._trainers: Dict[int, object] = {}
+        for bb in self.backbones.values():
+            if id(bb) not in self._trainers:
+                self._trainers[id(bb)] = make_local_trainer(
+                    bb, steps=cfg.local_steps, batch_size=cfg.batch_size,
+                    lr=cfg.lr)
+
         # pre-sampled local datasets (fixed size per (client, task))
         self.local_data: Dict[tuple, tuple] = {}
         for c in range(self.n_clients):
@@ -108,21 +161,28 @@ class FedSimulator:
                     self.con.tasks[t], seeded_generator(cfg.seed, _DATA, c, t),
                     cfg.local_data, split.class_probs.get((c, t)))
                 self.local_data[(c, t)] = (x.to(dev), y.to(dev))
-        # global per-task heads (averaged among holders every round)
+        # global per-task heads (averaged among holders every round),
+        # sized for the task's backbone
         self.heads: Dict[int, torch.Tensor] = {
             t: make_head(seeded_generator(cfg.seed, _HEAD, t),
-                         backbone.feat_out, self.con.n_classes).to(dev)
+                         self._backbone_for_task(t).feat_out,
+                         self.con.n_classes).to(dev)
             for t in range(self.con.n_tasks)}
         self._eval_sets = {}
         for t in range(self.con.n_tasks):
             x, y = eval_batch(self.con.tasks[t])
             self._eval_sets[t] = (x.to(dev), y.to(dev))
 
+    def _backbone_for_task(self, task_id: int):
+        return self._task_backbone.get(task_id,
+                                       next(iter(self.backbones.values())))
+
     # -- evaluation ---------------------------------------------------------
     @torch.no_grad()
     def task_accuracy(self, task_id: int, tv: torch.Tensor) -> float:
         x, y = self._eval_sets[task_id]
-        logits = self.backbone.features(tv[:self.d], x) @ self.heads[task_id]
+        bb = self._backbone_for_task(task_id)
+        logits = bb.features(tv[:bb.d], x) @ self.heads[task_id]
         return float(torch.mean((torch.argmax(logits, -1) == y).float()))
 
     def evaluate(self) -> Dict[int, float]:
@@ -132,17 +192,23 @@ class FedSimulator:
 
     # -- local training -----------------------------------------------------
     def _train_client(self, c: int, r: int) -> Tuple[Upload, List[tuple]]:
+        bb = self.backbones[c]
+        trainer = self._trainers[id(bb)]
         tvs, sizes, head_pairs = [], [], []
         for t in self.split.tasks[c]:
             x, y = self.local_data[(c, t)]
-            tv0 = self.strategy.task_init(c, t)
-            tv, head, _loss = self.trainer(
+            # wire edge: the strategy hands out the round's common-d
+            # vector; this client's manifest covers the [0, bb.d) prefix
+            tv0 = self.strategy.task_init(c, t)[:bb.d]
+            tv, head, _loss = trainer(
                 tv0, self.heads[t], x, y,
                 seeded_generator(self.cfg.seed, _TRAIN, c, r, t))
-            tvs.append(tv)
+            tvs.append(pad_vector(tv, self.d))
             sizes.append(self.split.data_sizes[(c, t)])
             head_pairs.append((t, head, sizes[-1]))
-        return (Upload(c, list(self.split.tasks[c]), torch.stack(tvs), sizes),
+        fp = bb.fingerprint if self._mixed else None
+        return (Upload(c, list(self.split.tasks[c]), torch.stack(tvs), sizes,
+                       fingerprint=fp),
                 head_pairs)
 
     # -- main loop ----------------------------------------------------------

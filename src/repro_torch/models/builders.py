@@ -1,8 +1,9 @@
 """Assemble models from ``ArchConfig`` (one builder per family).
 
 ``build_model`` returns an :class:`ArchModel` with the uniform interface
-the serving path relies on: ``init`` / ``lora_init``, ``forward``,
-``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
+the serving and training paths rely on: ``init`` / ``lora_init``,
+``forward``, ``loss``, ``init_cache``, ``prefill_step`` and
+``decode_fn``.  Ported so far: the
 dense family (qwen2-0.5b, the qwen2.5 configs, codeqwen1.5-7b), the vlm
 family (qwen2-vl-7b: the dense stack with M-RoPE, whose prefill batch
 also carries ``"extra_embeds"`` and (B, S, 3) ``"positions"``), the ssm
@@ -65,6 +66,10 @@ class ArchModel:
                                   extra_embeds=extra_embeds,
                                   positions=positions)
 
+    def loss(self, params, lora, batch):
+        """Next-token CE of ``batch`` (the train step's body)."""
+        return self.model.loss(params, lora, batch)
+
     def init_cache(self, batch: int, max_len: int, dtype=None):
         return self.model.init_cache(batch, max_len, dtype)
 
@@ -109,8 +114,8 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
         lm = LM(vocab=cfg.vocab, d_model=cfg.d_model, n_units=cfg.n_layers,
                 unit_blocks=[("blk", block)],
                 tie_embeddings=cfg.tie_embeddings,
-                mrope=cfg.mrope_sections is not None, dtype=dt,
-                device=device)
+                mrope=cfg.mrope_sections is not None, remat=cfg.remat,
+                dtype=dt, device=device)
         return ArchModel(cfg, lm, "lm")
     if cfg.family == "ssm":             # xLSTM: alternating mLSTM/sLSTM pairs
         if cfg.n_layers % 2:
@@ -123,7 +128,8 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
         lm = LM(vocab=cfg.vocab, d_model=cfg.d_model,
                 n_units=cfg.n_layers // 2,
                 unit_blocks=[("mlstm", mlstm), ("slstm", slstm)],
-                tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
+                tie_embeddings=cfg.tie_embeddings, remat=cfg.remat, dtype=dt,
+                device=device)
         return ArchModel(cfg, lm, "lm")
     if cfg.family == "hybrid":          # hymba: parallel attention ‖ Mamba
         attn = _attention(cfg, window if window is not None
@@ -134,7 +140,8 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                                                  dtype=dt), dtype=dt)
         lm = LM(vocab=cfg.vocab, d_model=cfg.d_model, n_units=cfg.n_layers,
                 unit_blocks=[("blk", block)],
-                tie_embeddings=cfg.tie_embeddings, dtype=dt, device=device)
+                tie_embeddings=cfg.tie_embeddings, remat=cfg.remat, dtype=dt,
+                device=device)
         return ArchModel(cfg, lm, "lm")
     if cfg.family == "audio":           # whisper: encoder-decoder
         max_dec = max(448, shape.seq_len if shape is not None else 448)
@@ -142,7 +149,7 @@ def build_model(cfg: ArchConfig, shape: Optional[ShapeSpec] = None, *,
                          n_enc_layers=cfg.n_layers, n_dec_layers=cfg.n_layers,
                          n_heads=cfg.n_heads, d_ff=cfg.d_ff,
                          max_dec_len=max_dec, enc_frames=cfg.enc_frames,
-                         dtype=dt, device=device)
+                         remat=cfg.remat, dtype=dt, device=device)
         return ArchModel(cfg, model, "encdec")
     raise ValueError(f"family {cfg.family!r} is not ported yet (ported: "
                      f"dense, vlm, ssm, moe, hybrid, audio)")

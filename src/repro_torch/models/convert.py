@@ -33,7 +33,12 @@ def tensor_from_numpy(arr, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _convert(like: Tree, tree: Tree, device, what: str) -> Tree:
+def tree_from_numpy(like: Tree, tree: Tree, device=None,
+                    what: str = "parameter") -> Tree:
+    """A numpy tree carried into tensors on ``device``, each in the dtype
+    of the same leaf of ``like`` (a model's ``init(device="meta")`` or
+    ``lora_init`` tree); raises if the paths or shapes differ.  The
+    ViT's trees, which have no ``ArchModel``, come across here."""
     want = {"/".join(p): x for p, x in tree_leaves_with_path(like)}
     got = {"/".join(p): x for p, x in tree_leaves_with_path(tree)}
     if set(want) != set(got):
@@ -58,12 +63,12 @@ def params_from_numpy(model, tree: Tree) -> Tree:
     """The port's parameters (on the model's device, in its dtypes) from
     a numpy tree of the JAX package's parameters of the same config;
     ``model`` is an :class:`~repro_torch.models.builders.ArchModel`."""
-    return _convert(model.init(device="meta"), tree, model.device,
-                    "parameter")
+    return tree_from_numpy(model.init(device="meta"), tree, model.device,
+                           "parameter")
 
 
 def lora_from_numpy(model, tree: Tree) -> Tree:
     """The port's LoRA tree from a numpy tree of the JAX package's
     ``lora_init`` output of the same config."""
-    return _convert(model.lora_init(device="meta"), tree, model.device,
-                    "LoRA")
+    return tree_from_numpy(model.lora_init(device="meta"), tree,
+                           model.device, "LoRA")

@@ -13,7 +13,10 @@ parameter, LoRA and cache leaves (``lm.layer_views``), where the JAX
 package scans; the cache is preallocated and filled in place.  Cache:
 ``{"self": {k, v (n_dec, B, S, KV, D), kpos (n_dec, S)}, "cross": {k, v
 (n_dec, B, enc_frames, KV, D)}}``.  ``mode`` ("ref" or None) reaches
-every Dense that carries LoRA.  ``loss`` comes with the training slice.
+every Dense that carries LoRA.  ``loss`` is the chunked next-token CE
+through ``dec_ln`` and the tied head; with ``remat`` (the config's) a
+forward that records gradients runs each encoder and decoder layer under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from typing import Any, Optional, Sequence
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.models.lm import as_generator, layer_views
+from repro_torch.models.lm import (as_generator, chunked_cross_entropy,
+                                   layer_views, needs_grad, remat_call)
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.mlp import GeluMLP
 from repro_torch.nn.module import Embedding, LayerNorm, Module, _normal
@@ -179,10 +183,12 @@ class EncDecLM(Module):
     def __init__(self, *, vocab: int, d_model: int, n_enc_layers: int,
                  n_dec_layers: int, n_heads: int, d_ff: int,
                  max_dec_len: int = 448, enc_frames: int = 1500,
-                 dtype=torch.float32, device: DeviceLike = "cuda"):
+                 remat: bool = True, dtype=torch.float32,
+                 device: DeviceLike = "cuda"):
         self.vocab, self.d_model = vocab, d_model
         self.n_enc, self.n_dec = n_enc_layers, n_dec_layers
         self.max_dec_len, self.enc_frames = max_dec_len, enc_frames
+        self.remat = remat
         self.dtype = dtype
         self.device = resolve_device(device)
         self.enc_block = EncoderBlock(d_model, n_heads, d_ff, dtype=dtype)
@@ -229,9 +235,16 @@ class EncDecLM(Module):
         x = audio_embeds.to(self.dtype)
         x = x + sinusoidal_positions(x.shape[1], self.d_model,
                                      x.device).to(self.dtype)[None]
+        remat = self.remat and needs_grad(x, lora, params)
         for p, l in self._stack(params, lora, "encoder", self.n_enc):
-            x = self.enc_block(p, x, lora=l, mode=mode)
+            x = remat_call(remat, self._enc_layer, p, x, l, mode)
         return self.enc_ln(params["enc_ln"], x)
+
+    def _enc_layer(self, p, x, l, mode):
+        return self.enc_block(p, x, lora=l, mode=mode)
+
+    def _dec_layer(self, p, x, enc_out, l, mode):
+        return self.dec_block(p, x, enc_out, lora=l, mode=mode)
 
     def _dec_embed(self, params, tokens, offset: int = 0):
         """Token embeddings plus learned positions ``offset .. offset+S-1``.
@@ -252,13 +265,29 @@ class EncDecLM(Module):
 
     # -- full sequence -------------------------------------------------------
     def forward(self, params, tokens, audio_embeds, *, lora=None,
-                mode: Optional[str] = None):
-        """tokens (B, S), audio_embeds (B, T_enc, d) -> logits (B, S, V)."""
+                mode: Optional[str] = None, return_hidden: bool = False):
+        """tokens (B, S), audio_embeds (B, T_enc, d) -> logits (B, S, V),
+        or with ``return_hidden`` the decoder stack's output before
+        ``dec_ln`` (B, S, d), as the reference returns it."""
         enc_out = self.encode(params, audio_embeds, lora=lora, mode=mode)
         x = self._dec_embed(params, tokens)
+        remat = self.remat and needs_grad(x, enc_out, lora, params)
+        # the reference fences each decoder layer's input with
+        # grad_safe_barrier, an XLA scheduling fence that is the identity
+        # in value and gradient; eager PyTorch has no twin
         for p, l in self._stack(params, lora, "decoder", self.n_dec):
-            x = self.dec_block(p, x, enc_out, lora=l, mode=mode)
-        return self._head(params, x)
+            x = remat_call(remat, self._dec_layer, p, x, enc_out, l, mode)
+        return x if return_hidden else self._head(params, x)
+
+    def loss(self, params, lora, batch) -> torch.Tensor:
+        """batch {"tokens", "labels" (B, S), "audio_embeds" (B, T_enc,
+        d)} -> chunked next-token CE through ``dec_ln`` and the tied
+        head."""
+        hidden = self.forward(params, batch["tokens"], batch["audio_embeds"],
+                              lora=lora, return_hidden=True)
+        return chunked_cross_entropy(hidden,
+                                     lambda xc: self._head(params, xc),
+                                     batch["labels"])
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None) -> Tree:

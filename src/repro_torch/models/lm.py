@@ -12,6 +12,7 @@ Entry points:
 * ``forward(params, tokens, ...)``              full-sequence logits
 * ``prefill(params, lora, batch, cache)``       fills the caches, last-token logits
 * ``decode_step(params, lora, tokens, cache, pos)``  one token with the cache
+* ``loss(params, lora, batch)``                 next-token CE (+ the MoE aux)
 
 A vision-language model (``mrope=True``) prepends ``extra_embeds`` (B,
 S_img, d_model) to the token embeddings in ``forward`` and ``prefill``,
@@ -20,7 +21,10 @@ decode steps take tokens alone.
 
 ``mode`` ("ref" or None) reaches every ``Dense`` and from there
 ``ops``, so a whole forward can run through the kernels' plain
-versions.  Loss and training (chunked cross-entropy) are not ported yet.
+versions.  With ``remat`` (the config's, as in the JAX package) a
+forward that records gradients runs each layer under
+``torch.utils.checkpoint``: only the layer inputs are kept, and the
+backward recomputes the rest.  It changes no number.
 """
 
 from __future__ import annotations
@@ -28,11 +32,82 @@ from __future__ import annotations
 from typing import Any, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.tree import tree_leaves
 from repro_torch.nn.module import Dense, Embedding, Module, RMSNorm
 
 Tree = Any
+IGNORE_INDEX = -100
+
+
+def needs_grad(*trees: Tree) -> bool:
+    """Whether autograd records a function of ``trees``' tensors now."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for tree in trees if tree is not None
+        for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def remat_call(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``on``: the
+    twin of the JAX package's ``jax.checkpoint``, a memory rule that
+    changes no number."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Mean next-token CE in fp32; labels equal to ``ignore_index`` are
+    masked."""
+    nll, count = _chunk_nll(lambda z: z, logits, labels, ignore_index)
+    return nll / torch.clamp(count, min=1.0)
+
+
+def _chunk_nll(head_fn, xc, lc, ignore_index: int):
+    """(sum of the masked NLL, count of scored labels) of one chunk."""
+    logits = head_fn(xc).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
+    mask = (lc != ignore_index).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head_fn, labels: torch.Tensor, *,
+                          chunk: int = 512,
+                          ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Fused head + CE over sequence chunks, as the JAX package's.
+
+    The (B, S, V) logits never exist whole: each chunk projects one (B,
+    chunk, d) slice and reduces it to (NLL sum, count).  S is padded to
+    a whole number of chunks with ignored labels.  While gradients of
+    ``x`` are recorded, each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of the chunk body), so the backward
+    too holds one chunk's logits at a time."""
+    b, s, d = x.shape
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad),
+                                         value=ignore_index)
+    remat = needs_grad(x)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        n, c = remat_call(remat, _chunk_nll, head_fn, x[:, sl], labels[:, sl],
+                          ignore_index)
+        nll_sum, count = nll_sum + n, count + c
+    return nll_sum / torch.clamp(count, min=1.0)
+
+
+def _ffn_aux(blk) -> Optional[torch.Tensor]:
+    """The load-balance aux a block's MoE recorded in its last call
+    (None for every other block)."""
+    return getattr(getattr(blk, "ffn", None), "last_aux", None)
 
 
 def layer_views(tree: Tree, n: int) -> List[Tree]:
@@ -58,11 +133,14 @@ class LM(Module):
     def __init__(self, *, vocab: int, d_model: int, n_units: int,
                  unit_blocks: List[Tuple[str, Module]],
                  tie_embeddings: bool = False, mrope: bool = False,
+                 remat: bool = True, aux_loss_coef: float = 0.01,
                  dtype=torch.float32, device: DeviceLike = "cuda"):
         self.vocab, self.d_model, self.n_units = vocab, d_model, n_units
         self.unit_blocks = unit_blocks
         self.tie = tie_embeddings
         self.mrope = mrope
+        self.remat = remat
+        self.aux_loss_coef = aux_loss_coef
         self.dtype = dtype
         self.device = resolve_device(device)
         self.embed = Embedding(vocab, d_model, dtype=dtype)
@@ -125,19 +203,60 @@ class LM(Module):
                     per[name][2][l]) for name, blk in self.unit_blocks]
 
     # -- full-sequence forward -----------------------------------------------
+    @staticmethod
+    def _unit_forward(unit, x, positions, mode, with_aux):
+        """One layer's blocks in turn -> (x, the layer's summed MoE aux,
+        None without ``with_aux`` or an MoE)."""
+        aux = None
+        for _name, blk, p, l, _c in unit:
+            x = blk(p, x, positions=positions, lora=l, mode=mode)
+            a = _ffn_aux(blk) if with_aux else None
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
     def forward(self, params, tokens, *, lora=None, positions=None,
                 extra_embeds=None, mode: Optional[str] = None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, return_aux: bool = False):
         """tokens (B, S_txt) -> logits (B, S, V) (or the final hidden
-        state); S = S_img + S_txt with ``extra_embeds`` (B, S_img, d)."""
+        state); S = S_img + S_txt with ``extra_embeds`` (B, S_img, d).
+        With ``return_aux`` also the MoE load-balance aux summed over
+        the layers (0 without an MoE), as the reference returns it."""
         x = self._embed_in(params, tokens, extra_embeds)
         b, s = x.shape[0], x.shape[1]
         if positions is None:
             positions = self._default_positions(b, s)
+        remat = self.remat and needs_grad(x, lora, params)
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if return_aux else None)
+        # the reference fences each layer's input with grad_safe_barrier,
+        # an XLA scheduling fence that is the identity in value and
+        # gradient; eager PyTorch has nothing to fence, so no twin here
         for unit in self._layers(params, lora):
-            for _name, blk, p, l, _c in unit:
-                x = blk(p, x, positions=positions, lora=l, mode=mode)
-        return x if return_hidden else self._head(params, x)
+            x, a = remat_call(remat, self._unit_forward, unit, x, positions,
+                              mode, return_aux)
+            if a is not None:
+                aux = aux + a
+        out = x if return_hidden else self._head(params, x)
+        return (out, aux) if return_aux else out
+
+    def loss(self, params, lora, batch) -> torch.Tensor:
+        """batch {"tokens" (B, S_txt), "labels" (B, S_txt)}, optionally
+        "positions" and "extra_embeds" -> chunked next-token CE over the
+        text tail (a vlm scores no image position) plus
+        ``aux_loss_coef`` times the MoE aux."""
+        hidden, aux = self.forward(
+            params, batch["tokens"], lora=lora,
+            positions=batch.get("positions"),
+            extra_embeds=batch.get("extra_embeds"), return_hidden=True,
+            return_aux=True)
+        labels = batch["labels"]
+        if hidden.shape[1] != labels.shape[1]:   # vlm: the text tail only
+            hidden = hidden[:, -labels.shape[1]:]
+        return (chunked_cross_entropy(hidden,
+                                      lambda xc: self._head(params, xc),
+                                      labels)
+                + self.aux_loss_coef * aux)
 
     # -- serving ---------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None) -> Tree:

@@ -1722,3 +1722,73 @@ def test_cuda_deepseek_reduced_bf16_kernels_match_plain(cuda,
     record_property("rel_l2_without_tau", rel_wrong)
     assert torch.isfinite(got).all()
     assert rel <= DEEPSEEK_BF16_REL_L2 < rel_wrong
+
+
+# -- federated training of the reduced ViT --------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_vit_reduced_local_step_matches_cpu(cuda):
+    """One local step of the reduced ViT backbone (fp32, no TF32) on the
+    card against the same step on the CPU, weights carried over:
+    ``chip_smoke.vit_step_check`` holds the loss to rtol 1e-5 and every
+    LoRA gradient leaf and the head's to rel L2 1e-4."""
+    from chip_smoke import SEED, vit_step_check
+    from repro_torch.fed.testbed import ViTBackbone
+    bb = ViTBackbone(seed=SEED, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((16, bb.cfg.patch_dim), generator=g)
+    y = torch.randint(0, 6, (16,), generator=g)
+    loss_err, rels = vit_step_check(torch, cuda, bb, x.to(cuda), y.to(cuda),
+                                    6, SEED + 7)
+    assert len(rels) == len(bb.space.leaves) + 1
+
+
+@pytest.mark.cuda
+def test_cuda_constellation_matches_numpy(cuda):
+    """``make_constellation(device=cuda)`` (fp64 QRs and products on the
+    card) against numpy's at feat_dim 256 with a conflict pair: W and
+    the groups bitwise, each R entry within 1e-6 (fp64 rounding may move
+    an fp32 entry by an ulp)."""
+    from repro_torch.data.synthetic import make_constellation
+    ck = dict(n_tasks=6, n_groups=3, feat_dim=256, n_classes=8,
+              conflict_pairs=[(0, 1)], seed=0)
+    for ta, tb in zip(make_constellation(**ck, device=cuda).tasks,
+                      make_constellation(**ck).tasks):
+        assert ta.group == tb.group and np.array_equal(ta.w, tb.w)
+        np.testing.assert_allclose(ta.r, tb.r, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_vit_reduced_trained_round_bitwise(cuda):
+    """One MaTU round of the reduced ViT trained on the card (32 clients
+    of 3 of 30 tasks, 2 AdamW steps each): launches of kernels 1–3
+    counted, then the round's real uploads through the kernels against
+    the plain versions, bit for bit
+    (``chip_smoke.trained_round_check``)."""
+    from chip_smoke import N, SEED, T, trained_round_check
+    from repro_torch.data.dirichlet import dirichlet_split
+    from repro_torch.data.synthetic import make_constellation
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.fed.strategies import MaTUStrategy
+    from repro_torch.fed.testbed import ViTBackbone
+    bb = ViTBackbone(seed=SEED, device=cuda)
+    con = make_constellation(n_tasks=T, n_groups=6, feat_dim=bb.cfg.patch_dim,
+                             n_classes=8, seed=SEED)
+    split = dirichlet_split(n_clients=N, n_tasks=T, n_classes=8, zeta_t=0.5,
+                            tasks_per_client=3, seed=SEED)
+    strat = MaTUStrategy(T, bb.d, device=cuda)
+    sim = FedSimulator(FedConfig(rounds=1, local_steps=2, batch_size=8,
+                                 local_data=16, eval_every=1), con, split, bb,
+                       strat, device=cuda)
+    batches = []
+    inner = strat.aggregate_batch
+    strat.aggregate_batch = lambda b: (batches.append(b), inner(b))
+    ops.reset_launch_counts()
+    hist = sim.run()
+    counts = ops.launch_counts()
+    assert all(counts[k] >= 1 for k in ops.PACKED_ROUND_KERNELS), counts
+    assert 0.0 <= hist.final_mean_acc <= 1.0
+    (batch,) = batches
+    assert torch.isfinite(batch.task_vectors).all()
+    out = trained_round_check(torch, cuda, strat.server, batch)
+    assert set(out) == set(ops.PACKED_ROUND_KERNELS)

@@ -138,6 +138,21 @@ def test_splits_and_constellation_match():
         assert np.array_equal(ta.r, tb.r) and np.array_equal(ta.w, tb.w)
 
 
+@pytest.mark.parametrize("feat_dim", [16, 64])
+def test_constellation_on_a_torch_device_matches_numpy(feat_dim):
+    """``make_constellation(device=)``: the QRs and products in fp64
+    torch (here on the CPU) on numpy's draws.  W and the groups are
+    bitwise numpy's; each R entry within 1e-6 (fp64 rounding may move
+    an fp32 entry by an ulp, < 1.2e-7 for |R| < 1)."""
+    ck = dict(n_tasks=6, n_groups=3, feat_dim=feat_dim, n_classes=8,
+              conflict_pairs=[(0, 1)], seed=0)
+    for ta, tb in zip(make_constellation(**ck, device="cpu").tasks,
+                      make_constellation(**ck).tasks):
+        assert ta.group == tb.group and ta.r.dtype == np.float32
+        assert np.array_equal(ta.w, tb.w)
+        np.testing.assert_allclose(ta.r, tb.r, rtol=0, atol=1e-6)
+
+
 def test_matu_aggregate_gives_the_same_task_init():
     rng = np.random.default_rng(4)
     n_tasks, d = 5, 700

@@ -80,8 +80,11 @@ def test_reduced_config_matches_jax():
 
 
 def test_unported_arch_and_family_raise():
+    # vit-b32 has its own ViTConfig (built by configs.vit_b32.build); a
+    # name without a config raises
+    assert load_arch("vit-b32").family == "vit"
     with pytest.raises(ValueError, match="not ported"):
-        load_arch("vit-b32")
+        load_arch("llama-3-8b")
     cfg = load_arch("qwen2-0.5b").reduced()
     cfg.family = "vit"
     with pytest.raises(ValueError, match="not ported"):
