@@ -90,7 +90,31 @@ Phases (any failure raises and the script exits nonzero):
              unify, τ̂, S, task vectors, downlink words, bf16 values and
              λ); each round's walls, one local step timed (median of
              20) and profiled, and peak memory.
-8. lmtrain — LoRA training of qwen2-0.5b at full width (bf16, rank 16,
+8. baselines — the paper's baselines and MaTU's coded wire in Table 2's
+             setting on ViT-B/32 at full width (8 tasks in 3 groups with
+             the conflict pair (0, 1), 8 clients of 2 tasks, ζ_t 0.5, 64
+             samples each, 2 rounds of 2 AdamW steps at B = 32; the
+             paper's 16 clients and 40 rounds cut for chip time): the
+             linearised features at τ = 0 bitwise the features; one
+             NTK-FedAvg and one FedProx (μ 0.1) step on the card against
+             the CPU (the vit phase's bars) and the three objectives'
+             walls; eight runs through ``STRATEGIES`` → ``FedSimulator``
+             (MaTU raw, MaTU with ``code_masks``, FedAvg, FedProx,
+             NTK-FedAvg, TIES, FedPer, MaT-FL), each with its accuracies,
+             its uplink and downlink bits a round and its wall; kernels
+             1–3 launched every MaTU round; the coded run bitwise the raw
+             one (task vectors, similarity, accuracies, downlink λ and
+             words, every uplink decoded), coded bits never above raw
+             plus a 5-byte header a row, the coded shares of the mask
+             bits and of the link each way and the host coder's walls;
+             the coded serving handoff's store ingest bitwise the raw
+             one's; each baseline's round-1 merge on the card against
+             the CPU (rtol 1e-5 / atol 1e-7; TIES's kept set bitwise and
+             its elected signs but where a column sum is within fp32
+             rounding of 0; MaT-FL's groups; FedPer's personal slices
+             bitwise); round 1's trained MaTU uploads through kernels 1–3
+             bitwise.
+9. lmtrain — LoRA training of qwen2-0.5b at full width (bf16, rank 16,
              d = 3,588,168) through ``make_train_step`` (AdamW 5e-3, clip
              1.0) on seeded B 4 × S 512 batches: chunked against
              unchunked CE (rel 1e-5, fp32 head), LoRA gradients with and
@@ -100,7 +124,7 @@ Phases (any failure raises and the script exits nonzero):
              first), ``unify_with_modulators`` → ``ClientUpload`` → one
              ``MaTUServer.round`` (kernels 1–3 launched); step wall,
              tokens/s, round wall and peak memory.
-9. granite — multi-tenant serving of granite-moe-3b-a800m at full width
+10. granite — multi-tenant serving of granite-moe-3b-a800m at full width
              (32 layers, d_model 1536, 24 heads (kv 8), 40 experts of
              d_ff 512, top-8, vocab 49,155; random weights from a seed):
              kernel 9 at its factor shapes (1536, 16) and (16, 1536), S =
@@ -117,7 +141,7 @@ Phases (any failure raises and the script exits nonzero):
              plain versions, and fp32, where fused and dense-routed decode
              must agree token for token unless a router near-tie flip
              (printed with its layer and margin) comes first.
-10. whisper — multi-tenant serving of whisper-large-v3 at full width (32
+11. whisper — multi-tenant serving of whisper-large-v3 at full width (32
              encoder + 32 decoder layers, d_model 1280, 20 heads, d_ff
              5120, vocab 51,866, 1,500 frames; random weights and frame
              embeddings from a seed): kernel 9 at its factor shapes
@@ -135,7 +159,7 @@ Phases (any failure raises and the script exits nonzero):
              and decode windows, peak memory, the caches' bytes, bf16
              prefill logits against the plain versions, and fp32, where
              fused and dense-routed decode must agree token for token.
-11. hymba  — multi-tenant serving of hymba-1.5b at full width (32
+12. hymba  — multi-tenant serving of hymba-1.5b at full width (32
              layers of attention (25 heads, kv 5, a 2,048-token sliding
              window) beside a Mamba branch (d_inner 3,200, d_state 16),
              SwiGLU d_ff 5,504, vocab 32,001; random weights from a
@@ -155,7 +179,7 @@ Phases (any failure raises and the script exits nonzero):
              the prefill and at a decode step past the wrap, and fp32 on
              the prompts' first 128 tokens, where fused and dense-routed
              decode must agree token for token.
-12. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
+13. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
              layers, d_model 3,584, 28 heads (kv 4), SwiGLU d_ff 18,944,
              vocab 152,064, M-RoPE sections (16, 24, 24); random weights
              and 1,024 vision embeddings a request from a seed, the
@@ -176,7 +200,7 @@ Phases (any failure raises and the script exits nonzero):
              (they must differ: M-RoPE live), bf16 logits against the
              plain versions, and fp32, where fused and dense-routed
              decode must agree token for token.
-13. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
+14. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
              cut in depth to 2 of its 60 layers (d_model 5,120, 128 heads
              of Multi-head Latent Attention: q_lora 1,536, kv_lora 512,
              nope 128 + rope 64, v 128; 160 routed experts of d_ff 1,536,
@@ -200,7 +224,7 @@ Phases (any failure raises and the script exits nonzero):
              decode must agree token for token unless a router near-tie
              flip comes first, and layer 0's absorbed decode must agree
              with the naive form within rel L2 1e-4.
-14. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+15. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -219,7 +243,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-15. summary — the host µs a call of every kernel wrapper and of the
+16. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -242,8 +266,8 @@ it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
-whisper, hymba, vlm or deepseek phase alone; ``--only vit`` and ``--only
-lmtrain`` the vit or lmtrain phase.  None of them prints the summary or
+whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
+baselines`` and ``--only lmtrain`` the vit, baselines or lmtrain phase.  None of them prints the summary or
 the "ok" line.
 """
 
@@ -1233,14 +1257,22 @@ VIT_DATA_R_ATOL = 1e-6
 VIT_LOSS_RTOL, VIT_GRAD_REL_L2 = 1e-5, 1e-4
 
 
-def vit_data(torch, dev, feat_dim: int):
-    """The vit phase's data: the constellation (``T`` tasks in
-    ``VIT_GROUPS`` groups at ``feat_dim``) with its 36 QRs and 30
-    products of feat_dim² on the card in fp64, and the split.  The card
-    route is first held against numpy's (the JAX package's numbers) at
-    full width on a one-group, one-task constellation: R within
+def vit_data(torch, dev, feat_dim: int, *, n_tasks=None, n_groups=None,
+             n_clients=None, tasks_per_client=None, conflict_pairs=None):
+    """A ViT phase's data: the constellation (``n_tasks`` tasks in
+    ``n_groups`` groups at ``feat_dim``; the vit phase's ``T`` in
+    ``VIT_GROUPS``, the default, take 36 QRs and 30 products of
+    feat_dim² on the card in fp64) and the split of ``n_tasks`` over
+    ``n_clients`` clients (default ``N``), ``tasks_per_client`` each
+    (default ``VIT_TASKS_PER_CLIENT``), ζ_t 0.5.  The card route is
+    first held against numpy's (the JAX package's numbers) at full width
+    on a one-group, one-task constellation: R within
     ``VIT_DATA_R_ATOL``, W bitwise.  Returns (constellation, split,
     {what: seconds})."""
+    n_tasks = T if n_tasks is None else n_tasks
+    n_groups = VIT_GROUPS if n_groups is None else n_groups
+    n_clients = N if n_clients is None else n_clients
+    tasks_per_client = tasks_per_client or VIT_TASKS_PER_CLIENT
     import numpy as np
     from repro_torch.data.dirichlet import dirichlet_split
     from repro_torch.data.synthetic import make_constellation
@@ -1260,12 +1292,13 @@ def vit_data(torch, dev, feat_dim: int):
         raise AssertionError("vit data: the card's constellation is not "
                              "numpy's")
     t0 = time.perf_counter()
-    con = make_constellation(n_tasks=T, n_groups=VIT_GROUPS,
+    con = make_constellation(n_tasks=n_tasks, n_groups=n_groups,
                              feat_dim=feat_dim, n_classes=VIT_CLASSES,
-                             seed=SEED, device=dev)
-    split = dirichlet_split(n_clients=N, n_tasks=T, n_classes=VIT_CLASSES,
-                            zeta_t=0.5, tasks_per_client=VIT_TASKS_PER_CLIENT,
-                            seed=SEED)
+                             conflict_pairs=conflict_pairs, seed=SEED,
+                             device=dev)
+    split = dirichlet_split(n_clients=n_clients, n_tasks=n_tasks,
+                            n_classes=VIT_CLASSES, zeta_t=0.5,
+                            tasks_per_client=tasks_per_client, seed=SEED)
     secs["build"] = time.perf_counter() - t0
     return con, split, secs
 
@@ -1284,35 +1317,46 @@ def vit_step_flops(cfg, b: int) -> float:
     return 2.0 * 2.0 * b * macs
 
 
-def vit_step_check(torch, dev, bb, x, y, n_classes: int, seed: int):
-    """One local step (the trainer's CE of a linear head on the LoRA
-    features) on the card against the same step on the CPU, in fp32:
-    the weights carried over from the card, the same τ (0.01·N(0, 1)),
-    head and batch.  The loss within ``VIT_LOSS_RTOL``, each LoRA
+def cpu_backbone(torch, bb):
+    """``bb``'s twin on the CPU, its frozen weights carried over."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.fed.testbed import ArchBackbone
+    to_np = lambda tree: tree_map(  # noqa: E731
+        lambda t: t.detach().cpu().numpy(), tree)
+    return ArchBackbone.from_numpy(bb.arch, to_np(bb.params), to_np(bb.lora0),
+                                   reduced=bb.reduced, device="cpu")
+
+
+def vit_step_check(torch, dev, bb, x, y, n_classes: int, seed: int, *,
+                   cpu_bb=None, prox_mu: float = 0.0, linearize: bool = False,
+                   label: str = "vit"):
+    """One local step (the trainer's objective, ``local_objective``: CE
+    of a linear head on the LoRA features, FedProx's proximal term with
+    ``prox_mu``, NTK-FedAvg's linearised features with ``linearize``)
+    on the card against the same step on the CPU, in fp32: the weights
+    carried over from the card, the same τ and anchor (0.01·N(0, 1)
+    each), head and batch.  The loss within ``VIT_LOSS_RTOL``, each LoRA
     gradient leaf and the head's within ``VIT_GRAD_REL_L2``.  Returns
     (loss rel err, {leaf: rel L2})."""
     from repro_torch.common.tree import (tree_leaves, tree_leaves_with_path,
                                          tree_map)
-    from repro_torch.fed.local import cross_entropy
-    from repro_torch.fed.testbed import ArchBackbone
+    from repro_torch.fed.local import local_objective
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the step check needs fp32 products (no TF32)")
     t0 = time.perf_counter()
-    to_np = lambda tree: tree_map(  # noqa: E731
-        lambda t: t.detach().cpu().numpy(), tree)
-    cpu_bb = ArchBackbone.from_numpy(bb.arch, to_np(bb.params),
-                                     to_np(bb.lora0), reduced=bb.reduced,
-                                     device="cpu")
+    cpu_bb = cpu_bb or cpu_backbone(torch, bb)
     g = torch.Generator().manual_seed(seed)
     tv = 0.01 * torch.randn(bb.d, generator=g)
     head = 0.1 * torch.randn((bb.feat_out, n_classes), generator=g)
+    anchor = 0.01 * torch.randn(bb.d, generator=g)
     out = []
     for b, d in ((bb, dev), (cpu_bb, torch.device("cpu"))):
+        objective, to_model, _ = local_objective(b, prox_mu=prox_mu,
+                                                 linearize=linearize)
         params = (tree_map(lambda p: p.clone().requires_grad_(True),
-                           b.space.unflatten(tv.to(d))),
+                           to_model(tv.to(d))),
                   head.to(d).requires_grad_(True))
-        loss = cross_entropy(b.features_tree(params[0], x.to(d)), params[1],
-                             y.to(d))
+        loss = objective(params, x.to(d), y.to(d), to_model(anchor.to(d)))
         grads = torch.autograd.grad(loss, tree_leaves(params))
         out.append((float(loss.detach()),
                     [gr.detach().cpu() for gr in grads]))
@@ -1322,14 +1366,14 @@ def vit_step_check(torch, dev, bb, x, y, n_classes: int, seed: int):
     loss_err = abs(l_card - l_cpu) / abs(l_cpu)
     rels = {n: _rel_l2(torch, a, c) for n, a, c in zip(names, g_card, g_cpu)}
     worst = max(rels, key=rels.get)
-    log(f"vit step check (B={x.shape[0]}, card vs CPU, fp32, "
+    log(f"{label} step check (B={x.shape[0]}, card vs CPU, fp32, "
         f"{time.perf_counter() - t0:.1f} s): loss {l_card:.7f} vs "
         f"{l_cpu:.7f} (rel {loss_err:.3e}); gradient rel L2 worst "
         f"{rels[worst]:.3e} ({worst}); " + ", ".join(
             f"{n} {v:.2e}" for n, v in rels.items()))
     if loss_err > VIT_LOSS_RTOL or rels[worst] > VIT_GRAD_REL_L2:
         raise AssertionError(
-            f"vit step: card vs CPU loss rel {loss_err:.3e} (bar "
+            f"{label} step: card vs CPU loss rel {loss_err:.3e} (bar "
             f"{VIT_LOSS_RTOL}), {worst} gradient rel L2 {rels[worst]:.3e} "
             f"(bar {VIT_GRAD_REL_L2})")
     return loss_err, rels
@@ -1355,6 +1399,58 @@ def trained_round_check(torch, dev, server, batch):
     return round_kernels_at(torch, dev, server, (
         got[0], got[1], got[2], batch.slot_tasks.to(dev), valid,
         batch.slot_sizes.to(dev), ks))
+
+
+def traced_run(torch, label, sim, strat, on_round=None):
+    """``sim.run()`` with each aggregation and evaluation synchronised
+    and timed: per round the aggregate's ms, the packed-round kernels'
+    launches during it (``rose``), the evaluation's ms and the round's
+    end, and what ``on_round(r, batch)`` returns, called just after the
+    aggregation.  Every upload must be finite and nonzero.  Returns
+    (history, [round info], run seconds, run start)."""
+    from repro_torch.kernels import ops
+    rounds = []
+    agg, evaluate = strat.aggregate_batch, sim.evaluate
+
+    def timed_agg(batch):
+        for u in batch.uploads:
+            v = u.task_vectors
+            if not bool(torch.isfinite(v).all()) or \
+                    bool((v.abs().amax(dim=1) == 0).any()):
+                raise AssertionError(f"{label}: client {u.client_id} uploads "
+                                     f"a non-finite or zero task vector")
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        agg(batch)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        info = dict(agg_ms=1e3 * (time.perf_counter() - t), eval_ms=0.0,
+                    rose={k: after[k] - before[k]
+                          for k in ops.PACKED_ROUND_KERNELS})
+        info.update(on_round(len(rounds), batch) if on_round else {})
+        info["end"] = time.perf_counter()
+        rounds.append(info)
+
+    def timed_eval():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        acc = evaluate()
+        torch.cuda.synchronize()
+        rounds[-1]["eval_ms"] = 1e3 * (time.perf_counter() - t)
+        rounds[-1]["end"] = time.perf_counter()
+        return acc
+
+    strat.aggregate_batch, sim.evaluate = timed_agg, timed_eval
+    try:
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        hist = sim.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+    finally:
+        strat.aggregate_batch, sim.evaluate = agg, evaluate
+    return hist, rounds, run_s, t_run
 
 
 def vit_phase(torch, dev, reduced: bool = False):
@@ -1398,47 +1494,13 @@ def vit_phase(torch, dev, reduced: bool = False):
 
     # the main path: FedSimulator.run, its aggregations and evaluations
     # timed on the way (each synchronised), round 1's uploads kept
-    rounds = []
-    agg, evaluate = strat.aggregate_batch, sim.evaluate
-
-    def timed_agg(batch):
-        for u in batch.uploads:
-            v = u.task_vectors
-            if not bool(torch.isfinite(v).all()) or \
-                    bool((v.abs().amax(dim=1) == 0).any()):
-                raise AssertionError(f"vit: client {u.client_id} uploads a "
-                                     f"non-finite or zero task vector")
-        before = ops.launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        agg(batch)
-        torch.cuda.synchronize()
-        after = ops.launch_counts()
-        rounds.append(dict(batch=batch if not rounds else None,
-                           agg_ms=1e3 * (time.perf_counter() - t),
-                           rose={k: after[k] - before[k]
-                                 for k in ops.PACKED_ROUND_KERNELS}))
-
-    def timed_eval():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        acc = evaluate()
-        torch.cuda.synchronize()
-        rounds[-1]["eval_ms"] = 1e3 * (time.perf_counter() - t)
-        rounds[-1]["end"] = time.perf_counter()
-        return acc
-
-    strat.aggregate_batch, sim.evaluate = timed_agg, timed_eval
     ops.reset_launch_counts()
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t_run = time.perf_counter()
-    hist = sim.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t_run
+    hist, rounds, run_s, t_run = traced_run(
+        torch, "vit", sim, strat,
+        lambda r, batch: {"batch": batch} if r == 0 else {})
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    strat.aggregate_batch, sim.evaluate = agg, evaluate
     slots = sum(len(tasks) for tasks in split.tasks)
     steps = cfg.rounds * slots * cfg.local_steps
     start, walls = t_run, []
@@ -1509,6 +1571,406 @@ def vit_phase(torch, dev, reduced: bool = False):
                 / step_ms, run_s=run_s, peak_gib=peak / 2**30,
                 mean_acc=hist.mean_acc, rounds=walls,
                 profile=dict(wall_ms=wall_p, busy_ms=busy_p))
+
+
+# -- baselines phase: the paper's Table 2 setting on ViT-B/32 ----------------
+
+# Table 2's setting (multi-task clients, ζ_t 0.5, 2 tasks a client, 8
+# tasks in 3 groups with the conflict pair (0, 1), 8 classes), cut from
+# 16 clients and 40 rounds to 8 clients and 2 rounds for chip time
+BASE_TASKS, BASE_GROUPS, BASE_CLIENTS, BASE_TASKS_PER_CLIENT = 8, 3, 8, 2
+BASE_CONFLICT = [(0, 1)]
+BASE_FED = dict(rounds=2, local_steps=2, batch_size=32, local_data=64,
+                eval_every=2)
+# the six baseline runs' rounds: the named cut, should the whole script
+# pass 1,050 s, is 1 (the two MaTU runs keep 2: round 2 starts from the
+# coded downlink)
+BASE_BASELINE_ROUNDS = 2
+BASE_RUNS = (("matu", "matu", {}), ("matu coded", "matu", {"code_masks": True}),
+             ("fedavg", "fedavg", {}), ("fedprox", "fedprox", {}),
+             ("ntk-fedavg", "ntk-fedavg", {}), ("ties", "ties", {}),
+             ("fedper", "fedper", {}), ("mat-fl", "mat-fl", {}))
+# a baseline's merge on the card against the CPU: cuBLAS and the CPU sum
+# the M = 16 rows in other orders
+BASE_MERGE_RTOL, BASE_MERGE_ATOL = 1e-5, 1e-7
+BASE_STEP_REPS = 10
+FP32_UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def merge_check(torch, label, got, want):
+    """A merge on the card (``got``) within the bar of the CPU's."""
+    err = max_abs(torch, got, want.to(got.device))
+    if not torch.allclose(got.cpu(), want.cpu(), rtol=BASE_MERGE_RTOL,
+                          atol=BASE_MERGE_ATOL):
+        raise AssertionError(f"{label}: card vs CPU max |err| {err:.3e} "
+                             f"beyond rtol {BASE_MERGE_RTOL}, atol "
+                             f"{BASE_MERGE_ATOL}")
+    return err
+
+
+def baseline_aggregate_check(torch, dev, name, bb, batch):
+    """Round 1's uploads of a baseline run aggregated by a fresh strategy
+    on the card and one on the CPU: FedAvg / FedProx / NTK merges and
+    FedPer's shared slice within the merge bar, FedPer's personal slices
+    bitwise; TIES's kept set bitwise, its elected signs equal except
+    where the CPU's column sum lies within fp32 rounding of 0 (counted),
+    its merge within the bar elsewhere; MaT-FL's groups identical and
+    its group vectors within the bar.  Returns a summary line."""
+    from repro_torch.core.baselines import (cosine_similarity_matrix,
+                                            greedy_group, mean_rows,
+                                            ties_trim)
+    from repro_torch.fed.strategies import STRATEGIES, Upload
+    kw = {"split_point": bb.split_point} if name == "fedper" else {}
+    card = STRATEGIES[name](BASE_TASKS, bb.d, device=dev, **kw)
+    host = STRATEGIES[name](BASE_TASKS, bb.d, device="cpu", **kw)
+    card.aggregate(batch.uploads)
+    host.aggregate([Upload(u.client_id, list(u.task_ids),
+                           u.task_vectors.cpu(), list(u.data_sizes))
+                    for u in batch.uploads])
+    if name in ("fedavg", "fedprox", "ntk-fedavg"):
+        err = merge_check(torch, name, card.global_v, host.global_v)
+        return f"merge max|err| {err:.3e}"
+    if name == "fedper":
+        err = merge_check(torch, "fedper shared", card.shared, host.shared)
+        for c, v in card.personal.items():
+            check_equal(torch, f"fedper client {c} personal slice", v.cpu(),
+                        host.personal[c])
+        return (f"shared max|err| {err:.3e}, {len(card.personal)} personal "
+                f"slices bitwise")
+    if name == "mat-fl":
+        means = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            means[where] = torch.stack([mean_rows(u.task_vectors.to(d))
+                                        for u in batch.uploads])
+        groups = {w: greedy_group(cosine_similarity_matrix(m).cpu().numpy(),
+                                  card.threshold) for w, m in means.items()}
+        if groups["card"] != groups["cpu"]:
+            raise AssertionError(f"mat-fl groups: card {groups['card']}, "
+                                 f"CPU {groups['cpu']}")
+        err = max(merge_check(torch, f"mat-fl client {c}", v,
+                              host.client_v[c])
+                  for c, v in card.client_v.items())
+        return f"groups {groups['card']} identical, max|err| {err:.3e}"
+    # ties: the kept set, the elected signs, the disjoint mean
+    stack = torch.stack([u.task_vectors[i].float() for u in batch.uploads
+                         for i in range(len(u.task_ids))])
+    trim_card = ties_trim(stack, card.keep_frac)
+    trim_cpu = ties_trim(stack.cpu(), host.keep_frac)
+    check_equal(torch, "ties kept set", trim_card.cpu(), trim_cpu)
+    col_card, col_cpu = trim_card.sum(0).cpu(), trim_cpu.sum(0)
+    flip = torch.sign(col_card) != torch.sign(col_cpu)
+    # two orders of one fp32 sum of M terms differ by at most
+    # 2·M·u·Σ|term| (u the unit roundoff)
+    near_zero = col_cpu.abs() <= (2 * stack.shape[0] * FP32_UNIT_ROUNDOFF
+                                  * trim_cpu.abs().sum(0))
+    if bool((flip & ~near_zero).any()):
+        raise AssertionError(f"ties: {int((flip & ~near_zero).sum())} "
+                             f"elected signs differ away from 0")
+    keep = ~flip
+    err = merge_check(torch, "ties merge", card.global_v.cpu()[keep],
+                      host.global_v[keep])
+    return (f"kept set bitwise ({int((trim_cpu != 0).sum())} of "
+            f"{trim_cpu.numel()} entries), {int(flip.sum())} elected signs "
+            f"differ (column sums within fp32 rounding of 0), merge "
+            f"max|err| {err:.3e} elsewhere")
+
+
+def step_costs(torch, dev, bb, x, y, prox_mu: float):
+    """Median wall (ms, synchronised) of the local objective and its
+    gradient on the card, plain, with FedProx's term and linearised
+    (NTK-FedAvg), over ``BASE_STEP_REPS`` calls each after two warm-up
+    calls; the optimizer update is left out."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.fed.local import local_objective
+    g = torch.Generator().manual_seed(SEED + 10)
+    tv = (0.01 * torch.randn(bb.d, generator=g)).to(dev)
+    head = (0.1 * torch.randn((bb.feat_out, VIT_CLASSES), generator=g)).to(dev)
+    out = {}
+    for label, mu, lin in (("plain", 0.0, False), ("fedprox", prox_mu, False),
+                           ("ntk", 0.0, True)):
+        objective, to_model, _ = local_objective(bb, prox_mu=mu,
+                                                 linearize=lin)
+        delta, anchor = to_model(tv), to_model(torch.zeros_like(tv))
+
+        def step():
+            ps = (tree_map(lambda p: p.detach().requires_grad_(True), delta),
+                  head.detach().requires_grad_(True))
+            torch.autograd.grad(objective(ps, x, y, anchor), tree_leaves(ps))
+
+        walls = []
+        for i in range(BASE_STEP_REPS + 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i >= 2:
+                walls.append(1e3 * (time.perf_counter() - t))
+        out[label] = float(statistics.median(walls))
+    log(f"baselines local objective + gradient (B={x.shape[0]}, median of "
+        f"{BASE_STEP_REPS}): plain {out['plain']:.3f} ms, fedprox "
+        f"{out['fedprox']:.3f} ms, ntk (jvp, reverse over forward) "
+        f"{out['ntk']:.3f} ms = {out['ntk'] / out['plain']:.2f}x plain")
+    return out
+
+
+def wire_snapshot(torch, strat):
+    """A MaTU round's wire, on the host: per client the uplink's and the
+    downlink's mask words (decoded where coded), their measured bits,
+    the downlink's λ, and the round's task vectors and similarity."""
+    ups = {u.client_id: u for u in strat._last_uploads}
+    snap = dict(tv=strat.server.last_task_vectors.cpu(),
+                sim=strat.server.last_similarity.cpu(), up={}, down={})
+    for cid, u in ups.items():
+        dl = strat.downlinks[cid]
+        k = len(u.task_ids)
+        snap["up"][cid] = dict(masks=u.masks.cpu(), bits=u.uplink_bits(),
+                               k=k)
+        snap["down"][cid] = dict(masks=dl.masks.cpu(), bits=dl.downlink_bits(),
+                                 words=dl.mask_row(slice(0, k)).cpu(),
+                                 lams=dl.lams.cpu(), k=k)
+    return snap
+
+
+def coded_wire_check(torch, d, raw, coded):
+    """The coded MaTU run against the raw one, round by round (snapshots
+    of :func:`wire_snapshot`): task vectors, similarity, downlink λ and
+    words bitwise; every coded uplink decodes to the raw upload's words;
+    coded bits never above raw bits plus a 5-byte header a row.  Returns
+    the coded shares of the mask bits and of the whole link, each way,
+    over the rounds."""
+    from repro_torch.fed.compression import HEADER_BYTES, decode_mask_rows
+    from repro_torch.kernels import bitpack
+    tot = dict(up_mask=[0, 0], up_link=[0, 0], down_mask=[0, 0],
+               down_link=[0, 0])
+    for r, (a, b) in enumerate(zip(raw, coded)):
+        check_equal(torch, f"round {r + 1} coded vs raw task vectors",
+                    b["tv"], a["tv"])
+        check_equal(torch, f"round {r + 1} coded vs raw similarity",
+                    b["sim"], a["sim"])
+        for cid, ra in a["down"].items():
+            rb, k = b["down"][cid], ra["k"]
+            check_equal(torch, f"round {r + 1} client {cid} downlink lambda",
+                        rb["lams"], ra["lams"])
+            check_equal(torch, f"round {r + 1} client {cid} decoded "
+                        "downlink words", rb["words"], ra["words"])
+            ua, ub = a["up"][cid], b["up"][cid]
+            got = bitpack.words_from_numpy(decode_mask_rows(
+                ub["masks"].numpy(), d, k))
+            check_equal(torch, f"round {r + 1} client {cid} decoded uplink "
+                        "words", got, ua["masks"])
+            raw_mask = 8 * 4 * bitpack.packed_width(d) * k
+            for way, xa, xb in (("up", ua, ub), ("down", ra, rb)):
+                if xb["bits"] > xa["bits"] + 8 * HEADER_BYTES * k:
+                    raise AssertionError(
+                        f"round {r + 1} client {cid} {way}link: coded "
+                        f"{xb['bits']} bits above raw {xa['bits']} + "
+                        f"headers")
+                tot[f"{way}_mask"][0] += 8 * xb["masks"].numel()
+                tot[f"{way}_mask"][1] += raw_mask
+                tot[f"{way}_link"][0] += xb["bits"]
+                tot[f"{way}_link"][1] += xa["bits"]
+    return {k: v[0] / v[1] for k, v in tot.items()}
+
+
+def coder_walls(torch, d, snap, reps: int = 3):
+    """Host ms (median of ``reps``) of one batched encode and one batched
+    decode of a round's uplink rows and of its downlink rows, on the
+    raw snapshot's words."""
+    import numpy as np
+    from repro_torch.fed.compression import (decode_mask_rows,
+                                             encode_mask_rows_with_sizes)
+    from repro_torch.kernels import bitpack
+    out = {}
+    for way in ("up", "down"):
+        rows = np.concatenate([bitpack.words_to_numpy(x["masks"]
+                                                      if way == "up" else
+                                                      x["words"])
+                               for x in snap[way].values()])
+        enc, dec = [], []
+        for _ in range(reps):
+            t = time.perf_counter()
+            stream, _sizes = encode_mask_rows_with_sizes(rows, d)
+            enc.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            back = decode_mask_rows(stream, d, rows.shape[0])
+            dec.append(1e3 * (time.perf_counter() - t))
+        if not np.array_equal(back, rows):
+            raise AssertionError(f"{way}link rows do not round-trip")
+        out[way] = dict(rows=int(rows.shape[0]), bytes=int(stream.size),
+                        encode_ms=float(statistics.median(enc)),
+                        decode_ms=float(statistics.median(dec)))
+    return out
+
+
+def baselines_phase(torch, dev, reduced: bool = False):
+    """The paper's baselines and MaTU's coded wire in Table 2's setting on
+    ViT-B/32 at full width (8 clients × 2 tasks of 8, 2 rounds; the
+    paper's 16 clients and 40 rounds cut for chip time): eight runs
+    through ``STRATEGIES[name]`` → ``FedSimulator`` →
+    ``make_local_trainer`` (FedProx's proximal term, NTK-FedAvg's
+    linearised features) → the strategy's aggregate → ``eval_vectors``:
+    MaTU on the raw wire, MaTU with ``code_masks`` (coded uploads,
+    kernels 1–3 on the packed round, coded downlinks decoded on use),
+    FedAvg, FedProx, NTK-FedAvg, TIES, FedPer and MaT-FL.  Checks: the
+    linearised features at 0 equal the features bitwise; one NTK and one
+    FedProx step card vs CPU; kernels 1–3 in every MaTU round and
+    bitwise on round 1's trained uploads; the coded run ≡ the raw run
+    bitwise; the coded serving handoff's ingest ≡ the raw one's; each
+    baseline's round-1 merge card vs CPU.  Returns its numbers."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.data.synthetic import sample_task_batch
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.fed.strategies import STRATEGIES
+    from repro_torch.fed.testbed import ViTBackbone
+    from repro_torch.kernels import ops
+    from repro_torch.serve.store import ModulatorStore
+
+    t_phase = time.perf_counter()
+    bb = ViTBackbone(seed=SEED, reduced=reduced, device=dev)
+    if not reduced and (bb.d, bb.fingerprint) != (VIT_D, VIT_FINGERPRINT):
+        raise AssertionError(f"vit LoRA d {bb.d} / layout {bb.fingerprint} "
+                             f"!= {VIT_D} / {VIT_FINGERPRINT}")
+    con, split, data_s = vit_data(
+        torch, dev, bb.cfg.patch_dim, n_tasks=BASE_TASKS,
+        n_groups=BASE_GROUPS, n_clients=BASE_CLIENTS,
+        tasks_per_client=BASE_TASKS_PER_CLIENT, conflict_pairs=BASE_CONFLICT)
+    cfg = FedConfig(seed=SEED, **BASE_FED)
+    slots = sum(len(t) for t in split.tasks)
+    log(f"baselines set-up: ViT-B/32{' (reduced)' if reduced else ''} "
+        f"{sum(p.numel() for p in tree_leaves(bb.params))} parameters, d = "
+        f"{bb.d}, layout {bb.fingerprint}, split point {bb.split_point}; "
+        f"{BASE_TASKS} tasks in {BASE_GROUPS} groups (conflict "
+        f"{BASE_CONFLICT}), {BASE_CLIENTS} clients x {BASE_TASKS_PER_CLIENT}"
+        f" tasks ({slots} slots), {cfg.local_data} samples each; the "
+        f"card-vs-numpy check {data_s['check']:.1f} s, the constellation and"
+        f" split {data_s['build']:.1f} s")
+
+    # the linearisation and the proximal term on one batch
+    t0 = split.tasks[0][0]
+    x, y = sample_task_batch(con.tasks[t0], torch.Generator().manual_seed(
+        SEED + 9), cfg.batch_size)
+    x, y = x.to(dev), y.to(dev)
+    zero = torch.zeros(bb.d, device=dev)
+    with torch.no_grad():
+        check_equal(torch, "lin_features(0, x) vs features(0, x)",
+                    bb.lin_features(zero, x), bb.features(zero, x))
+    cpu_bb = cpu_backbone(torch, bb)
+    ntk_err = vit_step_check(torch, dev, bb, x, y, VIT_CLASSES, SEED + 11,
+                             cpu_bb=cpu_bb, linearize=True, label="ntk")
+    prox_err = vit_step_check(torch, dev, bb, x, y, VIT_CLASSES, SEED + 12,
+                              cpu_bb=cpu_bb, prox_mu=cfg.prox_mu,
+                              label="fedprox")
+    del cpu_bb
+    steps_ms = step_costs(torch, dev, bb, x, y, cfg.prox_mu)
+
+    # the main path: eight runs; MaTU's wire snapshotted every round, each
+    # baseline's round-1 merge held card vs CPU after its run
+    ops.reset_launch_counts()
+    runs, snaps, first = {}, {}, {}
+    for label, name, kw in BASE_RUNS:
+        kw = dict(kw, split_point=bb.split_point) if name == "fedper" else kw
+        strat = STRATEGIES[name](BASE_TASKS, bb.d, device=dev, **kw)
+        run_cfg = cfg if name == "matu" else FedConfig(
+            seed=SEED, **dict(BASE_FED, rounds=BASE_BASELINE_ROUNDS))
+        sim = FedSimulator(run_cfg, con, split, bb, strat, device=dev)
+        wire = []
+
+        def on_round(r, batch, strat=strat, wire=wire, label=label,
+                     name=name):
+            if name == "matu":
+                wire.append(wire_snapshot(torch, strat))
+            if r == 0:
+                first[label] = batch
+            return dict(up=strat.uplink_bits(batch.uploads),
+                        down=strat.downlink_bits())
+
+        hist, rounds, run_s, _ = traced_run(torch, label, sim, strat,
+                                            on_round)
+        for r, info in enumerate(rounds):
+            if name == "matu" and min(info["rose"].values()) < 1:
+                raise AssertionError(f"{label} round {r + 1}: a kernel was "
+                                     f"not launched: {info['rose']}")
+        if len(rounds) != run_cfg.rounds or not all(
+                0.0 <= a <= 1.0 for acc in hist.task_acc
+                for a in acc.values()):
+            raise AssertionError(f"{label}: {len(rounds)} rounds, "
+                                 f"accuracies {hist.task_acc}")
+        runs[label] = dict(
+            run_s=run_s, mean_acc=hist.mean_acc,
+            task_acc=[[acc[t] for t in sorted(acc)] for acc in hist.task_acc],
+            up_bits=[i["up"] for i in rounds],
+            down_bits=[i["down"] for i in rounds],
+            agg_ms=[i["agg_ms"] for i in rounds],
+            eval_ms=[i["eval_ms"] for i in rounds],
+            launches=[i["rose"] for i in rounds])
+        note = ""
+        if name != "matu":
+            note = "; round 1 card vs CPU: " + baseline_aggregate_check(
+                torch, dev, name, bb, first.pop(label))
+        else:
+            snaps[label] = (wire, strat)
+        log(f"baselines {label}: {run_cfg.rounds} rounds in {run_s:.2f} s "
+            f"(aggregate " + ", ".join(f"{m:.2f}" for m in
+                                       runs[label]["agg_ms"])
+            + f" ms; evaluation {sum(runs[label]['eval_ms']):.1f} ms), mean "
+            f"acc {hist.mean_acc}, uplink {runs[label]['up_bits']} and "
+            f"downlink {runs[label]['down_bits']} bits a round, launches "
+            f"{runs[label]['launches']}{note}")
+    launches = ops.launch_counts()
+
+    # the coded run against the raw one, and the serving handoff
+    (raw, s_raw), (coded, s_coded) = snaps["matu"], snaps["matu coded"]
+    if runs["matu coded"]["task_acc"] != runs["matu"]["task_acc"]:
+        raise AssertionError(f"coded vs raw accuracies: "
+                             f"{runs['matu coded']['task_acc']} vs "
+                             f"{runs['matu']['task_acc']}")
+    shares = coded_wire_check(torch, bb.d, raw, coded)
+    walls = coder_walls(torch, bb.d, raw[0])
+    stores = []
+    for s, code in ((s_raw, False), (s_coded, True)):
+        handoff = s.server.serving_downlink(code_masks=code,
+                                            fingerprint=bb.fingerprint)
+        store = ModulatorStore(bb.space, bb.lora0, device=dev)
+        store.ingest(handoff)
+        stores.append((store, handoff))
+    (st_raw, h_raw), (st_coded, h_coded) = stores
+    check_equal(torch, "serving handoff bf16 unified",
+                bf16_bits(torch, h_coded.unified),
+                bf16_bits(torch, h_raw.unified))
+    for t in range(BASE_TASKS):
+        check_equal(torch, f"store task {t} words", st_coded.mask_words(t),
+                    st_raw.mask_words(t))
+        check_equal(torch, f"store task {t} lambda", st_coded.lam(t),
+                    st_raw.lam(t))
+    handoff_share = (8 * h_coded.masks.numel()
+                     / (8 * 4 * h_raw.masks.numel()))
+    log(f"baselines coded wire: 2 rounds coded = raw bitwise (task vectors, "
+        f"similarity, accuracies, downlink lambda and words; every uplink "
+        f"decodes to the raw words); coded share of the mask bits up "
+        f"{shares['up_mask']:.4f}, down {shares['down_mask']:.4f}, of the "
+        f"whole link up {shares['up_link']:.4f}, down "
+        f"{shares['down_link']:.4f}; host coder on round 1's rows: uplink "
+        f"{walls['up']['rows']} rows encode {walls['up']['encode_ms']:.1f} ms"
+        f" / decode {walls['up']['decode_ms']:.1f} ms, downlink "
+        f"{walls['down']['rows']} rows encode "
+        f"{walls['down']['encode_ms']:.1f} ms / decode "
+        f"{walls['down']['decode_ms']:.1f} ms; serving handoff "
+        f"{BASE_TASKS} rows coded {h_coded.masks.numel()} B "
+        f"({handoff_share:.4f} of raw), its store ingest = the raw one's")
+    at_d = trained_round_check(torch, dev, s_raw.server, first.pop("matu"))
+    first.clear()
+    del raw, coded, snaps, stores, s_raw, s_coded
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"baselines phase: {phase_s:.1f} s, launches {launches}")
+    return dict(launches=launches, at_d=at_d, runs=runs, steps_ms=steps_ms,
+                ntk_step=dict(loss_rel=ntk_err[0],
+                              worst_grad_rel_l2=max(ntk_err[1].values())),
+                fedprox_step=dict(loss_rel=prox_err[0],
+                                  worst_grad_rel_l2=max(
+                                      prox_err[1].values())),
+                coded_share=shares, coder_ms=walls,
+                handoff_share=handoff_share, phase_s=phase_s)
 
 
 # -- lmtrain phase: LoRA training of qwen2-0.5b at full width ----------------
@@ -2042,10 +2504,10 @@ def single_task_check(torch, dev, round_data, server):
 def _pack(torch, dev, server, round_data):
     from repro_torch.core.engine import pack_from_slots
     uni, words, lams, tasks, valid, sizes, ks = round_data
-    return pack_from_slots(list(range(N)),
+    return pack_from_slots(list(range(len(ks))),
                            [tasks[i, :k].tolist() for i, k in enumerate(ks)],
-                           uni, words, lams, tasks, valid, sizes, T,
-                           d=uni.shape[1])
+                           uni, words, lams, tasks, valid, sizes,
+                           server.cfg.n_tasks, d=uni.shape[1])
 
 
 def profile_window(torch, label, fn, top: int = 6):
@@ -2083,7 +2545,10 @@ def profile_window(torch, label, fn, top: int = 6):
 
 
 def _rel_l2(torch, a, b) -> float:
-    return float((a.float() - b.float()).norm() / b.float().norm())
+    """‖a − b‖ / ‖b‖: 0 where a equals b (also at b = 0), inf where b = 0
+    and a does not."""
+    num = float((a.float() - b.float()).norm())
+    return 0.0 if num == 0.0 else num / float(b.float().norm())
 
 
 # -- the serving phases' shared steps -------------------------------------
@@ -2922,7 +3387,8 @@ def round_kernels_at(torch, dev, server, round_data):
                 bf16_bits(torch, want["down_unified"]))
     del got, want
     out = {}
-    slots = tvs[torch.clamp(tasks.long(), max=T - 1)]
+    n_tasks = server.cfg.n_tasks
+    slots = tvs[torch.clamp(tasks.long(), max=n_tasks - 1)]
     got = fused_unify.fused_unify_packed_cuda(slots, valid)
     want = fused_unify.plain(slots, valid)
     torch.cuda.synchronize()
@@ -2939,7 +3405,7 @@ def round_kernels_at(torch, dev, server, round_data):
                                 slots, valid))[0])
     del slots, got, want
     words_d, lams_d, member_d, sizes_d = ops.slots_to_dense_packed(
-        words, lams, sizes, valid, tasks, T)
+        words, lams, sizes, valid, tasks, n_tasks)
     gam = sizes_d * member_d.float()
     gam = gam / torch.clamp(gam.sum(0, keepdim=True), min=1e-12)
     args = (uni, words_d, lams_d, gam, member_d, d, 0.4)
@@ -3825,6 +4291,14 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "baselines"]:
+        # the baselines phase alone: a quick loop for the strategies and
+        # the coded wire; no summary, no "ok" line
+        log("== baselines phase alone ==")
+        out = baselines_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "lmtrain"]:
         # the lmtrain phase alone: a quick loop for the LM training path;
         # no summary, no "ok" line
@@ -3837,7 +4311,8 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
               f"--only granite, --only whisper, --only hymba, --only vlm, "
-              f"--only deepseek, --only vit or --only lmtrain",
+              f"--only deepseek, --only vit, --only baselines or --only "
+              f"lmtrain",
               file=sys.stderr)
         return 2
     def phase(name):
@@ -3855,6 +4330,8 @@ def main() -> int:
     serve_rows, serve_counts = serve_phase(torch, dev)
     phase("vit")
     vit = vit_phase(torch, dev)
+    phase("baselines")
+    base = baselines_phase(torch, dev)
     phase("lmtrain")
     lmtrain = lmtrain_phase(torch, dev)
     # granite before xlstm: after the xlstm phase's profiled prefill
@@ -3881,7 +4358,10 @@ def main() -> int:
     for name, at_d in vit.pop("at_d").items():
         rows[name]["at_vit_round_d"] = dict(
             at_d, vit_launches=vit["launches"][name],
-            lmtrain_launches=lmtrain["launches"][name])
+            lmtrain_launches=lmtrain["launches"][name],
+            baselines_launches=base["launches"][name])
+    for name, at_d in base.pop("at_d").items():
+        rows[name]["at_baselines_round_d"] = at_d
     for name, at_d in granite.pop("at_d").items():
         rows[name]["at_granite_round_d"] = at_d
     for name, at_d in whisper.pop("at_d").items():

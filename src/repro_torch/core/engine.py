@@ -42,6 +42,16 @@ an fp32 m̂.  On bf16-representable unified values and the same mask
 bits it gives the packed round's outputs bit for bit (the packed bf16
 downlink being the rounding of the fp32 one).
 
+Entropy-coded layer (host edge only)
+------------------------------------
+Over the packed words sits the invertible Golomb-Rice coder
+(:mod:`repro_torch.fed.compression`, streams byte-identical to the JAX
+package's).  It never enters the device round: :func:`pack_uploads`
+decodes coded (uint8) uploads into slot words in one batched call, and
+``RoundEngine.downlinks(code_masks=True)`` encodes every client's
+downlink rows in one batched call and splits the stream back by the
+records' sizes.
+
 The engine never sees a model, only d.
 """
 
@@ -160,13 +170,29 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     vectors rounded to bf16 here — the uplink quantisation, applied once
     at the wire.  ``packed=False`` (the bool/fp32 A/B layout): fp32
     unified vectors and (n, k_max, d) bool masks; packed uploads are
-    unpacked here."""
+    unpacked here.  Coded (uint8 stream) uploads are decoded here, on
+    the host, in ONE batched ``decode_mask_rows`` call over every coded
+    client's concatenated stream (records self-delimit); the round
+    never sees the coded layer."""
     if not uploads:
         raise ValueError("pack_uploads: empty round (no uploads)")
     dev = resolve_device(device)
     n = len(uploads)
     d = int(uploads[0].unified.shape[0])
-    k_max = k_max or next_pow2(max(len(u.task_ids) for u in uploads))
+    ks = [len(u.task_ids) for u in uploads]
+    k_max = k_max or next_pow2(max(ks))
+    masks = [u.masks for u in uploads]
+    coded = [i for i, m in enumerate(masks) if m.dtype == torch.uint8]
+    if coded:
+        from repro_torch.fed.compression import decode_mask_rows
+        rows = decode_mask_rows(
+            np.concatenate([masks[i].cpu().numpy() for i in coded]), d,
+            sum(ks[i] for i in coded))
+        words = bitpack.words_from_numpy(rows).to(dev)
+        off = 0
+        for i in coded:
+            masks[i] = words[off:off + ks[i]]
+            off += ks[i]
     if packed:
         unified = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
         slot_masks = torch.zeros((n, k_max, bitpack.packed_width(d)),
@@ -179,13 +205,14 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     slot_tasks = np.full((n, k_max), n_tasks, np.int32)
     slot_valid = np.zeros((n, k_max), bool)
     for i, up in enumerate(uploads):
-        k = len(up.task_ids)
+        k = ks[i]
         unified[i] = up.unified.to(dev, unified.dtype)
-        m = up.masks.to(dev)
+        m = masks[i].to(dev)
+        is_words = m.dtype == torch.int32
         if packed:
-            slot_masks[i, :k] = m if up.packed else bitpack.pack_bits(m)
+            slot_masks[i, :k] = m if is_words else bitpack.pack_bits(m)
         else:
-            slot_masks[i, :k] = bitpack.unpack_bits(m, d) if up.packed else m
+            slot_masks[i, :k] = bitpack.unpack_bits(m, d) if is_words else m
         slot_lams[i, :k] = up.lams.detach().float().cpu().numpy()
         slot_sizes[i, :k] = up.data_sizes
         slot_tasks[i, :k] = up.task_ids
@@ -218,13 +245,51 @@ def pack_from_slots(client_ids: List[int], task_ids: List[List[int]],
 
 
 def _assemble_downlinks(client_ids: List[int], task_ids: List[List[int]],
-                        down_unified: torch.Tensor, down_masks: torch.Tensor,
-                        down_lams: torch.Tensor) -> Dict[int, ClientDownlink]:
+                        d: int, down_unified: torch.Tensor,
+                        down_masks: torch.Tensor, down_lams: torch.Tensor,
+                        *, code_masks: bool = False
+                        ) -> Dict[int, ClientDownlink]:
     """Slice the batched downlink tensors back to ragged per-client
-    ClientDownlinks (views; mask rows stay in the round's layout)."""
-    return {cid: ClientDownlink(down_unified[i], down_masks[i, :len(ts)],
-                                down_lams[i, :len(ts)])
-            for i, (cid, ts) in enumerate(zip(client_ids, task_ids))}
+    ClientDownlinks (views; mask rows stay in the round's layout).  With
+    ``code_masks`` the mask rows of ALL the clients are entropy-coded in
+    one batched call on the host (bool rows are packed first) and split
+    back by the per-row record sizes: records self-delimit, so each
+    client's slice is byte-identical to encoding that client alone."""
+    ks = [len(t) for t in task_ids]
+    if code_masks:
+        from repro_torch.fed.compression import encode_mask_rows_with_sizes
+        words = (down_masks if down_masks.dtype == torch.int32
+                 else bitpack.pack_bits(down_masks))
+        rows = split_streams(*encode_mask_rows_with_sizes(
+            valid_rows(bitpack.words_to_numpy(words), ks), d), ks)
+    else:
+        rows = [down_masks[i, :k] for i, k in enumerate(ks)]
+    return {cid: ClientDownlink(down_unified[i], rows[i],
+                                down_lams[i, :ks[i]])
+            for i, cid in enumerate(client_ids)}
+
+
+def valid_rows(words: np.ndarray, ks: Sequence[int]) -> np.ndarray:
+    """The first ``ks[i]`` slot rows of each client ``i`` of a (n,
+    k_max, w) word stack, in client-then-slot order: the rows a round's
+    coded wire carries."""
+    return words[np.repeat(np.arange(len(ks)), ks),
+                 np.concatenate([np.arange(k, dtype=np.int64)
+                                 for k in ks])]
+
+
+def split_streams(stream: np.ndarray, sizes: np.ndarray,
+                  ks: Sequence[int]) -> List[torch.Tensor]:
+    """Cut one batched coded stream back into per-client uint8 streams
+    (host tensors) by the per-row record ``sizes``, ``ks[i]`` rows
+    each."""
+    ends = np.cumsum(sizes)
+    out, b0, r0 = [], 0, 0
+    for k in ks:
+        b1 = int(ends[r0 + k - 1]) if k else b0
+        out.append(torch.from_numpy(stream[b0:b1]))
+        b0, r0 = b1, r0 + k
+    return out
 
 
 class RoundEngine:
@@ -255,22 +320,27 @@ class RoundEngine:
         return EngineOutput(tv, tau, sim, du, dm, dl, rho=cfg.rho,
                             m_hats_dense=m_hats)
 
-    def downlinks(self, packed: PackedRound,
-                  out: EngineOutput) -> Dict[int, ClientDownlink]:
-        """Per-client downlinks of a finished round."""
+    def downlinks(self, packed: PackedRound, out: EngineOutput, *,
+                  code_masks: bool = False) -> Dict[int, ClientDownlink]:
+        """Per-client downlinks of a finished round; ``code_masks``
+        entropy-codes every client's mask rows in one batched call on
+        the host (clients decode on use, ``ClientDownlink.mask_row``)."""
         return _assemble_downlinks(packed.client_ids, packed.task_ids,
-                                   out.down_unified, out.down_masks,
-                                   out.down_lams)
+                                   packed.d, out.down_unified,
+                                   out.down_masks, out.down_lams,
+                                   code_masks=code_masks)
 
     def round(self, uploads: Sequence[ClientUpload], *,
-              mode: Optional[str] = None, packed: bool = True
+              mode: Optional[str] = None, packed: bool = True,
+              code_masks: bool = False
               ) -> Tuple[Dict[int, ClientDownlink], EngineOutput]:
         """Pack → run → per-client downlinks; ``packed=False`` runs the
-        bool/fp32 A/B layout."""
+        bool/fp32 A/B layout; ``code_masks`` emits coded downlink masks
+        (coded uploads are decoded by ``pack_uploads`` either way)."""
         batch = pack_uploads(uploads, self.cfg.n_tasks, packed=packed,
                              device=self.device)
         out = self.run_packed(batch, mode=mode)
-        return self.downlinks(batch, out), out
+        return self.downlinks(batch, out, code_masks=code_masks), out
 
 
 def batched_client_unify(task_vectors: torch.Tensor, valid: torch.Tensor, *,

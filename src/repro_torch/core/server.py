@@ -46,15 +46,20 @@ class MaTUServer:
     def device(self) -> torch.device:
         return self.engine.device
 
-    def round(self, uploads: List[ClientUpload]) -> Dict[int, ClientDownlink]:
-        """One server step over ragged uploads."""
-        downs, out = self.engine.round(uploads)
+    def round(self, uploads: List[ClientUpload], *,
+              code_masks: bool = False) -> Dict[int, ClientDownlink]:
+        """One server step over ragged uploads; ``code_masks`` emits
+        entropy-coded downlink masks (coded uploads are decoded at pack
+        time either way)."""
+        downs, out = self.engine.round(uploads, code_masks=code_masks)
         self._record(out)
         return downs
 
-    def round_packed(self, packed: PackedRound) -> Dict[int, ClientDownlink]:
+    def round_packed(self, packed: PackedRound, *,
+                     code_masks: bool = False) -> Dict[int, ClientDownlink]:
         """Server step over an already-packed batch."""
-        return self.finish_round(packed, self.start_round(packed))
+        return self.finish_round(packed, self.start_round(packed),
+                                 code_masks=code_masks)
 
     def start_round(self, packed: PackedRound) -> EngineOutput:
         """Run the round (kernel launches are asynchronous on the card);
@@ -63,10 +68,11 @@ class MaTUServer:
         self._record(out)
         return out
 
-    def finish_round(self, packed: PackedRound,
-                     out: EngineOutput) -> Dict[int, ClientDownlink]:
-        """Per-client downlinks of a dispatched round."""
-        return self.engine.downlinks(packed, out)
+    def finish_round(self, packed: PackedRound, out: EngineOutput, *,
+                     code_masks: bool = False) -> Dict[int, ClientDownlink]:
+        """Per-client downlinks of a dispatched round (one batched
+        Golomb-Rice encode on the host when ``code_masks``)."""
+        return self.engine.downlinks(packed, out, code_masks=code_masks)
 
     def _record(self, out: EngineOutput) -> None:
         self.last_similarity = out.similarity
@@ -81,17 +87,22 @@ class MaTUServer:
         :class:`repro_torch.serve.store.ModulatorStore` — row ``t`` of the
         modulators is task id ``t``.  ``packed`` ships the wire layout
         (bf16 unified + int32 mask words), else fp32 unified + bool
-        masks.  ``fingerprint`` stamps the layout manifest the task
-        vectors were flattened through, so the store can verify the
-        handoff.  ``code_masks`` (the entropy-coded wire) raises: the
-        coded wire is not ported yet."""
-        if code_masks:
-            raise NotImplementedError("the entropy-coded mask wire is not "
-                                      "ported yet (ROADMAP §1)")
+        masks; ``code_masks`` ships bf16 unified + the rows as one
+        Golomb-Rice stream (a host uint8 tensor).  ``fingerprint`` stamps
+        the layout manifest the task vectors were flattened through, so
+        the store can verify the handoff."""
         if self.last_task_vectors is None:
             raise ValueError("serving_downlink needs a completed round "
                              "(no task vectors recorded yet)")
         unified, masks, lams = unify_with_modulators(self.last_task_vectors)
+        if code_masks:
+            from repro_torch.fed.compression import encode_mask_rows
+            stream = encode_mask_rows(
+                bitpack.words_to_numpy(bitpack.pack_bits(masks)),
+                int(unified.shape[0]))
+            return ClientDownlink(unified.to(torch.bfloat16),
+                                  torch.from_numpy(stream), lams,
+                                  fingerprint=fingerprint)
         if packed:
             return ClientDownlink(unified.to(torch.bfloat16),
                                   bitpack.pack_bits(masks), lams,

@@ -49,6 +49,7 @@ class FedConfig:
     batch_size: int = 32
     local_data: int = 256            # samples per (client, task)
     lr: float = 5e-3
+    prox_mu: float = 0.1             # FedProx's μ (strategies with needs_prox)
     eval_every: int = 5
     seed: int = 0
 
@@ -145,13 +146,16 @@ class FedSimulator:
             strategy.use_layouts({t: b.fingerprint
                                   for t, b in self._task_backbone.items()})
 
-        # one trainer per distinct backbone object
+        # one trainer per distinct backbone object, with the strategy's
+        # proximal term (FedProx) or linearised features (NTK-FedAvg)
         self._trainers: Dict[int, object] = {}
         for bb in self.backbones.values():
             if id(bb) not in self._trainers:
                 self._trainers[id(bb)] = make_local_trainer(
                     bb, steps=cfg.local_steps, batch_size=cfg.batch_size,
-                    lr=cfg.lr)
+                    lr=cfg.lr,
+                    prox_mu=cfg.prox_mu if strategy.needs_prox else 0.0,
+                    linearize=strategy.needs_linearize)
 
         # pre-sampled local datasets (fixed size per (client, task))
         self.local_data: Dict[tuple, tuple] = {}

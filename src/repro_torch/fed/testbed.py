@@ -18,9 +18,10 @@ to the round's common d, a multiple of ``D_BOUNDARY``.
 
 Every backbone is an ``nn.Module`` whose frozen weights are buffers, and
 exposes ``d``, ``space``, ``fingerprint``, ``feat_out``,
-``split_point``, ``features(tv, x)`` and ``features_tree(delta, x)``.
-The JAX package's ``lin_features`` (its ``jax.jvp`` linearisation,
-which only the NTK-FedAvg baseline uses) is not ported.
+``split_point``, ``features(tv, x)``, ``features_tree(delta, x)`` and
+``lin_features(tv, x)``: the features of the model linearised at the
+pretrained point, f(0) + J(0)·τ (``torch.func.jvp``; the NTK-FedAvg
+baseline trains through it).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from torch import nn
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import (TaskVectorSpace, tree_add,
-                                     tree_leaves_with_path)
+                                     tree_leaves_with_path, tree_map)
 from repro_torch.configs.base import (ZOO_FAMILIES, check_lora_targets,
                                       load_arch, lora_targets_for)
 from repro_torch.models.convert import tensor_from_numpy, tree_from_numpy
@@ -47,6 +48,20 @@ D_BOUNDARY = 256
 def round_up_d(d: int, boundary: int = D_BOUNDARY) -> int:
     """Round a task-vector dimension up to the wire word boundary."""
     return -(-int(d) // boundary) * boundary
+
+
+def linearized(features):
+    """``features(p, x)`` linearised at the pretrained point p = 0:
+    ``(p, x) -> f(0, x) + J(0, x)·p``, with ``p`` a flat task vector or
+    a model-space delta tree.  One ``torch.func.jvp`` (forward mode) at
+    a zero primal with tangent ``p``; the result stays differentiable
+    in ``p`` (reverse over forward), which is how the local trainer
+    takes its gradient."""
+    def lin(p, x):
+        zero = tree_map(torch.zeros_like, p)
+        f0, jvp_out = torch.func.jvp(lambda q: features(q, x), (zero,), (p,))
+        return f0 + jvp_out
+    return lin
 
 
 class MLPBackbone(nn.Module):
@@ -109,6 +124,10 @@ class MLPBackbone(nn.Module):
 
     def features(self, tv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.features_tree(self.space.unflatten(tv), x)
+
+    def lin_features(self, tv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """f(0) + J(0)·τ: the features at τ = 0 plus their jvp along τ."""
+        return linearized(self.features)(tv, x)
 
 
 def _generator(device: torch.device, *ids: int) -> torch.Generator:
@@ -281,6 +300,10 @@ class ArchBackbone(nn.Module):
 
     def features(self, tv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return self.features_tree(self.space.unflatten(tv), x)
+
+    def lin_features(self, tv: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """f(0) + J(0)·τ: the features at τ = 0 plus their jvp along τ."""
+        return linearized(self.features)(tv, x)
 
 
 class ViTBackbone(ArchBackbone):

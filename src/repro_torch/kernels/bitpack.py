@@ -114,6 +114,18 @@ def unpack_bits_np(words: np.ndarray, d: int) -> np.ndarray:
     return bits[..., :d].astype(bool)
 
 
+def scatter_bits_np(positions: np.ndarray, n_bytes: int) -> np.ndarray:
+    """Set the given bit positions (LSB-first within each byte) in a
+    zeroed ``n_bytes``-byte buffer: the batched Golomb-Rice encoder's
+    bit-scatter (:mod:`repro_torch.fed.compression`).  One fancy-index
+    write in bit space and one ``np.packbits``: duplicate byte indices
+    are fine because the OR happens where positions are unique."""
+    bit_space = np.zeros(8 * n_bytes, np.uint8)
+    if positions.size:
+        bit_space[positions] = 1
+    return np.packbits(bit_space, bitorder="little")
+
+
 def _from_u32_values(v: torch.Tensor) -> torch.Tensor:
     """int64 in [0, 2**32) -> int32 bit patterns."""
     return torch.where(v >= 1 << 31, v - _U32, v).to(torch.int32)

@@ -196,10 +196,11 @@ class MLSTMBlock(Module):
         h, (C, n, m) = mlstm_chunkwise(
             heads(q), heads(k), heads(v), heads(i_pre.float()),
             heads(f_pre.float()), (st["C"], st["n"], st["m"]),
-            chunk=self.chunk, C_out=st["C"], mode=mode)
+            chunk=self.chunk, C_out=None if state is None else st["C"],
+            mode=mode)
         y = self._finish(params, h, z, lora, mode)
-        _write(st, n=n, m=m, conv=conv_state)
-        return x + y.to(x.dtype), st
+        return x + y.to(x.dtype), _carry(state, C=C, n=n, m=m,
+                                         conv=conv_state)
 
     def decode_step(self, params, x, cache, pos=None, *, lora=None,
                     mode: Optional[str] = None):
@@ -219,6 +220,18 @@ def _write(cache, **new) -> None:
     """Copy each new state tensor into the cache leaf of its name."""
     for key, val in new.items():
         cache[key].copy_(val)
+
+
+def _carry(state, **new):
+    """A forward's final state: written in place into a given ``state``
+    (the cache; a ``C`` already written there is skipped), else the new
+    tensors themselves.  A forward given no state writes nothing in
+    place, so autograd (reverse, forward and reverse over forward) runs
+    through its initial state."""
+    if state is None:
+        return new
+    _write(state, **{k: v for k, v in new.items() if v is not state.get(k)})
+    return state
 
 
 class SLSTMBlock(Module):
@@ -321,9 +334,9 @@ class SLSTMBlock(Module):
         h, (c, n, hh, m) = self._cell(params, x, lora,
                                       (st["c"], st["n"], st["h"], st["m"]),
                                       mode)
-        _write(st, c=c, n=n, h=hh, m=m)
         x = x + h
-        return x + self._ffn(params, x, lora, mode), st
+        return (x + self._ffn(params, x, lora, mode),
+                _carry(state, c=c, n=n, h=hh, m=m))
 
     def decode_step(self, params, x, cache, pos=None, *, lora=None,
                     mode: Optional[str] = None):
@@ -447,8 +460,7 @@ class Mamba(Module):
         y = y * _silu(z)
         out = self.out_proj(params["out_proj"], y, lora.get("out_proj"),
                             mode=mode)
-        _write(st, ssm=h, conv=conv_state)
-        return out, st
+        return out, _carry(state, ssm=h, conv=conv_state)
 
     prefill = forward
 

@@ -8,8 +8,8 @@ the device:
 
 * the unified vector ONCE, in its wire dtype (bf16 off a packed
   downlink), upcast to fp32 only where a delta is built;
-* per task id a packed int32 mask row (bool downlink rows are packed on
-  ingest) and one fp32 λ;
+* per task id a packed int32 mask row (bool downlink rows are packed
+  and a coded stream is decoded on ingest) and one fp32 λ;
 * materialised adapters in a bounded LRU, rebuilt from the packed state
   on a miss.
 
@@ -88,8 +88,12 @@ class ModulatorStore:
         ids = list(range(k)) if task_ids is None else [int(t) for t in task_ids]
         if len(ids) != k:
             raise ValueError(f"{len(ids)} task ids for {k} modulator rows")
-        masks = downlink.masks.to(self.device)
-        words = masks if downlink.packed else bitpack.pack_bits(masks)
+        if downlink.coded:     # the decoded words, cached on the downlink
+            words = downlink.mask_row(slice(0, k)).to(self.device)
+        elif downlink.packed:
+            words = downlink.masks.to(self.device)
+        else:
+            words = bitpack.pack_bits(downlink.masks.to(self.device))
         lams = downlink.lams.to(self.device, torch.float32)
         self.unified = downlink.unified.to(self.device)
         self._tau_tree = None

@@ -1792,3 +1792,98 @@ def test_cuda_vit_reduced_trained_round_bitwise(cuda):
     assert torch.isfinite(batch.task_vectors).all()
     out = trained_round_check(torch, cuda, strat.server, batch)
     assert set(out) == set(ops.PACKED_ROUND_KERNELS)
+
+
+# -- the paper's baselines and the coded wire -------------------------------------
+
+BASELINE_NAMES = ["fedavg", "fedprox", "ntk-fedavg", "ties", "fedper",
+                  "mat-fl"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BASELINE_NAMES)
+def test_cuda_baseline_aggregate_matches_cpu(cuda, name):
+    """One baseline merge of 8 seeded clients × 2 of 8 tasks at d =
+    50,021 on the card against the CPU
+    (``chip_smoke.baseline_aggregate_check``: merges within rtol 1e-5 /
+    atol 1e-7, TIES's kept set bitwise and its signs but near 0,
+    MaT-FL's groups, FedPer's personal slices bitwise)."""
+    from types import SimpleNamespace
+    from chip_smoke import BASE_TASKS, baseline_aggregate_check
+    from repro_torch.fed.strategies import RoundBatch, Upload
+    rng = np.random.default_rng(3)
+    d = 50_021
+    ups = []
+    for c in range(8):
+        tasks = sorted(rng.choice(BASE_TASKS, 2, replace=False).tolist())
+        tv = (0.01 * rng.standard_normal((2, d))).astype(np.float32)
+        ups.append(Upload(c, tasks, torch.from_numpy(tv).to(cuda),
+                          rng.integers(10, 100, 2).tolist()))
+    bb = SimpleNamespace(d=d, split_point=20_000)
+    line = baseline_aggregate_check(torch, cuda, name, bb,
+                                    RoundBatch.from_uploads(ups, BASE_TASKS))
+    assert "err" in line
+
+
+@pytest.mark.cuda
+def test_cuda_coded_round_equals_raw(cuda):
+    """``MaTUStrategy(code_masks=True)`` on the card for two rounds (the
+    second from the coded downlinks) against the raw wire: task
+    vectors, similarity, downlink λ and words bitwise, every uplink
+    decodes to the raw words, coded bits at most raw plus a header a row
+    (``chip_smoke.coded_wire_check``); kernels 1–3 launched."""
+    from chip_smoke import coded_wire_check, wire_snapshot
+    from repro_torch.fed.strategies import MaTUStrategy, RoundBatch, Upload
+    rng = np.random.default_rng(4)
+    n_tasks, d = 6, 70_001
+    clients = [(c, sorted(rng.choice(n_tasks, 2, replace=False).tolist()))
+               for c in range(8)]
+    strats = {cm: MaTUStrategy(n_tasks, d, code_masks=cm, device=cuda)
+              for cm in (False, True)}
+    snaps = {False: [], True: []}
+    ops.reset_launch_counts()
+    for _ in range(2):
+        ups = [Upload(c, ts, torch.stack([strats[False].task_init(c, t)
+                                          for t in ts])
+                      + torch.from_numpy(rng.standard_normal((2, d)).astype(
+                          np.float32)).to(cuda), [50, 70])
+               for c, ts in clients]
+        for cm, s in strats.items():
+            s.aggregate_batch(RoundBatch.from_uploads(ups, n_tasks))
+            snaps[cm].append(wire_snapshot(torch, s))
+    counts = ops.launch_counts()
+    assert all(counts[k] >= 4 for k in ops.PACKED_ROUND_KERNELS), counts
+    shares = coded_wire_check(torch, d, snaps[False], snaps[True])
+    assert all(0.0 < v <= 1.0 + 1e-3 for v in shares.values()), shares
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prox_mu,linearize", [(0.1, False), (0.0, True)])
+def test_cuda_ntk_and_fedprox_steps_match_cpu(cuda, prox_mu, linearize):
+    """One FedProx and one NTK-FedAvg local step of the reduced ViT on the
+    card against the CPU (``chip_smoke.vit_step_check``: loss within
+    rtol 1e-5, each gradient leaf within rel L2 1e-4); the linearised
+    features at τ = 0 equal the features bitwise."""
+    from chip_smoke import SEED, vit_step_check
+    from repro_torch.fed.testbed import ViTBackbone
+    bb = ViTBackbone(seed=SEED, device=cuda)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((16, bb.cfg.patch_dim), generator=g).to(cuda)
+    y = torch.randint(0, 6, (16,), generator=g).to(cuda)
+    zero = torch.zeros(bb.d, device=cuda)
+    assert torch.equal(bb.lin_features(zero, x), bb.features(zero, x))
+    _, rels = vit_step_check(torch, cuda, bb, x, y, 6, SEED + 3,
+                             prox_mu=prox_mu, linearize=linearize,
+                             label="ntk" if linearize else "fedprox")
+    assert len(rels) == len(bb.space.leaves) + 1
+
+
+@pytest.mark.cuda
+def test_cuda_baselines_phase_reduced(cuda):
+    """``chip_smoke.baselines_phase`` on the reduced ViT: its eight runs
+    and every check of the phase (coded ≡ raw, the store handoff, each
+    baseline card vs CPU, kernels 1–3 bitwise on trained uploads)."""
+    from chip_smoke import baselines_phase
+    out = baselines_phase(torch, cuda, reduced=True)
+    assert len(out["runs"]) == 8
+    assert all(out["launches"][k] >= 4 for k in ops.PACKED_ROUND_KERNELS)

@@ -348,8 +348,16 @@ def test_serving_downlink_matches_jax():
     assert dense.fingerprint is None and dense.masks.dtype == torch.bool
     assert torch.equal(bitpack.pack_bits(dense.masks),
                        port.serving_downlink().masks)
-    with pytest.raises(NotImplementedError, match="coded"):
-        port.serving_downlink(code_masks=True)
+    # the coded handoff: bf16 unified and the Golomb-Rice stream, byte
+    # for byte the JAX server's on the same task vectors
+    coded = port.serving_downlink(code_masks=True, fingerprint="f")
+    jcoded = r["jserver"].serving_downlink(code_masks=True)
+    assert coded.coded and coded.fingerprint == "f"
+    assert coded.masks.numpy().tobytes() == np.asarray(jcoded.masks).tobytes()
+    assert torch.equal(coded.unified.view(torch.int16),
+                       port.serving_downlink().unified.view(torch.int16))
+    assert torch.equal(coded.mask_row(slice(0, N_TASKS)),
+                       port.serving_downlink().masks)
     with pytest.raises(ValueError, match="completed round"):
         MaTUServer(MaTUServerConfig(n_tasks=2),
                    device="cpu").serving_downlink()
