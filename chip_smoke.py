@@ -124,7 +124,35 @@ Phases (any failure raises and the script exits nonzero):
              first), ``unify_with_modulators`` → ``ClientUpload`` → one
              ``MaTUServer.round`` (kernels 1–3 launched); step wall,
              tokens/s, round wall and peak memory.
-10. granite — multi-tenant serving of granite-moe-3b-a800m at full width
+10. async  — async and pipelined MaTU rounds, on the baselines phase's
+             setting (ViT-B/32 at full width, 8 clients × 2 of 8 tasks)
+             and at the full-width round: (a) 2 rounds each of sync
+             ``MaTUStrategy``, the deferred drain (``FedConfig.pipeline``)
+             and ``AsyncMaTUStrategy`` under ``ClientSystems.ideal``,
+             identical bit for bit (accuracies, bits a round, task
+             vectors, every last upload and downlink), kernels 1–3
+             launched 2 / 1 / 1 a round; (b) ``AsyncMaTUStrategy
+             (code_masks=True)`` for 5 ticks of a fault trace (seed 9:
+             dropouts, crashes, stragglers, one client 2 rounds late
+             against a staleness cap of 1, corrupted coded streams, a
+             tick every client drops): the History's fault counters equal
+             the trace's replay every tick, the skipped tick 0 bits,
+             launches exact a tick (none skipped, kernel 1 once when all
+             are quarantined); the first tick that keeps a stale upload
+             re-run card vs CPU (the baselines' merge bar; quarantine
+             set, ages, streams exact) and its weighted round through
+             kernels 1–3 against the plain versions bitwise, weights of
+             ones bitwise none; (c) ``RoundEngine.round_stream`` over 4
+             replayed full-width rounds (host uploads, pinned stages),
+             pipelined against sequential bit for bit, packed raw,
+             packed coded and bool (kernels 4–6); the coded uplink with
+             and without the deferred drain byte for byte, and whether
+             its encode starts with the round in flight.  Walls, mean
+             phases, each streamed round's phases, the fault counters,
+             accuracies, coded/raw shares and the implicit host syncs
+             while a round is in flight (``set_sync_debug_mode("warn")``)
+             are printed.
+11. granite — multi-tenant serving of granite-moe-3b-a800m at full width
              (32 layers, d_model 1536, 24 heads (kv 8), 40 experts of
              d_ff 512, top-8, vocab 49,155; random weights from a seed):
              kernel 9 at its factor shapes (1536, 16) and (16, 1536), S =
@@ -141,7 +169,7 @@ Phases (any failure raises and the script exits nonzero):
              plain versions, and fp32, where fused and dense-routed decode
              must agree token for token unless a router near-tie flip
              (printed with its layer and margin) comes first.
-11. whisper — multi-tenant serving of whisper-large-v3 at full width (32
+12. whisper — multi-tenant serving of whisper-large-v3 at full width (32
              encoder + 32 decoder layers, d_model 1280, 20 heads, d_ff
              5120, vocab 51,866, 1,500 frames; random weights and frame
              embeddings from a seed): kernel 9 at its factor shapes
@@ -159,7 +187,7 @@ Phases (any failure raises and the script exits nonzero):
              and decode windows, peak memory, the caches' bytes, bf16
              prefill logits against the plain versions, and fp32, where
              fused and dense-routed decode must agree token for token.
-12. hymba  — multi-tenant serving of hymba-1.5b at full width (32
+13. hymba  — multi-tenant serving of hymba-1.5b at full width (32
              layers of attention (25 heads, kv 5, a 2,048-token sliding
              window) beside a Mamba branch (d_inner 3,200, d_state 16),
              SwiGLU d_ff 5,504, vocab 32,001; random weights from a
@@ -179,7 +207,7 @@ Phases (any failure raises and the script exits nonzero):
              the prefill and at a decode step past the wrap, and fp32 on
              the prompts' first 128 tokens, where fused and dense-routed
              decode must agree token for token.
-13. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
+14. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
              layers, d_model 3,584, 28 heads (kv 4), SwiGLU d_ff 18,944,
              vocab 152,064, M-RoPE sections (16, 24, 24); random weights
              and 1,024 vision embeddings a request from a seed, the
@@ -200,7 +228,7 @@ Phases (any failure raises and the script exits nonzero):
              (they must differ: M-RoPE live), bf16 logits against the
              plain versions, and fp32, where fused and dense-routed
              decode must agree token for token.
-14. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
+15. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
              cut in depth to 2 of its 60 layers (d_model 5,120, 128 heads
              of Multi-head Latent Attention: q_lora 1,536, kv_lora 512,
              nope 128 + rope 64, v 128; 160 routed experts of d_ff 1,536,
@@ -224,7 +252,7 @@ Phases (any failure raises and the script exits nonzero):
              decode must agree token for token unless a router near-tie
              flip comes first, and layer 0's absorbed decode must agree
              with the naive form within rel L2 1e-4.
-15. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+16. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -243,7 +271,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-16. summary — the host µs a call of every kernel wrapper and of the
+17. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -267,12 +295,14 @@ mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
 whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
-baselines`` and ``--only lmtrain`` the vit, baselines or lmtrain phase.  None of them prints the summary or
+baselines``, ``--only lmtrain`` and ``--only async`` the vit, baselines,
+lmtrain or async phase.  None of them prints the summary or
 the "ok" line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -388,11 +418,11 @@ def setup(torch):
     return card
 
 
-def make_round_inputs(torch, dev):
+def make_round_inputs(torch, dev, seed: int = SEED):
     """Full-width round inputs from a seeded generator on the card:
     (task_vectors (N, K, D) fp32 zero-padded, valid, slot_tasks,
     slot_sizes, ks)."""
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(seed)
     ks = 3 + (torch.rand(N, generator=g, device=dev) < 0.5).long()
     valid = torch.arange(K_MAX, device=dev)[None, :] < ks[:, None]
     tv = torch.randn((N, K_MAX, D), generator=g, device=dev) \
@@ -1802,7 +1832,25 @@ def coder_walls(torch, d, snap, reps: int = 3):
     return out
 
 
-def baselines_phase(torch, dev, reduced: bool = False):
+def base_setting(torch, dev, reduced: bool = False):
+    """Table 2's setting on ViT-B/32 (:data:`BASE_TASKS` tasks in
+    :data:`BASE_GROUPS` groups, :data:`BASE_CLIENTS` clients of
+    :data:`BASE_TASKS_PER_CLIENT` tasks): the backbone, constellation and
+    split, built once for the baselines and async phases.  Returns
+    (backbone, constellation, split, {what: seconds})."""
+    from repro_torch.fed.testbed import ViTBackbone
+    bb = ViTBackbone(seed=SEED, reduced=reduced, device=dev)
+    if not reduced and (bb.d, bb.fingerprint) != (VIT_D, VIT_FINGERPRINT):
+        raise AssertionError(f"vit LoRA d {bb.d} / layout {bb.fingerprint} "
+                             f"!= {VIT_D} / {VIT_FINGERPRINT}")
+    con, split, data_s = vit_data(
+        torch, dev, bb.cfg.patch_dim, n_tasks=BASE_TASKS,
+        n_groups=BASE_GROUPS, n_clients=BASE_CLIENTS,
+        tasks_per_client=BASE_TASKS_PER_CLIENT, conflict_pairs=BASE_CONFLICT)
+    return bb, con, split, data_s
+
+
+def baselines_phase(torch, dev, reduced: bool = False, setting=None):
     """The paper's baselines and MaTU's coded wire in Table 2's setting on
     ViT-B/32 at full width (8 clients × 2 tasks of 8, 2 rounds; the
     paper's 16 clients and 40 rounds cut for chip time): eight runs
@@ -1816,24 +1864,18 @@ def baselines_phase(torch, dev, reduced: bool = False):
     FedProx step card vs CPU; kernels 1–3 in every MaTU round and
     bitwise on round 1's trained uploads; the coded run ≡ the raw run
     bitwise; the coded serving handoff's ingest ≡ the raw one's; each
-    baseline's round-1 merge card vs CPU.  Returns its numbers."""
+    baseline's round-1 merge card vs CPU.  ``setting`` is
+    :func:`base_setting`'s, built here when not given.  Returns its
+    numbers."""
     from repro_torch.common.tree import tree_leaves
     from repro_torch.data.synthetic import sample_task_batch
     from repro_torch.fed.simulator import FedConfig, FedSimulator
     from repro_torch.fed.strategies import STRATEGIES
-    from repro_torch.fed.testbed import ViTBackbone
     from repro_torch.kernels import ops
     from repro_torch.serve.store import ModulatorStore
 
     t_phase = time.perf_counter()
-    bb = ViTBackbone(seed=SEED, reduced=reduced, device=dev)
-    if not reduced and (bb.d, bb.fingerprint) != (VIT_D, VIT_FINGERPRINT):
-        raise AssertionError(f"vit LoRA d {bb.d} / layout {bb.fingerprint} "
-                             f"!= {VIT_D} / {VIT_FINGERPRINT}")
-    con, split, data_s = vit_data(
-        torch, dev, bb.cfg.patch_dim, n_tasks=BASE_TASKS,
-        n_groups=BASE_GROUPS, n_clients=BASE_CLIENTS,
-        tasks_per_client=BASE_TASKS_PER_CLIENT, conflict_pairs=BASE_CONFLICT)
+    bb, con, split, data_s = setting or base_setting(torch, dev, reduced)
     cfg = FedConfig(seed=SEED, **BASE_FED)
     slots = sum(len(t) for t in split.tasks)
     log(f"baselines set-up: ViT-B/32{' (reduced)' if reduced else ''} "
@@ -1971,6 +2013,590 @@ def baselines_phase(torch, dev, reduced: bool = False):
                                       prox_err[1].values())),
                 coded_share=shares, coder_ms=walls,
                 handoff_share=handoff_share, phase_s=phase_s)
+
+
+# -- async phase: async and pipelined MaTU rounds ----------------------------
+
+# the baselines phase's setting, evaluated every round so that each
+# round's accuracies and bits are kept
+ASYNC_FED = dict(BASE_FED, eval_every=1)
+# the fault run: its ticks, the staleness cap and the trace.  At this
+# seed, over 5 ticks (and over 4, the named cut) the trace drops,
+# crashes, straggles and corrupts, admits an uncorrupted upload of
+# staleness 1 (weight 0.5 into kernel 2), and skips a tick: every client
+# is forced to drop at ASYNC_SKIP_TICK and no late upload lands there.
+# Client ASYNC_SLOW_CLIENT's base delay of 2 rounds outruns the cap, so
+# its upload goes stale
+ASYNC_TICKS = 5
+ASYNC_MAX_STALENESS = 1
+ASYNC_SLOW_CLIENT, ASYNC_SKIP_TICK = 3, 2
+ASYNC_FAULTS = dict(dropout=0.25, straggler_frac=0.25, straggler_delay=1,
+                    crash_prob=0.1, crash_rounds=2, corrupt_prob=0.25, seed=9)
+# replayed rounds a configuration of the host pipeline streams
+ASYNC_STREAM_ROUNDS = 4
+
+
+def async_systems(n_clients: int):
+    """The fault run's ``ClientSystems``: :data:`ASYNC_FAULTS`, client
+    :data:`ASYNC_SLOW_CLIENT` 2 rounds late on every upload, every client
+    dropped at :data:`ASYNC_SKIP_TICK`."""
+    from repro_torch.fed.systems import ClientSystems, FaultModel
+    base = [0] * n_clients
+    base[ASYNC_SLOW_CLIENT] = 2
+    return ClientSystems(n_clients, FaultModel(**ASYNC_FAULTS), base_delay=base,
+                         forced_dropouts={(c, ASYNC_SKIP_TICK)
+                                          for c in range(n_clients)})
+
+
+def replay_trace(systems, rounds: int, max_staleness: int):
+    """What an event-clock run at participation 1 must record, from the
+    trace alone: per tick the fault counters (``quarantined`` = the
+    admitted uploads whose (client, dispatch round) draw ``corrupt``) and
+    the admitted (client, dispatch round, staleness)."""
+    from repro_torch.fed.systems import AdmissionQueue, blank_fault_counters
+    queue, ticks = AdmissionQueue(), []
+    for r in range(rounds):
+        c = blank_fault_counters()
+        avail = [k for k in range(systems.n_clients)
+                 if systems.available(k, r)]
+        c["crashed"] = systems.n_clients - len(avail)
+        c["sampled"] = len(avail)
+        for k in avail:
+            if systems.dropout(k, r):
+                c["dropped"] += 1
+                continue
+            delay = systems.delay(k, r)
+            c["stragglers"] += int(delay > 0)
+            queue.push(r + delay, r, k)
+        admitted = []
+        for item in queue.pop_ready(r):
+            s = r - item.dispatch
+            if s > max_staleness:
+                c["stale"] += 1
+            else:
+                admitted.append((item.payload, item.dispatch, s))
+        c["buffered"] = len(queue)
+        c["admitted"] = len(admitted)
+        c["skipped"] = int(not admitted)
+        c["quarantined"] = sum(int(systems.corrupt(k, q))
+                               for k, q, _ in admitted)
+        ticks.append((c, admitted))
+    return ticks
+
+
+def tick_trace(strat):
+    """Wrap ``strat``'s server step (``aggregate_admitted`` where it has
+    one, else ``aggregate_batch``) and ``skip_round``: per call its name,
+    arguments, result and the packed-round kernels' launches in it (no
+    synchronisation: launches are counted on the host).  Returns the
+    list it fills, one entry a round."""
+    from repro_torch.kernels import ops
+    calls = []
+    step = ("aggregate_admitted" if hasattr(strat, "aggregate_admitted")
+            else "aggregate_batch")
+    for name in (step, "skip_round"):
+        def wrapped(*args, fn=getattr(strat, name), name=name):
+            before = ops.launch_counts()
+            ret = fn(*args)
+            after = ops.launch_counts()
+            calls.append(dict(name=name, args=args, ret=ret, rose={
+                k: after[k] - before[k] for k in ops.PACKED_ROUND_KERNELS}))
+            return ret
+        setattr(strat, name, wrapped)
+    return calls
+
+
+class SyncProbe:
+    """The implicit host syncs made while a round is in flight (from the
+    entry of its dispatch to the entry of its drain), caught through
+    ``torch.cuda.set_sync_debug_mode("warn")`` and named by the line that
+    made them.  ``hook(dispatch_owner, dispatch, drain_owner, drain)``
+    wraps the two calls that open and close a round's window."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.in_flight = 0
+        self.seen = {}
+
+    def hook(self, start_obj, start, drain_obj, drain, pending=None):
+        fn_start, fn_drain = getattr(start_obj, start), getattr(drain_obj,
+                                                                drain)
+
+        def opened(*a, **k):
+            self.in_flight += 1
+            return fn_start(*a, **k)
+
+        def closed(*a, **k):
+            if pending is None or pending():
+                self.in_flight -= 1
+            return fn_drain(*a, **k)
+
+        setattr(start_obj, start, opened)
+        setattr(drain_obj, drain, closed)
+
+    def __enter__(self):
+        import warnings
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._caught
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._ctx.__exit__(*exc)
+
+    def _caught(self, message, category, filename, lineno, file=None,
+                line=None):
+        if "synchroniz" not in str(message):
+            return self._show(message, category, filename, lineno, file, line)
+        if self.in_flight > 0:
+            import linecache
+            where = (f"{os.path.relpath(filename, ROOT)}:{lineno} "
+                     f"`{linecache.getline(filename, lineno).strip()}`")
+            self.seen[where] = self.seen.get(where, 0) + 1
+
+
+def wire_state(torch, strat):
+    """A MaTU strategy's wire after its run, as exact bit tensors: every
+    client's last upload and every downlink (bf16 as int16 bits, words or
+    streams, λ)."""
+    bits = lambda x: (x.view(torch.int16) if x.dtype == torch.bfloat16  # noqa
+                      else x)
+    strat._drain()
+    return ({u.client_id: [bits(u.unified), u.masks, u.lams]
+             for u in strat._last_uploads},
+            {c: [bits(dl.unified), dl.masks, dl.lams]
+             for c, dl in strat.downlinks.items()})
+
+
+def same_wire(torch, label, a, b):
+    for way, x, y in (("upload", a[0], b[0]), ("downlink", a[1], b[1])):
+        if x.keys() != y.keys():
+            raise AssertionError(f"{label}: {way} clients {sorted(x)} vs "
+                                 f"{sorted(y)}")
+        for c in x:
+            for what, p, q in zip(("unified", "masks", "lambda"), x[c], y[c]):
+                if p.dtype != q.dtype or not torch.equal(p, q.to(p.device)):
+                    raise AssertionError(f"{label}: client {c}'s {way} "
+                                         f"{what} differ")
+
+
+def stream_rounds(torch, dev, n_rounds: int):
+    """``n_rounds`` replayed rounds at the full-width round's shapes, each
+    from its own seed: per client a host ``ClientUpload`` (bf16 unified,
+    word rows, λ, sizes) built by kernel 1 on the card, and the same
+    uploads with their word rows Golomb-Rice coded (one batched encode a
+    round)."""
+    from repro_torch.core.client import ClientUpload
+    from repro_torch.core.engine import (batched_client_unify, split_streams,
+                                         valid_rows)
+    from repro_torch.fed.compression import encode_mask_rows_with_sizes
+    from repro_torch.kernels import bitpack
+    raw, coded = [], []
+    for r in range(n_rounds):
+        tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev,
+                                                        seed=SEED + 20 + r)
+        uni, words, lams = (x.cpu() for x in batched_client_unify(
+            tv, valid, device=dev))
+        del tv
+        tasks, sizes = tasks.cpu(), sizes.cpu()
+        streams = split_streams(*encode_mask_rows_with_sizes(
+            valid_rows(bitpack.words_to_numpy(words), ks), uni.shape[1]), ks)
+        ups = [ClientUpload(i, tasks[i, :k].tolist(), uni[i], words[i, :k],
+                            lams[i, :k], sizes[i, :k].tolist())
+               for i, k in enumerate(ks)]
+        raw.append(ups)
+        coded.append([ClientUpload(u.client_id, u.task_ids, u.unified,
+                                   streams[i], u.lams, u.data_sizes)
+                      for i, u in enumerate(ups)])
+    return raw, coded
+
+
+def async_phase(torch, dev, reduced: bool = False, setting=None):
+    """Async and pipelined MaTU rounds on the card, on the baselines
+    phase's setting (:func:`base_setting`: ViT-B/32 at full width, 8
+    clients × 2 of 8 tasks) and at the full-width round:
+
+    (a) three runs of :data:`ASYNC_FED`: S = ``MaTUStrategy`` sync, P =
+        the deferred drain (``FedConfig.pipeline``), A =
+        ``AsyncMaTUStrategy`` under ``ClientSystems.ideal`` with the
+        deferred drain; they must agree bit for bit (accuracies, bits a
+        round, the task vectors, every last upload and downlink), A's
+        counters clean, kernels 1–3 launched 2 / 1 / 1 a round;
+    (b) ``AsyncMaTUStrategy(code_masks=True)`` under :func:`async_systems`
+        for :data:`ASYNC_TICKS` ticks: the History's counters equal
+        :func:`replay_trace`'s, the skipped tick 0 bits, launches exact a
+        tick; the first tick admitting a stale upload re-run card vs CPU
+        (vectors within the baselines' merge bar; quarantine set, ages,
+        streams exact), its weighted round through kernels 1–3 against
+        the plain versions bitwise and weights of ones bitwise none;
+    (c) ``RoundEngine.round_stream`` over :data:`ASYNC_STREAM_ROUNDS`
+        replayed full-width rounds (:func:`stream_rounds`), pipelined
+        against sequential bit for bit, packed raw, packed coded and
+        bool; and ``MaTUStrategy(code_masks=True)`` with and without the
+        deferred drain on one full-width round: its coded uplink
+        identical, and whether its encode starts with the round in
+        flight.
+
+    Reported, not gated: walls, ``History.mean_phase_us``, each streamed
+    round's phases, the fault run's counters, accuracies and coded/raw
+    shares, and the implicit host syncs while a round is in flight (P's
+    rounds and the coded stream's, :class:`SyncProbe`).  Returns its
+    numbers."""
+    import dataclasses
+    from repro_torch.core.engine import (EngineConfig, RoundEngine,
+                                         batched_client_unify)
+    from repro_torch.fed import compression
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.fed.strategies import (AsyncMaTUStrategy, MaTUStrategy,
+                                            RoundBatch, Upload)
+    from repro_torch.fed.systems import ClientSystems
+    from repro_torch.kernels import bitpack, ops
+
+    t_phase = time.perf_counter()
+    bb, con, split, _ = setting or base_setting(torch, dev, reduced)
+    n_clients = len(split.tasks)
+    per_round = {"fused_unify_packed": 2, "masked_agg_batched_packed": 1,
+                 "sign_sim_packed": 1}
+    ops.reset_launch_counts()
+
+    # (a) sync, the deferred drain and async under the ideal trace
+    runs, wires, syncs = {}, {}, {}
+    for label, cls, pipeline, systems in (
+            ("S", MaTUStrategy, False, None),
+            ("P", MaTUStrategy, True, None),
+            ("A", AsyncMaTUStrategy, True, ClientSystems.ideal(n_clients))):
+        strat = cls(BASE_TASKS, bb.d, device=dev)
+        sim = FedSimulator(FedConfig(seed=SEED, pipeline=pipeline,
+                                     **ASYNC_FED),
+                           con, split, bb, strat, systems=systems, device=dev)
+        calls = tick_trace(strat)
+        probe = SyncProbe(torch)
+        if label == "P":
+            probe.hook(strat.server, "start_round", strat, "_drain",
+                       pending=lambda s=strat: s._pending is not None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with probe if label == "P" else contextlib.nullcontext():
+            hist = sim.run()
+        wires[label] = wire_state(torch, strat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for r, call in enumerate(calls):
+            if call["rose"] != per_round:
+                raise AssertionError(f"async run {label} round {r + 1}: "
+                                     f"launches {call['rose']}")
+        if label == "A" and any(
+                row["sampled"] != row["admitted"] or row["dropped"]
+                or row["stale"] or row["quarantined"] or row["skipped"]
+                for row in hist.fault_counts):
+            raise AssertionError(f"async run A: counters {hist.fault_counts}")
+        runs[label] = dict(wall_s=wall, mean_acc=hist.mean_acc,
+                           task_acc=hist.task_acc,
+                           up_bits=hist.uplink_bits_per_round,
+                           down_bits=hist.downlink_bits_per_round,
+                           mean_phase_us=hist.mean_phase_us,
+                           phase_us=hist.phase_us,
+                           tv=strat.server.last_task_vectors)
+        if label == "P":
+            syncs["deferred drain"] = dict(probe.seen)
+        log(f"async run {label}: {len(calls)} rounds in {wall:.2f} s, mean "
+            f"acc {hist.mean_acc}, uplink {hist.uplink_bits_per_round} and "
+            f"downlink {hist.downlink_bits_per_round} bits a round, mean "
+            f"phases (us) " + ", ".join(
+                f"{k} {v:.1f}" for k, v in hist.mean_phase_us.items()))
+        del sim, strat, calls
+    for label in ("P", "A"):
+        a, s_ = runs[label], runs["S"]
+        for key in ("task_acc", "up_bits", "down_bits"):
+            if a[key] != s_[key]:
+                raise AssertionError(f"async run {label} vs S {key}: "
+                                     f"{a[key]} vs {s_[key]}")
+        check_equal(torch, f"async run {label} vs S task vectors", a["tv"],
+                    s_["tv"])
+        same_wire(torch, f"async run {label} vs S", wires[label], wires["S"])
+    for r in runs.values():
+        r.pop("tv")
+    del wires
+    log(f"async S = P = A bitwise ({ASYNC_FED['rounds']} rounds: "
+        f"accuracies, bits a round, task vectors, every last upload and "
+        f"downlink); implicit syncs while P's rounds were in flight: "
+        f"{syncs['deferred drain'] or 'none'}")
+
+    # (b) the fault trace
+    systems = async_systems(n_clients)
+    want = replay_trace(systems, ASYNC_TICKS, ASYNC_MAX_STALENESS)
+    tot = {k: sum(c[k] for c, _ in want) for k in want[0][0]}
+    fresh_stale = [r for r, (_, adm) in enumerate(want)
+                   if any(s == 1 and not systems.corrupt(k, q)
+                          for k, q, s in adm)]
+    if (min(tot[k] for k in ("dropped", "crashed", "stragglers", "stale",
+                             "quarantined", "skipped")) < 1
+            or not fresh_stale):
+        raise AssertionError(f"async fault trace misses a fault: {tot}, "
+                             f"staleness-1 uploads kept at {fresh_stale}")
+    strat = AsyncMaTUStrategy(BASE_TASKS, bb.d, code_masks=True, device=dev)
+    cfg = FedConfig(seed=SEED, pipeline=True,
+                    max_staleness=ASYNC_MAX_STALENESS,
+                    **dict(ASYNC_FED, rounds=ASYNC_TICKS))
+    sim = FedSimulator(cfg, con, split, bb, strat, systems=systems,
+                       device=dev)
+    calls = tick_trace(strat)
+    raw_bits = []
+    step = strat.aggregate_admitted
+
+    def with_raw_bits(*args):
+        ret = step(*args)
+        served = [u for u in strat._last_uploads
+                  if u.client_id not in strat.last_quarantined]
+        raw_bits.append((sum(bitpack.wire_bits(bb.d, len(u.task_ids))
+                             for u in strat._last_uploads),
+                         sum(bitpack.wire_bits(bb.d, len(u.task_ids))
+                             for u in served)))
+        return ret
+
+    strat.aggregate_admitted = with_raw_bits
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = sim.run()
+    strat._drain()
+    torch.cuda.synchronize()
+    fault_wall = time.perf_counter() - t
+    got = hist.fault_counts
+    if got != [c for c, _ in want]:
+        raise AssertionError(f"async fault run counters {got} != the "
+                             f"trace's {[c for c, _ in want]}")
+    ups, downs, shares = [], [], []
+    for r, (row, call) in enumerate(zip(got, calls)):
+        up, down = hist.uplink_bits_per_round[r], hist.downlink_bits_per_round[r]
+        if row["skipped"]:
+            rose_want = dict.fromkeys(per_round, 0)
+            if call["name"] != "skip_round" or up or down:
+                raise AssertionError(f"async tick {r}: skipped, but "
+                                     f"{call['name']}, {up} / {down} bits")
+        elif call["ret"] == 0:
+            rose_want = dict(dict.fromkeys(per_round, 0),
+                             fused_unify_packed=1)
+        else:
+            rose_want = per_round
+        if call["rose"] != rose_want:
+            raise AssertionError(f"async tick {r}: launches {call['rose']}, "
+                                 f"want {rose_want}")
+        ups.append(up)
+        downs.append(down)
+    it = iter(raw_bits)
+    for r, row in enumerate(got):
+        if not row["skipped"]:
+            raw_up, raw_down = next(it)
+            shares.append(dict(tick=r, up=ups[r] / raw_up,
+                               down=downs[r] / raw_down if raw_down else None))
+    fault = dict(wall_s=fault_wall, counts=got,
+                 total=hist.total_fault_counts, mean_acc=hist.mean_acc,
+                 up_bits=ups, down_bits=downs, coded_share=shares,
+                 mean_phase_us=hist.mean_phase_us,
+                 task_age=strat.task_age.tolist(),
+                 trace=dict(faults=ASYNC_FAULTS,
+                            slow_client=ASYNC_SLOW_CLIENT,
+                            skip_tick=ASYNC_SKIP_TICK,
+                            max_staleness=ASYNC_MAX_STALENESS))
+    log(f"async fault run: seed {ASYNC_FAULTS['seed']}, client "
+        f"{ASYNC_SLOW_CLIENT} base delay 2, every client dropped at tick "
+        f"{ASYNC_SKIP_TICK}, max staleness {ASYNC_MAX_STALENESS}; "
+        f"{ASYNC_TICKS} ticks in {fault_wall:.2f} s; counters = the "
+        f"trace's every tick: {got}; totals {hist.total_fault_counts}; "
+        f"mean acc {hist.mean_acc}; uplink {ups} / downlink {downs} bits; "
+        f"coded/raw {shares}; task ages {strat.task_age.tolist()}; mean "
+        f"phases (us) " + ", ".join(
+            f"{k} {v:.1f}" for k, v in hist.mean_phase_us.items()))
+    stale_call = calls[fresh_stale[0]]
+    del sim, strat, calls
+
+    # (c) the host pipeline over replayed full-width rounds
+    raw, coded = stream_rounds(torch, dev, ASYNC_STREAM_ROUNDS)
+    eng = RoundEngine(EngineConfig(n_tasks=T), device=dev)
+    streams = {}
+    for label, rounds, kw in (("packed", raw, dict(packed=True)),
+                              ("coded", coded, dict(packed=True,
+                                                    code_masks=True)),
+                              ("bool", raw, dict(packed=False))):
+        out = {}
+        for way in ("sequential", "pipelined"):
+            probed = label == "coded" and way == "pipelined"
+            probe = SyncProbe(torch)
+            if probed:
+                probe.hook(eng, "run_packed", eng, "_drain_round")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with probe if probed else contextlib.nullcontext():
+                got_rounds = list(eng.round_stream(
+                    rounds, pipeline=way == "pipelined", **kw))
+            torch.cuda.synchronize()
+            out[way] = (time.perf_counter() - t, got_rounds)
+            if probed:
+                syncs["round_stream"] = dict(probe.seen)
+                del eng.run_packed, eng._drain_round
+        (seq_s, seq), (pipe_s, pipe) = out["sequential"], out["pipelined"]
+        for r, ((da, oa, _), (db, ob, _)) in enumerate(zip(seq, pipe)):
+            for f in ("task_vectors", "tau_hats", "similarity",
+                      "down_unified", "down_masks", "down_lams", "alpha_num",
+                      "n_held", "m_hats_dense"):
+                x, y = getattr(oa, f), getattr(ob, f)
+                if (x is None) != (y is None) or (
+                        x is not None and not torch.equal(
+                            bf16_bits(torch, x) if x.dtype == torch.bfloat16
+                            else x,
+                            bf16_bits(torch, y) if y.dtype == torch.bfloat16
+                            else y)):
+                    raise AssertionError(f"round_stream {label} round {r}: "
+                                         f"{f} pipelined != sequential")
+            same_wire(torch, f"round_stream {label} round {r}",
+                      ({}, {c: [bf16_bits(torch, x.unified), x.masks, x.lams]
+                            for c, x in da.items()}),
+                      ({}, {c: [bf16_bits(torch, x.unified), x.masks, x.lams]
+                            for c, x in db.items()}))
+        streams[label] = dict(
+            sequential_s=seq_s, pipelined_s=pipe_s, ratio=pipe_s / seq_s,
+            sequential_phase_us=[ph for _, _, ph in seq],
+            pipelined_phase_us=[ph for _, _, ph in pipe])
+        log(f"round_stream {label} ({ASYNC_STREAM_ROUNDS} rounds, N {N}, T "
+            f"{T}, d {D}): pipelined = sequential bitwise; sequential "
+            f"{seq_s:.3f} s, pipelined {pipe_s:.3f} s "
+            f"({pipe_s / seq_s:.3f}x); phases (us) a round, sequential "
+            + "; ".join(", ".join(f"{k} {v:.0f}" for k, v in ph.items())
+                        for _, _, ph in seq) + " | pipelined "
+            + "; ".join(", ".join(f"{k} {v:.0f}" for k, v in ph.items())
+                        for _, _, ph in pipe))
+        del seq, pipe, out
+        torch.cuda.empty_cache()
+    log(f"implicit syncs while a streamed round was in flight (coded, "
+        f"pipelined): {syncs['round_stream'] or 'none'}")
+
+    # the deferred drain's coded uplink at the full-width round: its words
+    # go to the host before the round's launches; does its encode start
+    # with the round still in flight?
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev,
+                                                    seed=SEED + 30)
+    batch = RoundBatch.from_uploads(
+        [Upload(i, tasks[i, :k].tolist(), tv[i, :k], sizes[i, :k].tolist())
+         for i, k in enumerate(ks)], T)
+    encode, in_flight, coded_up = (compression.encode_mask_rows_with_sizes,
+                                   [], {})
+
+    def probed(*a, **k):
+        in_flight.append(not torch.cuda.current_stream().query())
+        return encode(*a, **k)
+
+    compression.encode_mask_rows_with_sizes = probed
+    try:
+        for pipeline in (False, True):
+            s_ = MaTUStrategy(T, D, code_masks=True, pipeline=pipeline,
+                              device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s_.aggregate_batch(batch)
+            s_._drain()
+            torch.cuda.synchronize()
+            coded_up[pipeline] = ([u.masks for u in s_._last_uploads],
+                                  1e3 * (time.perf_counter() - t),
+                                  s_.last_phase_us)
+    finally:
+        compression.encode_mask_rows_with_sizes = encode
+    for a, b in zip(coded_up[False][0], coded_up[True][0]):
+        check_equal(torch, "deferred vs undeferred coded uplink", b, a)
+    uplink = dict(in_flight_at_encode=in_flight[0::2],
+                  ms={str(p): v[1] for p, v in coded_up.items()},
+                  phase_us={str(p): v[2] for p, v in coded_up.items()})
+    log(f"coded uplink at the full-width round ({sum(ks)} rows): deferred = "
+        f"undeferred byte for byte; the uplink encode started with the round"
+        f" in flight: {uplink['in_flight_at_encode']} (undeferred, "
+        f"deferred); aggregate + drain {coded_up[False][1]:.1f} / "
+        f"{coded_up[True][1]:.1f} ms; phases (us) {uplink['phase_us']}")
+    del tv, batch, coded_up
+    launches = ops.launch_counts()
+
+    # the first tick that admitted a kept stale upload, card vs CPU, and
+    # its weighted round through kernels 1-3 against the plain versions
+    batch, staleness, sysm, dispatch = stale_call["args"]
+    card = AsyncMaTUStrategy(BASE_TASKS, bb.d, code_masks=True, device=dev)
+    host = AsyncMaTUStrategy(BASE_TASKS, bb.d, code_masks=True, device="cpu")
+    packed = []
+    start = card.server.start_round
+
+    def keep(p):
+        packed.append(p)
+        return start(p)
+
+    card.server.start_round = keep
+    n_card = card.aggregate_admitted(batch, staleness, sysm, dispatch)
+    n_host = host.aggregate_admitted(RoundBatch.from_uploads(
+        [Upload(u.client_id, list(u.task_ids), u.task_vectors.cpu(),
+                list(u.data_sizes)) for u in batch.uploads], BASE_TASKS),
+        staleness, sysm, dispatch)
+    if (n_card, card.last_quarantined, card.task_age.tolist()) != (
+            n_host, host.last_quarantined, host.task_age.tolist()):
+        raise AssertionError(f"async stale tick card vs CPU: kept {n_card} "
+                             f"vs {n_host}, quarantined "
+                             f"{sorted(card.last_quarantined)} vs "
+                             f"{sorted(host.last_quarantined)}")
+    for a, b in zip(card._last_uploads, host._last_uploads):
+        check_equal(torch, f"client {a.client_id}'s uplink stream", a.masks,
+                    b.masks)
+        check_equal(torch, f"client {a.client_id}'s bf16 unified",
+                    bf16_bits(torch, a.unified).cpu(),
+                    bf16_bits(torch, b.unified))
+    errs = [merge_check(torch, "async stale tick task vectors",
+                        card.server.last_task_vectors,
+                        host.server.last_task_vectors),
+            merge_check(torch, "async stale tick carried vectors",
+                        card._task_vecs, host._task_vecs)]
+    up = batched_client_unify(batch.task_vectors, batch.valid, device=dev)
+    up_ref = batched_client_unify(batch.task_vectors, batch.valid, device=dev,
+                                  mode="ref")
+    for name, x, y in zip(("unified", "words", "lambda"), up, up_ref):
+        check_equal(torch, f"stale tick uploads' {name}",
+                    bf16_bits(torch, x) if x.dtype == torch.bfloat16 else x,
+                    bf16_bits(torch, y) if y.dtype == torch.bfloat16 else y)
+    p = packed[0]
+    w = p.slot_weights
+    if w is None or not bool((w == 0.5).any()):
+        raise AssertionError(f"async stale tick: slot weights {w}")
+    fields = ("task_vectors", "tau_hats", "alpha_num", "n_held", "similarity",
+              "down_unified", "down_masks", "down_lams")
+    eng = card.server.engine
+
+    def outputs(pr, mode=None):
+        o = eng.run_packed(pr, mode=mode)
+        return {f: (bf16_bits(torch, getattr(o, f))
+                    if getattr(o, f).dtype == torch.bfloat16
+                    else getattr(o, f)) for f in fields}
+
+    kern, plain = outputs(p), outputs(p, "ref")
+    ones = outputs(dataclasses.replace(p, slot_weights=torch.ones_like(w)))
+    none = outputs(dataclasses.replace(p, slot_weights=None))
+    for f in fields:
+        check_equal(torch, f"weighted round {f}, kernels vs plain", kern[f],
+                    plain[f])
+        check_equal(torch, f"round {f}, weights of ones vs none", ones[f],
+                    none[f])
+    log(f"async stale tick {fresh_stale[0]} (staleness {staleness}, "
+        f"dispatched {dispatch}): card = CPU (kept {n_card}, quarantined "
+        f"{sorted(card.last_quarantined)}, ages {card.task_age.tolist()}, "
+        f"streams bitwise; task vectors max|err| {errs[0]:.3e}, carried "
+        f"{errs[1]:.3e}); its weighted round (weights "
+        f"{sorted(set(w.flatten().tolist()))}) through kernels 1-3 = the "
+        f"plain versions bitwise, weights of ones = none bitwise")
+    del card, host, packed, p, kern, plain, ones, none, stale_call
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"async phase: {phase_s:.1f} s, launches {launches}")
+    return dict(launches=launches, runs=runs, fault=fault, streams=streams,
+                syncs=syncs, coded_uplink=uplink,
+                stale_tick=dict(tick=fresh_stale[0], task_vectors_err=errs[0],
+                                carried_err=errs[1]),
+                phase_s=phase_s)
 
 
 # -- lmtrain phase: LoRA training of qwen2-0.5b at full width ----------------
@@ -4299,6 +4925,14 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "async"]:
+        # the async phase alone: a quick loop for the async rounds, the
+        # deferred drain and the host pipeline; no summary, no "ok" line
+        log("== async phase alone ==")
+        out = async_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "lmtrain"]:
         # the lmtrain phase alone: a quick loop for the LM training path;
         # no summary, no "ok" line
@@ -4311,8 +4945,8 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
               f"--only granite, --only whisper, --only hymba, --only vlm, "
-              f"--only deepseek, --only vit, --only baselines or --only "
-              f"lmtrain",
+              f"--only deepseek, --only vit, --only baselines, --only "
+              f"lmtrain or --only async",
               file=sys.stderr)
         return 2
     def phase(name):
@@ -4331,9 +4965,13 @@ def main() -> int:
     phase("vit")
     vit = vit_phase(torch, dev)
     phase("baselines")
-    base = baselines_phase(torch, dev)
+    setting = base_setting(torch, dev)
+    base = baselines_phase(torch, dev, setting=setting)
     phase("lmtrain")
     lmtrain = lmtrain_phase(torch, dev)
+    phase("async")
+    asy = async_phase(torch, dev, setting=setting)
+    del setting
     # granite before xlstm: after the xlstm phase's profiled prefill
     # (~322,000 device kernels in one window) the profiler returned no
     # device event for granite's kernel-9 windows, six in a row
@@ -4359,7 +4997,8 @@ def main() -> int:
         rows[name]["at_vit_round_d"] = dict(
             at_d, vit_launches=vit["launches"][name],
             lmtrain_launches=lmtrain["launches"][name],
-            baselines_launches=base["launches"][name])
+            baselines_launches=base["launches"][name],
+            async_launches=asy["launches"][name])
     for name, at_d in base.pop("at_d").items():
         rows[name]["at_baselines_round_d"] = at_d
     for name, at_d in granite.pop("at_d").items():
@@ -4407,9 +5046,13 @@ def main() -> int:
                   serve_counts if name in serve_rows else bool_counts)
         kernels.append(dict(
             name=name, launches=counts[name],
-            path=paths.get(name, "packed round (round phase, 3 rounds)"
+            path=paths.get(name, "packed round (round phase, 3 rounds; "
+                           f"{asy['launches'][name]} more in the async "
+                           "phase's rounds)"
                            if name in rows else
-                           "bool round (bool phase, 1 round)"),
+                           "bool round (bool phase, 1 round; "
+                           f"{asy['launches'][name]} more in the async "
+                           "phase's bool stream)"),
             app_launches=app_counts["matu"][name], **row))
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"

@@ -52,11 +52,57 @@ decodes coded (uint8) uploads into slot words in one batched call, and
 downlink rows in one batched call and splits the stream back by the
 records' sizes.
 
+Host pipeline
+-------------
+``RoundEngine.round_stream`` runs a sequence of replayed rounds through
+a two-deep pipeline: while round r's kernels run (launches on the
+current CUDA stream are asynchronous), the host drains round r−1 (waits
+for it, encodes its downlinks, yields) and packs round r+1.  The
+contract, the JAX package's:
+
+* **buffer ownership** — ``pack_uploads(stage=)`` fills its host tensors
+  in a :class:`SlotStage` (pinned on a CUDA device, copied with
+  ``non_blocking=True``; on the CPU the round's tensors ARE the stage's,
+  uncopied, as JAX's zero-copy ``jnp.asarray``).  The pipeline alternates TWO stages:
+  the stage refilled for round r+1 is the one round r−1 used, and round
+  r−1 was drained before that refill starts, so a stage is never written
+  while a copy out of it, or a round reading it, is in flight.  A
+  ``PackedRound`` packed into a stage is valid only until that stage is
+  refilled.
+* **ready point** — a round's ready point is a ``torch.cuda.Event``
+  recorded after its last launch (:func:`ready_mark`);
+  :func:`wait_ready` is JAX's ``block_until_ready``.  Under
+  ``code_masks`` the downlink words' copy to pinned host memory is
+  enqueued before that event, so encoding round r−1 never waits for
+  round r.
+* **escape hatch** — ``pipeline=False`` packs with fresh buffers and
+  waits for each round before its downlinks.  Both orders run the same
+  operations on the same bits, so pipelined rounds are bit-identical to
+  sequential ones.
+* **timings** — each round reports ``phase_us`` (``pack`` / ``decode``
+  / ``encode`` / ``device`` µs; ``device`` is dispatch to ready, which
+  under the pipeline overlaps its neighbours' host phases).
+
+The simulator's closed loop pipelines instead through the strategy's
+deferred drain (``MaTUStrategy(pipeline=True)``).
+
+Async rounds
+------------
+An upload dispatched at round q and folded at round r carries staleness
+``s = r − q``; its slots get the weight ``w = δ**s`` (``δ =
+STALENESS_DISCOUNT``) as ``PackedRound.slot_weights``, applied as λ·w and
+size·w before the round's kernels (``ops._apply_slot_weights``).  ``w =
+1`` is bitwise ``None``, which keeps an ideal-trace async round
+bit-identical to the synchronous one.  Corrupted coded uploads are
+quarantined by the async strategy before packing; empty rounds never
+reach ``pack_uploads``.
+
 The engine never sees a model, only d.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -72,6 +118,9 @@ from repro_torch.kernels.ref import next_pow2
 RHO_DEFAULT = 0.4     # Eq. 3 threshold
 EPS_DEFAULT = 0.5     # Eq. 6 similarity filter
 KAPPA_DEFAULT = 3     # Eq. 6 top-κ
+# async staleness discount δ: an upload folded s rounds after dispatch
+# enters the round with weight δ**s (δ**0 = 1 keeps fresh uploads exact)
+STALENESS_DISCOUNT = 0.5
 
 
 @dataclass(frozen=True)
@@ -98,6 +147,9 @@ class PackedRound:
     slot_valid: torch.Tensor         # (n, k_max) bool
     n_tasks: int
     d: int
+    # per-slot staleness weights (n, k_max) fp32, None for an all-fresh
+    # round; w ≡ 1 is bitwise None (``ops._apply_slot_weights``)
+    slot_weights: Optional[torch.Tensor] = None
 
     @property
     def n_clients(self) -> int:
@@ -129,11 +181,12 @@ class PackedRound:
 
     def to(self, device: torch.device) -> "PackedRound":
         """The same round with its tensors on ``device``."""
-        mv = lambda x: x.to(device)  # noqa: E731
+        mv = lambda x: None if x is None else x.to(device)  # noqa: E731
         return PackedRound(self.client_ids, self.task_ids, mv(self.unified),
                            mv(self.slot_masks), mv(self.slot_lams),
                            mv(self.slot_sizes), mv(self.slot_tasks),
-                           mv(self.slot_valid), self.n_tasks, self.d)
+                           mv(self.slot_valid), self.n_tasks, self.d,
+                           mv(self.slot_weights))
 
 
 class EngineOutput(NamedTuple):
@@ -162,9 +215,70 @@ class EngineOutput(NamedTuple):
         return torch.where(alpha >= self.rho, 1.0, alpha)
 
 
+def staleness_weights(staleness: Sequence[int], k_max: int,
+                      discount: float = STALENESS_DISCOUNT) -> np.ndarray:
+    """(n, k_max) fp32 slot weights ``discount**s`` for uploads of
+    staleness ``s``, one row an upload (every slot of a client alike)."""
+    w = np.float32(discount) ** np.asarray(staleness, np.float32)
+    return np.ascontiguousarray(np.broadcast_to(w[:, None],
+                                                (len(w), k_max)))
+
+
+def ready_mark(device: torch.device) -> Optional["torch.cuda.Event"]:
+    """The point at which the work queued so far on ``device`` is done:
+    an event recorded on the current CUDA stream, or None on the CPU,
+    where every op has finished when it returns."""
+    if device.type != "cuda":
+        return None
+    mark = torch.cuda.Event()
+    mark.record(torch.cuda.current_stream(device))
+    return mark
+
+
+def wait_ready(mark: Optional["torch.cuda.Event"]) -> None:
+    """Block the host until ``mark`` (JAX's ``block_until_ready``)."""
+    if mark is not None:
+        mark.synchronize()
+
+
+def host_copy_async(x: torch.Tensor) -> torch.Tensor:
+    """``x`` on the host.  A CUDA tensor's copy into pinned memory is
+    only enqueued: read it after a :func:`ready_mark` recorded later.  A
+    CPU tensor is returned as it is."""
+    if x.device.type != "cuda":
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x, non_blocking=True)
+    return out
+
+
+class SlotStage:
+    """Reusable host buffers for :func:`pack_uploads`, keyed by name and
+    reallocated only when the shape, dtype or pinning changes, so a
+    steady round stream refills warm pages.  Ownership (module
+    docstring, "Host pipeline"): a stage must not be refilled while a
+    copy out of it or a round reading it is in flight;
+    ``RoundEngine.round_stream`` alternates two stages and drains round
+    r−1 before round r+1 refills its stage."""
+
+    def __init__(self) -> None:
+        self._bufs: Dict[str, Tuple[torch.Tensor, bool]] = {}
+
+    def alloc(self, name: str, shape: tuple, dtype: torch.dtype,
+              pin: bool = False) -> torch.Tensor:
+        buf, pinned = self._bufs.get(name, (None, False))
+        if (buf is None or tuple(buf.shape) != tuple(shape)
+                or buf.dtype != dtype or pinned != pin):
+            buf = torch.empty(shape, dtype=dtype, pin_memory=pin)
+            self._bufs[name] = (buf, pin)
+        return buf
+
+
 def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
                  k_max: Optional[int] = None, packed: bool = True,
-                 device: DeviceLike = "cuda") -> PackedRound:
+                 device: DeviceLike = "cuda",
+                 stage: Optional[SlotStage] = None,
+                 phase_us: Optional[Dict[str, float]] = None) -> PackedRound:
     """Pack a ragged round of uploads into the slot layout on ``device``.
     Packed (the wire): dense bool masks are bit-packed and the unified
     vectors rounded to bf16 here — the uplink quantisation, applied once
@@ -173,65 +287,97 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     unpacked here.  Coded (uint8 stream) uploads are decoded here, on
     the host, in ONE batched ``decode_mask_rows`` call over every coded
     client's concatenated stream (records self-delimit); the round
-    never sees the coded layer."""
+    never sees the coded layer.
+
+    Without ``stage`` the slot tensors are filled on ``device``.  With
+    one they are filled in its host buffers (pinned on a CUDA device)
+    and copied with ``non_blocking=True``, so packing round r+1 never
+    waits for round r (module docstring, "Host pipeline"); the returned
+    round is valid until the stage is refilled.  ``phase_us``
+    accumulates the ``pack`` and ``decode`` host µs."""
     if not uploads:
         raise ValueError("pack_uploads: empty round (no uploads)")
+    t_pack = time.perf_counter()
     dev = resolve_device(device)
+    fill_dev = dev if stage is None else torch.device("cpu")
     n = len(uploads)
     d = int(uploads[0].unified.shape[0])
     ks = [len(u.task_ids) for u in uploads]
     k_max = k_max or next_pow2(max(ks))
     masks = [u.masks for u in uploads]
     coded = [i for i, m in enumerate(masks) if m.dtype == torch.uint8]
+    dec_s = 0.0
     if coded:
         from repro_torch.fed.compression import decode_mask_rows
+        t0 = time.perf_counter()
         rows = decode_mask_rows(
             np.concatenate([masks[i].cpu().numpy() for i in coded]), d,
             sum(ks[i] for i in coded))
-        words = bitpack.words_from_numpy(rows).to(dev)
+        words = bitpack.words_from_numpy(rows).to(fill_dev)
         off = 0
         for i in coded:
             masks[i] = words[off:off + ks[i]]
             off += ks[i]
+        dec_s = time.perf_counter() - t0
     if packed:
-        unified = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
-        slot_masks = torch.zeros((n, k_max, bitpack.packed_width(d)),
-                                 dtype=torch.int32, device=dev)
+        vec = ((n, d), torch.bfloat16)
+        wide = ((n, k_max, bitpack.packed_width(d)), torch.int32)
     else:
-        unified = torch.zeros((n, d), dtype=torch.float32, device=dev)
-        slot_masks = torch.zeros((n, k_max, d), dtype=torch.bool, device=dev)
-    slot_lams = np.zeros((n, k_max), np.float32)
-    slot_sizes = np.zeros((n, k_max), np.float32)
-    slot_tasks = np.full((n, k_max), n_tasks, np.int32)
-    slot_valid = np.zeros((n, k_max), bool)
+        vec = ((n, d), torch.float32)
+        wide = ((n, k_max, d), torch.bool)
+    small = (("slot_lams", torch.float32), ("slot_sizes", torch.float32),
+             ("slot_tasks", torch.int32), ("slot_valid", torch.bool))
+    if stage is None:
+        unified = torch.zeros(vec[0], dtype=vec[1], device=dev)
+        slot_masks = torch.zeros(wide[0], dtype=wide[1], device=dev)
+        scalars = [torch.zeros((n, k_max), dtype=dt) for _, dt in small]
+    else:
+        pin = dev.type == "cuda"
+        unified = stage.alloc("unified", *vec, pin)
+        slot_masks = stage.alloc("slot_masks", *wide, pin)
+        scalars = [stage.alloc(name, (n, k_max), dt, pin).zero_()
+                   for name, dt in small]
+    slot_lams, slot_sizes, slot_tasks, slot_valid = (x.numpy()
+                                                     for x in scalars)
+    slot_tasks[:] = n_tasks
     for i, up in enumerate(uploads):
         k = ks[i]
-        unified[i] = up.unified.to(dev, unified.dtype)
-        m = masks[i].to(dev)
+        unified[i] = up.unified.to(fill_dev, unified.dtype)
+        m = masks[i].to(fill_dev)
         is_words = m.dtype == torch.int32
         if packed:
             slot_masks[i, :k] = m if is_words else bitpack.pack_bits(m)
         else:
             slot_masks[i, :k] = bitpack.unpack_bits(m, d) if is_words else m
+        if stage is not None:     # a stage's buffers come back dirty
+            slot_masks[i, k:] = 0
         slot_lams[i, :k] = up.lams.detach().float().cpu().numpy()
         slot_sizes[i, :k] = up.data_sizes
         slot_tasks[i, :k] = up.task_ids
         slot_valid[i, :k] = True
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    if phase_us is not None:
+        phase_us["decode"] = phase_us.get("decode", 0.0) + dec_s * 1e6
+        phase_us["pack"] = (phase_us.get("pack", 0.0)
+                            + (time.perf_counter() - t_pack - dec_s) * 1e6)
+    put = lambda x: x.to(dev, non_blocking=stage is not None)  # noqa: E731
     return PackedRound([u.client_id for u in uploads],
                        [list(u.task_ids) for u in uploads],
-                       unified, slot_masks, t(slot_lams), t(slot_sizes),
-                       t(slot_tasks), t(slot_valid), n_tasks, d)
+                       put(unified), put(slot_masks),
+                       *(put(x) for x in scalars), n_tasks, d)
 
 
 def pack_from_slots(client_ids: List[int], task_ids: List[List[int]],
                     unified: torch.Tensor, slot_masks: torch.Tensor,
                     slot_lams: torch.Tensor, slot_tasks: torch.Tensor,
                     slot_valid: torch.Tensor, slot_sizes: torch.Tensor,
-                    n_tasks: int, *, d: Optional[int] = None) -> PackedRound:
+                    n_tasks: int, *, d: Optional[int] = None,
+                    slot_weights: Optional[torch.Tensor] = None
+                    ) -> PackedRound:
     """Build a PackedRound from already-batched slot tensors (the
     strategy's path: ``batched_client_unify`` output) — no copies.
-    ``slot_masks`` are int32 words (packed) or bool (the A/B layout)."""
+    ``slot_masks`` are int32 words (packed) or bool (the A/B layout).
+    ``slot_weights`` (optional (n, k_max)) attaches the async staleness
+    discount."""
     if slot_masks.dtype not in (torch.int32, torch.bool):
         raise ValueError(f"slot_masks must be packed int32 words or bool "
                          f"masks, got {slot_masks.dtype}")
@@ -241,27 +387,39 @@ def pack_from_slots(client_ids: List[int], task_ids: List[List[int]],
     return PackedRound(list(client_ids), [list(t) for t in task_ids],
                        unified, slot_masks, slot_lams.float(),
                        slot_sizes.float(), slot_tasks.to(torch.int32),
-                       slot_valid.bool(), n_tasks, d)
+                       slot_valid.bool(), n_tasks, d,
+                       None if slot_weights is None else slot_weights.float())
 
 
 def _assemble_downlinks(client_ids: List[int], task_ids: List[List[int]],
                         d: int, down_unified: torch.Tensor,
                         down_masks: torch.Tensor, down_lams: torch.Tensor,
-                        *, code_masks: bool = False
+                        *, code_masks: bool = False,
+                        phase_us: Optional[Dict[str, float]] = None,
+                        host_words: Optional[torch.Tensor] = None
                         ) -> Dict[int, ClientDownlink]:
     """Slice the batched downlink tensors back to ragged per-client
     ClientDownlinks (views; mask rows stay in the round's layout).  With
     ``code_masks`` the mask rows of ALL the clients are entropy-coded in
     one batched call on the host (bool rows are packed first) and split
     back by the per-row record sizes: records self-delimit, so each
-    client's slice is byte-identical to encoding that client alone."""
+    client's slice is byte-identical to encoding that client alone.
+    ``host_words`` are the downlink words already copied to the host
+    (``round_stream`` enqueues that copy at dispatch); ``phase_us``
+    accumulates the ``encode`` host µs."""
     ks = [len(t) for t in task_ids]
     if code_masks:
         from repro_torch.fed.compression import encode_mask_rows_with_sizes
-        words = (down_masks if down_masks.dtype == torch.int32
-                 else bitpack.pack_bits(down_masks))
+        t0 = time.perf_counter()
+        words = host_words
+        if words is None:
+            words = (down_masks if down_masks.dtype == torch.int32
+                     else bitpack.pack_bits(down_masks))
         rows = split_streams(*encode_mask_rows_with_sizes(
             valid_rows(bitpack.words_to_numpy(words), ks), d), ks)
+        if phase_us is not None:
+            phase_us["encode"] = (phase_us.get("encode", 0.0)
+                                  + (time.perf_counter() - t0) * 1e6)
     else:
         rows = [down_masks[i, :k] for i, k in enumerate(ks)]
     return {cid: ClientDownlink(down_unified[i], rows[i],
@@ -310,7 +468,7 @@ class RoundEngine:
                 p.slot_valid, p.slot_tasks, cfg.n_tasks)
         kw = dict(rho=cfg.rho, eps=cfg.eps, kappa=cfg.kappa,
                   cross_task=cfg.cross_task, uniform_cross=cfg.uniform_cross,
-                  mode=mode)
+                  mode=mode, slot_weights=p.slot_weights)
         if p.packed:
             (tv, tau, a_num, n_held, sim, du, dm,
              dl) = ops.matu_round_slots_packed(*args, p.d, **kw)
@@ -321,26 +479,101 @@ class RoundEngine:
                             m_hats_dense=m_hats)
 
     def downlinks(self, packed: PackedRound, out: EngineOutput, *,
-                  code_masks: bool = False) -> Dict[int, ClientDownlink]:
+                  code_masks: bool = False,
+                  phase_us: Optional[Dict[str, float]] = None
+                  ) -> Dict[int, ClientDownlink]:
         """Per-client downlinks of a finished round; ``code_masks``
         entropy-codes every client's mask rows in one batched call on
-        the host (clients decode on use, ``ClientDownlink.mask_row``)."""
+        the host (clients decode on use, ``ClientDownlink.mask_row``).
+        ``phase_us`` accumulates the ``encode`` host µs."""
         return _assemble_downlinks(packed.client_ids, packed.task_ids,
                                    packed.d, out.down_unified,
                                    out.down_masks, out.down_lams,
-                                   code_masks=code_masks)
+                                   code_masks=code_masks, phase_us=phase_us)
 
     def round(self, uploads: Sequence[ClientUpload], *,
               mode: Optional[str] = None, packed: bool = True,
-              code_masks: bool = False
+              code_masks: bool = False,
+              staleness: Optional[Sequence[int]] = None,
+              staleness_discount: float = STALENESS_DISCOUNT
               ) -> Tuple[Dict[int, ClientDownlink], EngineOutput]:
         """Pack → run → per-client downlinks; ``packed=False`` runs the
         bool/fp32 A/B layout; ``code_masks`` emits coded downlink masks
-        (coded uploads are decoded by ``pack_uploads`` either way)."""
+        (coded uploads are decoded by ``pack_uploads`` either way).
+        ``staleness`` (one int per upload) attaches the per-slot
+        discount ``staleness_discount**s`` (module docstring, "Async
+        rounds")."""
         batch = pack_uploads(uploads, self.cfg.n_tasks, packed=packed,
                              device=self.device)
+        if staleness is not None:
+            batch.slot_weights = torch.from_numpy(staleness_weights(
+                staleness, batch.slot_valid.shape[1],
+                staleness_discount)).to(self.device)
         out = self.run_packed(batch, mode=mode)
         return self.downlinks(batch, out, code_masks=code_masks), out
+
+    def round_stream(self, rounds, *, mode: Optional[str] = None,
+                     packed: bool = True, code_masks: bool = False,
+                     pipeline: bool = True):
+        """Run an iterable of upload rounds through the two-deep host
+        pipeline (module docstring, "Host pipeline"): while round r's
+        kernels run, the host drains round r−1 (waits for its ready
+        point, encodes its downlinks, yields) and packs round r+1 into
+        the other :class:`SlotStage`.
+
+        Yields ``(downlinks, out, phase_us)`` per round, in input order;
+        ``phase_us`` maps ``pack`` / ``decode`` / ``encode`` / ``device``
+        to host µs (``device`` is dispatch to ready).  ``pipeline=False``
+        is the strictly sequential escape hatch, bit-identical.  Rounds
+        are pulled one ahead of the yields, so the iterable must not
+        depend on the previous round's downlinks (replayed traffic)."""
+        if not pipeline:
+            for ups in rounds:
+                phase: Dict[str, float] = {}
+                batch = pack_uploads(ups, self.cfg.n_tasks, packed=packed,
+                                     device=self.device, phase_us=phase)
+                t0 = time.perf_counter()
+                out = self.run_packed(batch, mode=mode)
+                wait_ready(ready_mark(self.device))
+                phase["device"] = (time.perf_counter() - t0) * 1e6
+                yield (self.downlinks(batch, out, code_masks=code_masks,
+                                      phase_us=phase), out, phase)
+            return
+
+        stages = (SlotStage(), SlotStage())
+        prev = None
+        for r, ups in enumerate(rounds):
+            phase = {}
+            # stage r % 2 was last read by round r − 2, drained before
+            # this point: never in flight
+            batch = pack_uploads(ups, self.cfg.n_tasks, packed=packed,
+                                 device=self.device, stage=stages[r % 2],
+                                 phase_us=phase)
+            out = self.run_packed(batch, mode=mode)
+            words = None
+            if code_masks:
+                words = host_copy_async(
+                    out.down_masks if batch.packed
+                    else bitpack.pack_bits(out.down_masks))
+            pend = (batch, out, phase, time.perf_counter(),
+                    ready_mark(self.device), words)
+            if prev is not None:
+                yield self._drain_round(prev, code_masks)
+            prev = pend
+        if prev is not None:
+            yield self._drain_round(prev, code_masks)
+
+    def _drain_round(self, pend, code_masks: bool):
+        """Wait for a dispatched round and build its downlinks: the host
+        half the pipeline overlaps with the NEXT round's kernels."""
+        batch, out, phase, t_disp, mark, words = pend
+        wait_ready(mark)
+        phase["device"] = (time.perf_counter() - t_disp) * 1e6
+        return (_assemble_downlinks(batch.client_ids, batch.task_ids,
+                                    batch.d, out.down_unified,
+                                    out.down_masks, out.down_lams,
+                                    code_masks=code_masks, phase_us=phase,
+                                    host_words=words), out, phase)
 
 
 def batched_client_unify(task_vectors: torch.Tensor, valid: torch.Tensor, *,

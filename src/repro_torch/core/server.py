@@ -69,10 +69,14 @@ class MaTUServer:
         return out
 
     def finish_round(self, packed: PackedRound, out: EngineOutput, *,
-                     code_masks: bool = False) -> Dict[int, ClientDownlink]:
+                     code_masks: bool = False,
+                     phase_us: Optional[Dict[str, float]] = None
+                     ) -> Dict[int, ClientDownlink]:
         """Per-client downlinks of a dispatched round (one batched
-        Golomb-Rice encode on the host when ``code_masks``)."""
-        return self.engine.downlinks(packed, out, code_masks=code_masks)
+        Golomb-Rice encode on the host when ``code_masks``; ``phase_us``
+        accumulates its ``encode`` µs)."""
+        return self.engine.downlinks(packed, out, code_masks=code_masks,
+                                     phase_us=phase_us)
 
     def _record(self, out: EngineOutput) -> None:
         self.last_similarity = out.similarity

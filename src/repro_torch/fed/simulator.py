@@ -1,22 +1,43 @@
-"""Federated simulation harness (synchronous rounds).
+"""Federated simulation harness.
 
 Runs R rounds of: client sampling (ξ) → per-(client, task) local
 fine-tuning in flat task-vector space → strategy aggregation → global
 per-task head averaging → periodic evaluation.  Produces per-task
-accuracy, averages, and the measured wire bits per round.
+accuracy, averages, the measured wire bits per round, the server step's
+phases and the fault counters of every round.
+
+Async & fault model
+-------------------
+``systems=ClientSystems(...)`` (:mod:`repro_torch.fed.systems`) switches
+the loop to the event-clock mode: each round is a tick; sampled clients
+train, but their uploads enter an ``AdmissionQueue`` with the arrival
+tick ``dispatch + systems.delay(c, r)``, and the server drains what has
+arrived by the current tick.  Crashed clients are never sampled,
+dropouts never upload, and uploads older than ``FedConfig.max_staleness``
+rounds are dropped as stale.  The drain goes to the strategy's
+``aggregate_admitted`` with each upload's staleness where it has one
+(``AsyncMaTUStrategy``), else to ``aggregate_batch``; a tick that admits
+nothing calls ``strategy.skip_round()`` and records a 0-bit History row.
+``History.fault_counts`` holds ``fed.systems.FAULT_KEYS`` for every
+round (in sync mode: sampled == admitted, zeros elsewhere).  Under
+``ClientSystems.ideal(n)`` every upload arrives in its dispatch tick in
+selection order with staleness 0, so the async run is bit-identical to
+the sync one.
 
 Random draws are failure-invariant, like the JAX package's fold_in
 chains: every draw comes from its own generator, seeded by a numpy
 ``SeedSequence`` of (seed, stream tag, ids…) — client selection by
 (round), local data by (client, task), training by (client, round,
 task), heads by (task).  The numbers differ from the JAX package's;
-the laws are the same.
+the laws are the same: a fault injected for one client moves no other
+client's draw, and the async selection with every client available is
+the sync selection.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +49,8 @@ from repro_torch.data.synthetic import (Constellation, eval_batch,
                                         sample_task_batch)
 from repro_torch.fed.local import make_head, make_local_trainer
 from repro_torch.fed.strategies import RoundBatch, Strategy, Upload
+from repro_torch.fed.systems import (AdmissionQueue, ClientSystems,
+                                     blank_fault_counters)
 from repro_torch.fed.testbed import round_up_d
 
 # stream tags of the seeded generators
@@ -52,6 +75,12 @@ class FedConfig:
     prox_mu: float = 0.1             # FedProx's μ (strategies with needs_prox)
     eval_every: int = 5
     seed: int = 0
+    # the strategy's deferred drain (MaTU; a no-op for the others):
+    # bit-identical to False
+    pipeline: bool = False
+    # async mode: an upload older than this many rounds is dropped as
+    # stale (History.fault_counts["stale"])
+    max_staleness: int = 4
 
 
 @dataclass
@@ -62,6 +91,24 @@ class History:
     uplink_bits_per_round: List[int] = field(default_factory=list)
     # measured off the downlink wire buffers where the strategy has them
     downlink_bits_per_round: List[int] = field(default_factory=list)
+    # every round: the server step's host / device µs as the strategy
+    # reports them ({} where it measures nothing).  Under pipeline=True
+    # a round's phases complete at its drain, so entry r holds the last
+    # round COMPLETED when round r was recorded: one behind.
+    phase_us: List[Dict[str, float]] = field(default_factory=list)
+    # every round: the fed.systems.FAULT_KEYS counters (clients sampled,
+    # dropped, crashed, straggling; uploads stale, quarantined, still
+    # buffered, admitted; skipped = 1 when nothing was admitted)
+    fault_counts: List[Dict[str, int]] = field(default_factory=list)
+
+    @property
+    def total_fault_counts(self) -> Dict[str, int]:
+        """The fault counters summed over the run."""
+        out = blank_fault_counters()
+        for row in self.fault_counts:
+            for k, v in row.items():
+                out[k] = out.get(k, 0) + int(v)
+        return out
 
     @property
     def final_task_acc(self) -> Dict[int, float]:
@@ -81,10 +128,20 @@ class History:
         b = self.downlink_bits_per_round
         return float(np.mean(b)) if b else 0.0
 
+    @property
+    def mean_phase_us(self) -> Dict[str, float]:
+        """Each phase's mean µs over the rounds that reported it."""
+        out: Dict[str, List[float]] = {}
+        for ph in self.phase_us:
+            for key, us in (ph or {}).items():
+                out.setdefault(key, []).append(us)
+        return {k: float(np.mean(v)) for k, v in out.items()}
+
 
 class FedSimulator:
     def __init__(self, cfg: FedConfig, constellation: Constellation,
                  split: FedSplit, backbone, strategy: Strategy, *,
+                 systems: Optional[ClientSystems] = None,
                  device: DeviceLike = "cuda"):
         """``backbone``: one backbone shared by every client, or a
         per-client mapping (a dict ``{client_id: backbone}`` or a list),
@@ -95,7 +152,8 @@ class FedSimulator:
         here, and by the strategy before every aggregation), because
         their rows merge coordinate by coordinate.  Backbones are moved
         to ``device`` (``nn.Module.to``); the strategy must live on the
-        same device."""
+        same device.  ``systems`` switches ``run`` to the event-clock
+        mode (module docstring, "Async & fault model")."""
         self.cfg = cfg
         self.con = constellation
         self.split = split
@@ -105,6 +163,11 @@ class FedSimulator:
             raise ValueError(f"strategy runs on {strategy.device}, the "
                              f"simulator on {self.device}")
         self.n_clients = len(split.tasks)
+        self.systems = systems
+        if systems is not None and systems.n_clients != self.n_clients:
+            raise ValueError(f"systems models {systems.n_clients} clients, "
+                             f"split has {self.n_clients}")
+        strategy.use_pipeline(cfg.pipeline)
         dev = self.device
 
         # -- backbones: a per-client map; one shared object maps every
@@ -216,23 +279,94 @@ class FedSimulator:
                 head_pairs)
 
     # -- main loop ----------------------------------------------------------
+    def _select(self, r: int, n_sel: int, counters: Dict[str, int]
+                ) -> np.ndarray:
+        """Round ``r``'s sampled clients.  In async mode only available
+        clients are drawn from; when all are, the draw is the sync
+        branch's (the ideal-trace parity anchor)."""
+        rng = np.random.default_rng([self.cfg.seed, _SELECT, r])
+        sysm = self.systems
+        avail = (list(range(self.n_clients)) if sysm is None else
+                 [c for c in range(self.n_clients) if sysm.available(c, r)])
+        counters["crashed"] = self.n_clients - len(avail)
+        if len(avail) == self.n_clients:
+            return rng.choice(self.n_clients, n_sel, replace=False)
+        if not avail:
+            return np.asarray([], np.int64)
+        idx = rng.choice(len(avail), min(n_sel, len(avail)), replace=False)
+        return np.asarray(avail, np.int64)[idx]
+
     def run(self, verbose: bool = False) -> History:
         cfg = self.cfg
         hist = History()
         n_sel = max(1, int(round(cfg.participation * self.n_clients)))
+        sysm = self.systems
+        queue = AdmissionQueue() if sysm is not None else None
         for r in range(cfg.rounds):
-            selected = np.random.default_rng([cfg.seed, _SELECT, r]).choice(
-                self.n_clients, n_sel, replace=False)
-            uploads, head_lists = [], []
-            for c in selected:
-                upload, head_pairs = self._train_client(int(c), r)
-                uploads.append(upload)
-                head_lists.append(head_pairs)
-            self.strategy.aggregate_batch(
-                RoundBatch.from_uploads(uploads, self.con.n_tasks))
+            counters = blank_fault_counters()
+            selected = self._select(r, n_sel, counters)
+            counters["sampled"] = int(len(selected))
 
+            # sync admits in place; async pushes into the admission
+            # queue with the trace's arrival tick
+            admitted: List[Upload] = []
+            head_lists: List[list] = []
+            staleness: List[int] = []
+            dispatch_rounds: List[int] = []
+            for c in selected:
+                c = int(c)
+                if sysm is not None and sysm.dropout(c, r):
+                    counters["dropped"] += 1
+                    continue
+                upload, head_pairs = self._train_client(c, r)
+                if sysm is None:
+                    admitted.append(upload)
+                    head_lists.append(head_pairs)
+                    staleness.append(0)
+                    continue
+                delay = sysm.delay(c, r)
+                if delay > 0:
+                    counters["stragglers"] += 1
+                queue.push(r + delay, r, (upload, head_pairs))
+            if sysm is not None:
+                for item in queue.pop_ready(r):
+                    upload, head_pairs = item.payload
+                    s = r - item.dispatch
+                    if s > cfg.max_staleness:
+                        counters["stale"] += 1
+                        continue
+                    admitted.append(upload)
+                    head_lists.append(head_pairs)
+                    staleness.append(s)
+                    dispatch_rounds.append(item.dispatch)
+                counters["buffered"] = len(queue)
+            counters["admitted"] = len(admitted)
+
+            if not admitted:
+                # nothing reached the server this tick: skip and carry
+                counters["skipped"] = 1
+                self.strategy.skip_round()
+            elif hasattr(self.strategy, "aggregate_admitted"):
+                self.strategy.aggregate_admitted(
+                    RoundBatch.from_uploads(admitted, self.con.n_tasks),
+                    staleness, sysm,
+                    dispatch_rounds if sysm is not None else None)
+            else:
+                self.strategy.aggregate_batch(
+                    RoundBatch.from_uploads(admitted, self.con.n_tasks))
+            quarantined = getattr(self.strategy, "last_quarantined",
+                                  frozenset())
+            counters["quarantined"] = len(quarantined)
+            hist.fault_counts.append(counters)
+            # under pipeline=True the round is still in flight here: this
+            # is the last completed round's phases (History.phase_us)
+            hist.phase_us.append(dict(self.strategy.last_phase_us or {}))
+
+            # heads averaged over the admitted, non-quarantined uploads
             new_heads: Dict[int, list] = {}
-            for pairs in head_lists:
+            for upload, pairs in zip(admitted, head_lists):
+                if upload.client_id in quarantined:
+                    continue
                 for t, head, size in pairs:
                     new_heads.setdefault(t, []).append((head, size))
             for t, pairs in new_heads.items():
@@ -241,7 +375,7 @@ class FedSimulator:
                 w = w / torch.sum(w)
                 self.heads[t] = sum(wi * h for (h, _), wi in zip(pairs, w))
 
-            bits = self.strategy.uplink_bits(uploads)
+            bits = self.strategy.uplink_bits(admitted)
             if (r + 1) % cfg.eval_every == 0 or r == cfg.rounds - 1:
                 acc = self.evaluate()
                 hist.rounds.append(r + 1)

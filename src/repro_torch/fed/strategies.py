@@ -1,6 +1,9 @@
-"""Federated aggregation strategies: MaTU (synchronous, on the packed or
-the entropy-coded wire) and the paper's baselines (Tables 1–2): FedAvg,
-FedProx, NTK-FedAvg, TIES, FedPer and MaT-FL.
+"""Federated aggregation strategies: MaTU (on the packed or the
+entropy-coded wire, its round optionally left in flight by the deferred
+drain), the async MaTU server step (staleness-weighted slots, the
+validating decode with quarantine, carried per-task vectors) and the
+paper's baselines (Tables 1–2): FedAvg, FedProx, NTK-FedAvg, TIES,
+FedPer and MaT-FL.
 
 The simulator calls, per round:
   ``task_init(client, task)``       → τ to start local training from
@@ -8,6 +11,8 @@ The simulator calls, per round:
   ``eval_vectors(task)``            → τ to evaluate for a task
   ``uplink_bits(uploads)``          → communicated bits this round
   ``downlink_bits()``               → measured downlink bits this round
+  ``skip_round()``                  → in place of the server step when a
+                                      round admits no upload
 
 Each strategy decides what is transmitted (MaTU: one unified vector +
 modulators; the others: per-task adapters), and the uplink accounting
@@ -18,9 +23,11 @@ Every strategy keeps its state on its ``device``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
@@ -29,10 +36,13 @@ from repro_torch.core.baselines import (cosine_similarity_matrix,
                                         greedy_group, mean_rows, ties_merge,
                                         weighted_average)
 from repro_torch.core.client import ClientDownlink, ClientUpload, paper_link_bits
-from repro_torch.core.engine import (batched_client_unify, pack_from_slots,
-                                     split_streams, valid_rows)
+from repro_torch.core.engine import (STALENESS_DISCOUNT, batched_client_unify,
+                                     host_copy_async, pack_from_slots,
+                                     ready_mark, split_streams,
+                                     staleness_weights, valid_rows,
+                                     wait_ready)
 from repro_torch.core.server import MaTUServer, MaTUServerConfig
-from repro_torch.core.unify import modulate
+from repro_torch.core.unify import modulate, unify
 from repro_torch.kernels import bitpack
 from repro_torch.kernels.ref import next_pow2
 
@@ -115,6 +125,10 @@ class Strategy:
     name = "base"
     needs_prox = False          # clients add FedProx's proximal term
     needs_linearize = False     # clients train the linearised model
+    # host / device µs of the most recently COMPLETED server round
+    # ({"pack"/"decode"/"encode"/"device"} where measured); None for
+    # strategies that measure nothing
+    last_phase_us: Optional[Dict[str, float]] = None
 
     def __init__(self, n_tasks: int, d: int, device: DeviceLike = "cuda"):
         self.n_tasks, self.d = n_tasks, d
@@ -160,6 +174,15 @@ class Strategy:
         self.verify_layouts(batch.uploads)
         self.aggregate(batch.uploads)
 
+    def use_pipeline(self, on: bool) -> None:
+        """Enable the deferred drain where the strategy has one (MaTU);
+        a no-op for per-client strategies."""
+
+    def skip_round(self) -> None:
+        """Called INSTEAD of the server step when a round admits no
+        upload: carry every state unchanged.  A no-op for strategies
+        whose state is per round already."""
+
     def eval_vectors(self, task_id: int) -> List[torch.Tensor]:
         raise NotImplementedError
 
@@ -174,11 +197,11 @@ class Strategy:
 
 
 class MaTUStrategy(Strategy):
-    """Synchronous MaTU on the packed wire: one fused kernel call builds
-    every client's upload (bf16 unified + packed mask words), the round
-    engine runs Eq. 3–7 + downlink re-unification, and the downlinks
-    seed the next round's ``task_init``.  Wire bits are measured off the
-    buffers the engine computes on.
+    """MaTU on the packed wire: one fused kernel call builds every
+    client's upload (bf16 unified + packed mask words), the round engine
+    runs Eq. 3–7 + downlink re-unification, and the downlinks seed the
+    next round's ``task_init``.  Wire bits are measured off the buffers
+    the engine computes on.
 
     ``code_masks`` ships the Golomb-Rice wire both ways
     (:mod:`repro_torch.fed.compression`): the uplink streams encode the
@@ -186,13 +209,20 @@ class MaTUStrategy(Strategy):
     downlinks are encoded in one batched call and decoded by the
     clients on use; bits are measured off the streams.  ``compress``
     is accounting only: the uplink bits become the coder's measured size
-    for masks that travelled as raw packed words."""
+    for masks that travelled as raw packed words.
+
+    ``pipeline`` (the deferred drain) leaves the round in flight when
+    ``aggregate_batch`` returns; it is drained (waited for, its
+    downlinks built) when first needed: the next ``task_init``,
+    ``downlink_bits`` or server step.  The same operations in another
+    order, so bit-identical to ``pipeline=False``."""
     name = "matu"
 
     def __init__(self, n_tasks: int, d: int, *, rho: float = 0.4,
                  eps: float = 0.5, kappa: int = 3, cross_task: bool = True,
                  uniform_cross: bool = False, compress: bool = False,
-                 code_masks: bool = False, device: DeviceLike = "cuda"):
+                 code_masks: bool = False, pipeline: bool = False,
+                 device: DeviceLike = "cuda"):
         super().__init__(n_tasks, d, device)
         self.server = MaTUServer(MaTUServerConfig(
             n_tasks=n_tasks, rho=rho, eps=eps, kappa=kappa,
@@ -202,9 +232,54 @@ class MaTUStrategy(Strategy):
         self.client_tasks: Dict[int, List[int]] = {}
         self.code_masks = code_masks
         self.compress = compress
+        self.pipeline = pipeline
+        # (packed, out, phase_us, dispatch time, ready mark) of the round
+        # in flight
+        self._pending = None
         self._last_uploads: List[ClientUpload] = []
 
+    def use_pipeline(self, on: bool) -> None:
+        """Toggle the deferred drain (draining any round in flight
+        first, so toggling between rounds is safe)."""
+        self._drain()
+        self.pipeline = on
+
+    def _drain(self) -> None:
+        """Finish the round in flight, if any: wait for its ready point,
+        build (and under ``code_masks`` encode) its downlinks, record its
+        phases."""
+        if self._pending is None:
+            return
+        packed, out, phase, t_disp, mark = self._pending
+        self._pending = None
+        wait_ready(mark)
+        phase["device"] = (time.perf_counter() - t_disp) * 1e6
+        self.downlinks.update(self.server.finish_round(
+            packed, out, code_masks=self.code_masks, phase_us=phase))
+        self.last_phase_us = phase
+
+    def _dispatch(self, packed, phase: Dict[str, float], t0: float):
+        """Start the engine round over ``packed``; it stays pending until
+        :meth:`_drain`.  Returns its output."""
+        out = self.server.start_round(packed)
+        t_disp = time.perf_counter()
+        self._pending = (packed, out, phase, t_disp, ready_mark(self.device))
+        phase["pack"] = (t_disp - t0) * 1e6
+        return out
+
+    def _coded_uplink(self, words: torch.Tensor, mark,
+                      ks: List[int]) -> List[torch.Tensor]:
+        """Every client's word rows, the bytes the engine computes on,
+        entropy-coded in ONE batched call and split back per client by
+        the record sizes.  ``words`` may be a pending host copy, ready at
+        ``mark``."""
+        from repro_torch.fed.compression import encode_mask_rows_with_sizes
+        wait_ready(mark)
+        return split_streams(*encode_mask_rows_with_sizes(
+            valid_rows(bitpack.words_to_numpy(words), ks), self.d), ks)
+
     def task_init(self, client_id: int, task_id: int) -> torch.Tensor:
+        self._drain()
         dl = self.downlinks.get(client_id)
         if dl is None:
             return torch.zeros((self.d,), dtype=torch.float32,
@@ -217,24 +292,29 @@ class MaTUStrategy(Strategy):
 
     def aggregate_batch(self, batch: RoundBatch) -> None:
         self.verify_layouts(batch.uploads)
+        self._drain()
+        phase: Dict[str, float] = {}
+        t0 = time.perf_counter()
         unified, mask_words, lams = batched_client_unify(
             batch.task_vectors, batch.valid, device=self.device)
+        words = words_mark = None
+        if self.code_masks:
+            # the uplink's words go to the host ahead of the round's
+            # launches, so their encode below overlaps the round
+            words = host_copy_async(mask_words)
+            words_mark = ready_mark(self.device)
         packed = pack_from_slots(batch.client_ids, batch.task_ids, unified,
                                  mask_words, lams,
                                  batch.slot_tasks.to(self.device),
                                  batch.valid.to(self.device),
                                  batch.slot_sizes.to(self.device),
                                  self.n_tasks, d=self.d)
-        out = self.server.start_round(packed)
+        self._dispatch(packed, phase, t0)
         ks = [len(u.task_ids) for u in batch.uploads]
         if self.code_masks:
-            # the coded uplink: every client's word rows, the bytes the
-            # engine computes on, entropy-coded in ONE batched call and
-            # split back per client by the record sizes
-            from repro_torch.fed.compression import encode_mask_rows_with_sizes
-            up_masks = split_streams(*encode_mask_rows_with_sizes(
-                valid_rows(bitpack.words_to_numpy(mask_words), ks),
-                self.d), ks)
+            t1 = time.perf_counter()
+            up_masks = self._coded_uplink(words, words_mark, ks)
+            phase["encode"] = (time.perf_counter() - t1) * 1e6
         else:
             up_masks = [mask_words[i, :k] for i, k in enumerate(ks)]
         self._last_uploads = [
@@ -243,8 +323,17 @@ class MaTUStrategy(Strategy):
             for i, (u, k) in enumerate(zip(batch.uploads, ks))]
         for u in batch.uploads:
             self.client_tasks[u.client_id] = list(u.task_ids)
-        self.downlinks.update(self.server.finish_round(
-            packed, out, code_masks=self.code_masks))
+        if not self.pipeline:
+            self._drain()
+
+    def skip_round(self) -> None:
+        """An empty round: drain the round in flight, then clear the
+        round's wire accounting (``uplink_bits`` / ``downlink_bits``
+        report 0).  Task vectors, similarity and every client's downlink
+        stay as the last aggregated round left them."""
+        self._drain()
+        self._last_uploads = []
+        self.last_phase_us = {}
 
     def eval_vectors(self, task_id: int) -> List[torch.Tensor]:
         return [self.server.last_task_vectors[task_id]]
@@ -265,9 +354,197 @@ class MaTUStrategy(Strategy):
                    for u in uploads)
 
     def downlink_bits(self) -> int:
-        """Measured downlink wire bits of the clients served last round."""
+        """Measured downlink wire bits of the clients served last round
+        (a quarantined client is not served)."""
+        self._drain()
         return sum(self.downlinks[u.client_id].downlink_bits()
-                   for u in self._last_uploads)
+                   for u in self._last_uploads
+                   if u.client_id in self.downlinks)
+
+
+class AsyncMaTUStrategy(MaTUStrategy):
+    """The buffered, staleness-aware, fault-tolerant MaTU server step of
+    the simulator's event-clock mode (``FedSimulator(..., systems=)``):
+
+    * **staleness-weighted slots** — an admitted upload dispatched at
+      round q and folded at round r has staleness ``s = r − q``; its
+      slots enter the round with weight ``staleness_discount**s``
+      (``PackedRound.slot_weights``: λ·w and size·w).  ``s = 0`` is
+      bitwise the synchronous round, so under an ideal trace async ≡
+      sync bit for bit.
+    * **validating decode + quarantine** — when the trace can corrupt
+      (``systems.injects_corruption``), each client's coded stream is
+      CRC-framed (``fed.systems.wrap_stream``), tampered as the trace
+      says, then validated (frame, then the full entropy decode); an
+      upload raising ``WireFrameError`` or ``CodedStreamError`` is left
+      out of the round (its client in ``last_quarantined``; its bytes
+      still count as uplink traffic).
+    * **carried per-task vectors** — a task aggregated this round takes
+      the round's vector bitwise (age 0); a dark task ages, and one seen
+      before decays toward the unified vector of the seen tasks,
+      ``τ_t ← (1 − β)·τ_t + β·unify(seen τ)`` (β = ``dark_decay``), so
+      ``eval_vectors`` and ``similarity`` stay well posed through dark
+      spells.  They live on the strategy's device.
+    * **skip-and-carry** — an empty or all-quarantined round ages the
+      tasks and carries every other state.
+    """
+    name = "matu-async"
+
+    def __init__(self, n_tasks: int, d: int, *,
+                 staleness_discount: float = STALENESS_DISCOUNT,
+                 dark_decay: float = 0.25, **kw):
+        super().__init__(n_tasks, d, **kw)
+        self.staleness_discount = float(staleness_discount)
+        self.dark_decay = float(dark_decay)
+        # rounds since each task was last aggregated (0 = this round)
+        self.task_age = np.zeros(n_tasks, np.int64)
+        self._task_seen = np.zeros(n_tasks, bool)
+        self._task_vecs = torch.zeros((n_tasks, d), dtype=torch.float32,
+                                      device=self.device)
+        self.last_quarantined: frozenset = frozenset()
+
+    def _age_and_decay(self, held, decay: bool = True) -> None:
+        """Refresh the ages of ``held`` tasks; age every dark task and
+        pull the ever-seen dark ones toward the unified vector of the
+        seen tasks.  ``decay=False`` (no engine round ran) only ages.
+        Rows are indexed one by one with host ints: an index tensor would
+        be a host-to-device copy, which waits for the round in flight."""
+        dark = np.ones(self.n_tasks, bool)
+        if held:
+            held_idx = np.asarray(sorted(held), np.int64)
+            dark[held_idx] = False
+            self.task_age[held_idx] = 0
+            self._task_seen[held_idx] = True
+        self.task_age[dark] += 1
+        if not decay:
+            return
+        decay_idx = np.flatnonzero(dark & self._task_seen)
+        if decay_idx.size:
+            u = unify(torch.stack([self._task_vecs[int(t)] for t in
+                                   np.flatnonzero(self._task_seen)]))
+            beta = self.dark_decay
+            for t in decay_idx.tolist():
+                self._task_vecs[t] = ((1.0 - beta) * self._task_vecs[t]
+                                      + beta * u)
+
+    @property
+    def similarity(self) -> np.ndarray:
+        """Eq. 5 sign similarity of the carried task vectors, on the host
+        (reading it is the only wait): rows of dark tasks follow their
+        decayed vectors; never-seen tasks are masked out."""
+        v = self._task_vecs.cpu().numpy()
+        sgn = np.sign(v)
+        sim = 0.5 * ((sgn @ sgn.T) / max(v.shape[1], 1) + 1.0)
+        seen = self._task_seen.astype(np.float32)
+        return (sim * seen[None, :] * seen[:, None]).astype(np.float32)
+
+    def eval_vectors(self, task_id: int) -> List[torch.Tensor]:
+        return [self._task_vecs[task_id]]
+
+    def skip_round(self) -> None:
+        super().skip_round()
+        self.last_quarantined = frozenset()
+        self._age_and_decay(set(), decay=False)
+
+    def aggregate_batch(self, batch: RoundBatch) -> None:
+        self.aggregate_admitted(batch, [0] * len(batch.uploads))
+
+    def aggregate_admitted(self, batch: RoundBatch, staleness: List[int],
+                           systems=None,
+                           dispatch_rounds: Optional[List[int]] = None
+                           ) -> int:
+        """Server step over the admission queue's drain: validate (and
+        maybe quarantine) each upload, then run the round over the rest
+        with the staleness-weighted slots.  Returns the number of uploads
+        aggregated (0 when all were quarantined: no round runs)."""
+        self.verify_layouts(batch.uploads)
+        self._drain()
+        inject = (systems is not None and systems.injects_corruption
+                  and dispatch_rounds is not None)
+        if inject and not self.code_masks:
+            raise ValueError("wire fault injection (corrupt_prob > 0) "
+                             "tampers the CODED mask streams — construct "
+                             "AsyncMaTUStrategy(code_masks=True)")
+        phase: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        unified, mask_words, lams = batched_client_unify(
+            batch.task_vectors, batch.valid, device=self.device)
+        ks = [len(u.task_ids) for u in batch.uploads]
+        quarantined: List[int] = []
+        if self.code_masks:
+            t1 = time.perf_counter()
+            streams = self._coded_uplink(mask_words, None, ks)
+            phase["encode"] = (time.perf_counter() - t1) * 1e6
+            if inject:
+                from repro_torch.fed.compression import (CodedStreamError,
+                                                         decode_mask_rows)
+                from repro_torch.fed.systems import (WireFrameError,
+                                                     unwrap_stream,
+                                                     wrap_stream)
+                framed = [wrap_stream(st.numpy()) for st in streams]
+                for i, u in enumerate(batch.uploads):
+                    if systems.corrupt(u.client_id, dispatch_rounds[i]):
+                        framed[i] = systems.tamper(framed[i], u.client_id,
+                                                   dispatch_rounds[i])
+                # the validating decode: the CRC frame, then the full
+                # entropy decode; a malformed upload never reaches the
+                # slot tensors
+                for i, k in enumerate(ks):
+                    try:
+                        decode_mask_rows(unwrap_stream(framed[i]), self.d, k)
+                    except (WireFrameError, CodedStreamError):
+                        quarantined.append(i)
+                streams = [torch.from_numpy(f) for f in framed]
+            up_masks = streams
+        else:
+            up_masks = [mask_words[i, :k] for i, k in enumerate(ks)]
+        # the wire accounting covers every admitted upload, quarantined
+        # ones too (their bytes travelled), framed under fault injection
+        self._last_uploads = [
+            ClientUpload(u.client_id, list(u.task_ids), unified[i],
+                         up_masks[i], lams[i, :k], list(u.data_sizes))
+            for i, (u, k) in enumerate(zip(batch.uploads, ks))]
+        self.last_quarantined = frozenset(
+            batch.uploads[i].client_id for i in quarantined)
+
+        keep = [i for i in range(len(ks)) if i not in set(quarantined)]
+        if not keep:
+            # everything admitted was malformed: no round runs, carry
+            self.last_phase_us = phase
+            self._age_and_decay(set(), decay=False)
+            return 0
+        tasks = batch.slot_tasks.to(self.device)
+        valid = batch.valid.to(self.device)
+        sizes = batch.slot_sizes.to(self.device)
+        if quarantined:
+            sel = torch.as_tensor(keep, dtype=torch.long, device=self.device)
+            unified, mask_words, lams, tasks, valid, sizes = (
+                x[sel] for x in (unified, mask_words, lams, tasks, valid,
+                                 sizes))
+        stale = [int(staleness[i]) for i in keep]
+        slot_weights = None
+        if any(stale):
+            slot_weights = torch.from_numpy(staleness_weights(
+                stale, batch.k_max, self.staleness_discount)).to(self.device)
+        packed = pack_from_slots([batch.client_ids[i] for i in keep],
+                                 [batch.task_ids[i] for i in keep], unified,
+                                 mask_words, lams, tasks, valid, sizes,
+                                 self.n_tasks, d=self.d,
+                                 slot_weights=slot_weights)
+        out = self._dispatch(packed, phase, t0)
+        phase["pack"] -= phase.get("encode", 0.0)
+        for i in keep:
+            u = batch.uploads[i]
+            self.client_tasks[u.client_id] = list(u.task_ids)
+        # carried per-task state: held tasks take the round's vectors,
+        # dark ones age and decay
+        held = {t for i in keep for t in batch.task_ids[i]}
+        for t in sorted(held):
+            self._task_vecs[t] = out.task_vectors[t]
+        self._age_and_decay(held)
+        if not self.pipeline:
+            self._drain()
+        return len(keep)
 
 
 class FedAvgStrategy(Strategy):
@@ -418,6 +695,7 @@ class MaTFLStrategy(Strategy):
 
 STRATEGIES = {
     "matu": MaTUStrategy,
+    "matu-async": AsyncMaTUStrategy,
     "fedavg": FedAvgStrategy,
     "fedprox": FedProxStrategy,
     "ntk-fedavg": NTKFedAvgStrategy,

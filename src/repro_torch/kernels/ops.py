@@ -270,11 +270,24 @@ def _transfer(tau_hats, m_hats, sim, held, slot_tasks, n_tasks: int, *,
                                                   max=n_tasks - 1)]
 
 
+def _apply_slot_weights(slot_lams, slot_sizes, slot_weights):
+    """The async staleness discount: per-slot weights w in (0, 1] scale
+    the modulator λ (the slot's reconstructed vector shrinks) and the
+    size (the slot's share of the Eq. 4 γ shrinks) in fp32 before the
+    slot scatter, so no kernel takes a new operand.  ``w = 1`` is
+    bitwise ``None`` (an IEEE multiply by 1.0)."""
+    if slot_weights is None:
+        return slot_lams, slot_sizes
+    w = slot_weights.float()
+    return slot_lams.float() * w, slot_sizes.float() * w
+
+
 def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
                      slot_tasks, n_tasks: int, *, rho: float = 0.4,
                      eps: float = 0.5, kappa: int = 3,
                      cross_task: bool = True, uniform_cross: bool = False,
-                     lam_eps: float = 1e-12, mode: Optional[str] = None):
+                     lam_eps: float = 1e-12, mode: Optional[str] = None,
+                     slot_weights: Optional[torch.Tensor] = None):
     """The full MaTU server round in the bool/fp32 A/B layout.
 
     Layout: ``unified`` (N, d) fp32; ``slot_masks`` (N, K, d) bool;
@@ -292,7 +305,12 @@ def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
     bits and bf16-representable unified values every output equals the
     packed round's bit for bit (the bf16 downlink as the rounding of the
     fp32 one).
+
+    ``slot_weights`` (optional (N, K) fp32) is the async staleness
+    discount (:func:`_apply_slot_weights`).
     """
+    slot_lams, slot_sizes = _apply_slot_weights(slot_lams, slot_sizes,
+                                                slot_weights)
     masks_d, lams_d, member_d, sizes_d = slots_to_dense(
         slot_masks, slot_lams, slot_sizes, slot_valid, slot_tasks, n_tasks)
     memf, gam = _gammas(member_d, sizes_d)
@@ -316,7 +334,8 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
                             kappa: int = 3, cross_task: bool = True,
                             uniform_cross: bool = False,
                             lam_eps: float = 1e-12,
-                            mode: Optional[str] = None):
+                            mode: Optional[str] = None,
+                            slot_weights: Optional[torch.Tensor] = None):
     """The full MaTU server round over wire-format slot uploads.
 
     Layout: ``unified`` (N, d) bf16; ``slot_mask_words`` (N, K,
@@ -331,10 +350,13 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     (T, d) uint8, n_held (T,) fp32, similarity (T, T), down_unified
     (N, d) bf16, down_mask_words (N, K, ceil(d/32)) int32, down_lams
     (N, K)).  Tasks nobody holds give τ̂ = 0, alpha_num = 0 and are
-    masked out of the similarity.
+    masked out of the similarity.  ``slot_weights`` as in
+    :func:`matu_round_slots`.
     """
     if unified.shape[-1] != d:
         raise ValueError(f"unified width {unified.shape[-1]} != d={d}")
+    slot_lams, slot_sizes = _apply_slot_weights(slot_lams, slot_sizes,
+                                                slot_weights)
     words_d, lams_d, member_d, sizes_d = slots_to_dense_packed(
         slot_mask_words, slot_lams, slot_sizes, slot_valid, slot_tasks,
         n_tasks)

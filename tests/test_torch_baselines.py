@@ -159,7 +159,7 @@ def _assert_vectors(got, want):
 
 
 def test_strategies_table_has_the_jax_keys():
-    assert set(tstr.STRATEGIES) == set(jstr.STRATEGIES) - {"matu-async"}
+    assert set(tstr.STRATEGIES) == set(jstr.STRATEGIES)
     for name in STRATEGY_NAMES:
         j, t = _strategy_pair(name)
         assert t.name == j.name == name

@@ -1887,3 +1887,161 @@ def test_cuda_baselines_phase_reduced(cuda):
     out = baselines_phase(torch, cuda, reduced=True)
     assert len(out["runs"]) == 8
     assert all(out["launches"][k] >= 4 for k in ops.PACKED_ROUND_KERNELS)
+
+
+def _weighted_round(dev, packed, seed=7, n=12, k=4, t=9, d=100_003):
+    from repro_torch.core.engine import batched_client_unify, pack_from_slots
+    tv, valid = slot_stack(seed, n, k, d)
+    rng = np.random.default_rng(seed)
+    tasks = np.full((n, k), t, np.int32)
+    for i in range(n):
+        kk = int(valid[i].sum())
+        tasks[i, :kk] = np.sort(rng.choice(t - 1, kk, replace=False))
+    tv *= valid[:, :, None]
+    sizes = np.where(valid, rng.integers(10, 200, (n, k)), 0).astype(
+        np.float32)
+    v = torch.from_numpy(valid).to(dev)
+    uni, masks, lams = batched_client_unify(torch.from_numpy(tv), v,
+                                            packed=packed, device=dev)
+    cids = list(range(n))
+    tids = [tasks[i, :int(valid[i].sum())].tolist() for i in range(n)]
+    w = (np.float32(0.5) ** (np.arange(n) % 3).astype(np.float32))
+    weights = torch.from_numpy(np.repeat(w[:, None], k, 1)).to(dev)
+    args = (cids, tids, uni, masks, lams, torch.from_numpy(tasks).to(dev), v,
+            torch.from_numpy(sizes).to(dev), t)
+    return args, weights, t
+
+
+def _round_fields(out):
+    return {f: getattr(out, f) for f in (
+        "task_vectors", "tau_hats", "similarity", "down_unified",
+        "down_masks", "down_lams", "alpha_num", "n_held", "m_hats_dense")
+        if getattr(out, f) is not None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_cuda_slot_weighted_round_matches_plain(cuda, packed):
+    """A staleness-weighted round (w = 0.5**s, s = 0, 1, 2) through the
+    kernels (1–3 packed, 4–6 bool) against the plain versions, bitwise;
+    weights of ones bitwise the unweighted round."""
+    from repro_torch.core.engine import (EngineConfig, RoundEngine,
+                                         pack_from_slots)
+    args, weights, t = _weighted_round(cuda, packed)
+    eng = RoundEngine(EngineConfig(n_tasks=t), device=cuda)
+    p = pack_from_slots(*args, slot_weights=weights)
+    ops.reset_launch_counts()
+    got = _round_fields(eng.run_packed(p))
+    counts = ops.launch_counts()
+    want = _round_fields(eng.run_packed(p, mode="ref"))
+    torch.cuda.synchronize()
+    names = (ops.PACKED_ROUND_KERNELS if packed else
+             ("fused_unify", "masked_agg_batched", "sign_sim"))
+    assert all(counts[k] == 1 for k in names), counts
+    for f, x in want.items():
+        y = got[f]
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        assert torch.equal(y, x), f
+    plain = _round_fields(eng.run_packed(pack_from_slots(*args)))
+    ones = _round_fields(eng.run_packed(pack_from_slots(
+        *args, slot_weights=torch.ones_like(weights))))
+    assert not torch.equal(plain["task_vectors"], got["task_vectors"])
+    for f, x in plain.items():
+        assert torch.equal(ones[f].view(torch.int16) if x.dtype ==
+                           torch.bfloat16 else ones[f],
+                           x.view(torch.int16) if x.dtype == torch.bfloat16
+                           else x), f
+
+
+def _host_rounds(n_rounds, n, k, t, d, layout, seed=11):
+    """Rounds of host uploads of distinct seeded data (bf16 + words, a
+    coded stream, or fp32 + bool masks)."""
+    from repro_torch.core.client import ClientUpload
+    from repro_torch.core.unify import unify_with_modulators
+    from repro_torch.fed.compression import encode_mask_rows
+    rng = np.random.default_rng(seed)
+    rounds = []
+    for _ in range(n_rounds):
+        ups = []
+        for c in range(n):
+            kk = int(rng.integers(1, k + 1))
+            tasks = sorted(rng.choice(t, kk, replace=False).tolist())
+            uni, masks, lams = unify_with_modulators(torch.from_numpy(
+                rng.standard_normal((kk, d)).astype(np.float32)))
+            words = bitpack.pack_bits(masks)
+            m = {"packed": words, "bool": masks,
+                 "coded": torch.from_numpy(encode_mask_rows(
+                     bitpack.words_to_numpy(words), d))}[layout]
+            vec = uni if layout == "bool" else uni.to(torch.bfloat16)
+            ups.append(ClientUpload(c, tasks, vec, m, lams,
+                                    rng.integers(10, 200, kk).tolist()))
+        rounds.append(ups)
+    return rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "coded", "bool"])
+def test_cuda_round_stream_pipelined_equals_sequential(cuda, layout):
+    """``round_stream`` on the card: host uploads packed into pinned
+    stages and copied with ``non_blocking=True`` while the previous
+    round runs, over 4 rounds of distinct data, bitwise the sequential
+    stream (every output tensor, every downlink).  A stage refilled while
+    its copy was in flight would show here as a round with another
+    round's data."""
+    from repro_torch.core.engine import (EngineConfig, RoundEngine,
+                                         SlotStage, pack_uploads)
+    n, k, t, d = 16, 4, 12, 200_003
+    rounds = _host_rounds(4, n, k, t, d, layout)
+    eng = RoundEngine(EngineConfig(n_tasks=t), device=cuda)
+    kw = dict(packed=layout != "bool", code_masks=layout == "coded")
+    seq = list(eng.round_stream(rounds, pipeline=False, **kw))
+    pipe = list(eng.round_stream(rounds, **kw))
+    torch.cuda.synchronize()
+    for (da, oa, pa), (db, ob, pb) in zip(seq, pipe):
+        fa, fb = _round_fields(oa), _round_fields(ob)
+        for f in fa:
+            assert torch.equal(fa[f], fb[f]), f
+        assert da.keys() == db.keys()
+        for c in da:
+            for f in ("unified", "masks", "lams"):
+                x, y = getattr(da[c], f), getattr(db[c], f)
+                assert x.device == y.device and torch.equal(x, y), (c, f)
+        assert set(pa) == set(pb) >= {"pack", "decode", "device"}
+    stage = SlotStage()
+    pack_uploads(rounds[0], t, packed=kw["packed"], device=cuda, stage=stage)
+    assert all(b.is_pinned() for b, _ in stage._bufs.values())
+
+
+@pytest.mark.cuda
+def test_cuda_deferred_coded_uplink_equals_undeferred(cuda):
+    """``MaTUStrategy(code_masks=True, pipeline=True)``: the uplink's words
+    copied to pinned memory ahead of the round and encoded while it runs
+    give the undeferred strategy's streams byte for byte, over 2 rounds
+    (the second from the downlinks); downlinks and task vectors
+    bitwise."""
+    from repro_torch.fed.strategies import MaTUStrategy, RoundBatch, Upload
+    rng = np.random.default_rng(5)
+    n_tasks, d = 6, 70_001
+    clients = [(c, sorted(rng.choice(n_tasks, 2, replace=False).tolist()))
+               for c in range(8)]
+    strats = {p: MaTUStrategy(n_tasks, d, code_masks=True, pipeline=p,
+                              device=cuda) for p in (False, True)}
+    for _ in range(2):
+        noise = torch.from_numpy(rng.standard_normal((8, 2, d)).astype(
+            np.float32)).to(cuda)
+        for s in strats.values():
+            ups = [Upload(c, ts, torch.stack([s.task_init(c, t) for t in ts])
+                          + noise[i], [50, 70])
+                   for i, (c, ts) in enumerate(clients)]
+            s.aggregate_batch(RoundBatch.from_uploads(ups, n_tasks))
+        a, b = strats[False], strats[True]
+        assert a.downlink_bits() == b.downlink_bits()
+        for ua, ub in zip(a._last_uploads, b._last_uploads):
+            assert ua.coded and torch.equal(ua.masks, ub.masks)
+            assert torch.equal(ua.lams, ub.lams)
+        assert torch.equal(a.server.last_task_vectors,
+                           b.server.last_task_vectors)
+        for c in a.downlinks:
+            assert torch.equal(a.downlinks[c].masks, b.downlinks[c].masks)
+            assert torch.equal(a.downlinks[c].lams, b.downlinks[c].lams)

@@ -2,7 +2,8 @@
 
 * nothing under ``src/repro_torch/`` or ``chip_smoke.py`` imports ``jax``
   or the JAX package ``repro`` (an AST scan);
-* the numpy-only ``data/dirichlet.py`` is a byte-identical copy;
+* the numpy-only ``data/dirichlet.py`` and ``fed/systems.py`` are
+  byte-identical copies;
 * every entry point defaults to ``device="cuda"`` and raises without a
   card instead of running on the CPU.
 """
@@ -19,8 +20,8 @@ from repro_torch.core.engine import (EngineConfig, RoundEngine,  # noqa: E402
                                      batched_client_unify, pack_uploads)
 from repro_torch.core.server import MaTUServer, MaTUServerConfig  # noqa: E402
 from repro_torch.fed.simulator import FedConfig, FedSimulator  # noqa: E402
-from repro_torch.fed.strategies import (FedAvgStrategy,  # noqa: E402
-                                        MaTUStrategy)
+from repro_torch.fed.strategies import (AsyncMaTUStrategy,  # noqa: E402
+                                        FedAvgStrategy, MaTUStrategy)
 from repro_torch.serve import ModulatorStore, MultiTenantDecoder  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,7 +56,8 @@ def test_scan_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     for must in ("ops.py", "engine.py", "strategies.py", "simulator.py",
                  "router.py", "lm.py", "attention.py", "ssm.py",
-                 "mlstm_chunk.py", "xlstm_1_3b.py", "chip_smoke.py"):
+                 "mlstm_chunk.py", "xlstm_1_3b.py", "systems.py",
+                 "chip_smoke.py"):
         assert must in names
     assert forbidden("jax.numpy") and forbidden("repro.core")
     assert not forbidden("repro_torch.core")
@@ -64,6 +66,12 @@ def test_scan_sees_the_whole_port():
 def test_dirichlet_is_a_byte_identical_copy():
     a = (ROOT / "src" / "repro" / "data" / "dirichlet.py").read_bytes()
     b = (ROOT / "src" / "repro_torch" / "data" / "dirichlet.py").read_bytes()
+    assert a == b
+
+
+def test_systems_is_a_byte_identical_copy():
+    a = (ROOT / "src" / "repro" / "fed" / "systems.py").read_bytes()
+    b = (ROOT / "src" / "repro_torch" / "fed" / "systems.py").read_bytes()
     assert a == b
 
 
@@ -76,6 +84,8 @@ ENTRY_POINTS = {
     "RoundEngine": lambda: RoundEngine(EngineConfig(n_tasks=3)),
     "MaTUServer": lambda: MaTUServer(MaTUServerConfig(n_tasks=3)),
     "MaTUStrategy": lambda: MaTUStrategy(3, 64),
+    "AsyncMaTUStrategy": lambda: AsyncMaTUStrategy(3, 64),
+    "FedSimulator (systems)": lambda: _async_simulator(),
     "FedAvgStrategy": lambda: FedAvgStrategy(3, 64),
     "batched_client_unify": lambda: batched_client_unify(
         torch.zeros(2, 2, 64), torch.ones(2, 2, dtype=torch.bool)),
@@ -87,6 +97,20 @@ ENTRY_POINTS = {
     "ModulatorStore": lambda: ModulatorStore(_space(), {}),
     "MultiTenantDecoder": lambda: MultiTenantDecoder(None, {}, None),
 }
+
+
+def _async_simulator():
+    from repro_torch.data.dirichlet import dirichlet_split
+    from repro_torch.data.synthetic import make_constellation
+    from repro_torch.fed.systems import ClientSystems
+    from repro_torch.fed.testbed import MLPBackbone
+    con = make_constellation(n_tasks=2, n_groups=1, feat_dim=4, n_classes=2)
+    split = dirichlet_split(n_clients=2, n_tasks=2, n_classes=2,
+                            tasks_per_client=1)
+    bb = MLPBackbone(4, hidden=8, lora_rank=2)
+    return FedSimulator(FedConfig(rounds=1), con, split, bb,
+                        AsyncMaTUStrategy(2, bb.d, device="cpu"),
+                        systems=ClientSystems.ideal(2))
 
 
 def _qwen():
