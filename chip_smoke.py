@@ -93,8 +93,9 @@ Phases (any failure raises and the script exits nonzero):
 8. baselines — the paper's baselines and MaTU's coded wire in Table 2's
              setting on ViT-B/32 at full width (8 tasks in 3 groups with
              the conflict pair (0, 1), 8 clients of 2 tasks, ζ_t 0.5, 64
-             samples each, 2 rounds of 2 AdamW steps at B = 32; the
-             paper's 16 clients and 40 rounds cut for chip time): the
+             samples each, 2 AdamW steps at B = 32, 2 rounds for MaTU
+             and 1 for each baseline; the paper's 16 clients and 40
+             rounds cut for chip time): the
              linearised features at τ = 0 bitwise the features; one
              NTK-FedAvg and one FedProx (μ 0.1) step on the card against
              the CPU (the vit phase's bars) and the three objectives'
@@ -132,7 +133,7 @@ Phases (any failure raises and the script exits nonzero):
              identical bit for bit (accuracies, bits a round, task
              vectors, every last upload and downlink), kernels 1–3
              launched 2 / 1 / 1 a round; (b) ``AsyncMaTUStrategy
-             (code_masks=True)`` for 5 ticks of a fault trace (seed 9:
+             (code_masks=True)`` for 4 ticks of a fault trace (seed 9:
              dropouts, crashes, stragglers, one client 2 rounds late
              against a staleness cap of 1, corrupted coded streams, a
              tick every client drops): the History's fault counters equal
@@ -142,7 +143,7 @@ Phases (any failure raises and the script exits nonzero):
              re-run card vs CPU (the baselines' merge bar; quarantine
              set, ages, streams exact) and its weighted round through
              kernels 1–3 against the plain versions bitwise, weights of
-             ones bitwise none; (c) ``RoundEngine.round_stream`` over 4
+             ones bitwise none; (c) ``RoundEngine.round_stream`` over 3
              replayed full-width rounds (host uploads, pinned stages),
              pipelined against sequential bit for bit, packed raw,
              packed coded and bool (kernels 4–6); the coded uplink with
@@ -152,7 +153,25 @@ Phases (any failure raises and the script exits nonzero):
              accuracies, coded/raw shares and the implicit host syncs
              while a round is in flight (``set_sync_debug_mode("warn")``)
              are printed.
-11. granite — multi-tenant serving of granite-moe-3b-a800m at full width
+11. population — the chunked population round: (a) one full-width
+             round (uploads from kernel 1) through
+             ``RoundEngine.round_chunked`` at chunks of 1, 5, 8 and 64 in
+             both layouts, then with staleness and with a coded downlink
+             at 8: bit for bit the monolithic ``RoundEngine.round`` (task
+             vectors, τ̂, alpha_num / m̂, n_held, S, every downlink, the
+             wire bits) and the same chunked call with the plain
+             versions, kernel 1 (packed) or 4 (bool) once a chunk and 3 or
+             6 once, kernels 2 and 5 never; the wall and peak device
+             memory a call beside the monolithic round's; (b)
+             ``MaTUStrategy(chunk_clients=8)`` against ``MaTUStrategy()``
+             on the same uploads, bitwise; (c) ``PopulationSimulator`` at
+             full width (``PopulationSplit`` of 10^6 clients over 30
+             tasks, 64 a round in chunks of 16, dropout 0.1, 2 rounds)
+             under ``torch.profiler``: the History, host µs deriving
+             uploads against device busy ms, peak memory, launches exact;
+             then the same run at d = 4,096 on the card and on the CPU:
+             counters and bits equal, alignment within rtol 1e-5.
+12. granite — multi-tenant serving of granite-moe-3b-a800m at full width
              (32 layers, d_model 1536, 24 heads (kv 8), 40 experts of
              d_ff 512, top-8, vocab 49,155; random weights from a seed):
              kernel 9 at its factor shapes (1536, 16) and (16, 1536), S =
@@ -169,7 +188,7 @@ Phases (any failure raises and the script exits nonzero):
              plain versions, and fp32, where fused and dense-routed decode
              must agree token for token unless a router near-tie flip
              (printed with its layer and margin) comes first.
-12. whisper — multi-tenant serving of whisper-large-v3 at full width (32
+13. whisper — multi-tenant serving of whisper-large-v3 at full width (32
              encoder + 32 decoder layers, d_model 1280, 20 heads, d_ff
              5120, vocab 51,866, 1,500 frames; random weights and frame
              embeddings from a seed): kernel 9 at its factor shapes
@@ -187,7 +206,7 @@ Phases (any failure raises and the script exits nonzero):
              and decode windows, peak memory, the caches' bytes, bf16
              prefill logits against the plain versions, and fp32, where
              fused and dense-routed decode must agree token for token.
-13. hymba  — multi-tenant serving of hymba-1.5b at full width (32
+14. hymba  — multi-tenant serving of hymba-1.5b at full width (32
              layers of attention (25 heads, kv 5, a 2,048-token sliding
              window) beside a Mamba branch (d_inner 3,200, d_state 16),
              SwiGLU d_ff 5,504, vocab 32,001; random weights from a
@@ -207,7 +226,7 @@ Phases (any failure raises and the script exits nonzero):
              the prefill and at a decode step past the wrap, and fp32 on
              the prompts' first 128 tokens, where fused and dense-routed
              decode must agree token for token.
-14. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
+15. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
              layers, d_model 3,584, 28 heads (kv 4), SwiGLU d_ff 18,944,
              vocab 152,064, M-RoPE sections (16, 24, 24); random weights
              and 1,024 vision embeddings a request from a seed, the
@@ -228,7 +247,7 @@ Phases (any failure raises and the script exits nonzero):
              (they must differ: M-RoPE live), bf16 logits against the
              plain versions, and fp32, where fused and dense-routed
              decode must agree token for token.
-15. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
+16. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
              cut in depth to 2 of its 60 layers (d_model 5,120, 128 heads
              of Multi-head Latent Attention: q_lora 1,536, kv_lora 512,
              nope 128 + rope 64, v 128; 160 routed experts of d_ff 1,536,
@@ -252,7 +271,7 @@ Phases (any failure raises and the script exits nonzero):
              decode must agree token for token unless a router near-tie
              flip comes first, and layer 0's absorbed decode must agree
              with the naive form within rel L2 1e-4.
-16. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+17. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -271,7 +290,7 @@ Phases (any failure raises and the script exits nonzero):
              per-block times, profiled prefill and decode windows; then
              fp32, where fused and dense-routed decode must agree token
              for token.
-17. summary — the host µs a call of every kernel wrapper and of the
+18. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -295,8 +314,9 @@ mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
 whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
-baselines``, ``--only lmtrain`` and ``--only async`` the vit, baselines,
-lmtrain or async phase.  None of them prints the summary or
+baselines``, ``--only lmtrain``, ``--only async`` and ``--only
+population`` the vit, baselines,
+lmtrain, async or population phase.  None of them prints the summary or
 the "ok" line.
 """
 
@@ -1612,10 +1632,10 @@ BASE_TASKS, BASE_GROUPS, BASE_CLIENTS, BASE_TASKS_PER_CLIENT = 8, 3, 8, 2
 BASE_CONFLICT = [(0, 1)]
 BASE_FED = dict(rounds=2, local_steps=2, batch_size=32, local_data=64,
                 eval_every=2)
-# the six baseline runs' rounds: the named cut, should the whole script
-# pass 1,050 s, is 1 (the two MaTU runs keep 2: round 2 starts from the
-# coded downlink)
-BASE_BASELINE_ROUNDS = 2
+# the six baseline runs' rounds: 1, the named time cut, taken when the
+# whole script passed 1,050 s (the two MaTU runs keep 2: round 2 starts
+# from the coded downlink)
+BASE_BASELINE_ROUNDS = 1
 BASE_RUNS = (("matu", "matu", {}), ("matu coded", "matu", {"code_masks": True}),
              ("fedavg", "fedavg", {}), ("fedprox", "fedprox", {}),
              ("ntk-fedavg", "ntk-fedavg", {}), ("ties", "ties", {}),
@@ -1852,8 +1872,9 @@ def base_setting(torch, dev, reduced: bool = False):
 
 def baselines_phase(torch, dev, reduced: bool = False, setting=None):
     """The paper's baselines and MaTU's coded wire in Table 2's setting on
-    ViT-B/32 at full width (8 clients × 2 tasks of 8, 2 rounds; the
-    paper's 16 clients and 40 rounds cut for chip time): eight runs
+    ViT-B/32 at full width (8 clients × 2 tasks of 8, 2 rounds for MaTU
+    and :data:`BASE_BASELINE_ROUNDS` for each baseline; the paper's 16
+    clients and 40 rounds cut for chip time): eight runs
     through ``STRATEGIES[name]`` → ``FedSimulator`` →
     ``make_local_trainer`` (FedProx's proximal term, NTK-FedAvg's
     linearised features) → the strategy's aggregate → ``eval_vectors``:
@@ -2020,20 +2041,22 @@ def baselines_phase(torch, dev, reduced: bool = False, setting=None):
 # the baselines phase's setting, evaluated every round so that each
 # round's accuracies and bits are kept
 ASYNC_FED = dict(BASE_FED, eval_every=1)
-# the fault run: its ticks, the staleness cap and the trace.  At this
-# seed, over 5 ticks (and over 4, the named cut) the trace drops,
+# the fault run: its ticks (4, the named time cut, taken when the whole
+# script passed 1,050 s after the baselines' cut), the staleness cap and
+# the trace.  At this seed, over 5 ticks and over 4 the trace drops,
 # crashes, straggles and corrupts, admits an uncorrupted upload of
 # staleness 1 (weight 0.5 into kernel 2), and skips a tick: every client
 # is forced to drop at ASYNC_SKIP_TICK and no late upload lands there.
 # Client ASYNC_SLOW_CLIENT's base delay of 2 rounds outruns the cap, so
 # its upload goes stale
-ASYNC_TICKS = 5
+ASYNC_TICKS = 4
 ASYNC_MAX_STALENESS = 1
 ASYNC_SLOW_CLIENT, ASYNC_SKIP_TICK = 3, 2
 ASYNC_FAULTS = dict(dropout=0.25, straggler_frac=0.25, straggler_delay=1,
                     crash_prob=0.1, crash_rounds=2, corrupt_prob=0.25, seed=9)
-# replayed rounds a configuration of the host pipeline streams
-ASYNC_STREAM_ROUNDS = 4
+# replayed rounds a configuration of the host pipeline streams (3, the
+# named time cut with ASYNC_TICKS)
+ASYNC_STREAM_ROUNDS = 3
 
 
 def async_systems(n_clients: int):
@@ -2187,27 +2210,20 @@ def same_wire(torch, label, a, b):
 def stream_rounds(torch, dev, n_rounds: int):
     """``n_rounds`` replayed rounds at the full-width round's shapes, each
     from its own seed: per client a host ``ClientUpload`` (bf16 unified,
-    word rows, λ, sizes) built by kernel 1 on the card, and the same
-    uploads with their word rows Golomb-Rice coded (one batched encode a
-    round)."""
+    word rows, λ, sizes) built by kernel 1 on the card
+    (:func:`round_uploads`), and the same uploads with their word rows
+    Golomb-Rice coded (one batched encode a round)."""
+    import numpy as np
     from repro_torch.core.client import ClientUpload
-    from repro_torch.core.engine import (batched_client_unify, split_streams,
-                                         valid_rows)
+    from repro_torch.core.engine import split_streams
     from repro_torch.fed.compression import encode_mask_rows_with_sizes
     from repro_torch.kernels import bitpack
     raw, coded = [], []
     for r in range(n_rounds):
-        tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev,
-                                                        seed=SEED + 20 + r)
-        uni, words, lams = (x.cpu() for x in batched_client_unify(
-            tv, valid, device=dev))
-        del tv
-        tasks, sizes = tasks.cpu(), sizes.cpu()
-        streams = split_streams(*encode_mask_rows_with_sizes(
-            valid_rows(bitpack.words_to_numpy(words), ks), uni.shape[1]), ks)
-        ups = [ClientUpload(i, tasks[i, :k].tolist(), uni[i], words[i, :k],
-                            lams[i, :k], sizes[i, :k].tolist())
-               for i, k in enumerate(ks)]
+        ups = round_uploads(torch, dev, SEED + 20 + r)
+        ks = [len(u.task_ids) for u in ups]
+        rows = np.concatenate([bitpack.words_to_numpy(u.masks) for u in ups])
+        streams = split_streams(*encode_mask_rows_with_sizes(rows, D), ks)
         raw.append(ups)
         coded.append([ClientUpload(u.client_id, u.task_ids, u.unified,
                                    streams[i], u.lams, u.data_sizes)
@@ -2597,6 +2613,330 @@ def async_phase(torch, dev, reduced: bool = False, setting=None):
                 stale_tick=dict(tick=fresh_stale[0], task_vectors_err=errs[0],
                                 carried_err=errs[1]),
                 phase_s=phase_s)
+
+
+# -- population phase: the chunked round and the population simulator -------
+
+POP_CHUNKS = (1, 5, 8, 64)     # 1, a non-divisor of N, a divisor, more than N
+POP_ASIDE_CHUNK = 8            # the staleness and coded calls
+POP_STRAT_CHUNK = 8
+POP_SPLIT = dict(n_clients=1_000_000, n_tasks=T, seed=SEED)
+POP_FED = dict(rounds=2, eval_every=1, seed=SEED)
+POP_PER_ROUND = 64
+POP_CHUNK = 16
+POP_DROPOUT = 0.1
+POP_SMALL_D = 4096
+POP_ALIGN_RTOL = 1e-5
+OUT_FIELDS = ("task_vectors", "tau_hats", "similarity", "alpha_num", "n_held",
+              "m_hats_dense")
+ROUND_KERNELS = ("fused_unify_packed", "masked_agg_batched_packed",
+                 "sign_sim_packed", "fused_unify", "masked_agg_batched",
+                 "sign_sim")
+
+
+def exact(torch, x):
+    """A tensor as its bit pattern (fp32 as int32, bf16 as int16)."""
+    return x.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}.get(x.dtype, x.dtype))
+
+
+def same_round(torch, label, a, b):
+    """Two rounds' (EngineOutput, downlinks) bit for bit; names the first
+    output that differs."""
+    (out_a, downs_a), (out_b, downs_b) = a, b
+    pairs = [(f, getattr(out_a, f), getattr(out_b, f)) for f in OUT_FIELDS]
+    if downs_a.keys() != downs_b.keys():
+        raise AssertionError(f"{label}: downlink clients differ")
+    for c in downs_a:
+        pairs += [(f"client {c}'s downlink {f}", getattr(downs_a[c], f),
+                   getattr(downs_b[c], f)) for f in ("unified", "masks",
+                                                     "lams")]
+    for name, x, y in pairs:
+        if (x is None) != (y is None) or x is not None and (
+                x.dtype != y.dtype or x.shape != y.shape
+                or not torch.equal(exact(torch, x), exact(torch, y))):
+            raise AssertionError(f"{label}: {name} differs")
+
+
+def round_uploads(torch, dev, seed: int):
+    """One full-width round's host ``ClientUpload``s (bf16 unified, word
+    rows, λ, sizes), built by kernel 1 on the card from
+    :func:`make_round_inputs`."""
+    from repro_torch.core.client import ClientUpload
+    from repro_torch.core.engine import batched_client_unify
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev, seed=seed)
+    uni, words, lams = (x.cpu() for x in batched_client_unify(
+        tv, valid, device=dev))
+    del tv
+    tasks, sizes = tasks.cpu(), sizes.cpu()
+    return [ClientUpload(i, tasks[i, :k].tolist(), uni[i], words[i, :k],
+                         lams[i, :k], sizes[i, :k].tolist())
+            for i, k in enumerate(ks)]
+
+
+def measured(torch, fn):
+    """(result, wall ms, peak device bytes above the start) of ``fn``,
+    synchronised, from an emptied cache."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    return out, wall, torch.cuda.max_memory_allocated() - base
+
+
+def device_busy_ms(torch, fn):
+    """(result, summed device ms of ``fn``'s kernels and copies) under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out, busy / 1e3
+
+
+def chunked_against_monolithic(torch, dev, ups):
+    """Part (a): ``RoundEngine.round_chunked`` at every chunk size of
+    :data:`POP_CHUNKS` in both layouts, then with staleness and with a
+    coded downlink at :data:`POP_ASIDE_CHUNK`: bit for bit the
+    monolithic round and the same chunked call with ``mode="ref"``,
+    launches exact; warm walls and peaks beside the monolithic
+    round's."""
+    from repro_torch.core.client import paper_link_bits
+    from repro_torch.core.engine import EngineConfig, RoundEngine
+    from repro_torch.kernels import bitpack, ops
+    eng = RoundEngine(EngineConfig(n_tasks=T), device=dev)
+    ks = [len(u.task_ids) for u in ups]
+    table = {}
+    for packed in (True, False):
+        lay = "packed" if packed else "bool"
+        unify, sim = (("fused_unify_packed", "sign_sim_packed") if packed
+                      else ("fused_unify", "sign_sim"))
+        up_bits = sum(bitpack.wire_bits(D, k) if packed
+                      else paper_link_bits(D, k) for k in ks)
+        calls = [(f"chunk {c}", c, {}) for c in POP_CHUNKS] + [
+            (f"chunk {POP_ASIDE_CHUNK} stale", POP_ASIDE_CHUNK,
+             dict(staleness=[i % 3 for i in range(len(ups))])),
+            (f"chunk {POP_ASIDE_CHUNK} coded", POP_ASIDE_CHUNK,
+             dict(code_masks=True))]
+        # one untimed call of each path first: the walls below are warm
+        eng.round(ups, packed=packed)
+        eng.round_chunked(ups, chunk_clients=POP_ASIDE_CHUNK, packed=packed)
+        refs, rows = {}, {}
+        for label, chunk, kw in calls:
+            key = tuple(sorted(kw))
+            if key not in refs:
+                ops.reset_launch_counts()
+                mono, wall, peak = measured(torch, lambda: eng.round(
+                    ups, packed=packed, **kw))
+                refs[key] = (mono[1], mono[0])
+                if not key:
+                    rows["monolithic"] = dict(wall_ms=wall, peak_bytes=peak,
+                                              launches=ops.launch_counts())
+            ops.reset_launch_counts()
+            (downs, out, stats), wall, peak = measured(
+                torch, lambda: eng.round_chunked(ups, chunk_clients=chunk,
+                                                 packed=packed, **kw))
+            counts = ops.launch_counts()
+            want = {k: 0 for k in ROUND_KERNELS}
+            want[unify], want[sim] = stats["n_chunks"], 1
+            if {k: counts[k] for k in ROUND_KERNELS} != want:
+                raise AssertionError(f"population {lay} {label}: launches "
+                                     f"{counts}, want {want}")
+            tag = f"population {lay} {label}"
+            same_round(torch, f"{tag} vs monolithic", refs[key],
+                       (out, downs))
+            down_bits = sum(dl.downlink_bits()
+                            for dl in refs[key][1].values())
+            if (stats["uplink_bits"], stats["downlink_bits"]) != (up_bits,
+                                                                  down_bits):
+                raise AssertionError(f"{tag}: bits {stats} against "
+                                     f"{up_bits} up, {down_bits} down")
+            ref_downs, ref_out, _ = eng.round_chunked(
+                ups, chunk_clients=chunk, packed=packed, mode="ref", **kw)
+            same_round(torch, f"{tag} vs its plain versions",
+                       (ref_out, ref_downs), (out, downs))
+            rows[label] = dict(wall_ms=wall, peak_bytes=peak,
+                               n_chunks=stats["n_chunks"],
+                               launches={k: counts[k] for k in (unify, sim)})
+            del downs, out, ref_downs, ref_out
+            log(f"{tag}: bitwise the monolithic round and the plain "
+                f"versions, bits {stats['uplink_bits']} up / "
+                f"{stats['downlink_bits']} down, launches "
+                f"{rows[label]['launches']}, wall {wall:.2f} ms, peak "
+                f"{peak / 2**30:.3f} GiB")
+        mono = rows["monolithic"]
+        log(f"population {lay} monolithic round: wall {mono['wall_ms']:.2f} "
+            f"ms, peak {mono['peak_bytes'] / 2**30:.3f} GiB, launches "
+            f"{ {k: v for k, v in mono['launches'].items() if v} }")
+        log(f"population {lay} peak GiB by chunk: " + ", ".join(
+            f"{c} {rows[f'chunk {c}']['peak_bytes'] / 2**30:.3f}"
+            for c in POP_CHUNKS) + f" (monolithic "
+            f"{mono['peak_bytes'] / 2**30:.3f})")
+        table[lay] = rows
+        del refs
+    return table
+
+
+def strategy_chunked_check(torch, dev):
+    """Part (b): ``MaTUStrategy(chunk_clients=)`` against the batched
+    strategy on the same uploads: every task's vector, the downlinks and
+    the wire bits, bitwise; the chunked strategy's launches exact."""
+    from repro_torch.fed.strategies import MaTUStrategy, Upload
+    from repro_torch.kernels import ops
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev,
+                                                    seed=SEED + 41)
+    uploads = [Upload(i, tasks[i, :k].tolist(), tv[i, :k].clone(),
+                      sizes[i, :k].tolist()) for i, k in enumerate(ks)]
+    del tv
+    mono = MaTUStrategy(T, D, device=dev)
+    chun = MaTUStrategy(T, D, chunk_clients=POP_STRAT_CHUNK, device=dev)
+    mono.aggregate(uploads)
+    ops.reset_launch_counts()
+    chun.aggregate(uploads)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {"fused_unify_packed": 1 + -(-len(uploads) // POP_STRAT_CHUNK),
+            "sign_sim_packed": 1}
+    if counts != want:
+        raise AssertionError(f"chunked strategy launches {counts}, want "
+                             f"{want}")
+    for t in range(T):
+        a, b = mono.eval_vectors(t)[0], chun.eval_vectors(t)[0]
+        if not torch.equal(exact(torch, a), exact(torch, b)):
+            raise AssertionError(f"chunked strategy: task {t}'s vector "
+                                 f"differs")
+    same_wire(torch, "chunked strategy", wire_state(torch, mono),
+              wire_state(torch, chun))
+    bits = (mono.uplink_bits(uploads), mono.downlink_bits())
+    got = (chun.uplink_bits(uploads), chun.downlink_bits())
+    if bits != got:
+        raise AssertionError(f"chunked strategy: bits {bits} against {got}")
+    log(f"population strategy: MaTUStrategy(chunk_clients="
+        f"{POP_STRAT_CHUNK}) = MaTUStrategy() bitwise (every task's vector, "
+        f"every upload and downlink, bits {bits[0]} up / {bits[1]} down), "
+        f"launches {counts}")
+    del mono, chun, uploads
+    return counts
+
+
+def population_run(torch, dev, d: int, profiled: bool = False):
+    """One ``PopulationSimulator`` run (:data:`POP_SPLIT`,
+    :data:`POP_FED`) at width ``d`` on ``dev``: (simulator, History, wall
+    s, device busy ms or None)."""
+    from repro_torch.data.dirichlet import PopulationSplit
+    from repro_torch.fed.simulator import FedConfig, PopulationSimulator
+    sim = PopulationSimulator(FedConfig(**POP_FED),
+                              PopulationSplit(**POP_SPLIT), d=d,
+                              clients_per_round=POP_PER_ROUND,
+                              chunk_clients=POP_CHUNK,
+                              dropout_prob=POP_DROPOUT, device=dev)
+    t0 = time.perf_counter()
+    if profiled:
+        hist, busy = device_busy_ms(torch, sim.run)
+    else:
+        hist, busy = sim.run(), None
+    return sim, hist, time.perf_counter() - t0, busy
+
+
+def population_phase(torch, dev):
+    """The chunked population round on the card:
+
+    (a) :func:`chunked_against_monolithic` on one full-width round (N 32,
+        K 4, T 30, d 1,327,140; uploads from kernel 1);
+    (b) :func:`strategy_chunked_check` on another;
+    (c) one ``PopulationSimulator`` run at full width (10^6 clients, 64 a
+        round in chunks of 16, dropout 0.1, 2 rounds, evaluated each
+        round) under ``torch.profiler``: its History, host µs deriving
+        uploads against device busy ms, peak memory, launches exact a
+        round; then the same run at d = 4,096 on the card and on the CPU:
+        counters and bits equal, alignment within rtol 1e-5.
+
+    Returns its numbers, ``launches`` those of the whole phase."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    launches = dict.fromkeys(ROUND_KERNELS, 0)
+
+    def add(counts):
+        for k in ROUND_KERNELS:
+            launches[k] += counts[k]
+
+    ups = round_uploads(torch, dev, SEED + 40)
+    table = chunked_against_monolithic(torch, dev, ups)
+    for rows in table.values():
+        for label, row in rows.items():
+            if label != "monolithic":
+                add(dict.fromkeys(ROUND_KERNELS, 0) | row["launches"])
+    del ups
+    add(dict.fromkeys(ROUND_KERNELS, 0) | strategy_chunked_check(torch, dev))
+
+    ops.reset_launch_counts()
+    (sim, hist, wall, busy), _, peak = measured(
+        torch, lambda: population_run(torch, dev, D, profiled=True))
+    counts = ops.launch_counts()
+    add(counts)
+    chunks = [-(-fc["admitted"] // POP_CHUNK) for fc in hist.fault_counts]
+    want = dict.fromkeys(ROUND_KERNELS, 0)
+    want["fused_unify_packed"] = sum(chunks)
+    want["sign_sim_packed"] = sum(1 for c in chunks if c)
+    if {k: counts[k] for k in ROUND_KERNELS} != want:
+        raise AssertionError(f"population run: launches {counts}, want {want}")
+    if sim._tv_host.shape != (T, D) or not np.isfinite(sim._tv_host).all():
+        raise AssertionError("population run: bad task vectors")
+    derive_us = sum(ph.get("derive", 0.0) for ph in hist.phase_us)
+    log(f"population run (d {D}, {POP_SPLIT['n_clients']} clients, "
+        f"{POP_PER_ROUND} a round in chunks of {POP_CHUNK}, dropout "
+        f"{POP_DROPOUT}): wall {wall:.2f} s, device busy {busy:.1f} ms, host "
+        f"deriving uploads {derive_us / 1e3:.1f} ms, peak "
+        f"{peak / 2**30:.3f} GiB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    for r, acc, up, down, fc, ph in zip(
+            hist.rounds, hist.mean_acc, hist.uplink_bits_per_round,
+            hist.downlink_bits_per_round, hist.fault_counts, hist.phase_us):
+        log(f"  round {r}: alignment {acc:.6f}, bits {up} up / {down} down, "
+            f"counters { {k: v for k, v in fc.items() if v} }, phases (us) "
+            + ", ".join(f"{k} {v:.0f}" for k, v in ph.items()))
+    full = dict(wall_s=wall, busy_ms=busy, derive_us=derive_us,
+                peak_bytes=peak, mean_acc=hist.mean_acc,
+                up_bits=hist.uplink_bits_per_round,
+                down_bits=hist.downlink_bits_per_round,
+                fault_counts=hist.fault_counts, phase_us=hist.phase_us)
+    del sim, hist
+
+    ops.reset_launch_counts()
+    _, h_card, _, _ = population_run(torch, dev, POP_SMALL_D)
+    add(ops.launch_counts())
+    _, h_cpu, _, _ = population_run(torch, torch.device("cpu"), POP_SMALL_D)
+    for key in ("rounds", "fault_counts", "uplink_bits_per_round",
+                "downlink_bits_per_round"):
+        if getattr(h_card, key) != getattr(h_cpu, key):
+            raise AssertionError(f"population d {POP_SMALL_D} card vs CPU: "
+                                 f"{key} {getattr(h_card, key)} vs "
+                                 f"{getattr(h_cpu, key)}")
+    acc_card = np.asarray([[a[t] for t in sorted(a)] for a in h_card.task_acc])
+    acc_cpu = np.asarray([[a[t] for t in sorted(a)] for a in h_cpu.task_acc])
+    if not np.allclose(acc_card, acc_cpu, rtol=POP_ALIGN_RTOL, atol=0):
+        raise AssertionError(f"population d {POP_SMALL_D} card vs CPU: "
+                             f"alignment {h_card.mean_acc} vs "
+                             f"{h_cpu.mean_acc}")
+    align_err = float(np.abs(acc_card - acc_cpu).max())
+    log(f"population d {POP_SMALL_D}: card = CPU (counters, bits "
+        f"{h_card.uplink_bits_per_round}), alignment {h_card.mean_acc} "
+        f"(max |card - CPU| {align_err:.3e})")
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"population phase: {phase_s:.1f} s, launches {launches}")
+    return dict(launches=launches, chunked=table, run=full,
+                small_align_err=align_err, phase_s=phase_s)
 
 
 # -- lmtrain phase: LoRA training of qwen2-0.5b at full width ----------------
@@ -4933,6 +5273,15 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "population"]:
+        # the population phase alone: a quick loop for the chunked round,
+        # the chunked strategy and the population simulator; no summary,
+        # no "ok" line
+        log("== population phase alone ==")
+        out = population_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "lmtrain"]:
         # the lmtrain phase alone: a quick loop for the LM training path;
         # no summary, no "ok" line
@@ -4946,7 +5295,7 @@ def main() -> int:
               f"--only round, --only bool, --only devtime, --only mlstm, "
               f"--only granite, --only whisper, --only hymba, --only vlm, "
               f"--only deepseek, --only vit, --only baselines, --only "
-              f"lmtrain or --only async",
+              f"lmtrain, --only async or --only population",
               file=sys.stderr)
         return 2
     def phase(name):
@@ -4972,6 +5321,8 @@ def main() -> int:
     phase("async")
     asy = async_phase(torch, dev, setting=setting)
     del setting
+    phase("population")
+    pop = population_phase(torch, dev)
     # granite before xlstm: after the xlstm phase's profiled prefill
     # (~322,000 device kernels in one window) the profiler returned no
     # device event for granite's kernel-9 windows, six in a row
@@ -5048,11 +5399,15 @@ def main() -> int:
             name=name, launches=counts[name],
             path=paths.get(name, "packed round (round phase, 3 rounds; "
                            f"{asy['launches'][name]} more in the async "
-                           "phase's rounds)"
+                           "phase's rounds, "
+                           f"{pop['launches'].get(name, 0)} in the "
+                           "population phase's)"
                            if name in rows else
                            "bool round (bool phase, 1 round; "
                            f"{asy['launches'][name]} more in the async "
-                           "phase's bool stream)"),
+                           "phase's bool stream, "
+                           f"{pop['launches'].get(name, 0)} in the "
+                           "population phase's chunked rounds)"),
             app_launches=app_counts["matu"][name], **row))
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"

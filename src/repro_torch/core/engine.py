@@ -86,6 +86,53 @@ contract, the JAX package's:
 The simulator's closed loop pipelines instead through the strategy's
 deferred drain (``MaTUStrategy(pipeline=True)``).
 
+Population-scale contract
+-------------------------
+``RoundEngine.round_chunked`` streams a round of N uploads through one
+chunk buffer of C clients, so the round's d-wide memory is O(C·k_max·d
++ T·d) whatever N: the monolithic round's dense (N, T, ⌈d/32⌉) words
+never exist.  The round splits into four phases (``kernels.ops``,
+chunked section):
+
+* **phase A** (scalars): each chunk's rows of the monolithic round's
+  dense (N, T) member and size tables; at the end, the member counts
+  n_t and the Eq. 4 weights γ from the whole tables
+  (``ops.matu_gammas``).  γ's normaliser is ``torch.sum`` over the
+  client axis, whose rounding only the whole column fixes, so phase A
+  keeps the round's O(N·T) scalars (a few bytes a client and task), not
+  a (T,) running sum.  The γ normaliser needs every client before any
+  merge work: the engine makes two passes over the uploads, which may
+  be a zero-argument callable returning a fresh iterator (the population
+  simulator derives sampled clients on demand and never holds a round).
+* **phase B** (merge): each chunk packs into the monolithic round's
+  slot layout (one :class:`SlotStage`, refilled only after the ready
+  mark of the fold that read it) and folds its sign votes and γλ-weighted
+  Eq. 4 partials into carried (T+1, d) accumulators, int32 votes on the
+  wire and fp32 in the bool layout; row T swallows invalid slots.
+* **finish**: Eq. 3 m̂, τ̂, Eq. 5 (kernel 3, or kernel 6 in the bool
+  layout), Eq. 6 + 7 from the accumulators alone: the monolithic
+  round's own tail (``ops._finish``).
+* **phase C** (downlink): per chunk, the monolithic downlink step
+  (``ops._downlink``: kernel 1, or kernel 4) on that chunk's slot rows;
+  each row depends on its own slots only.  ``sink`` takes each chunk's
+  ``ClientDownlink``s instead of the engine holding N of them.
+
+**Chunk-count invariance** (the bit-identity rule).  The port's
+monolithic round adds clients in ascending order, one fp32 rounding per
+product and per add (``ref._masked_agg``; kernels 2 and 5 are bitwise to
+it).  Phase B makes the same adds in the same order, each client's
+written into the rows of its own distinct tasks by one gather and one
+write: never an unordered scatter-add (atomics on CUDA) nor a ``+=``
+through repeated task ids.  A non-member's add in the monolithic round
+is a signed zero, which changes no sum, so leaving it out changes no
+bit.  Votes and Eq. 5 dots are exact integers.  γ is the monolithic
+division on the monolithic tables, and the finish and phase C run the
+monolithic code.  Hence chunked ≡ monolithic **bit for bit**, on the CPU
+and on the card, in both layouts, with staleness and with coded
+downlinks: task vectors, τ̂, alpha_num / m̂, n_held, S, every downlink
+and the measured wire bits, for chunks of 1, of a non-divisor of N and
+of more than N.  No chunk is padded.
+
 Async rounds
 ------------
 An upload dispatched at round q and folded at round r carries staleness
@@ -102,9 +149,11 @@ The engine never sees a model, only d.
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -199,7 +248,8 @@ class EngineOutput(NamedTuple):
     down_unified: torch.Tensor       # (n, d) bf16 (wire) | fp32
     down_masks: torch.Tensor         # (n, k_max, ceil(d/32)) int32 | (…, d) bool
     down_lams: torch.Tensor          # (n, k_max)
-    alpha_num: Optional[torch.Tensor] = None   # (T, d) uint8 — |Σ sgn(m⊙τ)|
+    # (T, d) uint8, int32 past 128 clients: |Σ sgn(m⊙τ)|
+    alpha_num: Optional[torch.Tensor] = None
     n_held: Optional[torch.Tensor] = None      # (T,) fp32 member counts
     rho: float = RHO_DEFAULT
     m_hats_dense: Optional[torch.Tensor] = None  # (T, d) fp32, bool path
@@ -511,6 +561,170 @@ class RoundEngine:
                 staleness_discount)).to(self.device)
         out = self.run_packed(batch, mode=mode)
         return self.downlinks(batch, out, code_masks=code_masks), out
+
+    def round_chunked(self, uploads, *, chunk_clients: int,
+                      mode: Optional[str] = None, packed: bool = True,
+                      code_masks: bool = False,
+                      staleness: Optional[Sequence[int]] = None,
+                      staleness_discount: float = STALENESS_DISCOUNT,
+                      k_max: Optional[int] = None,
+                      sink: Optional[Callable[
+                          [Dict[int, ClientDownlink]], None]] = None,
+                      phase_us: Optional[Dict[str, float]] = None
+                      ) -> Tuple[Dict[int, ClientDownlink], EngineOutput,
+                                 Dict[str, int]]:
+        """One round streamed through a buffer of ``chunk_clients``
+        clients: d-wide memory O(chunk + T·d) whatever N, and every
+        output bit for bit :meth:`round`'s (module docstring,
+        "Population-scale contract").
+
+        ``uploads`` is a sequence of ClientUploads or a zero-argument
+        callable returning a fresh iterator over the same uploads in the
+        same order: the engine reads them twice (the Eq. 4 normaliser
+        needs every client before any merge work).  ``sink``, if given,
+        receives each phase-C chunk's ``{client_id: ClientDownlink}`` as
+        it is made, and the returned dict stays empty.  The returned
+        ``EngineOutput`` holds the round's task vectors, τ̂, S and
+        alpha_num / n_held (m̂ in the bool layout), with the downlink
+        fields None.  ``stats`` holds the measured ``uplink_bits`` and
+        ``downlink_bits`` (the monolithic round's accounting),
+        ``n_clients``, ``n_chunks`` and ``chunk_clients``.  ``phase_us``
+        accumulates ``pack`` / ``decode`` / ``encode`` host µs."""
+        c_max = int(chunk_clients)
+        if c_max < 1:
+            raise ValueError(f"round_chunked: chunk_clients={c_max} < 1")
+        make_iter = uploads if callable(uploads) else (lambda: iter(uploads))
+        n_tasks, dev = self.cfg.n_tasks, self.device
+
+        # -- pass 0: chunk metadata, host scalars only (no d-wide tensor)
+        metas: List[tuple] = []
+        cur: tuple = ([], [], [], [])
+        stal_it = iter(staleness) if staleness is not None else None
+        d, k_seen, n_clients = None, 1, 0
+        for up in make_iter():
+            if d is None:
+                d = int(up.unified.shape[0])
+            k_seen = max(k_seen, len(up.task_ids))
+            cur[0].append(up.client_id)
+            cur[1].append(list(up.task_ids))
+            cur[2].append([float(x) for x in up.data_sizes])
+            if stal_it is not None:
+                cur[3].append(next(stal_it))
+            n_clients += 1
+            if len(cur[0]) == c_max:
+                metas.append(cur)
+                cur = ([], [], [], [])
+        if cur[0]:
+            metas.append(cur)
+        if n_clients == 0:
+            raise ValueError("round_chunked: empty round (no uploads); "
+                             "sample at least one client or skip the round")
+        if k_max is None:
+            k_max = next_pow2(k_seen)
+        elif k_max < k_seen:
+            raise ValueError(f"round_chunked: k_max={k_max} < max client "
+                             f"task count {k_seen}")
+
+        def slots(tasks_):
+            tk = torch.full((len(tasks_), k_max), n_tasks, dtype=torch.int32)
+            vd = torch.zeros((len(tasks_), k_max), dtype=torch.bool)
+            for i, tl in enumerate(tasks_):
+                tk[i, :len(tl)] = torch.tensor(tl, dtype=torch.int32)
+                vd[i, :len(tl)] = True
+            return tk.to(dev), vd.to(dev)
+
+        def weights(stal_):
+            if staleness is None:
+                return None
+            return torch.from_numpy(staleness_weights(
+                stal_, k_max, staleness_discount)).to(dev)
+
+        # -- phase A: the round's (N, T) member and size tables, then γ
+        members, sizes = [], []
+        for _, tasks_, sizes_, stal_ in metas:
+            tk, vd = slots(tasks_)
+            sz = torch.zeros((len(tasks_), k_max), dtype=torch.float32)
+            for i, sl in enumerate(sizes_):
+                sz[i, :len(sl)] = torch.tensor(sl, dtype=torch.float32)
+            m_rows, s_rows = ops.matu_chunk_scalars(
+                sz.to(dev), vd, tk, n_tasks, slot_weights=weights(stal_),
+                mode=mode)
+            members.append(m_rows)
+            sizes.append(s_rows)
+        n_t, gammas = ops.matu_gammas(torch.cat(members), torch.cat(sizes))
+        del members, sizes
+
+        # -- phase B: second pass, fold the merge partials chunk by chunk
+        a_acc = torch.zeros((n_tasks + 1, d), device=dev,
+                            dtype=torch.int32 if packed else torch.float32)
+        tau_acc = torch.zeros((n_tasks + 1, d), dtype=torch.float32,
+                              device=dev)
+        stage, mark = SlotStage(), None
+        stream = make_iter()
+        uplink_bits, row0 = 0, 0
+        for ids_, _, _, stal_ in metas:
+            ups = list(itertools.islice(stream, len(ids_)))
+            if [u.client_id for u in ups] != ids_:
+                raise ValueError(
+                    "round_chunked: the upload factory returned a "
+                    "different round on the second pass; it must be "
+                    "deterministic (same clients, same order)")
+            # the stage is refilled only once the fold that read it is done
+            wait_ready(mark)
+            batch = pack_uploads(ups, n_tasks, k_max=k_max, packed=packed,
+                                 device=dev, stage=stage, phase_us=phase_us)
+            uplink_bits += batch.wire_bits()
+            g_rows = gammas[row0:row0 + len(ids_)]
+            row0 += len(ids_)
+            args = (batch.unified, batch.slot_masks, batch.slot_lams,
+                    batch.slot_valid, batch.slot_tasks, g_rows, a_acc,
+                    tau_acc)
+            kw = dict(slot_weights=weights(stal_), mode=mode)
+            if packed:
+                ops.matu_merge_chunk_packed(*args, d, **kw)
+            else:
+                ops.matu_merge_chunk(*args, **kw)
+            mark = ready_mark(dev)
+        del stage, batch
+
+        # -- finish: Eq. 3 m̂, τ̂, Eq. 5-7 from the accumulators
+        cfg = self.cfg
+        kw = dict(rho=cfg.rho, eps=cfg.eps, kappa=cfg.kappa,
+                  cross_task=cfg.cross_task, uniform_cross=cfg.uniform_cross,
+                  mode=mode)
+        if packed:
+            tv, tau_hats, a_num, n_t, sim = ops.matu_finish_packed(
+                a_acc, tau_acc, n_t, n_clients, d=d, **kw)
+            out = EngineOutput(tv, tau_hats, sim, None, None, None,
+                               alpha_num=a_num, n_held=n_t, rho=cfg.rho)
+        else:
+            tv, tau_hats, m_hats, n_t, sim = ops.matu_finish(
+                a_acc, tau_acc, n_t, **kw)
+            out = EngineOutput(tv, tau_hats, sim, None, None, None,
+                               rho=cfg.rho, m_hats_dense=m_hats)
+        del a_acc, tau_acc
+
+        # -- phase C: each chunk's downlinks, streamed out
+        down = (ops.matu_downlink_chunk_packed if packed
+                else ops.matu_downlink_chunk)
+        downlinks: Dict[int, ClientDownlink] = {}
+        downlink_bits = 0
+        for ids_, tasks_, _, _ in metas:
+            tk, vd = slots(tasks_)
+            du, dm, dl = down(tv, vd, tk, mode=mode)
+            links = _assemble_downlinks(ids_, tasks_, d, du, dm, dl,
+                                        code_masks=code_masks,
+                                        phase_us=phase_us)
+            downlink_bits += sum(link.downlink_bits()
+                                 for link in links.values())
+            if sink is not None:
+                sink(links)
+            else:
+                downlinks.update(links)
+        stats = {"uplink_bits": uplink_bits, "downlink_bits": downlink_bits,
+                 "n_clients": n_clients, "n_chunks": len(metas),
+                 "chunk_clients": c_max}
+        return downlinks, out, stats
 
     def round_stream(self, rounds, *, mode: Optional[str] = None,
                      packed: bool = True, code_masks: bool = False,

@@ -4,16 +4,25 @@ The server keeps no client state across rounds: it consumes the round's
 uploads, runs Eq. 3–7 through :class:`~repro_torch.core.engine.
 RoundEngine`, and emits per-client downlinks.  The task registry size
 is the only global it needs.
+
+``round_chunked`` streams a round through the engine's chunk buffer
+(the population-scale path).  ``round_legacy`` is the original per-task
+loop over :mod:`repro_torch.core.aggregation`, sharing no code with the
+engine: the oracle both engine paths are held against.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.common.device import DeviceLike
+from repro_torch.core.aggregation import (combine_round,
+                                          cross_task_aggregate,
+                                          sign_similarity, task_aggregate,
+                                          transfer_weights)
 from repro_torch.core.client import ClientDownlink, ClientUpload
 from repro_torch.core.engine import (EPS_DEFAULT, KAPPA_DEFAULT, RHO_DEFAULT,
                                      EngineConfig, EngineOutput, PackedRound,
@@ -54,6 +63,25 @@ class MaTUServer:
         downs, out = self.engine.round(uploads, code_masks=code_masks)
         self._record(out)
         return downs
+
+    def round_chunked(self, uploads, *, chunk_clients: int,
+                      code_masks: bool = False,
+                      staleness: Optional[List[int]] = None,
+                      k_max: Optional[int] = None, sink=None,
+                      phase_us: Optional[Dict[str, float]] = None
+                      ) -> Tuple[Dict[int, ClientDownlink], Dict[str, int]]:
+        """Population-scale server step: stream ``uploads`` (a sequence
+        or a zero-argument iterator factory) through the engine's chunk
+        buffer of ``chunk_clients`` clients, bit for bit :meth:`round`
+        (the engine's "Population-scale contract").  ``sink``, if given,
+        receives each chunk's downlinks and the returned dict stays
+        empty.  Returns ``(downlinks, stats)``, the measured wire bits in
+        ``stats``."""
+        downs, out, stats = self.engine.round_chunked(
+            uploads, chunk_clients=chunk_clients, code_masks=code_masks,
+            staleness=staleness, k_max=k_max, sink=sink, phase_us=phase_us)
+        self._record(out)
+        return downs, stats
 
     def round_packed(self, packed: PackedRound, *,
                      code_masks: bool = False) -> Dict[int, ClientDownlink]:
@@ -112,3 +140,53 @@ class MaTUServer:
                                   bitpack.pack_bits(masks), lams,
                                   fingerprint=fingerprint)
         return ClientDownlink(unified, masks, lams, fingerprint=fingerprint)
+
+    def round_legacy(self, uploads: List[ClientUpload]
+                     ) -> Dict[int, ClientDownlink]:
+        """The per-task oracle of the engine: Eq. 3 + 4 task by task over
+        the members' stacked rows (:func:`~repro_torch.core.aggregation.
+        task_aggregate`), Eq. 5–7 over all tasks, then each client's
+        downlink re-unified by ``unify_with_modulators`` (fp32 unified,
+        bool masks).  It meets the engine to fp32 tolerance; an unheld
+        task's m̂ is 1 here and 0 in the engine, which no output shows.
+        Records the task vectors and the similarity as :meth:`round`
+        does."""
+        cfg, dev = self.cfg, self.device
+        d = int(uploads[0].unified.shape[0])
+        tau_hats = torch.zeros((cfg.n_tasks, d), dtype=torch.float32,
+                               device=dev)
+        m_hats = torch.ones((cfg.n_tasks, d), dtype=torch.float32,
+                            device=dev)
+        held = torch.zeros((cfg.n_tasks,), dtype=torch.bool, device=dev)
+        for t in range(cfg.n_tasks):
+            rows = [(up, up.task_ids.index(t)) for up in uploads
+                    if t in up.task_ids]
+            if not rows:
+                continue
+            held[t] = True
+            unified = torch.stack([up.unified.to(dev, torch.float32)
+                                   for up, _ in rows])
+            masks = torch.stack([up.masks_dense()[i].to(dev)
+                                 for up, i in rows])
+            lams = torch.stack([up.lams[i].to(dev, torch.float32)
+                                for up, i in rows])
+            sizes = torch.tensor([float(up.data_sizes[i]) for up, i in rows],
+                                 dtype=torch.float32, device=dev)
+            member = torch.ones((len(rows),), dtype=torch.bool, device=dev)
+            tau_hats[t], m_hats[t] = task_aggregate(unified, masks, lams,
+                                                    member, sizes, cfg.rho)
+        heldf = held.float()
+        sim = sign_similarity(tau_hats) * heldf[None, :] * heldf[:, None]
+        weights = transfer_weights(sim, held, eps=cfg.eps, kappa=cfg.kappa,
+                                   cross_task=cfg.cross_task,
+                                   uniform_cross=cfg.uniform_cross)
+        tau_tildes = cross_task_aggregate(tau_hats, m_hats, weights)
+        task_vectors = combine_round(tau_hats, tau_tildes, weights)
+        self.last_similarity = sim
+        self.last_task_vectors = task_vectors
+        out: Dict[int, ClientDownlink] = {}
+        for up in uploads:
+            unified, masks, lams = unify_with_modulators(
+                task_vectors[list(up.task_ids)])
+            out[up.client_id] = ClientDownlink(unified, masks, lams)
+        return out

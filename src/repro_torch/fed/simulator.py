@@ -32,10 +32,36 @@ task), heads by (task).  The numbers differ from the JAX package's;
 the laws are the same: a fault injected for one client moves no other
 client's draw, and the async selection with every client available is
 the sync selection.
+
+Population mode
+---------------
+:class:`PopulationSimulator` is the client-axis scale-out harness: a
+lazy :class:`~repro_torch.data.dirichlet.PopulationSplit` over
+10^5–10^6 clients, per-round sampling, and the chunked server round
+(``MaTUServer.round_chunked``), so a round's d-wide memory is O(chunk +
+T·d) however many clients report.  Nothing per-client exists for the
+clients not sampled: a sampled client's upload is derived on demand from
+``(seed, round, client_id)`` and the round's global task vectors (the
+engine's first pass reads its ids, tasks and sizes; its d-wide rows are
+derived when the second pass packs them), and its downlink goes to a
+sink instead of a cache, so neither the simulator nor the server grows
+state with the population.  ``History`` rows are the
+aggregate per-round scalars of the sync loop (measured wire bits, fault
+counters, and in ``phase_us`` the host µs spent deriving uploads beside
+the server step's); ``FedConfig.eval_every`` gates evaluation as in
+:meth:`FedSimulator.run`.  Local "training" is the synthetic drift
+``τ ← τ + step·(g_t − τ) + noise`` toward fixed hidden per-task targets
+g_t, so convergence (cosine alignment to g_t, reported through
+``History.task_acc``) means something without per-client model state.
+Its draws are the JAX package's: numpy generators seeded by the same
+tuples, so sampled ids, dropouts, targets and noise are equal there and
+here; the unify runs on the device.
 """
 
 from __future__ import annotations
 
+import functools
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -44,7 +70,10 @@ import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import TaskVectorLayoutError, pad_vector
-from repro_torch.data.dirichlet import FedSplit
+from repro_torch.core.client import ClientUpload
+from repro_torch.core.server import MaTUServer, MaTUServerConfig
+from repro_torch.core.unify import unify_with_modulators
+from repro_torch.data.dirichlet import FedSplit, PopulationSplit
 from repro_torch.data.synthetic import (Constellation, eval_batch,
                                         sample_task_batch)
 from repro_torch.fed.local import make_head, make_local_trainer
@@ -387,6 +416,176 @@ class FedSimulator:
                 if verbose:
                     print(f"[{self.strategy.name}] round {r+1:3d} "
                           f"mean_acc={hist.mean_acc[-1]:.3f} bits={bits:,}")
+        return hist
+
+
+class _Derived(ClientUpload):
+    """A population client's :class:`ClientUpload` whose unified vector,
+    masks and λ come from ``derive`` on first read."""
+
+    def __init__(self, client_id: int, task_ids: List[int],
+                 data_sizes: List[int], derive):
+        self.client_id, self.task_ids, self.data_sizes = (client_id, task_ids,
+                                                          data_sizes)
+        self.fingerprint, self._dense, self._derive = None, None, derive
+
+    @functools.cached_property
+    def _wire(self):
+        return self._derive()
+
+    unified = property(lambda self: self._wire[0])
+    masks = property(lambda self: self._wire[1])
+    lams = property(lambda self: self._wire[2])
+
+
+# population-mode stream tags of the numpy generators, the JAX
+# package's: disjoint from PopulationSplit's (0x11 / 0x22 / 0x33), so the
+# simulator's draws never meet the split's under one seed
+_POP_TARGET, _POP_UPDATE, _POP_DROP = 0x44, 0x55, 0x66
+
+
+class PopulationSimulator:
+    """Client-axis scale-out harness over a lazy population (module
+    docstring, "Population mode").
+
+    ``clients_per_round`` defaults to ``participation · n_clients``: set
+    it (or a small ``FedConfig.participation``) for populations where
+    training the whole cohort is not the point.  ``sink``: optional
+    per-chunk downlink consumer; the default discards them, so no
+    per-client state accumulates anywhere.  The server runs on
+    ``device``; ``_tv_host`` is a host copy of its task vectors."""
+
+    def __init__(self, cfg: FedConfig, split: PopulationSplit,
+                 server_cfg: Optional[MaTUServerConfig] = None, *,
+                 d: int = 4096, clients_per_round: Optional[int] = None,
+                 chunk_clients: int = 64, step: float = 0.3,
+                 noise: float = 1e-2, dropout_prob: float = 0.0,
+                 code_masks: bool = False, sink=None,
+                 device: DeviceLike = "cuda"):
+        self.cfg = cfg
+        self.split = split
+        self.d = int(d)
+        self.n_tasks = split.n_tasks
+        self.chunk_clients = int(chunk_clients)
+        self.step = float(step)
+        self.noise = float(noise)
+        self.dropout_prob = float(dropout_prob)
+        self.code_masks = code_masks
+        self.sink = sink if sink is not None else (lambda links: None)
+        self.clients_per_round = int(
+            clients_per_round if clients_per_round is not None
+            else max(1, round(cfg.participation * split.n_clients)))
+        self.server = MaTUServer(
+            server_cfg or MaTUServerConfig(n_tasks=split.n_tasks),
+            device=device)
+        self.device = self.server.device
+        # hidden per-task targets the synthetic updates drift toward:
+        # O(T·d), the round's own footprint class
+        trg = np.random.default_rng((cfg.seed, _POP_TARGET)).standard_normal(
+            (self.n_tasks, self.d)).astype(np.float32)
+        self._targets = trg / np.linalg.norm(trg, axis=1, keepdims=True)
+        self._tv_host = np.zeros((self.n_tasks, self.d), np.float32)
+        self._derive_s = 0.0
+
+    # -- lazy client derivation --------------------------------------------
+    def _dropout(self, c: int, r: int) -> bool:
+        return bool(self.dropout_prob > 0.0 and np.random.default_rng(
+            (self.cfg.seed, _POP_DROP, int(r), int(c))).random()
+            < self.dropout_prob)
+
+    def _make_upload(self, c: int, r: int, tv: np.ndarray) -> "_Derived":
+        """Client ``c``'s round-``r`` upload, derived from scratch: tasks
+        and sizes from the lazy split, noise from the (seed, round,
+        client) stream, drift from the global task vectors ``tv`` (frozen
+        for the round, so the engine's two passes see the same uploads).
+        The d-wide part is derived when first read: the engine's first
+        pass reads ids, tasks and sizes only."""
+        ts = self.split.tasks_for(c)
+        sizes = [self.split.local_stats(c, t)[1] for t in ts]
+        return _Derived(int(c), ts, sizes,
+                        lambda: self._derive_rows(c, r, tv, ts))
+
+    def _derive_rows(self, c: int, r: int, tv: np.ndarray,
+                     ts: List[int]):
+        """(unified, masks, lams) of client ``c``'s drifted task rows,
+        the unify on the simulator's device."""
+        t0 = time.perf_counter()
+        rng = np.random.default_rng((self.cfg.seed, _POP_UPDATE,
+                                     int(r), int(c)))
+        rows = np.empty((len(ts), self.d), np.float32)
+        for i, t in enumerate(ts):
+            z = rng.standard_normal(self.d).astype(np.float32)
+            rows[i] = tv[t] + self.step * (self._targets[t] - tv[t]) \
+                + self.noise * z
+        self._derive_s += time.perf_counter() - t0
+        return unify_with_modulators(torch.from_numpy(rows).to(self.device))
+
+    def _upload_factory(self, ids: List[int], r: int):
+        tv = self._tv_host      # one snapshot for both engine passes
+
+        def gen():
+            for c in ids:
+                yield self._make_upload(c, r, tv)
+
+        return gen
+
+    # -- evaluation ---------------------------------------------------------
+    def evaluate(self) -> Dict[int, float]:
+        """Per-task alignment of the server's task vector with its hidden
+        target, mapped to [0, 1] (cosine → (1 + cos) / 2)."""
+        out = {}
+        for t in range(self.n_tasks):
+            v, g = self._tv_host[t], self._targets[t]
+            den = float(np.linalg.norm(v) * np.linalg.norm(g))
+            out[t] = 0.5 * (1.0 + float(v @ g) / den) if den > 0 else 0.0
+        return out
+
+    # -- main loop ----------------------------------------------------------
+    def run(self, verbose: bool = False) -> History:
+        """``History.phase_us`` holds, a round, ``derive`` (host µs
+        drawing the uploads' rows; ``pack`` reads the uploads, so it
+        includes them), ``round`` (the server step's wall µs) and the
+        engine's ``pack`` / ``decode`` / ``encode`` µs."""
+        cfg = self.cfg
+        hist = History()
+        for r in range(cfg.rounds):
+            counters = blank_fault_counters()
+            ids = self.split.sample_round(r, self.clients_per_round)
+            counters["sampled"] = int(len(ids))
+            if self.dropout_prob > 0.0:
+                keep = np.asarray([not self._dropout(int(c), r)
+                                   for c in ids], bool)
+                counters["dropped"] = int(len(ids) - keep.sum())
+                ids = ids[keep]
+            stats = {"uplink_bits": 0, "downlink_bits": 0}
+            phase: Dict[str, float] = {}
+            if len(ids):
+                self._derive_s = 0.0
+                t0 = time.perf_counter()
+                _, stats = self.server.round_chunked(
+                    self._upload_factory([int(c) for c in ids], r),
+                    chunk_clients=self.chunk_clients,
+                    code_masks=self.code_masks, sink=self.sink,
+                    phase_us=phase)
+                self._tv_host = self.server.last_task_vectors.cpu().numpy()
+                phase["round"] = (time.perf_counter() - t0) * 1e6
+                phase["derive"] = self._derive_s * 1e6
+            else:
+                counters["skipped"] = 1
+            counters["admitted"] = int(len(ids))
+            hist.fault_counts.append(counters)
+            hist.phase_us.append(phase)
+            if (r + 1) % cfg.eval_every == 0 or r == cfg.rounds - 1:
+                acc = self.evaluate()
+                hist.rounds.append(r + 1)
+                hist.task_acc.append(acc)
+                hist.mean_acc.append(float(np.mean(list(acc.values()))))
+                hist.uplink_bits_per_round.append(stats["uplink_bits"])
+                hist.downlink_bits_per_round.append(stats["downlink_bits"])
+                if verbose:
+                    print(f"[population] round {r+1:3d} "
+                          f"align={hist.mean_acc[-1]:.3f} "
+                          f"bits={stats['uplink_bits']:,}")
         return hist
 
 

@@ -215,15 +215,29 @@ class MaTUStrategy(Strategy):
     ``aggregate_batch`` returns; it is drained (waited for, its
     downlinks built) when first needed: the next ``task_init``,
     ``downlink_bits`` or server step.  The same operations in another
-    order, so bit-identical to ``pipeline=False``."""
+    order, so bit-identical to ``pipeline=False``.
+
+    ``chunk_clients`` routes the server step through the engine's chunked
+    round (``MaTUServer.round_chunked``), so its slot tensors hold
+    ``chunk_clients`` clients instead of the round's N: the
+    population-scale engine path under the regular simulator.  The
+    uploads are the batched path's own wire buffers (one kernel-1 call),
+    so it is bit-identical to the batched path.  It is synchronous
+    (phase C streams the downlinks out chunk by chunk, so there is no
+    deferred drain), also under ``pipeline``.  With ``code_masks`` both
+    ways ship coded, as on the batched path (the JAX package's chunked
+    step keeps a raw uplink); the engine decodes each chunk's streams as
+    it packs them."""
     name = "matu"
 
     def __init__(self, n_tasks: int, d: int, *, rho: float = 0.4,
                  eps: float = 0.5, kappa: int = 3, cross_task: bool = True,
                  uniform_cross: bool = False, compress: bool = False,
                  code_masks: bool = False, pipeline: bool = False,
+                 chunk_clients: Optional[int] = None,
                  device: DeviceLike = "cuda"):
         super().__init__(n_tasks, d, device)
+        self.chunk_clients = chunk_clients
         self.server = MaTUServer(MaTUServerConfig(
             n_tasks=n_tasks, rho=rho, eps=eps, kappa=kappa,
             cross_task=cross_task, uniform_cross=uniform_cross),
@@ -292,6 +306,9 @@ class MaTUStrategy(Strategy):
 
     def aggregate_batch(self, batch: RoundBatch) -> None:
         self.verify_layouts(batch.uploads)
+        if self.chunk_clients:
+            self._aggregate_chunked(batch)
+            return
         self._drain()
         phase: Dict[str, float] = {}
         t0 = time.perf_counter()
@@ -325,6 +342,39 @@ class MaTUStrategy(Strategy):
             self.client_tasks[u.client_id] = list(u.task_ids)
         if not self.pipeline:
             self._drain()
+
+    def _aggregate_chunked(self, batch: RoundBatch) -> None:
+        """The chunked server step: the batched path's wire buffers (one
+        kernel-1 call over every client: the same bf16 rounding and mask
+        words, coded in one batched call under ``code_masks``) streamed
+        through ``MaTUServer.round_chunked``, so the engine never holds
+        the round's O(N·k_max·d/32) slot tensors."""
+        self._drain()
+        phase: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        unified, mask_words, lams = batched_client_unify(
+            batch.task_vectors, batch.valid, device=self.device)
+        ks = [len(u.task_ids) for u in batch.uploads]
+        if self.code_masks:
+            t1 = time.perf_counter()
+            up_masks = self._coded_uplink(mask_words, None, ks)
+            phase["encode"] = (time.perf_counter() - t1) * 1e6
+        else:
+            up_masks = [mask_words[i, :k] for i, k in enumerate(ks)]
+        ups = [ClientUpload(u.client_id, list(u.task_ids), unified[i],
+                            up_masks[i], lams[i, :k], list(u.data_sizes))
+               for i, (u, k) in enumerate(zip(batch.uploads, ks))]
+        for u in batch.uploads:
+            self.client_tasks[u.client_id] = list(u.task_ids)
+        phase["pack"] = (time.perf_counter() - t0) * 1e6
+        t1 = time.perf_counter()
+        downs, _ = self.server.round_chunked(
+            ups, chunk_clients=self.chunk_clients,
+            code_masks=self.code_masks, phase_us=phase)
+        phase["device"] = (time.perf_counter() - t1) * 1e6
+        self.downlinks.update(downs)
+        self._last_uploads = ups
+        self.last_phase_us = phase
 
     def skip_round(self) -> None:
         """An empty round: drain the round in flight, then clear the

@@ -246,7 +246,8 @@ def slots_to_dense_packed(slot_mask_words, slot_lams, slot_sizes, slot_valid,
 
 
 def _gammas(member_d: torch.Tensor, sizes_d: torch.Tensor):
-    """Eq. 4 data weights γ (N, T): member sizes normalised per task.
+    """Eq. 4 data weights γ (N, T): member sizes normalised per task,
+    the totals summed by ``torch.sum`` over the whole client axis.
     Returns (members as fp32, γ)."""
     memf = member_d.float()
     gam = sizes_d * memf
@@ -254,20 +255,55 @@ def _gammas(member_d: torch.Tensor, sizes_d: torch.Tensor):
                                    min=1e-12)
 
 
-def _transfer(tau_hats, m_hats, sim, held, slot_tasks, n_tasks: int, *,
-              eps: float, kappa: int, cross_task: bool,
-              uniform_cross: bool):
-    """Eq. 6 + 7 in plain torch, then the gather of each slot's fresh task
-    vector for the downlink.  Returns (task_vectors (T, d), tvs_slots
-    (N, K, d))."""
+def _m_hats(a_num: torch.Tensor, n_t: torch.Tensor, rho: float):
+    """Eq. 3 averaged masks m̂ (T, d) from the agreement numerator and
+    the member counts: the fp32 division of the round's kernels."""
+    alpha = a_num / torch.clamp(n_t, min=1.0)[:, None]
+    return torch.where(alpha >= rho, 1.0, alpha)
+
+
+def _finish(tau_hats, m_hats, n_t, d: int, *, packed: bool, eps: float,
+            kappa: int, cross_task: bool, uniform_cross: bool,
+            mode: Optional[str]):
+    """The round's tail after Eq. 3+4, shared by the monolithic round
+    and the chunked finish: Eq. 5 (kernel 3 on the sign planes when
+    ``packed``, kernel 6 on the dense rows otherwise), masked to the
+    held tasks, then Eq. 6 + 7 in plain torch.  Returns (task_vectors
+    (T, d), similarity (T, T))."""
+    held = n_t > 0
+    heldf = held.float()
+    if packed:
+        pos, nz = bitpack.sign_planes(tau_hats)
+        sim = sign_sim_packed(pos, nz, d, mode=mode)
+    else:
+        sim = sign_sim(tau_hats, mode=mode)
+    sim = sim * heldf[None, :] * heldf[:, None]
     weights = ref.cross_weights_ref(sim, held, eps=eps, kappa=kappa,
                                     cross_task=cross_task,
                                     uniform_cross=uniform_cross)
     task_vectors, _tau_tildes = ref.cross_task_combine_ref(tau_hats, m_hats,
                                                            weights)
-    # sentinel slot ids are clamped; the valid mask zeroes their output
-    return task_vectors, task_vectors[torch.clamp(slot_tasks.long(),
-                                                  max=n_tasks - 1)]
+    return task_vectors, sim
+
+
+def _downlink(task_vectors, slot_valid, slot_tasks, n_tasks: int, *,
+              packed: bool, lam_eps: float, mode: Optional[str]):
+    """The downlink re-unification of a block of clients, shared by the
+    monolithic round and the chunked round's phase C: gather each slot's
+    fresh task vector (sentinel ids clamped; the valid mask zeroes their
+    output), then kernel 1 (``packed``) or kernel 4.  Each client's row
+    depends on its own slots only.  Returns (down_unified, down_masks,
+    down_lams)."""
+    tvs = task_vectors[torch.clamp(slot_tasks.long(), max=n_tasks - 1)]
+    uni, dmasks, num, den = fused_unify_raw(tvs, slot_valid, packed=packed,
+                                            mode=mode)
+    return uni, dmasks, num / torch.clamp(den, min=lam_eps)
+
+
+def _alpha_num(a_num: torch.Tensor, n_clients: int) -> torch.Tensor:
+    """The agreement numerator in the JAX package's wire dtype, keyed,
+    as there, on the round's padded client count next_pow2(N)."""
+    return a_num.to(ref.alpha_dtype(ref.next_pow2(n_clients)))
 
 
 def _apply_slot_weights(slot_lams, slot_sizes, slot_weights):
@@ -279,7 +315,8 @@ def _apply_slot_weights(slot_lams, slot_sizes, slot_weights):
     if slot_weights is None:
         return slot_lams, slot_sizes
     w = slot_weights.float()
-    return slot_lams.float() * w, slot_sizes.float() * w
+    return tuple(None if x is None else x.float() * w
+                 for x in (slot_lams, slot_sizes))
 
 
 def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
@@ -316,16 +353,14 @@ def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
     memf, gam = _gammas(member_d, sizes_d)
     tau_hats, m_hats = masked_agg_batched(unified, masks_d, lams_d, gam,
                                           member_d, rho=rho, mode=mode)
-    held = torch.sum(memf, dim=0) > 0
-    heldf = held.float()
-    sim = sign_sim(tau_hats, mode=mode) * heldf[None, :] * heldf[:, None]
-    task_vectors, tvs_slots = _transfer(
-        tau_hats, m_hats, sim, held, slot_tasks, n_tasks, eps=eps,
-        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross)
-    uni, dmasks, num, den = fused_unify_raw(tvs_slots, slot_valid,
-                                            packed=False, mode=mode)
-    return (task_vectors, tau_hats, m_hats, sim, uni, dmasks,
-            num / torch.clamp(den, min=lam_eps))
+    n_t = torch.sum(memf, dim=0)
+    task_vectors, sim = _finish(
+        tau_hats, m_hats, n_t, tau_hats.shape[-1], packed=False, eps=eps,
+        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross,
+        mode=mode)
+    return (task_vectors, tau_hats, m_hats, sim) + _downlink(
+        task_vectors, slot_valid, slot_tasks, n_tasks, packed=False,
+        lam_eps=lam_eps, mode=mode)
 
 
 def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
@@ -347,11 +382,11 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     downlink re-unification of every client's fresh task vectors.
 
     Returns (task_vectors (T, d) fp32, tau_hats (T, d) fp32, alpha_num
-    (T, d) uint8, n_held (T,) fp32, similarity (T, T), down_unified
-    (N, d) bf16, down_mask_words (N, K, ceil(d/32)) int32, down_lams
-    (N, K)).  Tasks nobody holds give τ̂ = 0, alpha_num = 0 and are
-    masked out of the similarity.  ``slot_weights`` as in
-    :func:`matu_round_slots`.
+    (T, d) uint8, int32 when next_pow2(N) > 255, n_held (T,) fp32,
+    similarity (T, T), down_unified (N, d) bf16, down_mask_words (N, K,
+    ceil(d/32)) int32, down_lams (N, K)).  Tasks nobody holds give τ̂ =
+    0, alpha_num = 0 and are masked out of the similarity.
+    ``slot_weights`` as in :func:`matu_round_slots`.
     """
     if unified.shape[-1] != d:
         raise ValueError(f"unified width {unified.shape[-1]} != d={d}")
@@ -364,18 +399,154 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     tau_hats, a_num = masked_agg_batched_packed(
         unified, words_d, lams_d, gam, member_d, d, rho=rho, mode=mode)
     n_t = torch.sum(memf, dim=0)
-    held = n_t > 0
-    heldf = held.float()
-    alpha = a_num / torch.clamp(n_t, min=1.0)[:, None]
-    m_hats = torch.where(alpha >= rho, 1.0, alpha)
+    task_vectors, sim = _finish(
+        tau_hats, _m_hats(a_num, n_t, rho), n_t, d, packed=True, eps=eps,
+        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross,
+        mode=mode)
+    uni, dwords, lams = _downlink(task_vectors, slot_valid, slot_tasks,
+                                  n_tasks, packed=True, lam_eps=lam_eps,
+                                  mode=mode)
+    return (task_vectors, tau_hats, _alpha_num(a_num, slot_valid.shape[0]),
+            n_t, sim, uni, dwords, lams)
 
-    pos, nz = bitpack.sign_planes(tau_hats)
-    sim = (sign_sim_packed(pos, nz, d, mode=mode)
-           * heldf[None, :] * heldf[:, None])
-    task_vectors, tvs_slots = _transfer(
-        tau_hats, m_hats, sim, held, slot_tasks, n_tasks, eps=eps,
-        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross)
-    uni, dwords, num, den = fused_unify_raw(tvs_slots, slot_valid, mode=mode)
-    a_u8 = a_num.to(ref.alpha_dtype(slot_valid.shape[0]))
-    return (task_vectors, tau_hats, a_u8, n_t, sim, uni, dwords,
-            num / torch.clamp(den, min=lam_eps))
+
+# ---------------------------------------------------------------------------
+# The chunked round (``RoundEngine.round_chunked``): the monolithic round's
+# operations split into per-chunk folds over carried accumulators.  As in
+# the JAX package, no kernel folds the chunks: phases A and B are plain
+# torch on any device.  The finish and phase C are the monolithic round's
+# own tail (:func:`_finish`, :func:`_downlink`), kernels 3 / 6 and 1 / 4
+# included, so chunked ≡ monolithic bit for bit on the card as on the CPU.
+# ---------------------------------------------------------------------------
+
+
+def matu_chunk_scalars(slot_sizes, slot_valid, slot_tasks, n_tasks: int, *,
+                       slot_weights: Optional[torch.Tensor] = None,
+                       mode: Optional[str] = None):
+    """Phase A of the chunked round: one chunk's rows of the monolithic
+    round's dense scalar tables, (members (C, T) bool, sizes (C, T)
+    fp32), the sizes discounted by ``slot_weights`` as the monolithic
+    round does (:func:`_apply_slot_weights`).  The engine stacks the
+    chunks' rows and hands the round's tables to :func:`matu_gammas`."""
+    _plain(mode)
+    _, slot_sizes = _apply_slot_weights(None, slot_sizes, slot_weights)
+    member_d = _scatter_slots(slot_valid, slot_tasks, n_tasks)
+    sizes_d = _scatter_slots(torch.where(slot_valid, slot_sizes.float(), 0.0),
+                             slot_tasks, n_tasks)
+    return member_d, sizes_d
+
+
+def matu_gammas(member_rows: torch.Tensor, size_rows: torch.Tensor):
+    """The end of phase A, on the whole round's (N, T) tables: (member
+    counts n_t (T,) fp32, Eq. 4 data weights γ (N, T)).  The γ
+    normaliser is the monolithic round's ``torch.sum`` over the client
+    axis, whose rounding only the whole column fixes: this is why phase
+    A keeps the round's O(N·T) scalars rather than a (T,) running sum."""
+    memf, gam = _gammas(member_rows, size_rows)
+    return torch.sum(memf, dim=0), gam
+
+
+def _slot_fold_args(slot_lams, slot_valid, slot_tasks, gammas, n_rows: int,
+                    slot_weights):
+    """Per-slot Eq. 4 weights γλ (C, K) fp32, 0 on invalid slots (γ of the
+    slot's task times the discounted λ, the monolithic round's dense
+    product), and each slot's accumulator row (C, K) int64: its task id,
+    the sentinel row ``n_rows - 1`` for an invalid slot."""
+    slot_lams, _ = _apply_slot_weights(slot_lams, None, slot_weights)
+    valid = slot_valid.bool()
+    rows = torch.where(valid, slot_tasks.long(), n_rows - 1)
+    gam_ext = torch.nn.functional.pad(gammas.float(), (0, 1))
+    gl = (torch.gather(gam_ext, 1, rows)
+          * torch.where(valid, slot_lams.float(), 0.0))
+    return gl, rows
+
+
+def matu_merge_chunk_packed(unified, slot_mask_words, slot_lams, slot_valid,
+                            slot_tasks, gammas, a_acc, tau_acc, d: int, *,
+                            slot_weights: Optional[torch.Tensor] = None,
+                            mode: Optional[str] = None):
+    """Phase B, wire layout: fold one chunk's Eq. 3 sign votes into
+    ``a_acc`` (T+1, d) int32 and its Eq. 4 partials into ``tau_acc``
+    (T+1, d) fp32, in place, in ascending (client, slot) order
+    (:func:`ref.matu_merge_chunk_ref`).  ``gammas`` are the chunk's rows
+    of :func:`matu_gammas`.  Row T swallows the invalid slots.  Returns
+    (a_acc, tau_acc)."""
+    _plain(mode)
+    gl, rows = _slot_fold_args(slot_lams, slot_valid, slot_tasks, gammas,
+                               a_acc.shape[0], slot_weights)
+    words = torch.where(slot_valid.bool()[:, :, None], slot_mask_words,
+                        torch.zeros((), dtype=torch.int32,
+                                    device=slot_mask_words.device))
+    return ref.matu_merge_chunk_ref(
+        unified, lambda i: bitpack.unpack_bits(words[i], d), gl, rows,
+        a_acc, tau_acc)
+
+
+def matu_merge_chunk(unified, slot_masks, slot_lams, slot_valid, slot_tasks,
+                     gammas, a_acc, tau_acc, *,
+                     slot_weights: Optional[torch.Tensor] = None,
+                     mode: Optional[str] = None):
+    """Phase B, bool/fp32 layout: :func:`matu_merge_chunk_packed` over
+    dense (C, K, d) bool masks, the votes in an fp32 ``a_acc`` (exact
+    small integers, the monolithic bool round's dtype)."""
+    _plain(mode)
+    gl, rows = _slot_fold_args(slot_lams, slot_valid, slot_tasks, gammas,
+                               a_acc.shape[0], slot_weights)
+    masks = slot_masks & slot_valid.bool()[:, :, None]
+    return ref.matu_merge_chunk_ref(unified, lambda i: masks[i], gl, rows,
+                                    a_acc, tau_acc)
+
+
+def matu_finish_packed(a_acc, tau_acc, n_t, n_clients: int, *, d: int,
+                       rho: float = 0.4, eps: float = 0.5, kappa: int = 3,
+                       cross_task: bool = True, uniform_cross: bool = False,
+                       mode: Optional[str] = None):
+    """Finish the chunked packed round from the accumulators: Eq. 3 m̂,
+    τ̂ = partials ⊙ m̂ (the last step of kernel 2), then the monolithic
+    tail :func:`_finish` (kernel 3).  ``n_clients`` is the round's
+    client count (it picks the ``alpha_num`` dtype).  Returns
+    (task_vectors, tau_hats, alpha_num, n_t, similarity)."""
+    t = n_t.shape[0]
+    a_num = a_acc[:t].abs().float()
+    m_hats = _m_hats(a_num, n_t, rho)
+    tau_hats = tau_acc[:t] * m_hats
+    task_vectors, sim = _finish(
+        tau_hats, m_hats, n_t, d, packed=True, eps=eps, kappa=kappa,
+        cross_task=cross_task, uniform_cross=uniform_cross, mode=mode)
+    return task_vectors, tau_hats, _alpha_num(a_num, n_clients), n_t, sim
+
+
+def matu_finish(a_acc, tau_acc, n_t, *, rho: float = 0.4, eps: float = 0.5,
+                kappa: int = 3, cross_task: bool = True,
+                uniform_cross: bool = False, mode: Optional[str] = None):
+    """Finish the chunked bool-layout round (kernel 6 for Eq. 5).
+    Returns (task_vectors, tau_hats, m_hats, n_t, similarity)."""
+    t = n_t.shape[0]
+    m_hats = _m_hats(a_acc[:t].abs(), n_t, rho)
+    tau_hats = tau_acc[:t] * m_hats
+    task_vectors, sim = _finish(
+        tau_hats, m_hats, n_t, tau_hats.shape[-1], packed=False, eps=eps,
+        kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross,
+        mode=mode)
+    return task_vectors, tau_hats, m_hats, n_t, sim
+
+
+def matu_downlink_chunk_packed(task_vectors, slot_valid, slot_tasks, *,
+                               lam_eps: float = 1e-12,
+                               mode: Optional[str] = None):
+    """Phase C, wire layout: the monolithic downlink step
+    (:func:`_downlink`, kernel 1) on one chunk's rows.  Returns
+    (down_unified (C, d) bf16, down_mask_words (C, K, ceil(d/32)) int32,
+    down_lams (C, K))."""
+    return _downlink(task_vectors, slot_valid, slot_tasks,
+                     task_vectors.shape[0], packed=True, lam_eps=lam_eps,
+                     mode=mode)
+
+
+def matu_downlink_chunk(task_vectors, slot_valid, slot_tasks, *,
+                        lam_eps: float = 1e-12, mode: Optional[str] = None):
+    """Phase C, bool layout (kernel 4): (down_unified (C, d) fp32,
+    down_masks (C, K, d) bool, down_lams (C, K))."""
+    return _downlink(task_vectors, slot_valid, slot_tasks,
+                     task_vectors.shape[0], packed=False, lam_eps=lam_eps,
+                     mode=mode)

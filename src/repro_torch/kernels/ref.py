@@ -158,6 +158,37 @@ def _masked_agg(unified: torch.Tensor, mask_row, lams: torch.Tensor,
     return acc * m_hat, a_num, m_hat
 
 
+def matu_merge_chunk_ref(unified: torch.Tensor, mask_row, gl: torch.Tensor,
+                         rows: torch.Tensor, a_acc: torch.Tensor,
+                         tau_acc: torch.Tensor):
+    """Phase B of the chunked round: :func:`_masked_agg`'s client loop on
+    one chunk, each client's adds landing in the accumulator rows of its
+    slots.  unified (C, d); ``mask_row(i)`` client i's (K, d) bool slot
+    masks (zero rows for invalid slots); gl (C, K) fp32 γλ a slot; rows
+    (C, K) int64 its task id (distinct within a client; invalid slots
+    share the sentinel row, whose sums are never read).  a_acc (T+1, d)
+    int32 or fp32 sign votes and tau_acc (T+1, d) fp32 Eq. 4 partials are
+    updated in place and returned.
+
+    The adds are :func:`_masked_agg`'s, one rounding per product and per
+    add, in ascending client order; a non-member's add there is a signed
+    zero, which leaves the sum as it is.  So folding every chunk of a
+    round in client order gives the monolithic partials bit for bit, for
+    any chunking.  Each client's update is one gather and one write of
+    its K distinct rows: never an unordered scatter-add (atomics on CUDA)
+    nor a ``+=`` through repeated indices."""
+    u = unified.float()
+    for i in range(u.shape[0]):
+        m = mask_row(i)                                     # (K, d)
+        sp = m & (u[i] > 0)
+        sn = m & (u[i] < 0)
+        r = rows[i]
+        a_acc[r] = a_acc[r] + (sp.to(a_acc.dtype) - sn.to(a_acc.dtype))
+        tau_acc[r] = tau_acc[r] + gl[i, :, None] * (u[i] * (sp.float()
+                                                          + sn.float()))
+    return a_acc, tau_acc
+
+
 def masked_agg_batched_ref(unified: torch.Tensor, masks: torch.Tensor,
                            lams: torch.Tensor, gammas: torch.Tensor,
                            members: torch.Tensor, rho: float):

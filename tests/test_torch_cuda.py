@@ -2045,3 +2045,59 @@ def test_cuda_deferred_coded_uplink_equals_undeferred(cuda):
         for c in a.downlinks:
             assert torch.equal(a.downlinks[c].masks, b.downlinks[c].masks)
             assert torch.equal(a.downlinks[c].lams, b.downlinks[c].lams)
+
+
+def _bit_view(x):
+    return x.view({torch.float32: torch.int32,
+                   torch.bfloat16: torch.int16}.get(x.dtype, x.dtype))
+
+
+def _same_chunked(a, b):
+    (out_a, downs_a), (out_b, downs_b) = a, b
+    for f in ("task_vectors", "tau_hats", "similarity", "alpha_num",
+              "n_held", "m_hats_dense"):
+        x, y = getattr(out_a, f), getattr(out_b, f)
+        assert (x is None) == (y is None), f
+        assert x is None or (x.dtype == y.dtype
+                             and torch.equal(_bit_view(x), _bit_view(y))), f
+    assert downs_a.keys() == downs_b.keys()
+    for c in downs_a:
+        for f in ("unified", "masks", "lams"):
+            x, y = getattr(downs_a[c], f), getattr(downs_b[c], f)
+            assert x.dtype == y.dtype and torch.equal(_bit_view(x),
+                                                      _bit_view(y)), (c, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("chunk", [1, 3, 64])
+@pytest.mark.parametrize("packed", [True, False])
+def test_cuda_chunked_round_equals_monolithic(cuda, packed, chunk, stale):
+    """``RoundEngine.round_chunked`` on the card, 11 host uploads at
+    d = 70,001 in chunks of 1, 3 and 64, with and without staleness:
+    bitwise the monolithic round and the same chunked call with the
+    plain versions; kernel 1 (packed) or 4 (bool) once a chunk, kernel 3
+    or 6 once, kernels 2 and 5 never."""
+    from repro_torch.core.engine import EngineConfig, RoundEngine
+    n, k, t, d = 11, 4, 6, 70_001
+    ups = _host_rounds(1, n, k, t, d, "packed" if packed else "bool")[0]
+    eng = RoundEngine(EngineConfig(n_tasks=t), device=cuda)
+    kw = dict(packed=packed,
+              staleness=[i % 3 for i in range(n)] if stale else None)
+    downs_m, out_m = eng.round(ups, **kw)
+    ops.reset_launch_counts()
+    downs_c, out_c, stats = eng.round_chunked(ups, chunk_clients=chunk, **kw)
+    counts = ops.launch_counts()
+    ref_downs, ref_out, _ = eng.round_chunked(ups, chunk_clients=chunk,
+                                              mode="ref", **kw)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(("fused_unify_packed", "masked_agg_batched_packed",
+                          "sign_sim_packed", "fused_unify",
+                          "masked_agg_batched", "sign_sim"), 0)
+    want["fused_unify_packed" if packed else "fused_unify"] = -(-n // chunk)
+    want["sign_sim_packed" if packed else "sign_sim"] = 1
+    assert stats["n_chunks"] == -(-n // chunk)
+    assert {name: counts[name] for name in want} == want
+    _same_chunked((out_m, downs_m), (out_c, downs_c))
+    _same_chunked((ref_out, ref_downs), (out_c, downs_c))
+    assert out_c.similarity.is_cuda and out_c.task_vectors.is_cuda
