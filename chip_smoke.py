@@ -171,7 +171,25 @@ Phases (any failure raises and the script exits nonzero):
              uploads against device busy ms, peak memory, launches exact;
              then the same run at d = 4,096 on the card and on the CPU:
              counters and bits equal, alignment within rtol 1e-5.
-12. granite — multi-tenant serving of granite-moe-3b-a800m at full width
+12. shard  — the taskvec-sharded round on 4 gloo ranks sharing the card
+             (spawned once; the ranks load the kernels setup built), at
+             the round's shapes seeded alike on every rank: the packed
+             round on ``make_round_mesh(4)`` and ``make_debug_mesh((2,
+             2))`` (kernels 1-3 once a rank, exactly two psums — the int32
+             (T, T) dots and the λ roots — and no other collective inside
+             ``run_packed``; each rank's kernels bitwise their plain
+             versions on its shard; rank 0 holds the whole round,
+             gathered at the wire boundary, to its unsharded round:
+             bitwise, λ bitwise or within rtol 1e-5 as reported),
+             ``round_chunked`` (chunk 8, 2 + 1 psum a chunk) on
+             ``make_population_mesh(slots=2)``, ``MaTUStrategy(mesh=)``
+             from client unify to the downlinks, the bool layout at d =
+             4,096 (kernels 4, 5 and 3 a shard) and a 2-round
+             ``FedSimulator(mesh=)`` on ``MLPBackbone``; d_pad, launches,
+             psums, bytes all-reduced and gathered, walls and peaks by
+             rank.  The ranks share one card: no wall is a scaling
+             figure.
+13. granite — multi-tenant serving of granite-moe-3b-a800m at full width
              (32 layers, d_model 1536, 24 heads (kv 8), 40 experts of
              d_ff 512, top-8, vocab 49,155; random weights from a seed):
              kernel 9 at its factor shapes (1536, 16) and (16, 1536), S =
@@ -188,7 +206,7 @@ Phases (any failure raises and the script exits nonzero):
              plain versions, and fp32, where fused and dense-routed decode
              must agree token for token unless a router near-tie flip
              (printed with its layer and margin) comes first.
-13. whisper — multi-tenant serving of whisper-large-v3 at full width (32
+14. whisper — multi-tenant serving of whisper-large-v3 at full width (32
              encoder + 32 decoder layers, d_model 1280, 20 heads, d_ff
              5120, vocab 51,866, 1,500 frames; random weights and frame
              embeddings from a seed): kernel 9 at its factor shapes
@@ -206,7 +224,7 @@ Phases (any failure raises and the script exits nonzero):
              and decode windows, peak memory, the caches' bytes, bf16
              prefill logits against the plain versions, and fp32, where
              fused and dense-routed decode must agree token for token.
-14. hymba  — multi-tenant serving of hymba-1.5b at full width (32
+15. hymba  — multi-tenant serving of hymba-1.5b at full width (32
              layers of attention (25 heads, kv 5, a 2,048-token sliding
              window) beside a Mamba branch (d_inner 3,200, d_state 16),
              SwiGLU d_ff 5,504, vocab 32,001; random weights from a
@@ -226,7 +244,7 @@ Phases (any failure raises and the script exits nonzero):
              the prefill and at a decode step past the wrap, and fp32 on
              the prompts' first 128 tokens, where fused and dense-routed
              decode must agree token for token.
-15. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
+16. vlm    — multi-tenant serving of qwen2-vl-7b at full width (28
              layers, d_model 3,584, 28 heads (kv 4), SwiGLU d_ff 18,944,
              vocab 152,064, M-RoPE sections (16, 24, 24); random weights
              and 1,024 vision embeddings a request from a seed, the
@@ -247,7 +265,7 @@ Phases (any failure raises and the script exits nonzero):
              (they must differ: M-RoPE live), bf16 logits against the
              plain versions, and fp32, where fused and dense-routed
              decode must agree token for token.
-16. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
+17. deepseek — multi-tenant serving of deepseek-v2-236b at full width,
              cut in depth to 2 of its 60 layers (d_model 5,120, 128 heads
              of Multi-head Latent Attention: q_lora 1,536, kv_lora 512,
              nope 128 + rope 64, v 128; 160 routed experts of d_ff 1,536,
@@ -271,7 +289,7 @@ Phases (any failure raises and the script exits nonzero):
              decode must agree token for token unless a router near-tie
              flip comes first, and layer 0's absorbed decode must agree
              with the naive form within rel L2 1e-4.
-17. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
+18. xlstm  — multi-tenant serving of xlstm-1.3b at full width (24
              (mLSTM, sLSTM) units, d_model 2048, 4 heads, Dk 256, Dv 1024,
              vocab 50,304; random weights from a seed).  Kernel checks:
              ``mlstm_chunkwise`` at B = 8, chunk 256, S = 512, a ragged
@@ -287,10 +305,13 @@ Phases (any failure raises and the script exits nonzero):
              tasks, 512-token prompts, 32 new tokens) whose launches are
              counted (24 of kernel 10, 192 of kernel 9 per forward);
              prefill logits against the plain versions, step and
-             per-block times, profiled prefill and decode windows; then
-             fp32, where fused and dense-routed decode must agree token
-             for token.
-18. summary — the host µs a call of every kernel wrapper and of the
+             per-block times; profiled prefill and decode windows on the
+             prompts' first 32 tokens (``XLSTM_PROFILE_PROMPT``; kernel
+             10's device time read from the prefill's); then, on their
+             first 128 (``XLSTM_CHECK_PROMPT``), the bf16 token
+             agreements (printed) and fp32, where fused and dense-routed
+             decode must agree token for token.
+19. summary — the host µs a call of every kernel wrapper and of the
              call path's pieces (``time.perf_counter_ns`` over 10,000
              calls on small inputs, :func:`host_costs`), a ``kernels:``
              line, one JSON line with every kernel's numbers
@@ -314,10 +335,13 @@ mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
 whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
-baselines``, ``--only lmtrain``, ``--only async`` and ``--only
-population`` the vit, baselines,
-lmtrain, async or population phase.  None of them prints the summary or
-the "ok" line.
+baselines``, ``--only lmtrain``, ``--only async``, ``--only
+population`` and ``--only shard`` the vit, baselines,
+lmtrain, async, population or shard phase; ``--only xlstm`` the xlstm
+phase (kernel 10's checks included); ``--only mix`` times Eq. 7's
+product as one GEMM and in ``ref._mix``'s blocks at the round's,
+whisper's and the vlm's widths, and the round phase under each
+(:func:`mix_phase`).  None of them prints the summary or the "ok" line.
 """
 
 from __future__ import annotations
@@ -438,14 +462,15 @@ def setup(torch):
     return card
 
 
-def make_round_inputs(torch, dev, seed: int = SEED):
+def make_round_inputs(torch, dev, seed: int = SEED, d=None):
     """Full-width round inputs from a seeded generator on the card:
-    (task_vectors (N, K, D) fp32 zero-padded, valid, slot_tasks,
-    slot_sizes, ks)."""
+    (task_vectors (N, K, d) fp32 zero-padded, valid, slot_tasks,
+    slot_sizes, ks); ``d`` defaults to :data:`D`."""
+    d = d or D
     g = torch.Generator(device=dev).manual_seed(seed)
     ks = 3 + (torch.rand(N, generator=g, device=dev) < 0.5).long()
     valid = torch.arange(K_MAX, device=dev)[None, :] < ks[:, None]
-    tv = torch.randn((N, K_MAX, D), generator=g, device=dev) \
+    tv = torch.randn((N, K_MAX, d), generator=g, device=dev) \
         * valid[:, :, None]
     tasks = torch.full((N, K_MAX), T, dtype=torch.int32, device=dev)
     for i in range(N):
@@ -812,6 +837,71 @@ def profile_round(torch, strat, uploads, top: int = 8) -> None:
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
+
+
+# Eq. 7's product at the widths of the full-width round, whisper's round
+# and the vlm's round (T 30)
+MIX_WIDTHS = (("round", D), ("whisper", 14_418_176), ("vlm", 16_515_156))
+
+
+def mix_phase(torch, dev):
+    """Eq. 6 + 7 (``ref.cross_task_combine_ref``, T 30) with Eq. 7's
+    product in two forms: one ``@`` over the whole width, as before the
+    blocks, and ``ref._mix`` (:data:`ref.MIX_BLOCK`-wide blocks, so its
+    bits do not depend on the width a shard holds).  At each of
+    :data:`MIX_WIDTHS`, in the order one, blocks, blocks, one: device ms
+    (``torch.profiler``), wall ms and the peak device bytes above the
+    inputs, and whether the two forms' bits agree.  Then the round phase
+    under each form, in the same order (its printed peak and profiled
+    device busy).  Returns the numbers."""
+    from repro_torch.kernels import ref
+    blocked = ref._mix
+
+    def one(norm_w, x):
+        return norm_w @ x
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    w = torch.rand((T, T), generator=g, device=dev)
+    w = w * (w > 0.5)
+    w[T - 1] = 0.0                        # a task with no cross-task mix
+    res = {"widths": {}, "round": []}
+    try:
+        for label, d in MIX_WIDTHS:
+            tau = torch.randn((T, d), generator=g, device=dev)
+            m = (torch.rand((T, d), generator=g, device=dev) < 0.5).float()
+            outs, rows = {}, []
+            for name, fn in (("one", one), ("blocks", blocked),
+                             ("blocks", blocked), ("one", one)):
+                ref._mix = fn
+                call = lambda: ref.cross_task_combine_ref(tau, m, w)  # noqa
+                call()                                        # warm-up
+                out, wall, peak = measured(torch, call)
+                outs[name] = out[0]
+                del out
+                busy = device_busy_ms(torch, call)[1]
+                rows.append(dict(form=name, device_ms=busy, wall_ms=wall,
+                                 peak_bytes=peak))
+                log(f"mix {label} d {d:,} {name}: device {busy:.4f} ms, "
+                    f"wall {wall:.3f} ms, peak above inputs "
+                    f"{peak / 2**30:.3f} GiB")
+            same = bool(torch.equal(exact(torch, outs["one"]),
+                                    exact(torch, outs["blocks"])))
+            err = float((outs["one"] - outs["blocks"]).abs().max())
+            log(f"mix {label}: the forms' task vectors bitwise {same} "
+                f"(max |diff| {err:.3e})")
+            res["widths"][label] = dict(d=d, runs=rows, bitwise=same,
+                                        max_abs_diff=err)
+            del tau, m, outs
+            torch.cuda.empty_cache()
+        for name, fn in (("one", one), ("blocks", blocked),
+                         ("blocks", blocked), ("one", one)):
+            ref._mix = fn
+            log(f"== round phase, Eq. 7 as {name} ==")
+            round_phase(torch, dev)
+            res["round"].append(name)
+    finally:
+        ref._mix = blocked
+    return res
 
 
 def bool_phase(torch, dev):
@@ -2202,7 +2292,10 @@ def same_wire(torch, label, a, b):
                                  f"{sorted(y)}")
         for c in x:
             for what, p, q in zip(("unified", "masks", "lambda"), x[c], y[c]):
-                if p.dtype != q.dtype or not torch.equal(p, q.to(p.device)):
+                # a sharded uplink record whose content no accounting
+                # reads is a meta tensor: its dtype and shape
+                if p.dtype != q.dtype or p.shape != q.shape or not (
+                        q.is_meta or torch.equal(p, q.to(p.device))):
                     raise AssertionError(f"{label}: client {c}'s {way} "
                                          f"{what} differ")
 
@@ -2658,13 +2751,14 @@ def same_round(torch, label, a, b):
             raise AssertionError(f"{label}: {name} differs")
 
 
-def round_uploads(torch, dev, seed: int):
+def round_uploads(torch, dev, seed: int, d=None):
     """One full-width round's host ``ClientUpload``s (bf16 unified, word
     rows, λ, sizes), built by kernel 1 on the card from
-    :func:`make_round_inputs`."""
+    :func:`make_round_inputs` (at width ``d``)."""
     from repro_torch.core.client import ClientUpload
     from repro_torch.core.engine import batched_client_unify
-    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev, seed=seed)
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev, seed=seed,
+                                                    d=d)
     uni, words, lams = (x.cpu() for x in batched_client_unify(
         tv, valid, device=dev))
     del tv
@@ -2937,6 +3031,446 @@ def population_phase(torch, dev):
     log(f"population phase: {phase_s:.1f} s, launches {launches}")
     return dict(launches=launches, chunked=table, run=full,
                 small_align_err=align_err, phase_s=phase_s)
+
+
+# -- shard phase: the taskvec-sharded round on gloo ranks sharing the card --
+
+SHARD_RANKS = 4                # gloo ranks, all on cuda:0 (one card)
+SHARD_CHUNK = 8                # round_chunked's chunk on the population mesh
+SHARD_SMALL_D = 4096           # the bool layout's width (kernels 4, 5, 3)
+SHARD_SEED = SEED + 50
+SHARD_FED = dict(rounds=2, local_steps=4, eval_every=2, seed=SEED,
+                 batch_size=16, local_data=64)
+# the fp32 bar λ is held to where it is not bitwise (the JAX package's
+# promise on its kernel path); whether it is bitwise is reported
+SHARD_LAM_RTOL = 1e-5
+PACKED_ONCE = {"fused_unify_packed": 1, "masked_agg_batched_packed": 1,
+               "sign_sim_packed": 1}
+BOOL_ONCE = {"fused_unify": 1, "masked_agg_batched": 1, "sign_sim_packed": 1}
+SHARD_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                     "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
+                     "all_to_all_single", "broadcast", "reduce", "gather",
+                     "scatter", "send", "recv")
+
+
+class Traffic:
+    """While active, counts the calls of every ``torch.distributed``
+    collective, the bytes all-reduced (with each all-reduce's dtype and
+    shape) and the bytes an all-gather hands back."""
+
+    def __init__(self, dist):
+        self.dist = dist
+        self.calls, self.reduced = {}, []
+        self.reduce_bytes = self.gather_bytes = 0
+        self._saved = {}
+
+    def __enter__(self):
+        for name in SHARD_COLLECTIVES:
+            fn = getattr(self.dist, name, None)
+            if fn is None:
+                continue
+            self._saved[name] = fn
+
+            def wrap(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                if _name == "all_reduce":
+                    t = a[0]
+                    self.reduced.append([str(t.dtype), list(t.shape)])
+                    self.reduce_bytes += t.numel() * t.element_size()
+                if _name == "all_gather":
+                    self.gather_bytes += sum(p.numel() * p.element_size()
+                                             for p in a[0])
+                return _fn(*a, **kw)
+
+            setattr(self.dist, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.dist, name, fn)
+        return False
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def local_same(torch, label, a, b):
+    """Two rounds' outputs on one rank's shard (kernels against their
+    plain versions) bit for bit; names the first field that differs."""
+    for f in OUT_FIELDS + ("down_unified", "down_masks", "down_lams"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or x is not None and (
+                x.dtype != y.dtype or x.shape != y.shape
+                or not torch.equal(exact(torch, x), exact(torch, y))):
+            raise AssertionError(f"{label}: {f} differs")
+
+
+def held_to(torch, label, ref, got):
+    """A sharded round's whole (EngineOutput, downlinks) against the
+    unsharded round's: every output, downlink vector and mask bitwise, λ
+    bitwise or within :data:`SHARD_LAM_RTOL`.  Returns (λ bitwise, λ's
+    max relative difference)."""
+    (out_r, downs_r), (out_g, downs_g) = ref, got
+    for f in OUT_FIELDS:
+        x, y = getattr(out_r, f), getattr(out_g, f)
+        if (x is None) != (y is None) or x is not None and (
+                x.dtype != y.dtype or x.shape != y.shape
+                or not torch.equal(exact(torch, x), exact(torch, y))):
+            raise AssertionError(f"{label}: {f} differs")
+    if downs_r.keys() != downs_g.keys():
+        raise AssertionError(f"{label}: downlink clients differ")
+    lam_bitwise, lam_err = True, 0.0
+    for c in downs_r:
+        for f in ("unified", "masks"):
+            x, y = getattr(downs_r[c], f), getattr(downs_g[c], f)
+            if x.dtype != y.dtype or not torch.equal(exact(torch, x),
+                                                     exact(torch, y)):
+                raise AssertionError(f"{label}: client {c}'s downlink {f} "
+                                     f"differs")
+        x, y = downs_r[c].lams, downs_g[c].lams
+        lam_bitwise &= bool(torch.equal(exact(torch, x), exact(torch, y)))
+        lam_err = max(lam_err, float(((x - y).abs()
+                                      / x.abs().clamp_min(1e-30)).max()))
+    if lam_err > SHARD_LAM_RTOL:
+        raise AssertionError(f"{label}: λ differs by {lam_err:.3e} relative "
+                             f"(bar {SHARD_LAM_RTOL})")
+    return lam_bitwise, lam_err
+
+
+def shard_packed_run(torch, dist, dev, rank, eng, ups, ref, label):
+    """One packed round on ``eng``'s mesh: launches and collectives
+    counted over ``run_packed`` alone, the kernels held against their
+    plain versions on this rank's shard, the downlinks gathered at the
+    wire boundary, and on rank 0 the whole round held to the unsharded
+    ``ref``."""
+    from repro_torch.core.engine import pack_uploads
+    from repro_torch.kernels import ops
+    from repro_torch.nn import sharding
+    batch = pack_uploads(ups, T, device=dev, mesh=eng.mesh)
+    eng.run_packed(batch)                    # first call, untimed
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    sharding.reset_collective_counts()
+    with Traffic(dist) as tr:
+        out, wall, peak = measured(torch, lambda: eng.run_packed(batch))
+    launches = nonzero(ops.launch_counts())
+    coll = sharding.collective_counts()
+    if launches != PACKED_ONCE:
+        raise AssertionError(f"{label} rank {rank}: launches {launches}")
+    if coll != {"psum": 2, "gather": 0} or tr.calls != {"all_reduce": 2} \
+            or tr.reduced[0] != ["torch.int32", [T, T]]:
+        raise AssertionError(f"{label} rank {rank}: collectives {coll}, "
+                             f"{tr.calls}, {tr.reduced}")
+    local_same(torch, f"{label} rank {rank}: kernels vs plain on the shard",
+               out, eng.run_packed(batch, mode="ref"))
+    with Traffic(dist) as tg:
+        downs = eng.downlinks(batch, out)
+    whole = eng.gather_output(out._replace(down_unified=None,
+                                           down_masks=None), D)
+    run = dict(launches=launches, psum=coll["psum"],
+               reduce_bytes=tr.reduce_bytes, reduced=tr.reduced,
+               gather_bytes=tg.gather_bytes, wall_ms=wall, peak_bytes=peak,
+               d_pad=batch.d_pad, width=int(batch.unified.shape[-1]))
+    if rank == 0:
+        run["lams_bitwise"], run["lams_max_rel"] = held_to(
+            torch, f"{label} vs unsharded", ref, (whole, downs))
+    return run
+
+
+def shard_checks(torch, dev, rank: int) -> dict:
+    """One rank's part of the shard phase (see :func:`shard_phase`);
+    returns its numbers.  Rank 0 also runs every unsharded reference."""
+    import torch.distributed as dist
+    from repro_torch.core.engine import EngineConfig, RoundEngine, pack_uploads
+    from repro_torch.data.dirichlet import dirichlet_split
+    from repro_torch.data.synthetic import make_constellation
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.fed.strategies import MaTUStrategy, Upload
+    from repro_torch.fed.testbed import MLPBackbone
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (make_debug_mesh,
+                                         make_population_mesh,
+                                         make_round_mesh)
+    from repro_torch.nn import sharding
+    meshes = {"round4": make_round_mesh(SHARD_RANKS),
+              "debug2x2": make_debug_mesh((2, 2)),
+              "pop_s2": make_population_mesh(slots=2)}
+    cfg = EngineConfig(n_tasks=T)
+    rep = {"rank": rank, "runs": {}}
+    ups = round_uploads(torch, dev, SHARD_SEED)
+    single = RoundEngine(cfg, device=dev)
+    ref = None
+    if rank == 0:
+        single.round(ups)                    # first call, untimed
+        (downs, out), wall, peak = measured(torch, lambda: single.round(ups))
+        ref = (out, downs)
+        rep["unsharded"] = dict(wall_ms=wall, peak_bytes=peak)
+
+    # (a) the packed round on the round mesh and the (2, 2) debug mesh
+    for mname in ("round4", "debug2x2"):
+        eng = RoundEngine(cfg, device=dev, mesh=meshes[mname])
+        rep["runs"][mname] = shard_packed_run(torch, dist, dev, rank, eng,
+                                              ups, ref, f"shard {mname}")
+
+    # (b) round_chunked on the population mesh
+    eng = RoundEngine(cfg, device=dev, mesh=meshes["pop_s2"])
+    ops.reset_launch_counts()
+    sharding.reset_collective_counts()
+    (downs, out, stats), wall, peak = measured(
+        torch, lambda: eng.round_chunked(ups, chunk_clients=SHARD_CHUNK))
+    launches, coll = nonzero(ops.launch_counts()), \
+        sharding.collective_counts()
+    want = {"fused_unify_packed": stats["n_chunks"], "sign_sim_packed": 1}
+    if launches != want or coll["psum"] != 2 + stats["n_chunks"]:
+        raise AssertionError(f"shard chunked rank {rank}: launches "
+                             f"{launches}, collectives {coll}")
+    run = dict(launches=launches, psum=coll["psum"], gathers=coll["gather"],
+               n_chunks=stats["n_chunks"], wall_ms=wall, peak_bytes=peak)
+    downs_p, out_p, _ = eng.round_chunked(ups, chunk_clients=SHARD_CHUNK,
+                                          mode="ref")
+    same_round(torch, f"shard chunked rank {rank}: kernels vs plain on the "
+               f"mesh", (out, downs), (out_p, downs_p))
+    del downs_p, out_p
+    if rank == 0:
+        run["lams_bitwise"], run["lams_max_rel"] = held_to(
+            torch, "shard chunked vs unsharded monolithic", ref,
+            (out, downs))
+    rep["runs"]["pop_s2_chunked"] = run
+    del downs, out, ref, ups
+
+    # (c) MaTUStrategy(mesh=) from client unify to the downlinks
+    tv, valid, tasks, sizes, ks = make_round_inputs(torch, dev,
+                                                    seed=SHARD_SEED + 1)
+    uploads = [Upload(i, tasks[i, :k].tolist(), tv[i, :k].clone(),
+                      sizes[i, :k].tolist()) for i, k in enumerate(ks)]
+    del tv, valid
+    strat = MaTUStrategy(T, D, device=dev, mesh=meshes["round4"])
+    ops.reset_launch_counts()
+    sharding.reset_collective_counts()
+    _, wall, peak = measured(torch, lambda: strat.aggregate(uploads))
+    launches, coll = nonzero(ops.launch_counts()), \
+        sharding.collective_counts()
+    want = dict(PACKED_ONCE, fused_unify_packed=2)
+    # gathers: the downlink vectors and words and the task vectors, at
+    # the drain; the raw uplink record is worked out from shapes
+    if launches != want or coll != {"psum": 3, "gather": 3}:
+        raise AssertionError(f"shard strategy rank {rank}: launches "
+                             f"{launches}, collectives {coll}")
+    run = dict(launches=launches, psum=coll["psum"], gathers=coll["gather"],
+               wall_ms=wall, peak_bytes=peak)
+    if rank == 0:
+        mono = MaTUStrategy(T, D, device=dev)
+        mono.aggregate(uploads)
+        tv_bitwise = all(torch.equal(
+            exact(torch, mono.eval_vectors(t)[0]),
+            exact(torch, strat.eval_vectors(t)[0])) for t in range(T))
+        err = float((mono.server.last_task_vectors
+                     - strat.server.last_task_vectors).abs().max())
+        if not torch.allclose(mono.server.last_task_vectors,
+                              strat.server.last_task_vectors, rtol=1e-4,
+                              atol=1e-5):
+            raise AssertionError(f"shard strategy: task vectors differ by "
+                                 f"{err:.3e}")
+        if tv_bitwise:
+            same_wire(torch, "shard strategy", wire_state(torch, mono),
+                      wire_state(torch, strat))
+        bits = (mono.uplink_bits(uploads), mono.downlink_bits())
+        got = (strat.uplink_bits(uploads), strat.downlink_bits())
+        if bits != got:
+            raise AssertionError(f"shard strategy: bits {got} vs {bits}")
+        run.update(tv_bitwise=tv_bitwise, tv_max_err=err, bits=list(bits))
+        del mono
+    rep["runs"]["strategy"] = run
+    del strat, uploads
+
+    # (d) the bool layout at small d: kernels 4, 5 and 3 on each shard
+    ups = round_uploads(torch, dev, SHARD_SEED + 2, d=SHARD_SMALL_D)
+    eng = RoundEngine(cfg, device=dev, mesh=meshes["round4"])
+    batch = pack_uploads(ups, T, packed=False, device=dev, mesh=eng.mesh)
+    ops.reset_launch_counts()
+    sharding.reset_collective_counts()
+    out = eng.run_packed(batch)
+    torch.cuda.synchronize()
+    launches, coll = nonzero(ops.launch_counts()), \
+        sharding.collective_counts()
+    if launches != BOOL_ONCE or coll["psum"] != 2:
+        raise AssertionError(f"shard bool rank {rank}: launches {launches}, "
+                             f"collectives {coll}")
+    local_same(torch, f"shard bool rank {rank}: kernels vs plain on the "
+               f"shard", out, eng.run_packed(batch, mode="ref"))
+    whole = eng.gather_output(out, SHARD_SMALL_D)
+    run = dict(launches=launches, psum=coll["psum"])
+    if rank == 0:
+        downs, out = single.round(ups, packed=False)
+        run["lams_bitwise"], run["lams_max_rel"] = held_to(
+            torch, "shard bool vs unsharded", (out, downs),
+            (whole, eng.downlinks(batch, whole)))
+    rep["runs"]["bool_small_d"] = run
+
+    # (e) a 2-round FedSimulator(mesh=) on MLPBackbone
+    con = make_constellation(n_tasks=4, n_groups=2, feat_dim=16, n_classes=4,
+                             conflict_pairs=[(0, 1)], seed=SEED)
+    split = dirichlet_split(n_clients=5, n_tasks=4, n_classes=4, zeta_t=0.0,
+                            seed=SEED)
+
+    def fed(mesh):
+        bb = MLPBackbone(16, hidden=24, lora_rank=4)
+        strat = MaTUStrategy(4, bb.d, device=dev)
+        hist = FedSimulator(FedConfig(**SHARD_FED), con, split, bb, strat,
+                            device=dev, mesh=mesh).run()
+        return hist, strat.server.last_task_vectors
+
+    ops.reset_launch_counts()
+    h_s, tv_s = fed(meshes["round4"])
+    launches = nonzero(ops.launch_counts())
+    # a round: kernel 1 in client unify and in the downlink, 2 and 3 once
+    want = {k: v * SHARD_FED["rounds"] for k, v in
+            dict(PACKED_ONCE, fused_unify_packed=2).items()}
+    if launches != want:
+        raise AssertionError(f"shard FedSimulator rank {rank}: launches "
+                             f"{launches}, want {want}")
+    run = dict(launches=launches, mean_acc=h_s.mean_acc)
+    if rank == 0:
+        h_u, tv_u = fed(None)
+        if (h_u.uplink_bits_per_round, h_u.downlink_bits_per_round) != (
+                h_s.uplink_bits_per_round, h_s.downlink_bits_per_round):
+            raise AssertionError("shard FedSimulator: bits differ")
+        if not torch.allclose(tv_u, tv_s, rtol=1e-4, atol=1e-5):
+            raise AssertionError("shard FedSimulator: task vectors differ")
+        run.update(bitwise=bool(h_u.task_acc == h_s.task_acc
+                                and torch.equal(exact(torch, tv_u),
+                                                exact(torch, tv_s))),
+                   bits=[h_s.uplink_bits_per_round,
+                         h_s.downlink_bits_per_round])
+    rep["runs"]["fedsim"] = run
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return rep
+
+
+def shard_rank(rank: int, work: str) -> None:
+    """A spawned rank of the shard phase: gloo on the shared card, the
+    file store in ``work``; writes ``work/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(work, 'store')}",
+        rank=rank, world_size=SHARD_RANKS)
+    try:
+        rep = shard_checks(torch, torch.device("cuda", 0), rank)
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(torch, dev):
+    """The taskvec-sharded round on :data:`SHARD_RANKS` gloo ranks that
+    share the one card (the kernels were built by :func:`setup`, so the
+    ranks only load them).  No wall here is a scaling figure: the ranks
+    share one card's HBM and SMs.  Every rank, at the round phase's
+    shapes (N 32, K 4, T 30, D 1,327,140, seeded alike on each rank):
+
+    (a) the packed round on ``make_round_mesh(4)`` and on
+        ``make_debug_mesh((2, 2))``: kernels 1-3 launched once each and
+        exactly two psums (the int32 (T, T) dots, the λ roots) and no
+        other collective inside ``run_packed``; each rank's kernels
+        bitwise their plain versions on its shard; rank 0 holds the whole
+        round (gathered at the wire boundary) to its unsharded round:
+        masks, words, alpha_num, S, task vectors bitwise, λ bitwise or
+        within rtol 1e-5 (reported);
+    (b) ``round_chunked`` (chunk 8) on ``make_population_mesh(slots=2)``:
+        2 + 1 psum a chunk; each rank's round bitwise the same mesh's
+        ``round_chunked(mode="ref")`` (its kernels against their plain
+        versions); rank 0's against the unsharded monolithic round;
+    (c) ``MaTUStrategy(mesh=)`` from client unify to the downlinks
+        against ``MaTUStrategy()``: 3 psums and 3 gathers, all at the
+        drain (downlink vectors and words, task vectors);
+    (d) the bool layout at d = 4,096: kernels 4, 5 and 3 on each shard;
+    (e) a 2-round ``FedSimulator(mesh=)`` on ``MLPBackbone``: kernel 1
+        twice and kernels 2, 3 once a round on each rank.
+
+    A rank that raises fails the phase (``torch.multiprocessing.spawn``
+    re-raises it).  Returns the numbers; ``launches`` are every rank's
+    counted main-path launches, summed."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.core.engine import pad_d_for_shards
+    t_phase = time.perf_counter()
+    for s in (2, 4, 8):
+        dp = pad_d_for_shards(D, s)
+        log(f"shard d_pad at {s} shards: {dp:,} ({100 * (dp / D - 1):.1f} % "
+            f"above d = {D:,}; {dp // s:,} a shard)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(shard_rank, args=(work,), nprocs=SHARD_RANKS)
+        spawn_s = time.perf_counter() - t0
+        reps = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = dict.fromkeys(ROUND_KERNELS, 0)
+    for rep in reps:
+        for run in rep["runs"].values():
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    r0 = reps[0]["runs"]
+    log(f"shard unsharded round (rank 0): wall "
+        f"{reps[0]['unsharded']['wall_ms']:.2f} ms, peak "
+        f"{reps[0]['unsharded']['peak_bytes'] / 2**30:.3f} GiB")
+    for mname in ("round4", "debug2x2"):
+        for rep in reps:
+            run = rep["runs"][mname]
+            log(f"shard {mname} rank {rep['rank']}: launches "
+                f"{run['launches']}, psums {run['psum']} (all-reduced "
+                f"{run['reduce_bytes']:,} B: {run['reduced']}), downlink "
+                f"gather {run['gather_bytes'] / 1e6:.1f} MB, width "
+                f"{run['width']:,} of d_pad {run['d_pad']:,}, run_packed "
+                f"wall {run['wall_ms']:.2f} ms, peak "
+                f"{run['peak_bytes'] / 2**30:.3f} GiB")
+        log(f"shard {mname}: whole round = unsharded bitwise (masks, words, "
+            f"alpha_num, S, task vectors); λ bitwise "
+            f"{r0[mname]['lams_bitwise']} (max rel "
+            f"{r0[mname]['lams_max_rel']:.3e})")
+    for rep in reps:
+        run = rep["runs"]["pop_s2_chunked"]
+        log(f"shard chunked (pop_s2, chunk {SHARD_CHUNK}) rank {rep['rank']}: "
+            f"{run['n_chunks']} chunks, launches {run['launches']}, psums "
+            f"{run['psum']}, gathers {run['gathers']}, wall "
+            f"{run['wall_ms']:.2f} ms, peak {run['peak_bytes'] / 2**30:.3f} "
+            f"GiB")
+    log(f"shard chunked: = unsharded monolithic bitwise, λ bitwise "
+        f"{r0['pop_s2_chunked']['lams_bitwise']}")
+    for rep in reps:
+        run = rep["runs"]["strategy"]
+        log(f"shard strategy rank {rep['rank']}: launches {run['launches']}, "
+            f"psums {run['psum']}, gathers {run['gathers']}, wall "
+            f"{run['wall_ms']:.2f} ms, peak {run['peak_bytes'] / 2**30:.3f} "
+            f"GiB")
+    log(f"shard strategy: task vectors bitwise {r0['strategy']['tv_bitwise']}"
+        f" (max |err| {r0['strategy']['tv_max_err']:.3e}), bits "
+        f"{r0['strategy']['bits']} equal")
+    log(f"shard bool d {SHARD_SMALL_D}: launches a rank "
+        f"{r0['bool_small_d']['launches']}, psums "
+        f"{r0['bool_small_d']['psum']}, = unsharded, λ bitwise "
+        f"{r0['bool_small_d']['lams_bitwise']}")
+    log(f"shard FedSimulator: bits {r0['fedsim']['bits']} equal, bitwise "
+        f"{r0['fedsim']['bitwise']}, mean acc {r0['fedsim']['mean_acc']}")
+    log("shard peak GiB by rank: " + ", ".join(
+        f"{rep['rank']} {rep['peak_bytes'] / 2**30:.3f}" for rep in reps))
+    phase_s = time.perf_counter() - t_phase
+    log(f"shard phase: {phase_s:.1f} s (spawned ranks {spawn_s:.1f} s), "
+        f"launches {launches}")
+    return dict(launches=launches, ranks=reps, phase_s=phase_s)
 
 
 # -- lmtrain phase: LoRA training of qwen2-0.5b at full width ----------------
@@ -3488,7 +4022,10 @@ def profile_window(torch, label, fn, top: int = 6):
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    on_card = [e for e in prof.key_averages()
+    # once: over a long window (an xlstm prefill's ~10^6 events) each
+    # call takes tens of seconds on the host
+    averages = prof.key_averages()
+    on_card = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_card)
     log(f"profiled {label}: wall {wall_us / 1e3:.3f} ms, device busy "
@@ -3498,7 +4035,7 @@ def profile_window(torch, label, fn, top: int = 6):
         ops_[e.key] = (e.self_device_time_total / 1e3, e.count)
     for key, (ms, calls) in list(ops_.items())[:top]:
         log(f"  {ms:8.3f} ms  x{calls:<5d} {key[:90]}")
-    on_host = [e for e in prof.key_averages()
+    on_host = [e for e in averages
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.key.startswith("aten::")]
     host_us = sum(e.self_cpu_time_total for e in on_host)
@@ -3928,6 +4465,16 @@ XLSTM_FINGERPRINT = "03df97f531d3589f"
 XLSTM_B, XLSTM_PROMPT, XLSTM_NEW = 8, 512, 32
 XLSTM_RAGGED = 500             # a prompt length that pads the last chunk
 XLSTM_RAGGED3 = 700            # three chunks of 256, the last one ragged
+# the prompt length of the bf16 token agreements and the fp32
+# fused-vs-dense check (a time cut, as hymba's HYMBA_CHECK_PROMPT: the
+# sLSTM loop's prefill grows with the prompt); the counted generate, the
+# walls and the bf16 logit gate keep XLSTM_PROMPT
+XLSTM_CHECK_PROMPT = 128
+# the prompt length of the profiled prefill and decode windows (a time
+# cut: the profiler's post-processing grows with the sLSTM loop's ~1,800
+# ops a token, ~250 s for a 512-token prefill and ~54 s for a 128-token
+# one on the card's host)
+XLSTM_PROFILE_PROMPT = 32
 # kernel 10's device functions (the pre-pass's two kernels and the main
 # kernel), as the profiler names them
 K10_FUNCS = re.compile(r"(^|[\s:])mlstm_\w*kernel")
@@ -4183,28 +4730,39 @@ def xlstm_phase(torch, dev, cfg=None):
     log("xlstm one layer's prefill: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
         + f" (x {n_units} layers each)")
-    _, _, pre_ops = profile_window(torch, "xlstm prefill",
-                                   lambda: prefill(lora))
+    s_prof = min(XLSTM_PROFILE_PROMPT, s)
+    prefill_prof = served_prefill(
+        model, params, {"tokens": prompts[:, :s_prof].contiguous()}, new)
+    _, _, pre_ops = profile_window(
+        torch, f"xlstm prefill ({s_prof}-token prompts)",
+        lambda: prefill_prof(lora))
     # the launch counts above show that the prefill ran kernel 10; this
     # window only reads its device time (none if the profiler saw none)
     k10 = {k: v for k, v in pre_ops.items() if K10_FUNCS.search(k)}
     k10_ms = sum(ms for ms, _ in k10.values())
-    log(f"xlstm prefill: kernel 10 {k10_ms:.3f} ms of device time over its "
+    log(f"xlstm prefill ({s_prof}-token prompts): kernel 10 {k10_ms:.3f} ms "
+        f"of device time over its "
         f"{len(k10)} device functions: " + ", ".join(
             f"{ms:.3f} ms x{calls} {re.search(r'mlstm_\w*', k).group(0)}"
             for k, (ms, calls) in k10.items()))
-    decode_window(torch, "xlstm ", model, params, lora, tok,
-                  prefill(lora)[1], s, 8 * n_units)
+    decode_window(torch, f"xlstm ({s_prof}-token prompts) ", model, params,
+                  lora, tok, prefill_prof(lora)[1], s_prof, 8 * n_units)
 
     # -- the same routed tree through the plain versions --------------------
     bf16_gate(torch, "xlstm ", logits_k, prefill(lora, mode="ref")[0],
               XLSTM_BF16_LOGIT_REL_L2)
-    token_agreements(torch, "xlstm ", gen, model, params, store, out, s)
+    s_chk = min(XLSTM_CHECK_PROMPT, s)
+    gen_chk = decoder_generate(prompts[:, :s_chk].contiguous(), ids, new)
+    token_agreements(torch, f"xlstm ({s_chk}-token prompts) ", gen_chk,
+                     model, params, store, gen_chk(model, params, store),
+                     s_chk)
     del model, params, lora0, store, lora, logits_k
     torch.cuda.empty_cache()
 
     fp32_check(torch, dev, replace(cfg, dtype=torch.float32), server, ids,
-               batch, gen, new, SEED + 11, label="xlstm ", root=("units",))
+               {"tokens": prompts[:, :s_chk].contiguous()}, gen_chk, new,
+               SEED + 11, label=f"xlstm ({s_chk}-token prompts) ",
+               root=("units",))
     del server
     torch.cuda.empty_cache()
     row["prefill_ms"] = pre_ms
@@ -5184,6 +5742,14 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(rows), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "mix"]:
+        # Eq. 7's product as one GEMM against MIX_BLOCK-wide blocks, and
+        # the round phase under each; no summary, no "ok" line
+        log("== Eq. 7's product: one GEMM against blocks ==")
+        out = mix_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "bool"]:
         # the bool/fp32 layout's kernels and its round alone: a quick
         # loop for a change to kernels 4-7; no summary, no "ok" line
@@ -5208,6 +5774,15 @@ def main() -> int:
         row = mlstm_kernel_checks(torch, dev, load_arch(XLSTM_ARCH))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"mlstm_chunkwise": row}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "xlstm"]:
+        # the xlstm phase alone (kernel 10's checks, then serving
+        # xlstm-1.3b at full width); no summary, no "ok" line
+        log("== xlstm phase alone ==")
+        row, counts, wide = xlstm_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"row": row, "launches": counts, "wide": wide},
+                         default=str), flush=True)
         return 0
     if sys.argv[1:] == ["--only", "granite"]:
         # the granite phase alone: a quick loop for the MoE family's
@@ -5282,6 +5857,15 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "shard"]:
+        # the shard phase alone: a quick loop for the taskvec-sharded
+        # round; no summary, no "ok" line
+        log("== shard phase alone ==")
+        out = shard_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({k: v for k, v in out.items() if k != "ranks"}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "lmtrain"]:
         # the lmtrain phase alone: a quick loop for the LM training path;
         # no summary, no "ok" line
@@ -5295,7 +5879,8 @@ def main() -> int:
               f"--only round, --only bool, --only devtime, --only mlstm, "
               f"--only granite, --only whisper, --only hymba, --only vlm, "
               f"--only deepseek, --only vit, --only baselines, --only "
-              f"lmtrain, --only async or --only population",
+              f"lmtrain, --only async, --only population, --only shard, "
+              f"--only xlstm or --only mix",
               file=sys.stderr)
         return 2
     def phase(name):
@@ -5323,6 +5908,8 @@ def main() -> int:
     del setting
     phase("population")
     pop = population_phase(torch, dev)
+    phase("shard")
+    shard = shard_phase(torch, dev)
     # granite before xlstm: after the xlstm phase's profiled prefill
     # (~322,000 device kernels in one window) the profiler returned no
     # device event for granite's kernel-9 windows, six in a row
@@ -5401,13 +5988,18 @@ def main() -> int:
                            f"{asy['launches'][name]} more in the async "
                            "phase's rounds, "
                            f"{pop['launches'].get(name, 0)} in the "
-                           "population phase's)"
+                           "population phase's, "
+                           f"{shard['launches'].get(name, 0)} in the shard "
+                           f"phase's {SHARD_RANKS} ranks)"
                            if name in rows else
                            "bool round (bool phase, 1 round; "
                            f"{asy['launches'][name]} more in the async "
                            "phase's bool stream, "
                            f"{pop['launches'].get(name, 0)} in the "
-                           "population phase's chunked rounds)"),
+                           "population phase's chunked rounds, "
+                           f"{shard['launches'].get(name, 0)} in the shard "
+                           f"phase's {SHARD_RANKS} ranks)"),
+            shard_launches=shard["launches"].get(name, 0),
             app_launches=app_counts["matu"][name], **row))
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"

@@ -144,6 +144,57 @@ bit-identical to the synchronous one.  Corrupted coded uploads are
 quarantined by the async strategy before packing; empty rounds never
 reach ``pack_uploads``.
 
+Sharding contract
+-----------------
+With a mesh (``RoundEngine(mesh=)``; ``repro_torch.launch.mesh`` builds
+them over the default process group), one round runs distributed over
+the ``taskvec`` logical axis (``repro_torch.nn.sharding``: d splits over
+every mesh axis the rule names).  JAX runs one ``shard_map`` body on
+every shard; here every rank runs the same Python on its own d-slice,
+so a rank's call IS the body.  The contract, the JAX package's:
+
+* **inputs** — every rank holds the same uploads (the same simulator,
+  seeds and replicated client training, as JAX's single controller) and
+  slices its own columns: ``pack_uploads`` / ``pack_from_slots`` /
+  ``batched_client_unify`` keep only the rank's slice, so no collective
+  runs on the way in.
+* **layout** — every d-axis tensor (``unified``, ``slot_masks``, τ̂, the
+  task vectors, alpha_num, the downlinks) splits on its LAST axis into
+  ``n_shards`` contiguous slices, shard ``s`` holding ``[s·d_pad/n,
+  (s+1)·d_pad/n)``, ``s`` major→minor over the taskvec axes; per-slot
+  scalars are whole on every rank.  ``PackedRound.d_pad`` and
+  ``EngineOutput.d_pad`` mark the rank's slices.
+* **padding** — d is zero-padded to ``pad_d_for_shards(d, n_shards)``:
+  each shard holds a power-of-two number of 256-coordinate blocks (8
+  whole mask words, one λ block).  Padded coordinates carry zero masks
+  and vectors and drop out of every reduction.
+* **collectives** — per-coordinate math (Eq. 3, 4, 6, 7, the downlink
+  re-unification) never crosses ranks; the kernels run on the rank's
+  slice.  Exactly two reductions do, both through the counted
+  :func:`~repro_torch.nn.sharding.psum`: the Eq. 5 (T, T) dots as int32
+  (kernel 3 on the sign planes, in both layouts, normalised by the
+  global d), and every λ num/den tree root in one call
+  (``ref._lam_totals``).  Nothing else runs inside ``run_packed``.
+* **wire boundary** — the d-axis outputs are gathered (``gather_cols``,
+  :func:`~repro_torch.nn.sharding.gather`) and cut back to d only where
+  JAX assembles its global arrays: in ``downlinks`` and in
+  ``gather_output`` (``MaTUServer.finish_round`` gathers the task
+  vectors beside the downlinks).  The uploads a round takes and the
+  downlinks it makes (``ClientUpload``, ``ClientDownlink``) are always
+  the whole wire.
+* **parity** — the λ tree pairs (2i, 2i+1) over a fixed block grid, so
+  contiguous power-of-two shard subtrees compose into the global tree:
+  the sharded round is bitwise the unsharded one in both layouts, on
+  the CPU and, its kernels being bitwise their plain versions, on the
+  card.
+* **chunked** — ``round_chunked`` on a mesh: phase B has no collective
+  (each rank folds every row of its slice); the finish has the dots
+  psum and one psum of the per-task λ numerators; phase C one psum of
+  the λ denominators a chunk.  On a ``make_population_mesh`` phase C's
+  rows also split over "slots" (the chunk padded to a multiple of the
+  slot shards with invalid rows), and the gather hands every rank, and
+  ``sink``, every row.
+
 The engine never sees a model, only d.
 """
 
@@ -161,8 +212,9 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.core.client import (ClientDownlink, ClientUpload,
                                      paper_link_bits)
-from repro_torch.kernels import bitpack, ops
-from repro_torch.kernels.ref import next_pow2
+from repro_torch.kernels import bitpack, ops, ref
+from repro_torch.kernels.ref import LAMBDA_BLOCK, next_pow2
+from repro_torch.nn import sharding
 
 RHO_DEFAULT = 0.4     # Eq. 3 threshold
 EPS_DEFAULT = 0.5     # Eq. 6 similarity filter
@@ -199,10 +251,18 @@ class PackedRound:
     # per-slot staleness weights (n, k_max) fp32, None for an all-fresh
     # round; w ≡ 1 is bitwise None (``ops._apply_slot_weights``)
     slot_weights: Optional[torch.Tensor] = None
+    # d after the taskvec-shard padding (pad_d_for_shards) when packed on
+    # a mesh: the d-axis tensors then hold this rank's slice of it; None
+    # without a mesh.  Wire accounting uses the true ``d``.
+    d_pad: Optional[int] = None
 
     @property
     def n_clients(self) -> int:
         return len(self.client_ids)
+
+    @property
+    def padded_d(self) -> int:
+        return self.d_pad or self.d
 
     @property
     def packed(self) -> bool:
@@ -222,6 +282,9 @@ class PackedRound:
     def dense_tensors(self):
         """The dense per-task layout ``core.aggregation.matu_round``
         consumes: (masks (n, T, d) bool, lams, members, sizes (n, T))."""
+        if self.d_pad is not None:
+            raise ValueError("dense_tensors: a sharded round holds only "
+                             "this rank's d-slice")
         masks = (ops.unpack_masks(self.slot_masks, self.d) if self.packed
                  else self.slot_masks)
         return ops.slots_to_dense(masks, self.slot_lams, self.slot_sizes,
@@ -235,7 +298,7 @@ class PackedRound:
                            mv(self.slot_masks), mv(self.slot_lams),
                            mv(self.slot_sizes), mv(self.slot_tasks),
                            mv(self.slot_valid), self.n_tasks, self.d,
-                           mv(self.slot_weights))
+                           mv(self.slot_weights), self.d_pad)
 
 
 class EngineOutput(NamedTuple):
@@ -253,6 +316,9 @@ class EngineOutput(NamedTuple):
     n_held: Optional[torch.Tensor] = None      # (T,) fp32 member counts
     rho: float = RHO_DEFAULT
     m_hats_dense: Optional[torch.Tensor] = None  # (T, d) fp32, bool path
+    # set on a mesh: the d-axis fields hold this rank's slice of a
+    # d_pad-wide round (``RoundEngine.gather_output`` assembles them)
+    d_pad: Optional[int] = None
 
     @property
     def m_hats(self) -> torch.Tensor:
@@ -263,6 +329,44 @@ class EngineOutput(NamedTuple):
         alpha = (self.alpha_num.float()
                  / torch.clamp(self.n_held, min=1.0)[:, None])
         return torch.where(alpha >= self.rho, 1.0, alpha)
+
+
+def pad_d_for_shards(d: int, n_shards: int) -> int:
+    """Padded feature count of a taskvec-sharded round: each of the
+    ``n_shards`` contiguous d-slices is a power-of-two number of
+    LAMBDA_BLOCKs (256 coordinates = 8 mask words), so no mask word is
+    split and the λ block trees of the shards compose into the global
+    one (module docstring, "Sharding contract").  Identity unsharded."""
+    if n_shards <= 1:
+        return d
+    per_shard_blocks = next_pow2(-(-d // (n_shards * LAMBDA_BLOCK)))
+    return n_shards * LAMBDA_BLOCK * per_shard_blocks
+
+
+def _mesh_layout(mesh):
+    """(this rank's ``TaskvecLayout``, n_shards) on ``mesh``; (None, 1)
+    without one."""
+    lay = sharding.taskvec_layout(mesh)
+    return lay, (lay.n_shards if lay is not None else 1)
+
+
+def _slice_cols(x: torch.Tensor, lo: int, width: int) -> torch.Tensor:
+    """Columns [lo, lo + width) of ``x``'s last axis, zero-filled past
+    its end, contiguous."""
+    part = x[..., lo:lo + width]
+    if part.shape[-1] < width:
+        part = torch.nn.functional.pad(part, (0, width - part.shape[-1]))
+    return part.contiguous()
+
+
+def gather_cols(x: torch.Tensor, lay, d: int, *,
+                words: bool = False) -> torch.Tensor:
+    """The whole d-axis of a rank's slices: ``x``'s last axis gathered
+    over the taskvec group in shard order and cut back to ``d``
+    coordinates (``ceil(d/32)`` words when ``words``).  A wire-boundary
+    gather, outside every round's collective budget."""
+    full = sharding.gather(x, lay.group)
+    return full[..., :bitpack.packed_width(d) if words else d].contiguous()
 
 
 def staleness_weights(staleness: Sequence[int], k_max: int,
@@ -328,7 +432,8 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
                  k_max: Optional[int] = None, packed: bool = True,
                  device: DeviceLike = "cuda",
                  stage: Optional[SlotStage] = None,
-                 phase_us: Optional[Dict[str, float]] = None) -> PackedRound:
+                 phase_us: Optional[Dict[str, float]] = None,
+                 mesh=None) -> PackedRound:
     """Pack a ragged round of uploads into the slot layout on ``device``.
     Packed (the wire): dense bool masks are bit-packed and the unified
     vectors rounded to bf16 here — the uplink quantisation, applied once
@@ -344,7 +449,11 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     and copied with ``non_blocking=True``, so packing round r+1 never
     waits for round r (module docstring, "Host pipeline"); the returned
     round is valid until the stage is refilled.  ``phase_us``
-    accumulates the ``pack`` and ``decode`` host µs."""
+    accumulates the ``pack`` and ``decode`` host µs.
+
+    With ``mesh`` d is zero-padded to ``pad_d_for_shards`` and the
+    d-axis tensors hold only this rank's slice of it (whole words); the
+    scalars are whole (module docstring, "Sharding contract")."""
     if not uploads:
         raise ValueError("pack_uploads: empty round (no uploads)")
     t_pack = time.perf_counter()
@@ -352,6 +461,13 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     fill_dev = dev if stage is None else torch.device("cpu")
     n = len(uploads)
     d = int(uploads[0].unified.shape[0])
+    lay, n_shards = _mesh_layout(mesh)
+    d_pad = pad_d_for_shards(d, n_shards)
+    width = d_pad // n_shards
+    lo = lay.shard * width if n_shards > 1 else 0
+    n_real = max(min(lo + width, d) - lo, 0)     # this slice's real coords
+    w_lo, n_words = lo // 32, max(min(lo // 32 + -(-width // 32),
+                                      bitpack.packed_width(d)) - lo // 32, 0)
     ks = [len(u.task_ids) for u in uploads]
     k_max = k_max or next_pow2(max(ks))
     masks = [u.masks for u in uploads]
@@ -370,11 +486,11 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
             off += ks[i]
         dec_s = time.perf_counter() - t0
     if packed:
-        vec = ((n, d), torch.bfloat16)
-        wide = ((n, k_max, bitpack.packed_width(d)), torch.int32)
+        vec = ((n, width), torch.bfloat16)
+        wide = ((n, k_max, bitpack.packed_width(width)), torch.int32)
     else:
-        vec = ((n, d), torch.float32)
-        wide = ((n, k_max, d), torch.bool)
+        vec = ((n, width), torch.float32)
+        wide = ((n, k_max, width), torch.bool)
     small = (("slot_lams", torch.float32), ("slot_sizes", torch.float32),
              ("slot_tasks", torch.int32), ("slot_valid", torch.bool))
     if stage is None:
@@ -392,14 +508,19 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     slot_tasks[:] = n_tasks
     for i, up in enumerate(uploads):
         k = ks[i]
-        unified[i] = up.unified.to(fill_dev, unified.dtype)
+        unified[i, :n_real] = up.unified[lo:lo + n_real].to(fill_dev,
+                                                             unified.dtype)
         m = masks[i].to(fill_dev)
         is_words = m.dtype == torch.int32
         if packed:
-            slot_masks[i, :k] = m if is_words else bitpack.pack_bits(m)
+            w = m if is_words else bitpack.pack_bits(m)
+            slot_masks[i, :k, :n_words] = w[:, w_lo:w_lo + n_words]
         else:
-            slot_masks[i, :k] = bitpack.unpack_bits(m, d) if is_words else m
+            mb = bitpack.unpack_bits(m, d) if is_words else m
+            slot_masks[i, :k, :n_real] = mb[:, lo:lo + n_real]
         if stage is not None:     # a stage's buffers come back dirty
+            unified[i, n_real:] = 0
+            slot_masks[i, :k, n_words if packed else n_real:] = 0
             slot_masks[i, k:] = 0
         slot_lams[i, :k] = up.lams.detach().float().cpu().numpy()
         slot_sizes[i, :k] = up.data_sizes
@@ -413,7 +534,8 @@ def pack_uploads(uploads: Sequence[ClientUpload], n_tasks: int, *,
     return PackedRound([u.client_id for u in uploads],
                        [list(u.task_ids) for u in uploads],
                        put(unified), put(slot_masks),
-                       *(put(x) for x in scalars), n_tasks, d)
+                       *(put(x) for x in scalars), n_tasks, d,
+                       d_pad=d_pad if n_shards > 1 else None)
 
 
 def pack_from_slots(client_ids: List[int], task_ids: List[List[int]],
@@ -421,24 +543,41 @@ def pack_from_slots(client_ids: List[int], task_ids: List[List[int]],
                     slot_lams: torch.Tensor, slot_tasks: torch.Tensor,
                     slot_valid: torch.Tensor, slot_sizes: torch.Tensor,
                     n_tasks: int, *, d: Optional[int] = None,
-                    slot_weights: Optional[torch.Tensor] = None
-                    ) -> PackedRound:
+                    slot_weights: Optional[torch.Tensor] = None,
+                    mesh=None) -> PackedRound:
     """Build a PackedRound from already-batched slot tensors (the
     strategy's path: ``batched_client_unify`` output) — no copies.
     ``slot_masks`` are int32 words (packed) or bool (the A/B layout).
     ``slot_weights`` (optional (n, k_max)) attaches the async staleness
-    discount."""
+    discount.
+
+    With ``mesh``, ``d`` is the true feature count and the d-axis
+    tensors are either this rank's slice of the padded width
+    (``batched_client_unify(mesh=)`` output, kept as they are) or whole
+    (``d`` or the padded width wide), and then sliced here."""
     if slot_masks.dtype not in (torch.int32, torch.bool):
         raise ValueError(f"slot_masks must be packed int32 words or bool "
                          f"masks, got {slot_masks.dtype}")
-    d = d or int(unified.shape[-1])
-    if int(unified.shape[-1]) != d:
-        raise ValueError(f"unified width {unified.shape[-1]} != d={d}")
+    width = int(unified.shape[-1])
+    d = d or width
+    lay, n_shards = _mesh_layout(mesh)
+    d_pad = pad_d_for_shards(d, n_shards)
+    local = d_pad // n_shards
+    if n_shards > 1 and width in (d, d_pad):
+        lo = lay.shard * local
+        packed = slot_masks.dtype == torch.int32
+        unified = _slice_cols(unified, lo, local)
+        slot_masks = (_slice_cols(slot_masks, lo // 32, local // 32)
+                      if packed else _slice_cols(slot_masks, lo, local))
+    elif width != local:
+        raise ValueError(f"unified width {width} matches neither d={d} nor "
+                         f"the shard-padded {d_pad} nor its slice {local}")
     return PackedRound(list(client_ids), [list(t) for t in task_ids],
                        unified, slot_masks, slot_lams.float(),
                        slot_sizes.float(), slot_tasks.to(torch.int32),
                        slot_valid.bool(), n_tasks, d,
-                       None if slot_weights is None else slot_weights.float())
+                       None if slot_weights is None else slot_weights.float(),
+                       d_pad if n_shards > 1 else None)
 
 
 def _assemble_downlinks(client_ids: List[int], task_ids: List[List[int]],
@@ -501,32 +640,83 @@ def split_streams(stream: np.ndarray, sizes: np.ndarray,
 
 
 class RoundEngine:
-    """Stateless per-round executor on one device."""
+    """Stateless per-round executor on one device, optionally one rank of
+    a taskvec mesh (module docstring, "Sharding contract")."""
 
-    def __init__(self, cfg: EngineConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: EngineConfig, device: DeviceLike = "cuda",
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.use_mesh(mesh)
+
+    def use_mesh(self, mesh) -> None:
+        """Install (or, with None, clear) the taskvec mesh the rounds
+        shard over."""
+        self.mesh = mesh
+        # this rank's TaskvecLayout on the mesh (None without one)
+        self.layout, self.n_shards = _mesh_layout(mesh)
+        self.slot_shards = (self.layout.row_shards if self.layout
+                            else 1)
+
+    def _shard_kw(self, d: int) -> dict:
+        """The ops' taskvec arguments for a round of true width ``d``."""
+        if self.n_shards == 1:
+            return {}
+        return dict(group=self.layout.group,
+                    axis_sizes=self.layout.axis_sizes, d_norm=d)
 
     def run_packed(self, packed: PackedRound, *,
                    mode: Optional[str] = None) -> EngineOutput:
         """Eq. 3–7 + downlink re-unification over a round in either
         layout (moved to the engine's device if it is elsewhere).
-        ``mode="ref"`` runs the plain versions of the kernels."""
+        ``mode="ref"`` runs the plain versions of the kernels.  On a mesh
+        the round must be packed with the same mesh; the output holds
+        this rank's d-slices (``gather_output`` assembles them)."""
+        d_pad = pad_d_for_shards(packed.d, self.n_shards)
+        if packed.padded_d != d_pad:
+            raise ValueError(
+                f"run_packed: batch padded to d={packed.padded_d} but the "
+                f"engine's mesh shards {self.n_shards} ways (wants {d_pad}): "
+                f"pack with the same mesh the engine holds")
         p = packed.to(self.device)
         cfg = self.cfg
         args = (p.unified, p.slot_masks, p.slot_lams, p.slot_sizes,
                 p.slot_valid, p.slot_tasks, cfg.n_tasks)
         kw = dict(rho=cfg.rho, eps=cfg.eps, kappa=cfg.kappa,
                   cross_task=cfg.cross_task, uniform_cross=cfg.uniform_cross,
-                  mode=mode, slot_weights=p.slot_weights)
+                  mode=mode, slot_weights=p.slot_weights,
+                  **self._shard_kw(p.d))
+        tag = p.d_pad
         if p.packed:
             (tv, tau, a_num, n_held, sim, du, dm,
-             dl) = ops.matu_round_slots_packed(*args, p.d, **kw)
+             dl) = ops.matu_round_slots_packed(
+                 *args, d_pad // self.n_shards, **kw)
             return EngineOutput(tv, tau, sim, du, dm, dl, alpha_num=a_num,
-                                n_held=n_held, rho=cfg.rho)
+                                n_held=n_held, rho=cfg.rho, d_pad=tag)
         (tv, tau, m_hats, sim, du, dm, dl) = ops.matu_round_slots(*args, **kw)
         return EngineOutput(tv, tau, sim, du, dm, dl, rho=cfg.rho,
-                            m_hats_dense=m_hats)
+                            m_hats_dense=m_hats, d_pad=tag)
+
+    def gather_output(self, out: EngineOutput, d: int) -> EngineOutput:
+        """``out`` with every d-axis field whole and cut back to ``d``:
+        the wire-boundary gather of a sharded round's slices (the global
+        arrays JAX assembles).  An unsharded output comes back as it
+        is."""
+        if out.d_pad is None:
+            return out
+        lay = self.layout
+
+        def whole(x, words=False):
+            return None if x is None else gather_cols(x, lay, d, words=words)
+
+        words = out.down_masks is not None and \
+            out.down_masks.dtype == torch.int32
+        return out._replace(
+            task_vectors=whole(out.task_vectors),
+            tau_hats=whole(out.tau_hats), alpha_num=whole(out.alpha_num),
+            m_hats_dense=whole(out.m_hats_dense),
+            down_unified=whole(out.down_unified),
+            down_masks=whole(out.down_masks, words), d_pad=None)
 
     def downlinks(self, packed: PackedRound, out: EngineOutput, *,
                   code_masks: bool = False,
@@ -535,11 +725,17 @@ class RoundEngine:
         """Per-client downlinks of a finished round; ``code_masks``
         entropy-codes every client's mask rows in one batched call on
         the host (clients decode on use, ``ClientDownlink.mask_row``).
-        ``phase_us`` accumulates the ``encode`` host µs."""
+        ``phase_us`` accumulates the ``encode`` host µs.  A sharded
+        round's downlink slices are gathered here, the wire boundary."""
+        down_unified, down_masks = out.down_unified, out.down_masks
+        if out.d_pad is not None:
+            down_unified = gather_cols(down_unified, self.layout, packed.d)
+            down_masks = gather_cols(down_masks, self.layout, packed.d,
+                                     words=down_masks.dtype == torch.int32)
         return _assemble_downlinks(packed.client_ids, packed.task_ids,
-                                   packed.d, out.down_unified,
-                                   out.down_masks, out.down_lams,
-                                   code_masks=code_masks, phase_us=phase_us)
+                                   packed.d, down_unified, down_masks,
+                                   out.down_lams, code_masks=code_masks,
+                                   phase_us=phase_us)
 
     def round(self, uploads: Sequence[ClientUpload], *,
               mode: Optional[str] = None, packed: bool = True,
@@ -552,14 +748,15 @@ class RoundEngine:
         (coded uploads are decoded by ``pack_uploads`` either way).
         ``staleness`` (one int per upload) attaches the per-slot
         discount ``staleness_discount**s`` (module docstring, "Async
-        rounds")."""
+        rounds").  On a mesh the returned output is whole
+        (``gather_output``)."""
         batch = pack_uploads(uploads, self.cfg.n_tasks, packed=packed,
-                             device=self.device)
+                             device=self.device, mesh=self.mesh)
         if staleness is not None:
             batch.slot_weights = torch.from_numpy(staleness_weights(
                 staleness, batch.slot_valid.shape[1],
                 staleness_discount)).to(self.device)
-        out = self.run_packed(batch, mode=mode)
+        out = self.gather_output(self.run_packed(batch, mode=mode), batch.d)
         return self.downlinks(batch, out, code_masks=code_masks), out
 
     def round_chunked(self, uploads, *, chunk_clients: int,
@@ -589,7 +786,11 @@ class RoundEngine:
         fields None.  ``stats`` holds the measured ``uplink_bits`` and
         ``downlink_bits`` (the monolithic round's accounting),
         ``n_clients``, ``n_chunks`` and ``chunk_clients``.  ``phase_us``
-        accumulates ``pack`` / ``decode`` / ``encode`` host µs."""
+        accumulates ``pack`` / ``decode`` / ``encode`` host µs.
+
+        On a mesh each rank folds its d-slice, the returned output is
+        whole, and every rank (and ``sink``) sees every downlink (module
+        docstring, "Sharding contract")."""
         c_max = int(chunk_clients)
         if c_max < 1:
             raise ValueError(f"round_chunked: chunk_clients={c_max} < 1")
@@ -655,9 +856,13 @@ class RoundEngine:
         del members, sizes
 
         # -- phase B: second pass, fold the merge partials chunk by chunk
-        a_acc = torch.zeros((n_tasks + 1, d), device=dev,
+        # (on a mesh, every row of this rank's slice: no collective)
+        lay, sharded = self.layout, self.n_shards > 1
+        d_pad = pad_d_for_shards(d, self.n_shards)
+        width = d_pad // self.n_shards
+        a_acc = torch.zeros((n_tasks + 1, width), device=dev,
                             dtype=torch.int32 if packed else torch.float32)
-        tau_acc = torch.zeros((n_tasks + 1, d), dtype=torch.float32,
+        tau_acc = torch.zeros((n_tasks + 1, width), dtype=torch.float32,
                               device=dev)
         stage, mark = SlotStage(), None
         stream = make_iter()
@@ -672,7 +877,8 @@ class RoundEngine:
             # the stage is refilled only once the fold that read it is done
             wait_ready(mark)
             batch = pack_uploads(ups, n_tasks, k_max=k_max, packed=packed,
-                                 device=dev, stage=stage, phase_us=phase_us)
+                                 device=dev, stage=stage, phase_us=phase_us,
+                                 mesh=self.mesh)
             uplink_bits += batch.wire_bits()
             g_rows = gammas[row0:row0 + len(ids_)]
             row0 += len(ids_)
@@ -681,37 +887,65 @@ class RoundEngine:
                     tau_acc)
             kw = dict(slot_weights=weights(stal_), mode=mode)
             if packed:
-                ops.matu_merge_chunk_packed(*args, d, **kw)
+                ops.matu_merge_chunk_packed(*args, width, **kw)
             else:
                 ops.matu_merge_chunk(*args, **kw)
             mark = ready_mark(dev)
         del stage, batch
 
-        # -- finish: Eq. 3 m̂, τ̂, Eq. 5-7 from the accumulators
+        # -- finish: Eq. 3 m̂, τ̂, Eq. 5-7 from the accumulators (on a
+        # mesh: the dots psum, then one psum of the per-task λ numerators)
         cfg = self.cfg
         kw = dict(rho=cfg.rho, eps=cfg.eps, kappa=cfg.kappa,
                   cross_task=cfg.cross_task, uniform_cross=cfg.uniform_cross,
                   mode=mode)
+        if sharded:
+            kw.update(group=lay.group, d_norm=d)
+        tag = d_pad if sharded else None
         if packed:
             tv, tau_hats, a_num, n_t, sim = ops.matu_finish_packed(
-                a_acc, tau_acc, n_t, n_clients, d=d, **kw)
+                a_acc, tau_acc, n_t, n_clients, d=width, **kw)
             out = EngineOutput(tv, tau_hats, sim, None, None, None,
-                               alpha_num=a_num, n_held=n_t, rho=cfg.rho)
+                               alpha_num=a_num, n_held=n_t, rho=cfg.rho,
+                               d_pad=tag)
         else:
             tv, tau_hats, m_hats, n_t, sim = ops.matu_finish(
                 a_acc, tau_acc, n_t, **kw)
             out = EngineOutput(tv, tau_hats, sim, None, None, None,
-                               rho=cfg.rho, m_hats_dense=m_hats)
+                               rho=cfg.rho, m_hats_dense=m_hats, d_pad=tag)
         del a_acc, tau_acc
+        shard_kw = {}
+        if sharded:
+            shard_kw = dict(group=lay.group, axis_sizes=lay.axis_sizes,
+                            num_t=ops.matu_lam_num(
+                                tv, group=lay.group,
+                                axis_sizes=lay.axis_sizes))
+        out = self.gather_output(out, d)
 
-        # -- phase C: each chunk's downlinks, streamed out
+        # -- phase C: each chunk's downlinks, streamed out (on a mesh, one
+        # λ-den psum a chunk, the rows split over the slot shards)
         down = (ops.matu_downlink_chunk_packed if packed
                 else ops.matu_downlink_chunk)
         downlinks: Dict[int, ClientDownlink] = {}
         downlink_bits = 0
         for ids_, tasks_, _, _ in metas:
             tk, vd = slots(tasks_)
-            du, dm, dl = down(tv, vd, tk, mode=mode)
+            rows = len(ids_)
+            if self.slot_shards > 1:
+                per = -(-rows // self.slot_shards)
+                pad = per * self.slot_shards - rows
+                tk = torch.nn.functional.pad(tk, (0, 0, 0, pad),
+                                             value=n_tasks)
+                vd = torch.nn.functional.pad(vd, (0, 0, 0, pad))
+                r0 = lay.row * per
+                tk, vd = tk[r0:r0 + per], vd[r0:r0 + per]
+            du, dm, dl = down(tv, vd, tk, mode=mode, **shard_kw)
+            if sharded:
+                du = gather_cols(du, lay, d)
+                dm = gather_cols(dm, lay, d, words=packed)
+            if self.slot_shards > 1:
+                du, dm, dl = (sharding.gather(x, lay.row_group, dim=0)[:rows]
+                              for x in (du, dm, dl))
             links = _assemble_downlinks(ids_, tasks_, d, du, dm, dl,
                                         code_masks=code_masks,
                                         phase_us=phase_us)
@@ -740,16 +974,19 @@ class RoundEngine:
         to host µs (``device`` is dispatch to ready).  ``pipeline=False``
         is the strictly sequential escape hatch, bit-identical.  Rounds
         are pulled one ahead of the yields, so the iterable must not
-        depend on the previous round's downlinks (replayed traffic)."""
+        depend on the previous round's downlinks (replayed traffic).  On
+        a mesh each round's output is gathered whole when it is drained."""
         if not pipeline:
             for ups in rounds:
                 phase: Dict[str, float] = {}
                 batch = pack_uploads(ups, self.cfg.n_tasks, packed=packed,
-                                     device=self.device, phase_us=phase)
+                                     device=self.device, phase_us=phase,
+                                     mesh=self.mesh)
                 t0 = time.perf_counter()
                 out = self.run_packed(batch, mode=mode)
                 wait_ready(ready_mark(self.device))
                 phase["device"] = (time.perf_counter() - t0) * 1e6
+                out = self.gather_output(out, batch.d)
                 yield (self.downlinks(batch, out, code_masks=code_masks,
                                       phase_us=phase), out, phase)
             return
@@ -762,10 +999,10 @@ class RoundEngine:
             # this point: never in flight
             batch = pack_uploads(ups, self.cfg.n_tasks, packed=packed,
                                  device=self.device, stage=stages[r % 2],
-                                 phase_us=phase)
+                                 phase_us=phase, mesh=self.mesh)
             out = self.run_packed(batch, mode=mode)
             words = None
-            if code_masks:
+            if code_masks and out.d_pad is None:
                 words = host_copy_async(
                     out.down_masks if batch.packed
                     else bitpack.pack_bits(out.down_masks))
@@ -783,6 +1020,7 @@ class RoundEngine:
         batch, out, phase, t_disp, mark, words = pend
         wait_ready(mark)
         phase["device"] = (time.perf_counter() - t_disp) * 1e6
+        out = self.gather_output(out, batch.d)
         return (_assemble_downlinks(batch.client_ids, batch.task_ids,
                                     batch.d, out.down_unified,
                                     out.down_masks, out.down_lams,
@@ -792,7 +1030,7 @@ class RoundEngine:
 
 def batched_client_unify(task_vectors: torch.Tensor, valid: torch.Tensor, *,
                          packed: bool = True, device: DeviceLike = "cuda",
-                         mode: Optional[str] = None):
+                         mode: Optional[str] = None, mesh=None):
     """All clients' upload construction in one fused call on ``device``.
 
     task_vectors (N, k_max, d) zero-padded stacks; valid (N, k_max).
@@ -802,7 +1040,22 @@ def batched_client_unify(task_vectors: torch.Tensor, valid: torch.Tensor, *,
     unified vector rounded to bf16 after masks and λ were derived from
     it in fp32.  ``packed=False`` returns the bool/fp32 A/B layout:
     (unified (N, d) fp32, masks (N, k_max, d) bool, lams) with the same
-    mask bits and λ bit for bit."""
+    mask bits and λ bit for bit.
+
+    With ``mesh`` each rank pads d to ``pad_d_for_shards`` and runs the
+    kernel on its own d-slice; the λ num/den roots cross ranks in one
+    psum (``ref._lam_totals``) before the division.  The returned
+    unified vectors and masks are the rank's slices, as
+    ``pack_from_slots(..., d=d, mesh=mesh)`` takes them."""
     dev = resolve_device(device)
-    fn = ops.fused_unify_packed if packed else ops.fused_unify
-    return fn(task_vectors.to(dev), valid.to(dev), mode=mode)
+    lay, n_shards = _mesh_layout(mesh)
+    if n_shards == 1:
+        fn = ops.fused_unify_packed if packed else ops.fused_unify
+        return fn(task_vectors.to(dev), valid.to(dev), mode=mode)
+    d = int(task_vectors.shape[-1])
+    width = pad_d_for_shards(d, n_shards) // n_shards
+    local = _slice_cols(task_vectors.to(dev), lay.shard * width, width)
+    uni, masks, num, den = ops.fused_unify_raw(local, valid.to(dev),
+                                               packed=packed, mode=mode)
+    num, den = ref._lam_totals((num, den), lay.group, lay.axis_sizes)
+    return uni, masks, num / torch.clamp(den, min=1e-12)  # kernel 1's eps

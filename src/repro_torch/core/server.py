@@ -26,7 +26,7 @@ from repro_torch.core.aggregation import (combine_round,
 from repro_torch.core.client import ClientDownlink, ClientUpload
 from repro_torch.core.engine import (EPS_DEFAULT, KAPPA_DEFAULT, RHO_DEFAULT,
                                      EngineConfig, EngineOutput, PackedRound,
-                                     RoundEngine)
+                                     RoundEngine, gather_cols)
 from repro_torch.core.unify import unify_with_modulators
 from repro_torch.kernels import bitpack
 
@@ -42,14 +42,44 @@ class MaTUServerConfig:
 
 
 class MaTUServer:
-    def __init__(self, cfg: MaTUServerConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: MaTUServerConfig, device: DeviceLike = "cuda",
+                 mesh=None):
+        """``mesh``: optional taskvec mesh (``repro_torch.launch.mesh``);
+        the rounds then run sharded over it, one rank each (the engine's
+        "Sharding contract"); None keeps the single-device path."""
         self.cfg = cfg
         self.engine = RoundEngine(EngineConfig(
             n_tasks=cfg.n_tasks, rho=cfg.rho, eps=cfg.eps, kappa=cfg.kappa,
             cross_task=cfg.cross_task, uniform_cross=cfg.uniform_cross),
-            device=device)
+            device=device, mesh=mesh)
         self.last_similarity: Optional[torch.Tensor] = None
-        self.last_task_vectors: Optional[torch.Tensor] = None
+        self._task_vectors: Optional[torch.Tensor] = None
+        # (this rank's task-vector slices, d) of a sharded round whose
+        # vectors are not gathered yet
+        self._tv_slices = None
+
+    @property
+    def last_task_vectors(self) -> Optional[torch.Tensor]:
+        """The last round's (T, d) task vectors.  After a sharded
+        :meth:`start_round` they are gathered whole by
+        :meth:`finish_round`, or here if read before it (every rank runs
+        the same code, so every rank reads them at the same point)."""
+        self._gather_task_vectors()
+        return self._task_vectors
+
+    @last_task_vectors.setter
+    def last_task_vectors(self, tv: Optional[torch.Tensor]) -> None:
+        self._tv_slices, self._task_vectors = None, tv
+
+    def _gather_task_vectors(self) -> None:
+        if self._tv_slices is not None:
+            tv, d = self._tv_slices
+            self._tv_slices = None
+            self._task_vectors = gather_cols(tv, self.engine.layout, d)
+
+    def use_mesh(self, mesh) -> None:
+        """Install (or clear) the taskvec mesh on the round engine."""
+        self.engine.use_mesh(mesh)
 
     @property
     def device(self) -> torch.device:
@@ -91,9 +121,13 @@ class MaTUServer:
 
     def start_round(self, packed: PackedRound) -> EngineOutput:
         """Run the round (kernel launches are asynchronous on the card);
-        pair with :meth:`finish_round` for the downlinks."""
+        pair with :meth:`finish_round` for the downlinks.  On a mesh the
+        output holds this rank's slices, and nothing is gathered before
+        :meth:`finish_round` (:attr:`last_task_vectors`)."""
         out = self.engine.run_packed(packed)
         self._record(out)
+        if out.d_pad is not None:
+            self._tv_slices = (out.task_vectors, packed.d)
         return out
 
     def finish_round(self, packed: PackedRound, out: EngineOutput, *,
@@ -102,9 +136,12 @@ class MaTUServer:
                      ) -> Dict[int, ClientDownlink]:
         """Per-client downlinks of a dispatched round (one batched
         Golomb-Rice encode on the host when ``code_masks``; ``phase_us``
-        accumulates its ``encode`` µs)."""
-        return self.engine.downlinks(packed, out, code_masks=code_masks,
-                                     phase_us=phase_us)
+        accumulates its ``encode`` µs).  On a mesh the downlinks and the
+        task vectors are gathered whole here, at the wire boundary."""
+        downs = self.engine.downlinks(packed, out, code_masks=code_masks,
+                                      phase_us=phase_us)
+        self._gather_task_vectors()
+        return downs
 
     def _record(self, out: EngineOutput) -> None:
         self.last_similarity = out.similarity

@@ -171,7 +171,7 @@ class FedSimulator:
     def __init__(self, cfg: FedConfig, constellation: Constellation,
                  split: FedSplit, backbone, strategy: Strategy, *,
                  systems: Optional[ClientSystems] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         """``backbone``: one backbone shared by every client, or a
         per-client mapping (a dict ``{client_id: backbone}`` or a list),
         so one round mixes architectures.  Each client's delta flattens
@@ -182,7 +182,10 @@ class FedSimulator:
         their rows merge coordinate by coordinate.  Backbones are moved
         to ``device`` (``nn.Module.to``); the strategy must live on the
         same device.  ``systems`` switches ``run`` to the event-clock
-        mode (module docstring, "Async & fault model")."""
+        mode (module docstring, "Async & fault model").  ``mesh``: an
+        optional taskvec mesh threaded to the strategy (MaTU's round then
+        runs sharded, this process being one rank; every rank runs the
+        same simulator with the same seeds)."""
         self.cfg = cfg
         self.con = constellation
         self.split = split
@@ -197,6 +200,9 @@ class FedSimulator:
             raise ValueError(f"systems models {systems.n_clients} clients, "
                              f"split has {self.n_clients}")
         strategy.use_pipeline(cfg.pipeline)
+        self.mesh = mesh
+        if mesh is not None:
+            strategy.use_mesh(mesh)
         dev = self.device
 
         # -- backbones: a per-client map; one shared object maps every
@@ -453,7 +459,10 @@ class PopulationSimulator:
     training the whole cohort is not the point.  ``sink``: optional
     per-chunk downlink consumer; the default discards them, so no
     per-client state accumulates anywhere.  The server runs on
-    ``device``; ``_tv_host`` is a host copy of its task vectors."""
+    ``device``; ``_tv_host`` is a host copy of its task vectors.
+    ``mesh``: an optional taskvec mesh; the chunked round then runs
+    sharded (d, and the slot rows on a ``make_population_mesh``), this
+    process being one rank of it."""
 
     def __init__(self, cfg: FedConfig, split: PopulationSplit,
                  server_cfg: Optional[MaTUServerConfig] = None, *,
@@ -461,7 +470,7 @@ class PopulationSimulator:
                  chunk_clients: int = 64, step: float = 0.3,
                  noise: float = 1e-2, dropout_prob: float = 0.0,
                  code_masks: bool = False, sink=None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         self.cfg = cfg
         self.split = split
         self.d = int(d)
@@ -477,7 +486,7 @@ class PopulationSimulator:
             else max(1, round(cfg.participation * split.n_clients)))
         self.server = MaTUServer(
             server_cfg or MaTUServerConfig(n_tasks=split.n_tasks),
-            device=device)
+            device=device, mesh=mesh)
         self.device = self.server.device
         # hidden per-task targets the synthetic updates drift toward:
         # O(T·d), the round's own footprint class

@@ -37,10 +37,10 @@ from repro_torch.core.baselines import (cosine_similarity_matrix,
                                         weighted_average)
 from repro_torch.core.client import ClientDownlink, ClientUpload, paper_link_bits
 from repro_torch.core.engine import (STALENESS_DISCOUNT, batched_client_unify,
-                                     host_copy_async, pack_from_slots,
-                                     ready_mark, split_streams,
-                                     staleness_weights, valid_rows,
-                                     wait_ready)
+                                     gather_cols, host_copy_async,
+                                     pack_from_slots, ready_mark,
+                                     split_streams, staleness_weights,
+                                     valid_rows, wait_ready)
 from repro_torch.core.server import MaTUServer, MaTUServerConfig
 from repro_torch.core.unify import modulate, unify
 from repro_torch.kernels import bitpack
@@ -178,6 +178,10 @@ class Strategy:
         """Enable the deferred drain where the strategy has one (MaTU);
         a no-op for per-client strategies."""
 
+    def use_mesh(self, mesh) -> None:
+        """Install a taskvec mesh where the server step can run sharded
+        (MaTU's round engine); a no-op for per-client strategies."""
+
     def skip_round(self) -> None:
         """Called INSTEAD of the server step when a round admits no
         upload: carry every state unchanged.  A no-op for strategies
@@ -227,7 +231,13 @@ class MaTUStrategy(Strategy):
     deferred drain), also under ``pipeline``.  With ``code_masks`` both
     ways ship coded, as on the batched path (the JAX package's chunked
     step keeps a raw uplink); the engine decodes each chunk's streams as
-    it packs them."""
+    it packs them.
+
+    ``mesh`` (or :meth:`use_mesh`) shards the server step over a taskvec
+    mesh, this process being one rank (``repro_torch.launch.mesh``):
+    client unify and the round run on the rank's d-slice, and the
+    uplink record and the downlinks are gathered whole at the wire
+    boundary.  Every rank runs the same strategy on the same uploads."""
     name = "matu"
 
     def __init__(self, n_tasks: int, d: int, *, rho: float = 0.4,
@@ -235,13 +245,14 @@ class MaTUStrategy(Strategy):
                  uniform_cross: bool = False, compress: bool = False,
                  code_masks: bool = False, pipeline: bool = False,
                  chunk_clients: Optional[int] = None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda", mesh=None):
         super().__init__(n_tasks, d, device)
         self.chunk_clients = chunk_clients
+        self.mesh = mesh
         self.server = MaTUServer(MaTUServerConfig(
             n_tasks=n_tasks, rho=rho, eps=eps, kappa=kappa,
             cross_task=cross_task, uniform_cross=uniform_cross),
-            device=self.device)
+            device=self.device, mesh=mesh)
         self.downlinks: Dict[int, ClientDownlink] = {}
         self.client_tasks: Dict[int, List[int]] = {}
         self.code_masks = code_masks
@@ -257,6 +268,41 @@ class MaTUStrategy(Strategy):
         first, so toggling between rounds is safe)."""
         self._drain()
         self.pipeline = on
+
+    def use_mesh(self, mesh) -> None:
+        """Shard the server step over the taskvec axis of ``mesh`` (None
+        restores the single-device path), draining any round in flight
+        first."""
+        self._drain()
+        self.mesh = mesh
+        self.server.use_mesh(mesh)
+
+    def _unify(self, batch: RoundBatch, whole: bool = False):
+        """Kernel 1 over every client (on a mesh, on this rank's
+        d-slice): (unified, mask words, λ) as the round takes them, and
+        the uplink wire's (unified, mask words).  On a mesh the wire's
+        words are gathered whole only where their bits are read
+        (``code_masks``, ``compress``) and its vectors only when
+        ``whole`` asks; otherwise they are meta tensors of the wire's
+        shapes, all that the bit accounting reads."""
+        unified, mask_words, lams = batched_client_unify(
+            batch.task_vectors, batch.valid, device=self.device,
+            mesh=self.mesh)
+        lay = self.server.engine.layout
+        if self.server.engine.n_shards == 1:
+            return unified, mask_words, lams, unified, mask_words
+        if whole:
+            wire_uni = gather_cols(unified, lay, self.d)
+        else:
+            wire_uni = torch.empty((unified.shape[0], self.d),
+                                   dtype=unified.dtype, device="meta")
+        if whole or self.code_masks or self.compress:
+            wire_words = gather_cols(mask_words, lay, self.d, words=True)
+        else:
+            wire_words = torch.empty(
+                mask_words.shape[:-1] + (bitpack.packed_width(self.d),),
+                dtype=mask_words.dtype, device="meta")
+        return unified, mask_words, lams, wire_uni, wire_words
 
     def _drain(self) -> None:
         """Finish the round in flight, if any: wait for its ready point,
@@ -274,12 +320,11 @@ class MaTUStrategy(Strategy):
 
     def _dispatch(self, packed, phase: Dict[str, float], t0: float):
         """Start the engine round over ``packed``; it stays pending until
-        :meth:`_drain`.  Returns its output."""
+        :meth:`_drain`."""
         out = self.server.start_round(packed)
         t_disp = time.perf_counter()
         self._pending = (packed, out, phase, t_disp, ready_mark(self.device))
         phase["pack"] = (t_disp - t0) * 1e6
-        return out
 
     def _coded_uplink(self, words: torch.Tensor, mark,
                       ks: List[int]) -> List[torch.Tensor]:
@@ -312,20 +357,19 @@ class MaTUStrategy(Strategy):
         self._drain()
         phase: Dict[str, float] = {}
         t0 = time.perf_counter()
-        unified, mask_words, lams = batched_client_unify(
-            batch.task_vectors, batch.valid, device=self.device)
+        unified, mask_words, lams, wire_uni, wire_words = self._unify(batch)
         words = words_mark = None
         if self.code_masks:
             # the uplink's words go to the host ahead of the round's
             # launches, so their encode below overlaps the round
-            words = host_copy_async(mask_words)
+            words = host_copy_async(wire_words)
             words_mark = ready_mark(self.device)
         packed = pack_from_slots(batch.client_ids, batch.task_ids, unified,
                                  mask_words, lams,
                                  batch.slot_tasks.to(self.device),
                                  batch.valid.to(self.device),
                                  batch.slot_sizes.to(self.device),
-                                 self.n_tasks, d=self.d)
+                                 self.n_tasks, d=self.d, mesh=self.mesh)
         self._dispatch(packed, phase, t0)
         ks = [len(u.task_ids) for u in batch.uploads]
         if self.code_masks:
@@ -333,9 +377,9 @@ class MaTUStrategy(Strategy):
             up_masks = self._coded_uplink(words, words_mark, ks)
             phase["encode"] = (time.perf_counter() - t1) * 1e6
         else:
-            up_masks = [mask_words[i, :k] for i, k in enumerate(ks)]
+            up_masks = [wire_words[i, :k] for i, k in enumerate(ks)]
         self._last_uploads = [
-            ClientUpload(u.client_id, list(u.task_ids), unified[i],
+            ClientUpload(u.client_id, list(u.task_ids), wire_uni[i],
                          up_masks[i], lams[i, :k], list(u.data_sizes))
             for i, (u, k) in enumerate(zip(batch.uploads, ks))]
         for u in batch.uploads:
@@ -352,8 +396,7 @@ class MaTUStrategy(Strategy):
         self._drain()
         phase: Dict[str, float] = {}
         t0 = time.perf_counter()
-        unified, mask_words, lams = batched_client_unify(
-            batch.task_vectors, batch.valid, device=self.device)
+        _, _, lams, unified, mask_words = self._unify(batch, whole=True)
         ks = [len(u.task_ids) for u in batch.uploads]
         if self.code_masks:
             t1 = time.perf_counter()
@@ -517,13 +560,12 @@ class AsyncMaTUStrategy(MaTUStrategy):
                              "AsyncMaTUStrategy(code_masks=True)")
         phase: Dict[str, float] = {}
         t0 = time.perf_counter()
-        unified, mask_words, lams = batched_client_unify(
-            batch.task_vectors, batch.valid, device=self.device)
+        unified, mask_words, lams, wire_uni, wire_words = self._unify(batch)
         ks = [len(u.task_ids) for u in batch.uploads]
         quarantined: List[int] = []
         if self.code_masks:
             t1 = time.perf_counter()
-            streams = self._coded_uplink(mask_words, None, ks)
+            streams = self._coded_uplink(wire_words, None, ks)
             phase["encode"] = (time.perf_counter() - t1) * 1e6
             if inject:
                 from repro_torch.fed.compression import (CodedStreamError,
@@ -547,11 +589,11 @@ class AsyncMaTUStrategy(MaTUStrategy):
                 streams = [torch.from_numpy(f) for f in framed]
             up_masks = streams
         else:
-            up_masks = [mask_words[i, :k] for i, k in enumerate(ks)]
+            up_masks = [wire_words[i, :k] for i, k in enumerate(ks)]
         # the wire accounting covers every admitted upload, quarantined
         # ones too (their bytes travelled), framed under fault injection
         self._last_uploads = [
-            ClientUpload(u.client_id, list(u.task_ids), unified[i],
+            ClientUpload(u.client_id, list(u.task_ids), wire_uni[i],
                          up_masks[i], lams[i, :k], list(u.data_sizes))
             for i, (u, k) in enumerate(zip(batch.uploads, ks))]
         self.last_quarantined = frozenset(
@@ -580,8 +622,8 @@ class AsyncMaTUStrategy(MaTUStrategy):
                                  [batch.task_ids[i] for i in keep], unified,
                                  mask_words, lams, tasks, valid, sizes,
                                  self.n_tasks, d=self.d,
-                                 slot_weights=slot_weights)
-        out = self._dispatch(packed, phase, t0)
+                                 slot_weights=slot_weights, mesh=self.mesh)
+        self._dispatch(packed, phase, t0)
         phase["pack"] -= phase.get("encode", 0.0)
         for i in keep:
             u = batch.uploads[i]
@@ -590,7 +632,7 @@ class AsyncMaTUStrategy(MaTUStrategy):
         # dark ones age and decay
         held = {t for i in keep for t in batch.task_ids[i]}
         for t in sorted(held):
-            self._task_vecs[t] = out.task_vectors[t]
+            self._task_vecs[t] = self.server.last_task_vectors[t]
         self._age_and_decay(held)
         if not self.pipeline:
             self._drain()

@@ -11,6 +11,16 @@ raise).  ``mode="ref"`` runs the plain versions on any device; it exists
 so that tests and ``chip_smoke.py`` can hold the kernels against them.
 No environment variable changes what the main path runs.
 
+Under a taskvec mesh (``core.engine``, "Sharding contract") the round's
+functions take ``group`` / ``axis_sizes`` / ``d_norm``, the counterparts
+of the JAX package's ``axis_name`` / ``axis_sizes`` / ``d_norm``: the
+rank's process group of taskvec shards, the taskvec axis sizes and the
+global d.  The tensors are then the rank's d-slice, the kernels run on
+it, and exactly the JAX package's reductions cross ranks: the Eq. 5
+dots as one integer :func:`~repro_torch.nn.sharding.psum` (kernel 3 on
+the sign planes in both layouts), and the λ tree roots through
+``ref._lam_totals``.
+
 The (T, T)-sized Eq. 6–7 ops (top-κ filter, cross-task combine) have no
 kernel in either package: a (T, T) top-k and a (T, T)·(T, d) product
 stay plain PyTorch.
@@ -28,6 +38,7 @@ from repro_torch.kernels import masked_agg as _ma
 from repro_torch.kernels import mlstm_chunk as _ml
 from repro_torch.kernels import modulated_matmul as _mm
 from repro_torch.kernels import sign_sim as _ss
+from repro_torch.nn.sharding import psum
 
 MODES = (None, "ref")
 KERNELS = (_fu.KERNEL, _ma.KERNEL, _ss.KERNEL,
@@ -156,15 +167,20 @@ def sign_sim(tau_hats: torch.Tensor, *,
     return _ss.sign_sim(tau_hats)
 
 
+def sign_dots_packed(pos: torch.Tensor, nz: torch.Tensor, *,
+                     mode: Optional[str] = None) -> torch.Tensor:
+    """Eq. 5 raw sign dots (T, T) fp32, exact integers, from packed sign
+    planes (kernel 3)."""
+    if _plain(mode):
+        return _ss.plain(pos, nz)
+    return _ss.sign_sim_packed(pos, nz)
+
+
 def sign_sim_packed(pos: torch.Tensor, nz: torch.Tensor, d: int, *,
                     mode: Optional[str] = None) -> torch.Tensor:
     """Eq. 5 similarity S = ½(dots/d + 1) from packed sign planes; ``d``
     is the unpacked feature count."""
-    if _plain(mode):
-        dots = _ss.plain(pos, nz)
-    else:
-        dots = _ss.sign_sim_packed(pos, nz)
-    return ref.sim_from_dots(dots, d)
+    return ref.sim_from_dots(sign_dots_packed(pos, nz, mode=mode), d)
 
 
 def topk_weights(sim: torch.Tensor, *, eps: float = 0.5,
@@ -264,15 +280,23 @@ def _m_hats(a_num: torch.Tensor, n_t: torch.Tensor, rho: float):
 
 def _finish(tau_hats, m_hats, n_t, d: int, *, packed: bool, eps: float,
             kappa: int, cross_task: bool, uniform_cross: bool,
-            mode: Optional[str]):
+            mode: Optional[str], group=None, d_norm: int = 0):
     """The round's tail after Eq. 3+4, shared by the monolithic round
     and the chunked finish: Eq. 5 (kernel 3 on the sign planes when
     ``packed``, kernel 6 on the dense rows otherwise), masked to the
-    held tasks, then Eq. 6 + 7 in plain torch.  Returns (task_vectors
+    held tasks, then Eq. 6 + 7 in plain torch.  Under a taskvec
+    ``group`` both layouts take kernel 3 on the local d-slice, whose
+    dots cross ranks as one int32 psum and are normalised by the global
+    ``d_norm`` (the JAX package's kernel path).  Returns (task_vectors
     (T, d), similarity (T, T))."""
     held = n_t > 0
     heldf = held.float()
-    if packed:
+    if group is not None:
+        pos, nz = bitpack.sign_planes(tau_hats)
+        dots = psum(sign_dots_packed(pos, nz, mode=mode).to(torch.int32),
+                    group)
+        sim = ref.sim_from_dots(dots, d_norm)
+    elif packed:
         pos, nz = bitpack.sign_planes(tau_hats)
         sim = sign_sim_packed(pos, nz, d, mode=mode)
     else:
@@ -287,16 +311,27 @@ def _finish(tau_hats, m_hats, n_t, d: int, *, packed: bool, eps: float,
 
 
 def _downlink(task_vectors, slot_valid, slot_tasks, n_tasks: int, *,
-              packed: bool, lam_eps: float, mode: Optional[str]):
+              packed: bool, lam_eps: float, mode: Optional[str],
+              group=None, axis_sizes=(), num_t=None):
     """The downlink re-unification of a block of clients, shared by the
     monolithic round and the chunked round's phase C: gather each slot's
     fresh task vector (sentinel ids clamped; the valid mask zeroes their
     output), then kernel 1 (``packed``) or kernel 4.  Each client's row
-    depends on its own slots only.  Returns (down_unified, down_masks,
-    down_lams)."""
-    tvs = task_vectors[torch.clamp(slot_tasks.long(), max=n_tasks - 1)]
+    depends on its own slots only.  Under a taskvec ``group`` the λ num
+    and den roots of the local slice cross ranks in one psum
+    (``ref._lam_totals``); with ``num_t`` (the chunked round's global
+    per-task numerators, :func:`matu_lam_num`) only the den roots do, and
+    a valid slot's numerator is its task's.  Returns (down_unified,
+    down_masks, down_lams)."""
+    clamped = torch.clamp(slot_tasks.long(), max=n_tasks - 1)
+    tvs = task_vectors[clamped]
     uni, dmasks, num, den = fused_unify_raw(tvs, slot_valid, packed=packed,
                                             mode=mode)
+    if group is not None and num_t is None:
+        num, den = ref._lam_totals((num, den), group, axis_sizes)
+    elif group is not None:
+        (den,) = ref._lam_totals((den,), group, axis_sizes)
+        num = torch.where(slot_valid.bool(), num_t[clamped], 0.0)
     return uni, dmasks, num / torch.clamp(den, min=lam_eps)
 
 
@@ -324,7 +359,8 @@ def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
                      eps: float = 0.5, kappa: int = 3,
                      cross_task: bool = True, uniform_cross: bool = False,
                      lam_eps: float = 1e-12, mode: Optional[str] = None,
-                     slot_weights: Optional[torch.Tensor] = None):
+                     slot_weights: Optional[torch.Tensor] = None,
+                     group=None, axis_sizes=(), d_norm: int = 0):
     """The full MaTU server round in the bool/fp32 A/B layout.
 
     Layout: ``unified`` (N, d) fp32; ``slot_masks`` (N, K, d) bool;
@@ -344,7 +380,9 @@ def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
     fp32 one).
 
     ``slot_weights`` (optional (N, K) fp32) is the async staleness
-    discount (:func:`_apply_slot_weights`).
+    discount (:func:`_apply_slot_weights`).  ``group`` / ``axis_sizes``
+    / ``d_norm``: the taskvec-sharded round on this rank's d-slice
+    (module docstring); Eq. 5 then runs kernel 3 on the sign planes.
     """
     slot_lams, slot_sizes = _apply_slot_weights(slot_lams, slot_sizes,
                                                 slot_weights)
@@ -357,10 +395,10 @@ def matu_round_slots(unified, slot_masks, slot_lams, slot_sizes, slot_valid,
     task_vectors, sim = _finish(
         tau_hats, m_hats, n_t, tau_hats.shape[-1], packed=False, eps=eps,
         kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross,
-        mode=mode)
+        mode=mode, group=group, d_norm=d_norm)
     return (task_vectors, tau_hats, m_hats, sim) + _downlink(
         task_vectors, slot_valid, slot_tasks, n_tasks, packed=False,
-        lam_eps=lam_eps, mode=mode)
+        lam_eps=lam_eps, mode=mode, group=group, axis_sizes=axis_sizes)
 
 
 def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
@@ -370,7 +408,8 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
                             uniform_cross: bool = False,
                             lam_eps: float = 1e-12,
                             mode: Optional[str] = None,
-                            slot_weights: Optional[torch.Tensor] = None):
+                            slot_weights: Optional[torch.Tensor] = None,
+                            group=None, axis_sizes=(), d_norm: int = 0):
     """The full MaTU server round over wire-format slot uploads.
 
     Layout: ``unified`` (N, d) bf16; ``slot_mask_words`` (N, K,
@@ -386,7 +425,9 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     similarity (T, T), down_unified (N, d) bf16, down_mask_words (N, K,
     ceil(d/32)) int32, down_lams (N, K)).  Tasks nobody holds give τ̂ =
     0, alpha_num = 0 and are masked out of the similarity.
-    ``slot_weights`` as in :func:`matu_round_slots`.
+    ``slot_weights`` as in :func:`matu_round_slots`.  ``group`` /
+    ``axis_sizes`` / ``d_norm``: the taskvec-sharded round, ``d`` then
+    being this rank's slice width and ``d_norm`` the global d.
     """
     if unified.shape[-1] != d:
         raise ValueError(f"unified width {unified.shape[-1]} != d={d}")
@@ -402,10 +443,11 @@ def matu_round_slots_packed(unified, slot_mask_words, slot_lams, slot_sizes,
     task_vectors, sim = _finish(
         tau_hats, _m_hats(a_num, n_t, rho), n_t, d, packed=True, eps=eps,
         kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross,
-        mode=mode)
+        mode=mode, group=group, d_norm=d_norm)
     uni, dwords, lams = _downlink(task_vectors, slot_valid, slot_tasks,
                                   n_tasks, packed=True, lam_eps=lam_eps,
-                                  mode=mode)
+                                  mode=mode, group=group,
+                                  axis_sizes=axis_sizes)
     return (task_vectors, tau_hats, _alpha_num(a_num, slot_valid.shape[0]),
             n_t, sim, uni, dwords, lams)
 
@@ -500,11 +542,14 @@ def matu_merge_chunk(unified, slot_masks, slot_lams, slot_valid, slot_tasks,
 def matu_finish_packed(a_acc, tau_acc, n_t, n_clients: int, *, d: int,
                        rho: float = 0.4, eps: float = 0.5, kappa: int = 3,
                        cross_task: bool = True, uniform_cross: bool = False,
-                       mode: Optional[str] = None):
+                       mode: Optional[str] = None, group=None,
+                       d_norm: int = 0):
     """Finish the chunked packed round from the accumulators: Eq. 3 m̂,
     τ̂ = partials ⊙ m̂ (the last step of kernel 2), then the monolithic
     tail :func:`_finish` (kernel 3).  ``n_clients`` is the round's
-    client count (it picks the ``alpha_num`` dtype).  Returns
+    client count (it picks the ``alpha_num`` dtype).  Under a taskvec
+    ``group`` the accumulators are this rank's d-slice (``d`` its width,
+    ``d_norm`` the global d) and the Eq. 5 dots take one psum.  Returns
     (task_vectors, tau_hats, alpha_num, n_t, similarity)."""
     t = n_t.shape[0]
     a_num = a_acc[:t].abs().float()
@@ -512,41 +557,63 @@ def matu_finish_packed(a_acc, tau_acc, n_t, n_clients: int, *, d: int,
     tau_hats = tau_acc[:t] * m_hats
     task_vectors, sim = _finish(
         tau_hats, m_hats, n_t, d, packed=True, eps=eps, kappa=kappa,
-        cross_task=cross_task, uniform_cross=uniform_cross, mode=mode)
+        cross_task=cross_task, uniform_cross=uniform_cross, mode=mode,
+        group=group, d_norm=d_norm)
     return task_vectors, tau_hats, _alpha_num(a_num, n_clients), n_t, sim
 
 
 def matu_finish(a_acc, tau_acc, n_t, *, rho: float = 0.4, eps: float = 0.5,
                 kappa: int = 3, cross_task: bool = True,
-                uniform_cross: bool = False, mode: Optional[str] = None):
-    """Finish the chunked bool-layout round (kernel 6 for Eq. 5).
-    Returns (task_vectors, tau_hats, m_hats, n_t, similarity)."""
+                uniform_cross: bool = False, mode: Optional[str] = None,
+                group=None, d_norm: int = 0):
+    """Finish the chunked bool-layout round (kernel 6 for Eq. 5; kernel 3
+    and one psum under a taskvec ``group``, as
+    :func:`matu_finish_packed`).  Returns (task_vectors, tau_hats,
+    m_hats, n_t, similarity)."""
     t = n_t.shape[0]
     m_hats = _m_hats(a_acc[:t].abs(), n_t, rho)
     tau_hats = tau_acc[:t] * m_hats
     task_vectors, sim = _finish(
         tau_hats, m_hats, n_t, tau_hats.shape[-1], packed=False, eps=eps,
         kappa=kappa, cross_task=cross_task, uniform_cross=uniform_cross,
-        mode=mode)
+        mode=mode, group=group, d_norm=d_norm)
     return task_vectors, tau_hats, m_hats, n_t, sim
+
+
+def matu_lam_num(task_vectors, *, group, axis_sizes):
+    """The chunked round's λ numerators under a taskvec mesh: each task's
+    Σ|τ_t| tree over this rank's d-slice, finished across ranks in one
+    psum (``ref._lam_totals``), (T,) fp32.  Bitwise the numerator the
+    fused unify gives a valid slot holding that task, so phase C psums
+    only the denominators (the JAX package's budget)."""
+    (num_t,) = ref._lam_totals((ref.lam_num_roots(task_vectors),), group,
+                               axis_sizes)
+    return num_t
 
 
 def matu_downlink_chunk_packed(task_vectors, slot_valid, slot_tasks, *,
                                lam_eps: float = 1e-12,
-                               mode: Optional[str] = None):
+                               mode: Optional[str] = None, num_t=None,
+                               group=None, axis_sizes=()):
     """Phase C, wire layout: the monolithic downlink step
-    (:func:`_downlink`, kernel 1) on one chunk's rows.  Returns
-    (down_unified (C, d) bf16, down_mask_words (C, K, ceil(d/32)) int32,
-    down_lams (C, K))."""
+    (:func:`_downlink`, kernel 1) on one chunk's rows; under a taskvec
+    ``group``, on this rank's d-slice with the global numerators
+    ``num_t`` (:func:`matu_lam_num`) and one psum of the denominators.
+    Returns (down_unified (C, d) bf16, down_mask_words (C, K,
+    ceil(d/32)) int32, down_lams (C, K))."""
     return _downlink(task_vectors, slot_valid, slot_tasks,
                      task_vectors.shape[0], packed=True, lam_eps=lam_eps,
-                     mode=mode)
+                     mode=mode, group=group, axis_sizes=axis_sizes,
+                     num_t=num_t)
 
 
 def matu_downlink_chunk(task_vectors, slot_valid, slot_tasks, *,
-                        lam_eps: float = 1e-12, mode: Optional[str] = None):
+                        lam_eps: float = 1e-12, mode: Optional[str] = None,
+                        num_t=None, group=None, axis_sizes=()):
     """Phase C, bool layout (kernel 4): (down_unified (C, d) fp32,
-    down_masks (C, K, d) bool, down_lams (C, K))."""
+    down_masks (C, K, d) bool, down_lams (C, K)); ``num_t`` / ``group``
+    as in :func:`matu_downlink_chunk_packed`."""
     return _downlink(task_vectors, slot_valid, slot_tasks,
                      task_vectors.shape[0], packed=False, lam_eps=lam_eps,
-                     mode=mode)
+                     mode=mode, group=group, axis_sizes=axis_sizes,
+                     num_t=num_t)

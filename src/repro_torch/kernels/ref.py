@@ -15,9 +15,13 @@ client-axis summation orders differ.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import bitpack
+from repro_torch.nn import sharding
 
 # Fixed block grid of the λ numerator/denominator reductions over d: one
 # partial sum per LAMBDA_BLOCK consecutive coordinates, combined by a
@@ -62,6 +66,53 @@ def _tree_total(p: torch.Tensor) -> torch.Tensor:
     while p.shape[-1] > 1:
         p = p[..., 0::2] + p[..., 1::2]
     return p[..., 0]
+
+
+def _shard_offset(group, axis_sizes) -> int:
+    """This rank's taskvec shard index: its rank in ``group``, whose
+    ranks ascend in shard order (``nn.sharding.TaskvecLayout``)."""
+    n = math.prod(axis_sizes)
+    if dist.get_world_size(group) != n:
+        raise ValueError(f"group of {dist.get_world_size(group)} ranks for "
+                         f"{n} taskvec shards")
+    return dist.get_rank(group)
+
+
+def _lam_totals(parts, group=None, axis_sizes=()):
+    """Finish the λ reductions from this shard's tree roots.
+
+    Each ``parts`` entry holds the roots (…) of a λ numerator or
+    denominator tree over this rank's d-slice, a power-of-two number of
+    whole LAMBDA_BLOCKs (``core.engine.pad_d_for_shards``).  Without a
+    group they are the totals.  Under one, the roots of every entry are
+    scattered into this shard's column of one (…, n_shards) tensor
+    (a single nonzero contributor per element, so the sum is exact), ONE
+    :func:`~repro_torch.nn.sharding.psum` carries them all, and
+    :func:`_tree_total` finishes over the shards.  Since the tree pairs
+    (2i, 2i+1), contiguous power-of-two shard subtrees compose into the
+    canonical tree over the global block grid, whose zero-padded tail
+    adds exact zeros: the totals are bitwise the unsharded ones."""
+    if group is None:
+        return tuple(parts)
+    n_sh = math.prod(axis_sizes)
+    off = _shard_offset(group, axis_sizes)
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    scat = torch.zeros((flat.shape[0], n_sh), dtype=flat.dtype,
+                       device=flat.device)
+    scat[:, off] = flat
+    total = _tree_total(sharding.psum(scat, group))
+    out, at = [], 0
+    for p in parts:
+        out.append(total[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return tuple(out)
+
+
+def lam_num_roots(task_vectors: torch.Tensor) -> torch.Tensor:
+    """(T, c) -> (T,): the λ numerator tree of each row, Σ|τ_t| on the
+    λ block grid (c a multiple of LAMBDA_BLOCK): the fused-unify
+    numerator of a valid slot holding task t."""
+    return _tree_total(_block_partials(task_vectors.float().abs()))
 
 
 def _elect(xm: torch.Tensor) -> torch.Tensor:
@@ -474,13 +525,40 @@ def topk_weights_ref(sim: torch.Tensor, eps: float, kappa: int) -> torch.Tensor:
     return torch.where(keep, eligible, 0.0)
 
 
+# Eq. 7's (T, T)·(T, d) product on a CUDA tensor runs in contiguous column
+# blocks of this width, the last one zero-padded: one GEMM shape whatever
+# d, so a column's bits do not depend on the width a round, or a shard of
+# one, holds.  cuBLAS picks split-K for some widths (1,048,576 at T 30 on
+# the H100), which changes the rounding.
+MIX_BLOCK = 65_536
+
+
+def _mix(norm_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``norm_w @ x`` for (T, T) weights and (T, d) rows, its bits
+    independent of d: on the CPU one product (its rounding does not
+    depend on d), on a CUDA device :data:`MIX_BLOCK`-wide blocks written
+    into one (T, d) output, only the last partial block zero-padded."""
+    if x.device.type != "cuda":
+        return norm_w @ x
+    d = x.shape[-1]
+    out = torch.empty((norm_w.shape[0], d), dtype=torch.result_type(
+        norm_w, x), device=x.device)
+    for s in range(0, d, MIX_BLOCK):
+        blk = x[:, s:s + MIX_BLOCK]
+        w = blk.shape[-1]
+        if w < MIX_BLOCK:
+            blk = torch.nn.functional.pad(blk, (0, MIX_BLOCK - w))
+        out[:, s:s + w] = (norm_w @ blk.contiguous())[:, :w]
+    return out
+
+
 def cross_task_combine_ref(tau_hats: torch.Tensor, m_hats: torch.Tensor,
                            sim_weights: torch.Tensor):
     """Eq. 6 + Eq. 7: normalised cross-task mix, then the overview's
     averaging.  Returns (task_vectors (T, d), tau_tildes (T, d))."""
     total = torch.sum(sim_weights, dim=1, keepdim=True)
     norm_w = sim_weights / torch.clamp(total, min=1e-12)
-    tau_tildes = m_hats * (norm_w @ tau_hats)
+    tau_tildes = m_hats * _mix(norm_w, tau_hats)
     has = (total > 0).to(tau_hats.dtype)
     task_vectors = (tau_hats + tau_tildes * has) / (1.0 + has)
     return task_vectors, tau_tildes

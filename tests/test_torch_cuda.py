@@ -2069,6 +2069,30 @@ def _same_chunked(a, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1_000, 70_001, 1_327_140])
+def test_cuda_mix_bits_do_not_depend_on_width(cuda, d):
+    """Eq. 7's (T, T)·(T, d) product on the card (``ref._mix``): the
+    column slices a taskvec mesh of 2, 4 or 8 shards gives each rank
+    (``pad_d_for_shards``) carry every column's bits of the whole
+    product, though cuBLAS picks split-K for some widths; and the
+    product is within fp32 rounding of one ``@``."""
+    from repro_torch.core.engine import pad_d_for_shards
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.rand((30, 30), generator=g, device=cuda)
+    w = w * (w > 0.8)
+    x = torch.randn((30, d), generator=g, device=cuda)
+    whole = ref._mix(w, x)
+    for shards in (2, 4, 8):
+        dp = pad_d_for_shards(d, shards)
+        width = dp // shards
+        xp = torch.nn.functional.pad(x, (0, dp - d))
+        got = torch.cat([ref._mix(w, xp[:, s:s + width].contiguous())
+                         for s in range(0, dp, width)], dim=1)[:, :d]
+        assert torch.equal(got.view(torch.int32), whole.view(torch.int32))
+    assert torch.allclose(whole, w @ x, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("stale", [False, True])
 @pytest.mark.parametrize("chunk", [1, 3, 64])
 @pytest.mark.parametrize("packed", [True, False])
