@@ -82,7 +82,7 @@ Phases (any failure raises and the script exits nonzero):
              1e-5, every gradient leaf within rel L2 1e-4); then
              ``ViTBackbone`` → ``FedSimulator`` (30 tasks in 6 groups,
              32 clients of 3 tasks, 128 samples each) →
-             ``make_local_trainer`` (4 AdamW steps at B = 32 a slot) →
+             ``make_local_trainer`` (2 AdamW steps at B = 32 a slot) →
              ``MaTUStrategy.aggregate_batch`` for 2 rounds, kernels 1–3
              launched every round, every upload finite and nonzero,
              accuracies in [0, 1]; round 1's trained uploads through the
@@ -189,6 +189,18 @@ Phases (any failure raises and the script exits nonzero):
              psums, bytes all-reduced and gathered, walls and peaks by
              rank.  The ranks share one card: no wall is a scaling
              figure.
+12b. tp    — model-parallel LoRA training on a (data, model) mesh
+             (:func:`tp_phase`): granite-moe-3b-a800m at full width cut to
+             2 of 32 layers, bf16, on 4 gloo ranks sharing the card on
+             ``make_debug_mesh((2, 2))`` (expert-parallel, 20 experts a
+             rank): 2 AdamW steps with every leaf a DTensor on cuda:0,
+             loss and step 1's LoRA gradients against the unsharded
+             model on each data half (the sharded step's function),
+             layer 0's routing, walls, peaks and the collectives by
+             kind and bytes; the same steps in fp32, each leaf's
+             step-1 gradients and its LoRA change held tight; then
+             ``launch.train`` ``fed`` (kernels 1-3 counted) and
+             ``lm``.  ``--only tp`` runs it alone.
 13. granite — multi-tenant serving of granite-moe-3b-a800m at full width
              (32 layers, d_model 1536, 24 heads (kv 8), 40 experts of
              d_ff 512, top-8, vocab 49,155; random weights from a seed):
@@ -336,8 +348,8 @@ for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
 whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
 baselines``, ``--only lmtrain``, ``--only async``, ``--only
-population`` and ``--only shard`` the vit, baselines,
-lmtrain, async, population or shard phase; ``--only xlstm`` the xlstm
+population``, ``--only shard`` and ``--only tp`` the vit, baselines,
+lmtrain, async, population, shard or tp phase; ``--only xlstm`` the xlstm
 phase (kernel 10's checks included); ``--only mix`` times Eq. 7's
 product as one GEMM and in ``ref._mix``'s blocks at the round's,
 whisper's and the vlm's widths, and the round phase under each
@@ -1385,7 +1397,7 @@ def app_phase(torch, dev):
 VIT_D = 1_327_140              # ViT-B/32's LoRA task-vector size at rank 16
 VIT_FINGERPRINT = "8193ac2a083e3e4f"
 VIT_GROUPS, VIT_CLASSES, VIT_TASKS_PER_CLIENT = 6, 8, 3
-VIT_FED = dict(rounds=2, local_steps=4, batch_size=32, local_data=128,
+VIT_FED = dict(rounds=2, local_steps=2, batch_size=32, local_data=128,
                eval_every=1)
 VIT_STEP_REPS = 20
 # the constellation's R built on the card (fp64 QRs) against numpy's:
@@ -3471,6 +3483,509 @@ def shard_phase(torch, dev):
     log(f"shard phase: {phase_s:.1f} s (spawned ranks {spawn_s:.1f} s), "
         f"launches {launches}")
     return dict(launches=launches, ranks=reps, phase_s=phase_s)
+
+
+# -- tp phase: model-parallel LoRA training on a (data, model) mesh ----------
+
+TP_ARCH = "granite-moe-3b-a800m"
+TP_LAYERS = 2                  # of granite's 32: the phase's depth cut
+TP_MESH = (2, 2)               # (data, model): 20 experts a rank
+TP_RANKS = 4                   # gloo ranks, all on cuda:0 (one card)
+TP_STEPS = 2
+TP_LR = 5e-3                   # AdamW, clip 1.0: the lmtrain phase's rate
+# bars, sharded against unsharded on the same parameters and batches.
+# "grad" is step 1's LoRA gradients before the clip (a gradient of the
+# wrong size, or none, reads ~1); "flips" the share of a leaf's elements
+# whose change over the steps (new - initial) is off the reference's by
+# more than TP_LR / 2 -- AdamW's first steps move an element ~lr·sign(g),
+# so such an element took the other sign in a step (an unmoved LoRA, a
+# wrong rate or a misplaced optimizer state reads ~1)
+TP_LOSS_RTOL = 1e-2            # bf16
+TP_GRAD_REL_L2 = 5e-2          # bf16, whole tree: the port's bf16 logits bar
+TP_FP32_LOSS_RTOL = 1e-5       # the fp32 witness: the same steps in fp32
+TP_FP32_GRAD_REL_L2 = 1e-3     # fp32, every leaf
+TP_FP32_FLIPS = 1e-3           # fp32, every leaf
+TP_FED = ["fed", "--rounds", "2", "--local-steps", "5"]
+TP_LM = ["lm", "--arch", TP_ARCH, "--steps", "2"]
+TP_FED_ONCE = {"fused_unify_packed": 2, "masked_agg_batched_packed": 1,
+               "sign_sim_packed": 1}    # a MaTU round of the fed mode
+
+
+def collective_bytes_mode(torch):
+    """A dispatch mode that counts every collective a rank issues, by kind,
+    with the bytes of its input tensors: DTensor's moves (the
+    ``_c10d_functional`` ops) and the counted ``sharding.psum`` calls
+    (``c10d.allreduce_``)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Collectives(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls, self.bytes = {}, {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ns = func.namespace
+            if ns in ("_c10d_functional", "c10d"):
+                kind = func._overloadpacket.__name__
+                n = 0
+                for a in args:
+                    for t in (a if isinstance(a, (list, tuple)) else (a,)):
+                        if isinstance(t, torch.Tensor):
+                            n += t.numel() * t.element_size()
+                if kind not in ("wait_tensor", "_wrap_tensor_autograd"):
+                    self.calls[kind] = self.calls.get(kind, 0) + 1
+                    self.bytes[kind] = self.bytes.get(kind, 0) + n
+            return func(*args, **(kwargs or {}))
+
+    return Collectives()
+
+
+def tp_batch(torch, dev, cfg, seed: int):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab, (LMTRAIN_B, LMTRAIN_S), generator=g,
+                        device=dev)
+    return {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+
+
+def tp_rel_l2(torch, got: dict, want: dict) -> tuple:
+    """(whole-tree rel L2, worst leaf's rel L2, its name) of two trees
+    flattened by path; a leaf that is zero in ``want`` is measured
+    against the whole tree's norm."""
+    num = {k: float((got[k].double() - want[k].double()).pow(2).sum())
+           for k in want}
+    den = {k: float(want[k].double().pow(2).sum()) for k in want}
+    whole = math.sqrt(sum(num.values()) / max(sum(den.values()), 1e-300))
+    leaf = {k: math.sqrt(num[k] / (den[k] if den[k] > 0
+                                   else max(sum(den.values()), 1e-300)))
+            for k in want}
+    worst = max(leaf, key=leaf.get)
+    return whole, leaf[worst], worst
+
+
+def tp_steps(torch, dev, cfg, mesh, rules, rank: int, timed: bool) -> dict:
+    """:data:`TP_STEPS` AdamW steps (clip 1.0, :data:`TP_LR`) of ``cfg``'s
+    LoRA, sharded on ``mesh``: parameters, LoRA, AdamW state and batch
+    placed as DTensors by ``logical_to_sharding`` / ``batch_shardings`` /
+    ``opt_state_shardings``.  Rank 0 then runs the same function
+    unsharded: the sharded MoE's capacity is a data shard's and its aux
+    the mean of the shards' (expert-parallel: every ``model`` rank of a
+    data shard routes the same tokens), so the sharded step's loss and
+    gradients are the means over the batch's ``data`` halves of the
+    unsharded model's, which the reference takes before the same
+    update.  The reference routes each half's tokens to the experts the
+    sharded ranks chose for them: a near-tie that the two sides round
+    apart swaps an expert and, through the capacity positions, the
+    drops of later tokens, which no rounding bar can hold; the routing
+    itself is held apart (:func:`tp_compare`).  Each step's LoRA
+    gradients are recorded before the clip.  ``timed``:
+    each sharded step timed, the first under a collective-counting mode,
+    the second under ``CommDebugMode``.  Returns the numbers and, on rank
+    0, both sides' losses, gradients, initial and final LoRA (whole) and
+    layer 0's first routing."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.common.tree import (tree_leaves, tree_leaves_with_path,
+                                         tree_like)
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import batch_shardings, opt_state_shardings
+    from repro_torch.nn import sharding
+    from repro_torch.optim import (Optimizer, adamw, chain,
+                                   clip_by_global_norm)
+    from repro_torch.train.trainer import make_train_step
+
+    with sharding.mesh_context(mesh, rules):
+        model = cfg.build(SHAPES["train_4k"], device=dev)
+    params = model.init(SEED + 70)
+    lora = model.lora_init(SEED + 71)
+    batch = tp_batch(torch, dev, cfg, SEED + 72)
+    moe = model.model.unit_blocks[0][1].ffn
+    if moe.forms(*batch["tokens"].shape, mesh)["form"] != "expert_parallel":
+        raise AssertionError("tp: the reference assumes the expert-parallel "
+                             "form")
+    # the trainer's default step (clip 1.0, then AdamW) at TP_LR, with the
+    # gradients recorded before the clip
+    inner, seen = chain(clip_by_global_norm(1.0), adamw(TP_LR)), []
+
+    def update(grads, state, lora_):
+        seen.append(grads)
+        return inner.update(grads, state, lora_)
+    step, opt = make_train_step(model, Optimizer(inner.init, update),
+                                grad_clip=None)
+
+    def by_path(tree):
+        return {"/".join(p): (t.full_tensor() if isinstance(t, DTensor)
+                              else t).detach()
+                for p, t in tree_leaves_with_path(tree)}
+
+    def recording(calls):
+        """Records every routing call's expert ids (layer 0's first with
+        its gate probabilities)."""
+        route = moe.route
+
+        def rec(router_w, xt, cap):
+            r = route(router_w, xt, cap)
+            calls.append(r[2] if calls else (r[0].detach().float(), r[2]))
+            return r
+        moe.route = rec
+        return route
+
+    def forced(feed, own):
+        """The routing of the ids ``feed`` gives, one call after another:
+        gate values and capacity positions as ``MoE.route`` forms them
+        from those ids; ``own`` records the first call's own routing."""
+        route = moe.route
+
+        def rec(router_w, xt, cap):
+            probs, _, ids_own, _, _ = route(router_w, xt, cap)
+            if not own:
+                own.append((probs.detach().float(), ids_own))
+            ids = feed.pop(0).to(xt.device)
+            vals = probs.gather(-1, ids)
+            vals = (vals / vals.sum(-1, keepdim=True)).to(xt.dtype)
+            flat_e = ids.reshape(-1)
+            onehot = torch.nn.functional.one_hot(flat_e, moe.n_experts)
+            count = onehot.t().contiguous().cumsum(1)
+            pos = (count.gather(0, flat_e[None])[0] - 1).view_as(ids)
+            return probs, vals, ids, pos, pos < cap
+        moe.route = rec
+        return route
+
+    out = {"failures": []}
+    ref_params = params if rank == 0 else None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.mesh_context(mesh, rules):
+        p_sh = sharding.logical_to_sharding(model.axes(), params)
+        l_sh = sharding.logical_to_sharding(model.lora_axes(), lora)
+        state = opt.init(lora)
+        pd = sharding.distribute_tree(params, p_sh, mesh)
+        ld = sharding.distribute_tree(lora, l_sh, mesh)
+        sd = sharding.distribute_tree(
+            state, opt_state_shardings(state, l_sh, mesh), mesh)
+        bd = sharding.distribute_tree(batch, batch_shardings(batch, mesh),
+                                      mesh)
+        del params, state
+        for t in tree_leaves(pd) + tree_leaves(ld) + tree_leaves(bd):
+            if not isinstance(t, DTensor) or t.to_local().device != dev:
+                raise AssertionError(f"tp: a leaf is not a DTensor on {dev}")
+        out["local_param_bytes"] = sum(
+            t.to_local().numel() * t.to_local().element_size()
+            for t in tree_leaves(pd))
+        calls = []
+        keep = recording(calls)
+        losses, walls = [], []
+        coll = collective_bytes_mode(torch)
+        comm = CommDebugMode()
+        for i in range(TP_STEPS):
+            sharding.reset_collective_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (coll if i == 0 else comm) if timed else (
+                    contextlib.nullcontext()):
+                ld, sd, met = step(pd, ld, sd, bd)
+            loss = float(met["loss"].full_tensor())
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            losses.append(loss)
+        moe.route = keep
+        out.update(losses=losses, route=calls[0],
+                   psums_a_step=sharding.collective_counts()["psum"],
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        if timed:
+            out.update(step_ms=walls, collectives=coll.calls,
+                       collective_bytes=coll.bytes,
+                       comm_debug={str(k).split(".")[-1]: v for k, v in
+                                   comm.get_comm_counts().items()})
+        # every rank takes part in the gathers
+        out.update(grads=[by_path(g) for g in seen], lora=by_path(ld))
+        del pd, ld, sd, bd
+    # every rank's routing ids, call by call (host copies, for the check)
+    ids = [calls[0][1]] + calls[1:]
+    seqs = [None] * dist.get_world_size()
+    dist.all_gather_object(seqs, [t.cpu() for t in ids])
+    if rank == 0:
+        # the unsharded steps of the same function: each data half of the
+        # batch through the unsharded model, routed as the sharded ranks
+        # of that data coordinate routed it (each rank of a data shard
+        # routes its tokens over all experts), losses and gradients
+        # averaged, then the same update
+        n_data = sharding.mesh_axis_sizes(mesh)["data"]
+        b_loc = batch["tokens"].shape[0] // n_data
+        halves = [{k: v[i * b_loc:(i + 1) * b_loc] for k, v in batch.items()}
+                  for i in range(n_data)]
+        per_step = len(seqs[0]) // TP_STEPS
+        src = [int(mesh.mesh[i, 0]) for i in range(n_data)]
+        if any(len(seqs[r]) != per_step * TP_STEPS for r in src):
+            raise AssertionError(f"tp: routing calls a rank "
+                                 f"{[len(q) for q in seqs]}")
+        own = []
+        st, lr_ = opt.init(lora), lora
+        ref_losses, ref_grads = [], []
+        for k in range(TP_STEPS):
+            losses_, grads_ = [], []
+            for i, half in enumerate(halves):
+                feed = list(seqs[src[i]][k * per_step:(k + 1) * per_step])
+                keep = forced(feed, own)
+                leaves = [t.detach().requires_grad_(True)
+                          for t in tree_leaves(lr_)]
+                loss = model.loss(ref_params, tree_like(lr_, leaves), half)
+                grads_.append(torch.autograd.grad(
+                    loss, leaves, allow_unused=True, materialize_grads=True))
+                losses_.append(loss.detach())
+                moe.route = keep
+                if feed:
+                    raise AssertionError(f"tp: {len(feed)} routing calls "
+                                         f"left unread")
+            grads = tree_like(lr_, [sum(gs) / n_data for gs in zip(*grads_)])
+            ref_grads.append(by_path(grads))
+            lr_, st = inner.update(grads, st, lr_)
+            ref_losses.append(float(sum(losses_) / n_data))
+        out.update(ref_losses=ref_losses, ref_route=own[0],
+                   ref_grads=ref_grads, ref_lora=by_path(lr_),
+                   init_lora=by_path(lora))
+        del st, lr_
+    if not all(math.isfinite(v) for v in losses):
+        out["failures"].append(f"tp rank {rank}: a non-finite loss {losses}")
+    return out
+
+
+def tp_flips(torch, o: dict) -> tuple:
+    """The LoRA elements whose change over the steps is off the
+    reference's by more than ``TP_LR / 2``: (the worst leaf's share of
+    them, that leaf, how many in all, and the largest over them of the
+    smaller over the steps of the reference gradient's size there
+    against its leaf's RMS -- near 0 where a rounding flipped a sign)."""
+    share, n_all, near = {}, 0, 0.0
+    for k in o["init_lora"]:
+        bad = (o["lora"][k].double() - o["ref_lora"][k].double()).abs() \
+            > TP_LR / 2
+        share[k] = float(bad.double().mean())
+        if not bad.any():
+            continue
+        n_all += int(bad.sum())
+        size = []
+        for g in o["ref_grads"]:
+            gk = g[k].double()
+            rms = float(gk.pow(2).mean().sqrt())
+            size.append(gk.abs()[bad] / rms if rms > 0
+                        else torch.full_like(gk[bad], math.inf))
+        near = max(near, float(torch.stack(size).min(0).values.max()))
+    worst = max(share, key=share.get)
+    return share[worst], worst, n_all, near
+
+
+def tp_compare(torch, moe_k: int, o: dict, tag: str) -> dict:
+    """Rank 0's comparison of one :func:`tp_steps` run with its unsharded
+    steps: loss rel a step, gradients (whole tree and worst leaf) a step,
+    the LoRA's change over the steps (rel L2, whole and worst leaf, and
+    :func:`tp_flips`), and layer
+    0's first routing: this rank's rows are the batch's first B / 2
+    (data coordinate 0); as the router inputs round apart a row's ids
+    may differ only where two of its first k + 1 sorted gate values lie
+    within twice the largest gate change."""
+    loss_rel = [abs(a - b) / abs(b)
+                for a, b in zip(o["losses"], o["ref_losses"])]
+    grad = [tp_rel_l2(torch, g, w)
+            for g, w in zip(o["grads"], o["ref_grads"])]
+    init = o["init_lora"]
+    change = tp_rel_l2(
+        torch, {k: o["lora"][k].double() - init[k].double() for k in init},
+        {k: o["ref_lora"][k].double() - init[k].double() for k in init})
+    flips = tp_flips(torch, o)
+    probs_r, ids_r = o["ref_route"]
+    probs_s, ids_s = o["route"]
+    n = ids_s.shape[0]
+    probs_r, ids_r = probs_r[:n], ids_r[:n]
+    delta = float((probs_s - probs_r).abs().max())
+    diff = (ids_s != ids_r).any(-1).nonzero().flatten().tolist()
+    gaps = []
+    for r in diff:
+        top = torch.sort(probs_r[r], descending=True).values
+        gaps.append(float((top[:moe_k] - top[1:moe_k + 1]).min()))
+    log(f"tp {tag} routing (layer 0, first step, {n} tokens): {len(diff)} "
+        f"rows differ from the unsharded call; largest gate change "
+        f"{delta:.3e}; their smallest gaps among the first k + 1 gates "
+        f"{[f'{g:.2e}' for g in sorted(gaps)[-8:]]} (largest 8)")
+    log(f"tp {tag} sharded against unsharded: loss rel "
+        f"{[f'{v:.2e}' for v in loss_rel]}; gradients rel L2 a step "
+        f"(whole / worst leaf) {[f'{w:.3e} / {l:.3e} {k}' for w, l, k in grad]}"
+        f"; LoRA change rel L2 {change[0]:.3e} / {change[1]:.3e} "
+        f"{change[2]}; flipped elements {flips[2]}, worst leaf's share "
+        f"{flips[0]:.3e} {flips[1]}, their largest smaller reference "
+        f"gradient / RMS {flips[3]:.3e}")
+    failures = []
+    if any(g > 2 * delta for g in gaps):
+        failures.append(f"tp {tag}: routing differs away from a tie: gaps "
+                        f"{gaps}, gate change {delta}")
+    return dict(loss_rel=loss_rel, grad_rel_l2=[g[:2] for g in grad],
+                grad_worst=[g[2] for g in grad], change_rel_l2=change[:2],
+                change_worst=change[2], flip_share=flips[0],
+                flip_worst=flips[1], flips=flips[2], flip_grad=flips[3],
+                route_diff_rows=len(diff),
+                route_tokens=n, route_gaps=gaps, route_gate_change=delta,
+                failures=failures)
+
+
+def tp_checks(torch, dev, rank: int) -> dict:
+    """One rank of the tp phase: granite at full width cut to
+    :data:`TP_LAYERS` layers, LoRA rank 16, on ``make_debug_mesh(
+    TP_MESH)``, :func:`tp_steps` in bf16 (timed) and then in fp32 (the
+    witness that the bf16 gaps are rounding).  Returns the numbers
+    (rank 0: against the unsharded steps, and the bars' verdicts)."""
+    import dataclasses
+    from repro_torch.configs.base import load_arch
+    from repro_torch.launch.mesh import arch_rules, make_debug_mesh
+
+    cfg = dataclasses.replace(load_arch(TP_ARCH), n_layers=TP_LAYERS)
+    mesh = make_debug_mesh(TP_MESH)
+    rules = arch_rules(cfg, mesh)
+    top_k = cfg.top_k
+    bf = tp_steps(torch, dev, cfg, mesh, rules, rank, timed=True)
+    rep = {"rules": {k: str(v) for k, v in rules.items()},
+           "coord": list(mesh.get_coordinate()),
+           "failures": bf.pop("failures")}
+    rep.update({k: bf[k] for k in ("losses", "step_ms", "psums_a_step",
+                                   "collectives", "collective_bytes",
+                                   "comm_debug", "local_param_bytes",
+                                   "peak_bytes")})
+    if rank == 0:
+        c = tp_compare(torch, top_k, bf, "bf16")
+        rep["failures"] += c.pop("failures")
+        rep.update(ref_losses=bf["ref_losses"], bf16=c)
+        if (max(c["loss_rel"]) > TP_LOSS_RTOL
+                or c["grad_rel_l2"][0][0] > TP_GRAD_REL_L2):
+            rep["failures"].append(
+                f"tp bf16: loss rel {c['loss_rel']} (bar {TP_LOSS_RTOL}), "
+                f"step 1's gradients rel L2 {c['grad_rel_l2'][0][0]} (bar "
+                f"{TP_GRAD_REL_L2})")
+    del bf
+    torch.cuda.empty_cache()
+    f32 = tp_steps(torch, dev, dataclasses.replace(cfg, dtype=torch.float32),
+                   mesh, rules, rank, timed=False)
+    rep["failures"] += f32.pop("failures")
+    rep["fp32_losses"] = f32["losses"]
+    if rank == 0:
+        c = tp_compare(torch, top_k, f32, "fp32")
+        rep["failures"] += c.pop("failures")
+        rep["fp32"] = c
+        worst_grad = c["grad_rel_l2"][0][1]
+        if (max(c["loss_rel"]) > TP_FP32_LOSS_RTOL
+                or worst_grad > TP_FP32_GRAD_REL_L2
+                or c["flip_share"] > TP_FP32_FLIPS):
+            rep["failures"].append(
+                f"tp fp32: loss rel {c['loss_rel']} (bar "
+                f"{TP_FP32_LOSS_RTOL}), step 1's worst leaf's gradient rel "
+                f"L2 {worst_grad} (bar {TP_FP32_GRAD_REL_L2}), worst "
+                f"leaf's share of flipped elements {c['flip_share']} (bar "
+                f"{TP_FP32_FLIPS})")
+    return rep
+
+
+def tp_rank(rank: int, work: str) -> None:
+    """A spawned rank of the tp phase: gloo on the shared card, the file
+    store in ``work``; writes ``work/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(work, 'store')}",
+        rank=rank, world_size=TP_RANKS)
+    try:
+        rep = tp_checks(torch, torch.device("cuda", 0), rank)
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(rep, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(torch, dev):
+    """Model-parallel LoRA training on a (data, model) mesh, then the
+    training launcher.  :data:`TP_RANKS` gloo ranks share the card (no
+    wall here is a scaling figure): granite-moe-3b-a800m at full width
+    (d_model 1,536, 24 heads, kv 8, 40 experts of d_ff 512, top-8, vocab
+    49,155), bf16, LoRA rank 16, cut to :data:`TP_LAYERS` layers, on
+    ``make_debug_mesh(TP_MESH)``: expert-parallel, 20 experts a rank,
+    ``kv_heads`` over ``model`` by ``arch_rules``; :data:`TP_STEPS` AdamW
+    steps (:data:`TP_LR`) at B ``LMTRAIN_B`` × S ``LMTRAIN_S``, every
+    leaf a DTensor on cuda:0.  Rank 0 holds them to the unsharded model
+    on each ``data`` half of the batch, averaged (:func:`tp_steps`): the
+    losses within rel :data:`TP_LOSS_RTOL` and step 1's LoRA gradients
+    within rel L2 :data:`TP_GRAD_REL_L2`, and layer 0's first routing
+    ids to the unsharded call's, a difference only at a printed
+    near-tie.  The same steps then run in fp32, the witness that the
+    bf16 gaps are rounding: losses within rel :data:`TP_FP32_LOSS_RTOL`,
+    each leaf's step-1 gradients within :data:`TP_FP32_GRAD_REL_L2`, and
+    in each leaf at most a share :data:`TP_FP32_FLIPS` of elements whose
+    change over the steps took the other sign (:func:`tp_flips`).
+    Each rank's bf16 step walls, peak memory and the first step's
+    collectives by kind and bytes are printed.  Then, in this process, the launcher:
+    ``launch.train`` ``fed`` (:data:`TP_FED`, the MLP backbone), kernels
+    1-3 counted (:data:`TP_FED_ONCE` a round), and ``lm``
+    (:data:`TP_LM`, the reduced granite).  Returns the numbers."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        mp.spawn(tp_rank, args=(work,), nprocs=TP_RANKS)
+        spawn_s = time.perf_counter() - t0
+        reps = []
+        for r in range(TP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                reps.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = reps[0]
+    log(f"tp {TP_ARCH} cut to {TP_LAYERS} layers, mesh {TP_MESH}, rules "
+        f"{r0['rules']}, B={LMTRAIN_B} x S={LMTRAIN_S}, AdamW {TP_LR}: "
+        f"bf16 losses {r0['losses']} (unsharded {r0['ref_losses']}); "
+        f"fp32 losses {r0['fp32_losses']}")
+    for r, rep in enumerate(reps):
+        log(f"tp rank {r} {rep['coord']}: step walls "
+            f"{[f'{v:.1f}' for v in rep['step_ms']]} ms, peak "
+            f"{rep['peak_bytes'] / 2**30:.3f} GiB, local parameters "
+            f"{rep['local_param_bytes'] / 2**20:.1f} MiB, psums a step "
+            f"{rep['psums_a_step']}")
+    log("tp first step's collectives (rank 0): " + ", ".join(
+        f"{k} {n} calls {r0['collective_bytes'][k] / 2**20:.1f} MiB in"
+        for k, n in sorted(r0["collectives"].items())))
+    log(f"tp second step's collectives (rank 0, CommDebugMode): "
+        f"{r0['comm_debug']}")
+    failures = [f for rep in reps for f in rep["failures"]]
+    if failures:
+        raise AssertionError("; ".join(failures))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = train.main(TP_FED)
+    fed_s = time.perf_counter() - t0
+    fed_launches = {k: v for k, v in ops.launch_counts().items()
+                    if k in TP_FED_ONCE}
+    want = {k: v * len(hist.rounds) for k, v in TP_FED_ONCE.items()}
+    if fed_launches != want:
+        raise AssertionError(f"tp fed: launches {fed_launches}, want {want}")
+    t0 = time.perf_counter()
+    lm_losses = train.main(TP_LM)
+    lm_s = time.perf_counter() - t0
+    if len(lm_losses) != 2 or not all(math.isfinite(v) for v in lm_losses):
+        raise AssertionError(f"tp lm: losses {lm_losses}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"tp launcher: fed {fed_s:.1f} s, final mean acc "
+        f"{hist.final_mean_acc:.3f}, launches {fed_launches}; lm {lm_s:.1f} "
+        f"s, losses {lm_losses}; tp phase {phase_s:.1f} s (spawned ranks "
+        f"{spawn_s:.1f} s)")
+    return dict(launches=fed_launches, ranks=reps, phase_s=phase_s,
+                spawn_s=spawn_s, fed_acc=hist.final_mean_acc,
+                lm_losses=lm_losses)
 
 
 # -- lmtrain phase: LoRA training of qwen2-0.5b at full width ----------------
@@ -5866,6 +6381,15 @@ def main() -> int:
         print(json.dumps({k: v for k, v in out.items() if k != "ranks"}),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "tp"]:
+        # the tp phase alone: a quick loop for model-parallel training and
+        # the launcher; no summary, no "ok" line
+        log("== tp phase alone ==")
+        out = tp_phase(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({k: v for k, v in out.items() if k != "ranks"}),
+              flush=True)
+        return 0
     if sys.argv[1:] == ["--only", "lmtrain"]:
         # the lmtrain phase alone: a quick loop for the LM training path;
         # no summary, no "ok" line
@@ -5880,7 +6404,7 @@ def main() -> int:
               f"--only granite, --only whisper, --only hymba, --only vlm, "
               f"--only deepseek, --only vit, --only baselines, --only "
               f"lmtrain, --only async, --only population, --only shard, "
-              f"--only xlstm or --only mix",
+              f"--only tp, --only xlstm or --only mix",
               file=sys.stderr)
         return 2
     def phase(name):
@@ -5910,6 +6434,8 @@ def main() -> int:
     pop = population_phase(torch, dev)
     phase("shard")
     shard = shard_phase(torch, dev)
+    phase("tp")
+    tp = tp_phase(torch, dev)
     # granite before xlstm: after the xlstm phase's profiled prefill
     # (~322,000 device kernels in one window) the profiler returned no
     # device event for granite's kernel-9 windows, six in a row
@@ -5990,7 +6516,9 @@ def main() -> int:
                            f"{pop['launches'].get(name, 0)} in the "
                            "population phase's, "
                            f"{shard['launches'].get(name, 0)} in the shard "
-                           f"phase's {SHARD_RANKS} ranks)"
+                           f"phase's {SHARD_RANKS} ranks, "
+                           f"{tp['launches'].get(name, 0)} in the tp "
+                           "phase's launcher fed run)"
                            if name in rows else
                            "bool round (bool phase, 1 round; "
                            f"{asy['launches'][name]} more in the async "
@@ -6000,6 +6528,7 @@ def main() -> int:
                            f"{shard['launches'].get(name, 0)} in the shard "
                            f"phase's {SHARD_RANKS} ranks)"),
             shard_launches=shard["launches"].get(name, 0),
+            tp_launches=tp["launches"].get(name, 0),
             app_launches=app_counts["matu"][name], **row))
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"

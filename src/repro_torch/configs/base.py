@@ -15,6 +15,10 @@ codeqwen1.5-7b), the ssm family (xlstm-1.3b), the moe family
 (``configs/vit_b32.py``: a ``ViTConfig``, built by its ``build``), which
 ``load_arch("vit-b32")`` returns; ``load_arch`` of a name with no config
 raises.
+
+``input_specs`` gives every model input of an (arch × shape) pair, as
+``meta`` tensors (the reference's ``ShapeDtypeStruct`` stand-ins) or as
+real ones.
 """
 
 from __future__ import annotations
@@ -121,6 +125,14 @@ class ArchConfig:
             remat=False,
         )
 
+    @property
+    def supports_long(self) -> bool:
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.family == "audio":
+            return False  # a 500k decoder context means nothing for whisper
+        return self.sliding_window_long is not None
+
     def window_for_shape(self, shape: ShapeSpec) -> Optional[int]:
         if shape.name == "long_500k" and self.family not in ("ssm",):
             return self.sliding_window_long
@@ -202,6 +214,20 @@ def load_arch(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
+# the assigned architectures, in the reference's order
+ARCH_IDS = [
+    "xlstm-1.3b",
+    "qwen2.5-3b",
+    "whisper-large-v3",
+    "hymba-1.5b",
+    "qwen2-0.5b",
+    "deepseek-v2-236b",
+    "qwen2.5-32b",
+    "qwen2-vl-7b",
+    "granite-moe-3b-a800m",
+    "codeqwen1.5-7b",
+]
+
 PORTED_ARCHS = ("qwen2-0.5b", "xlstm-1.3b", "granite-moe-3b-a800m",
                 "whisper-large-v3", "hymba-1.5b", "qwen2-vl-7b",
                 "deepseek-v2-236b", "qwen2.5-3b", "qwen2.5-32b",
@@ -219,3 +245,40 @@ ZOO_FAMILIES: Dict[str, str] = {
     "ssm": "xlstm-1.3b",            # recurrent xLSTM stack
     "moe": "granite-moe-3b-a800m",  # sparse mixture-of-experts
 }
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec, *, concrete: bool = False,
+                batch_override: Optional[int] = None,
+                seq_override: Optional[int] = None,
+                device="cuda") -> Dict[str, Any]:
+    """Model inputs of ``shape`` for ``cfg``: ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct`` stand-ins) by default; with
+    ``concrete=True`` real ones on ``device`` -- int32 zeros, and 0.01 in
+    the config's dtype for float inputs, as the reference fills them."""
+    b = batch_override or shape.global_batch
+    s = seq_override or shape.seq_len
+    fdt, i32 = cfg.dtype, torch.int32
+
+    def mk(shp, dt):
+        if not concrete:
+            return torch.empty(shp, dtype=dt, device="meta")
+        if dt == i32:
+            return torch.zeros(shp, dtype=dt, device=device)
+        return torch.ones(shp, dtype=dt, device=device) * 0.01
+
+    if shape.kind == "decode":
+        batch = {"tokens": mk((b, 1), i32)}
+    elif cfg.family == "audio":
+        batch = {"audio_embeds": mk((b, cfg.enc_frames, cfg.d_model), fdt),
+                 "tokens": mk((b, s), i32), "labels": mk((b, s), i32)}
+    elif cfg.family == "vlm":
+        n_img = min(cfg.vision_tokens, max(s // 4, 1))
+        n_txt = s - n_img
+        batch = {"tokens": mk((b, n_txt), i32), "labels": mk((b, n_txt), i32),
+                 "extra_embeds": mk((b, n_img, cfg.d_model), fdt),
+                 "positions": mk((b, s, 3), i32)}
+    else:
+        batch = {"tokens": mk((b, s), i32), "labels": mk((b, s), i32)}
+    if shape.kind == "prefill":
+        batch.pop("labels", None)
+    return batch

@@ -33,6 +33,13 @@ class Block(Module):
             p["ffn"] = self.ffn.init(generator, device, lead)
         return p
 
+    def axes(self):
+        a = {"norm1": self.norm1.axes(), "mixer": self.mixer.axes()}
+        if self.ffn is not None:
+            a["norm2"] = self.norm2.axes()
+            a["ffn"] = self.ffn.axes()
+        return a
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         out = {"mixer": self.mixer.lora_init(generator, rank, device, lead)}
@@ -42,16 +49,28 @@ class Block(Module):
                 out["ffn"] = ffn
         return out
 
+    def lora_axes(self):
+        out = {"mixer": self.mixer.lora_axes()}
+        if self.ffn is not None and hasattr(self.ffn, "lora_axes"):
+            ffn = self.ffn.lora_axes()
+            if ffn:
+                out["ffn"] = ffn
+        return out
+
+    def cache_axes(self):
+        return self.mixer.cache_axes()
+
     def _ffn_apply(self, params, x, lora, mode):
         y = self.ffn(params["ffn"], self.norm2(params["norm2"], x),
                      lora.get("ffn"), mode=mode)
         return x + y
 
-    def __call__(self, params, x, *, positions=None, lora=None, mode=None):
+    def __call__(self, params, x, *, positions=None, lora=None, mode=None,
+                 impl: str = "full"):
         lora = lora or {}
         x = x + self.mixer(params["mixer"], self.norm1(params["norm1"], x),
                            positions=positions, lora=lora.get("mixer"),
-                           mode=mode)
+                           mode=mode, impl=impl)
         return x if self.ffn is None else self._ffn_apply(params, x, lora,
                                                           mode)
 
@@ -94,16 +113,26 @@ class SSMBlockAdapter(Module):
     def init(self, generator, device=None, lead: Sequence[int] = ()):
         return self.inner.init(generator, device, lead)
 
+    def axes(self):
+        return self.inner.axes()
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         return self.inner.lora_init(generator, rank, device, lead)
+
+    def lora_axes(self):
+        return self.inner.lora_axes()
 
     def init_cache(self, batch: int, max_len: int, dtype=None, device=None,
                    lead: Sequence[int] = ()):
         return self.inner.init_cache(batch, max_len, dtype, device, lead)
 
-    def __call__(self, params, x, *, positions=None, lora=None, mode=None):
-        del positions
+    def cache_axes(self):
+        return self.inner.cache_axes()
+
+    def __call__(self, params, x, *, positions=None, lora=None, mode=None,
+                 impl: str = "full"):
+        del positions, impl
         return self.inner(params, x, lora=lora, mode=mode)
 
     def prefill(self, params, x, cache, *, positions=None, lora=None,
@@ -138,10 +167,22 @@ class HybridMixer(Module):
                 "beta": torch.ones(tuple(lead) + (2,), dtype=self.dtype,
                                    device=device)}
 
+    def axes(self):
+        return {"attn": self.attn.axes(), "mamba": self.mamba.axes(),
+                "norm_a": self.norm_a.axes(), "norm_m": self.norm_m.axes(),
+                "beta": (None,)}
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         return {"attn": self.attn.lora_init(generator, rank, device, lead),
                 "mamba": self.mamba.lora_init(generator, rank, device, lead)}
+
+    def lora_axes(self):
+        return {"attn": self.attn.lora_axes(), "mamba": self.mamba.lora_axes()}
+
+    def cache_axes(self):
+        return {"attn": self.attn.cache_axes(),
+                "mamba": self.mamba.cache_axes()}
 
     def _fuse(self, params, ya, ym):
         """0.5·(β0·norm_a(ya) + β1·norm_m(ym)), in the model dtype."""
@@ -150,10 +191,11 @@ class HybridMixer(Module):
         beta = params["beta"]
         return 0.5 * (beta[0] * ya + beta[1] * ym)
 
-    def __call__(self, params, x, *, positions=None, lora=None, mode=None):
+    def __call__(self, params, x, *, positions=None, lora=None, mode=None,
+                 impl: str = "full"):
         lora = lora or {}
         ya = self.attn(params["attn"], x, positions=positions,
-                       lora=lora.get("attn"), mode=mode)
+                       lora=lora.get("attn"), mode=mode, impl=impl)
         ym = self.mamba(params["mamba"], x, lora=lora.get("mamba"),
                         mode=mode)
         return self._fuse(params, ya, ym)

@@ -2,8 +2,8 @@
 
 ``build_model`` returns an :class:`ArchModel` with the uniform interface
 the serving and training paths rely on: ``init`` / ``lora_init``,
-``forward``, ``loss``, ``init_cache``, ``prefill_step`` and
-``decode_fn``.  Ported so far: the
+``axes`` / ``lora_axes`` / ``cache_axes``, ``forward``, ``loss``,
+``init_cache``, ``prefill_step`` and ``decode_fn``.  Ported so far: the
 dense family (qwen2-0.5b, the qwen2.5 configs, codeqwen1.5-7b), the vlm
 family (qwen2-vl-7b: the dense stack with M-RoPE, whose prefill batch
 also carries ``"extra_embeds"`` and (B, S, 3) ``"positions"``), the ssm
@@ -53,6 +53,15 @@ class ArchModel:
     def lora_init(self, generator=1, *, device=None):
         return self.model.lora_init(generator, self.cfg.lora_rank,
                                     device=device)
+
+    def axes(self):
+        return self.model.axes()
+
+    def lora_axes(self):
+        return self.model.lora_axes()
+
+    def cache_axes(self):
+        return self.model.cache_axes()
 
     def forward(self, params, tokens, *, lora=None, mode=None,
                 audio_embeds=None, extra_embeds=None, positions=None):

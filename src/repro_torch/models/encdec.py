@@ -31,7 +31,9 @@ from repro_torch.models.lm import (as_generator, chunked_cross_entropy,
                                    layer_views, needs_grad, remat_call)
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.mlp import GeluMLP
-from repro_torch.nn.module import Embedding, LayerNorm, Module, _normal
+from repro_torch.nn.module import (Embedding, LayerNorm, Module, _normal,
+                                   stack_axes)
+from repro_torch.nn.sharding import constrain
 
 Tree = Any
 
@@ -66,6 +68,13 @@ class EncoderBlock(Module):
                 "attn": self.attn.init(generator, device, lead),
                 "ln2": self.ln2.init(None, device, lead),
                 "mlp": self.mlp.init(generator, device, lead)}
+
+    def axes(self):
+        return {"ln1": self.ln1.axes(), "attn": self.attn.axes(),
+                "ln2": self.ln2.axes(), "mlp": self.mlp.axes()}
+
+    def lora_axes(self):
+        return {"attn": self.attn.lora_axes(), "mlp": self.mlp.lora_axes()}
 
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
@@ -112,6 +121,21 @@ class DecoderBlock(Module):
                 "cross_attn": self.cross_attn.lora_init(generator, rank,
                                                         device, lead),
                 "mlp": self.mlp.lora_init(generator, rank, device, lead)}
+
+    def axes(self):
+        return {"ln1": self.ln1.axes(), "self_attn": self.self_attn.axes(),
+                "ln2": self.ln2.axes(), "cross_attn": self.cross_attn.axes(),
+                "ln3": self.ln3.axes(), "mlp": self.mlp.axes()}
+
+    def lora_axes(self):
+        return {"self_attn": self.self_attn.lora_axes(),
+                "cross_attn": self.cross_attn.lora_axes(),
+                "mlp": self.mlp.lora_axes()}
+
+    def cache_axes(self):
+        kv = ("batch", None, "kv_heads", "head_dim")
+        return {"self": self.self_attn.cache_axes(),
+                "cross": {"k": kv, "v": kv}}
 
     def _mlp_res(self, params, x, lora, mode):
         return x + self.mlp(params["mlp"], self.ln3(params["ln3"], x),
@@ -222,6 +246,20 @@ class EncDecLM(Module):
                 "decoder": self.dec_block.lora_init(g, rank, dev,
                                                     (self.n_dec,))}
 
+    def axes(self) -> Tree:
+        return {"encoder": self.enc_block.stacked_axes(),
+                "decoder": self.dec_block.stacked_axes(),
+                "embed": self.embed.axes(),
+                "pos_embed": {"table": (None, "embed")},
+                "enc_ln": self.enc_ln.axes(), "dec_ln": self.dec_ln.axes()}
+
+    def lora_axes(self) -> Tree:
+        return {"encoder": stack_axes(self.enc_block.lora_axes()),
+                "decoder": stack_axes(self.dec_block.lora_axes())}
+
+    def cache_axes(self) -> Tree:
+        return stack_axes(self.dec_block.cache_axes())
+
     def _stack(self, params, lora, name: str, n: int):
         return zip(layer_views(params[name], n),
                    layer_views(None if lora is None else lora[name], n))
@@ -235,6 +273,7 @@ class EncDecLM(Module):
         x = audio_embeds.to(self.dtype)
         x = x + sinusoidal_positions(x.shape[1], self.d_model,
                                      x.device).to(self.dtype)[None]
+        x = constrain(x, ("batch", None, "embed"))
         remat = self.remat and needs_grad(x, lora, params)
         for p, l in self._stack(params, lora, "encoder", self.n_enc):
             x = remat_call(remat, self._enc_layer, p, x, l, mode)
@@ -257,11 +296,13 @@ class EncDecLM(Module):
                              f"{self.max_dec_len}")
         x = self.embed(params["embed"], tokens).to(self.dtype)
         start = min(max(int(offset), 0), self.max_dec_len - s)
-        return x + params["pos_embed"]["table"][start:start + s][None]
+        return constrain(x + params["pos_embed"]["table"][start:start + s][None],
+                         ("batch", None, "embed"))
 
     def _head(self, params, x):
-        return self.embed.attend(params["embed"],
-                                 self.dec_ln(params["dec_ln"], x))
+        return constrain(self.embed.attend(params["embed"],
+                                           self.dec_ln(params["dec_ln"], x)),
+                         ("batch", None, "vocab"))
 
     # -- full sequence -------------------------------------------------------
     def forward(self, params, tokens, audio_embeds, *, lora=None,

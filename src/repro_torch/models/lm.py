@@ -24,7 +24,14 @@ decode steps take tokens alone.
 versions.  With ``remat`` (the config's, as in the JAX package) a
 forward that records gradients runs each layer under
 ``torch.utils.checkpoint``: only the layer inputs are kept, and the
-backward recomputes the rest.  It changes no number.
+backward recomputes the rest.  It changes no number.  ``loss`` runs the
+attention by the reference's training rule, "auto" (query chunks once
+S passes a chunk).
+
+``axes`` / ``lora_axes`` / ``cache_axes`` are the JAX package's
+logical-axes trees (each leaf with ``"layers"`` first), and under a mesh
+(``nn.sharding.mesh_context``) the embeddings, each layer's input and
+output, and the logits are pinned as the reference pins them.
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.tree import tree_leaves
-from repro_torch.nn.module import Dense, Embedding, Module, RMSNorm
+from repro_torch.nn.module import (Dense, Embedding, Module, RMSNorm,
+                                   stack_axes)
+from repro_torch.nn.sharding import constrain
 
 Tree = Any
 IGNORE_INDEX = -100
@@ -67,8 +76,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_nll(head_fn, xc, lc, ignore_index: int):
-    """(sum of the masked NLL, count of scored labels) of one chunk."""
-    logits = head_fn(xc).float()
+    """(sum of the masked NLL, count of scored labels) of one chunk.
+    Under a mesh the chunk's logits are gathered over the vocab first:
+    DTensor has no rule for a gather from vocab-sharded logits."""
+    logits = constrain(head_fn(xc).float(), ("batch", None, None))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None])[..., 0]
     mask = (lc != ignore_index).float()
@@ -87,6 +98,8 @@ def chunked_cross_entropy(x: torch.Tensor, head_fn, labels: torch.Tensor, *,
     reference's ``jax.checkpoint`` of the chunk body), so the backward
     too holds one chunk's logits at a time."""
     b, s, d = x.shape
+    # under a mesh the padding and the chunks cut S, which stays whole
+    x = constrain(x, ("batch", None, "embed"))
     n_chunks = -(-s // chunk)
     pad = n_chunks * chunk - s
     if pad:
@@ -146,7 +159,8 @@ class LM(Module):
         self.embed = Embedding(vocab, d_model, dtype=dtype)
         self.final_norm = RMSNorm(d_model, dtype=dtype)
         if not tie_embeddings:
-            self.lm_head = Dense(d_model, vocab, dtype=dtype)
+            self.lm_head = Dense(d_model, vocab, axes=("embed", "vocab"),
+                                 dtype=dtype)
 
     # -- params ------------------------------------------------------------
     def init(self, generator=0, *, device=None) -> Tree:
@@ -163,11 +177,28 @@ class LM(Module):
             p["lm_head"] = self.lm_head.init(g, dev)
         return p
 
+    def axes(self) -> Tree:
+        a = {"embed": self.embed.axes(),
+             "units": {name: blk.stacked_axes()
+                       for name, blk in self.unit_blocks},
+             "final_norm": self.final_norm.axes()}
+        if not self.tie:
+            a["lm_head"] = self.lm_head.axes()
+        return a
+
     def lora_init(self, generator, rank: int, *, device=None) -> Tree:
         dev = torch.device(device) if device is not None else self.device
         g = None if dev.type == "meta" else as_generator(generator, dev)
         return {"units": {name: blk.lora_init(g, rank, dev, (self.n_units,))
                           for name, blk in self.unit_blocks}}
+
+    def lora_axes(self) -> Tree:
+        return {"units": {name: stack_axes(blk.lora_axes())
+                          for name, blk in self.unit_blocks}}
+
+    def cache_axes(self) -> Tree:
+        return {name: stack_axes(blk.cache_axes())
+                for name, blk in self.unit_blocks}
 
     # -- shared pieces -------------------------------------------------------
     def _embed_in(self, params, tokens, extra_embeds=None):
@@ -176,13 +207,15 @@ class LM(Module):
         x = self.embed(params["embed"], tokens).to(self.dtype)
         if extra_embeds is not None:
             x = torch.cat([extra_embeds.to(self.dtype), x], dim=1)
-        return x
+        return constrain(x, ("batch", None, "embed"))
 
     def _head(self, params, x):
         x = self.final_norm(params["final_norm"], x)
         if self.tie:
-            return self.embed.attend(params["embed"], x)
-        return self.lm_head(params["lm_head"], x)
+            logits = self.embed.attend(params["embed"], x)
+        else:
+            logits = self.lm_head(params["lm_head"], x)
+        return constrain(logits, ("batch", None, "vocab"))
 
     def _default_positions(self, b: int, s: int, offset: int = 0):
         pos = torch.arange(offset, offset + s, device=self.device)
@@ -204,24 +237,27 @@ class LM(Module):
 
     # -- full-sequence forward -----------------------------------------------
     @staticmethod
-    def _unit_forward(unit, x, positions, mode, with_aux):
+    def _unit_forward(unit, x, positions, mode, with_aux, impl):
         """One layer's blocks in turn -> (x, the layer's summed MoE aux,
         None without ``with_aux`` or an MoE)."""
         aux = None
+        x = constrain(x, ("batch", "act_seq", "embed"))
         for _name, blk, p, l, _c in unit:
-            x = blk(p, x, positions=positions, lora=l, mode=mode)
+            x = blk(p, x, positions=positions, lora=l, mode=mode, impl=impl)
             a = _ffn_aux(blk) if with_aux else None
             if a is not None:
                 aux = a if aux is None else aux + a
-        return x, aux
+        return constrain(x, ("batch", "act_seq", "embed")), aux
 
     def forward(self, params, tokens, *, lora=None, positions=None,
                 extra_embeds=None, mode: Optional[str] = None,
-                return_hidden: bool = False, return_aux: bool = False):
+                return_hidden: bool = False, return_aux: bool = False,
+                impl: str = "full"):
         """tokens (B, S_txt) -> logits (B, S, V) (or the final hidden
         state); S = S_img + S_txt with ``extra_embeds`` (B, S_img, d).
         With ``return_aux`` also the MoE load-balance aux summed over
-        the layers (0 without an MoE), as the reference returns it."""
+        the layers (0 without an MoE), as the reference returns it.
+        ``impl`` is the attention's rule (full, chunked or auto)."""
         x = self._embed_in(params, tokens, extra_embeds)
         b, s = x.shape[0], x.shape[1]
         if positions is None:
@@ -234,7 +270,7 @@ class LM(Module):
         # gradient; eager PyTorch has nothing to fence, so no twin here
         for unit in self._layers(params, lora):
             x, a = remat_call(remat, self._unit_forward, unit, x, positions,
-                              mode, return_aux)
+                              mode, return_aux, impl)
             if a is not None:
                 aux = aux + a
         out = x if return_hidden else self._head(params, x)
@@ -249,7 +285,7 @@ class LM(Module):
             params, batch["tokens"], lora=lora,
             positions=batch.get("positions"),
             extra_embeds=batch.get("extra_embeds"), return_hidden=True,
-            return_aux=True)
+            return_aux=True, impl="auto")
         labels = batch["labels"]
         if hidden.shape[1] != labels.shape[1]:   # vlm: the text tail only
             hidden = hidden[:, -labels.shape[1]:]

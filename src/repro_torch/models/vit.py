@@ -18,7 +18,8 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.models.encdec import EncoderBlock
 from repro_torch.models.lm import as_generator, layer_views
-from repro_torch.nn.module import Dense, LayerNorm, Module, _normal
+from repro_torch.nn.module import Dense, LayerNorm, Module, _normal, stack_axes
+from repro_torch.nn.sharding import constrain
 
 Tree = Any
 
@@ -35,7 +36,8 @@ class ViT(Module):
         del remat
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.patch_embed = Dense(patch_dim, d_model, bias=True, dtype=dtype)
+        self.patch_embed = Dense(patch_dim, d_model, bias=True,
+                                 axes=(None, "embed"), dtype=dtype)
         self.block = EncoderBlock(d_model, n_heads, d_ff, dtype=dtype)
         self.final_ln = LayerNorm(d_model, dtype=dtype)
 
@@ -54,6 +56,15 @@ class ViT(Module):
             "final_ln": self.final_ln.init(None, dev),
         }
 
+    def axes(self) -> Tree:
+        return {"patch_embed": self.patch_embed.axes(),
+                "cls": (None, None, "embed"), "pos": (None, None, "embed"),
+                "blocks": self.block.stacked_axes(),
+                "final_ln": self.final_ln.axes()}
+
+    def lora_axes(self) -> Tree:
+        return {"blocks": stack_axes(self.block.lora_axes())}
+
     def lora_init(self, generator, rank: int, *, device=None) -> Tree:
         dev = torch.device(device) if device is not None else self.device
         g = None if dev.type == "meta" else as_generator(generator, dev)
@@ -65,7 +76,8 @@ class ViT(Module):
         b = patches.shape[0]
         x = self.patch_embed(params["patch_embed"], patches.to(self.dtype))
         cls = params["cls"].expand(b, 1, self.d_model)
-        x = torch.cat([cls, x], dim=1) + params["pos"]
+        x = constrain(torch.cat([cls, x], dim=1) + params["pos"],
+                      ("batch", None, "embed"))
         for p, l in zip(layer_views(params["blocks"], self.n_layers),
                         layer_views(None if lora is None else lora["blocks"],
                                     self.n_layers)):

@@ -21,7 +21,9 @@ position held in each slot, -1 when empty) and updated in place: a ring
 buffer when a sliding window is set.  Softmax math is fp32 whatever the
 activation dtype, with a -1e30 mask; scores scale by 1/sqrt(nope +
 rope).  LoRA attaches to ``wq_a`` and ``wo``; ``mode`` reaches their
-``Dense`` so the fused route runs kernel 9 there.
+``Dense`` so the fused route runs kernel 9 there.  Under a mesh q keeps
+its heads over ``model`` (each query chunk too) and the output joins the
+sequence-parallel residual, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch.nn.attention import sharded_sdpa
 from repro_torch.nn.module import Dense, Module, RMSNorm
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.sharding import constrain, split_last
 
 Tree = Any
 NEG_INF = -1e30
@@ -55,14 +59,18 @@ class MLAttention(Module):
         self.q_chunk = q_chunk
         self.dtype = dtype
         self.scale = 1.0 / math.sqrt(self.qk_dim)
-        self.wq_a = Dense(d_model, q_lora_rank, dtype=dtype)
+        self.wq_a = Dense(d_model, q_lora_rank, axes=("embed", None),
+                          dtype=dtype)
         self.q_norm = RMSNorm(q_lora_rank, dtype=dtype)
-        self.wq_b = Dense(q_lora_rank, n_heads * self.qk_dim, dtype=dtype)
-        self.wkv_a = Dense(d_model, kv_lora_rank + qk_rope_dim, dtype=dtype)
+        self.wq_b = Dense(q_lora_rank, n_heads * self.qk_dim,
+                          axes=(None, "heads"), dtype=dtype)
+        self.wkv_a = Dense(d_model, kv_lora_rank + qk_rope_dim,
+                           axes=("embed", None), dtype=dtype)
         self.kv_norm = RMSNorm(kv_lora_rank, dtype=dtype)
         self.wkv_b = Dense(kv_lora_rank, n_heads * (qk_nope_dim + v_head_dim),
-                           dtype=dtype)
-        self.wo = Dense(n_heads * v_head_dim, d_model, dtype=dtype,
+                           axes=(None, "heads"), dtype=dtype)
+        self.wo = Dense(n_heads * v_head_dim, d_model, axes=("heads", "embed"),
+                        dtype=dtype,
                         scale=1.0 / math.sqrt(n_heads * v_head_dim))
 
     def init(self, generator, device=None, lead: Sequence[int] = ()):
@@ -74,10 +82,24 @@ class MLAttention(Module):
                 "wkv_b": self.wkv_b.init(generator, device, lead),
                 "wo": self.wo.init(generator, device, lead)}
 
+    def axes(self):
+        return {"wq_a": self.wq_a.axes(), "q_norm": self.q_norm.axes(),
+                "wq_b": self.wq_b.axes(), "wkv_a": self.wkv_a.axes(),
+                "kv_norm": self.kv_norm.axes(), "wkv_b": self.wkv_b.axes(),
+                "wo": self.wo.axes()}
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         return {"wq_a": self.wq_a.lora_init(generator, rank, device, lead),
                 "wo": self.wo.lora_init(generator, rank, device, lead)}
+
+    def lora_axes(self):
+        return {"wq_a": self.wq_a.lora_axes(), "wo": self.wo.lora_axes()}
+
+    def cache_axes(self):
+        return {"c_kv": ("batch", "cache_seq", None),
+                "k_rope": ("batch", "cache_seq", None),
+                "kpos": ("cache_seq",)}
 
     # -- shared projections ------------------------------------------------
     def _q(self, params, x, positions, lora, mode):
@@ -87,7 +109,8 @@ class MLAttention(Module):
         q = self.wq_b(params["wq_b"], self.q_norm(
             params["q_norm"], self.wq_a(params["wq_a"], x, lora.get("wq_a"),
                                         mode=mode)))
-        q = q.reshape(b, s, self.n_heads, self.qk_dim)
+        q = constrain(split_last(q, self.n_heads),
+                      ("batch", None, "heads", None))
         q_nope, q_rope = q[..., :self.nope], q[..., self.nope:]
         if positions is not None:
             q_rope = apply_rope(q_rope, positions, base=self.rope_base)
@@ -114,9 +137,9 @@ class MLAttention(Module):
     def _out(self, params, ctx, lora, mode):
         lora = lora or {}
         b, s = ctx.shape[0], ctx.shape[1]
-        return self.wo(params["wo"], ctx.reshape(b, s, self.n_heads
-                                                 * self.v_dim),
-                       lora.get("wo"), mode=mode)
+        y = self.wo(params["wo"], ctx.reshape(b, s, self.n_heads * self.v_dim),
+                    lora.get("wo"), mode=mode)
+        return constrain(y, ("batch", "act_seq", "embed"))
 
     # -- full sequence (the naive expansion) ---------------------------------
     def _mask(self, q_pos, k_pos):
@@ -127,6 +150,14 @@ class MLAttention(Module):
         return ok
 
     def _sdpa(self, q, k, v, mask):
+        """:meth:`_sdpa_block`, or on each rank's blocks for a DTensor q
+        (``attention.sharded_sdpa``)."""
+        from torch.distributed.tensor import DTensor
+        if isinstance(q, DTensor):
+            return sharded_sdpa(self._sdpa_block, q, k, v, mask)
+        return self._sdpa_block(q, k, v, mask)
+
+    def _sdpa_block(self, q, k, v, mask):
         """q / k (B, S, H, nope + rope), v (B, S, H, v), mask (Q, S):
         scores in the activation dtype, fp32 scale, mask and softmax,
         probabilities in v's dtype."""
@@ -151,7 +182,9 @@ class MLAttention(Module):
         for c0 in range(0, n_chunks * q_chunk, q_chunk):
             qp = pos_p[c0:c0 + q_chunk]
             mask = self._mask(qp, pos) & (qp >= 0)[:, None]
-            out.append(self._sdpa(q[:, c0:c0 + q_chunk], k, v, mask))
+            qc = constrain(q[:, c0:c0 + q_chunk],
+                           ("batch", None, "heads", None))
+            out.append(self._sdpa(qc, k, v, mask))
         return torch.cat(out, dim=1)[:, :s]
 
     def _forward(self, params, x, positions, lora, impl: str, mode):

@@ -4,6 +4,10 @@ A module is a config-carrying object with
 
 * ``init(generator, device, lead=()) -> params``: a nested dict of
   tensors (``lead`` prepends stacked axes, e.g. ``(n_layers,)``);
+* ``axes() -> axes``: the same structure, each leaf the tuple of
+  *logical* axis names of its tensor (``nn.sharding`` maps them onto a
+  mesh), as the JAX package's; ``lora_axes`` / ``cache_axes`` likewise
+  for the LoRA and cache trees;
 * ``__call__(params, ...)``: a function of (params, inputs).
 
 Parameters are plain nested dicts in the JAX package's layout — a
@@ -17,9 +21,11 @@ it gives other numbers than ``jax.random`` from the same seed.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.nn.sharding import flat_ready
 
 Tree = Any
 
@@ -31,12 +37,24 @@ def _normal(generator, shape, device, scale: float, dtype) -> torch.Tensor:
     return (x * scale).to(dtype)
 
 
+def stack_axes(axes: Tree) -> Tree:
+    """``axes`` with ``"layers"`` prepended to every leaf: the axes of a
+    tree stacked along a leading layers axis (a None leaf, a scalar,
+    becomes ``("layers",)``)."""
+    if axes is None or isinstance(axes, tuple):
+        return ("layers",) + tuple(axes or ())
+    return {k: stack_axes(v) for k, v in axes.items()}
+
+
 class Module:
-    """Base class; subclasses define ``init`` and ``__call__``."""
+    """Base class; subclasses define ``init``, ``axes`` and ``__call__``."""
 
     def init_stacked(self, generator, n: int, device=None) -> Tree:
         """``n`` independent inits stacked along a leading layers axis."""
         return self.init(generator, device, lead=(n,))
+
+    def stacked_axes(self) -> Tree:
+        return stack_axes(self.axes())
 
 
 def _promoted(*ts):
@@ -54,9 +72,10 @@ class Dense(Module):
     ``lora`` subtree in one of four forms (see :meth:`__call__`)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = False,
+                 axes: Tuple[Optional[str], Optional[str]] = (None, None),
                  dtype=torch.float32, scale: Optional[float] = None):
         self.in_dim, self.out_dim, self.bias = in_dim, out_dim, bias
-        self.dtype, self.scale = dtype, scale
+        self._axes, self.dtype, self.scale = tuple(axes), dtype, scale
 
     def init(self, generator, device=None, lead: Sequence[int] = ()):
         scale = (self.scale if self.scale is not None
@@ -68,6 +87,16 @@ class Dense(Module):
             p["b"] = torch.zeros(lead + (self.out_dim,), dtype=self.dtype,
                                  device=device)
         return p
+
+    def axes(self):
+        a = {"w": self._axes}
+        if self.bias:
+            a["b"] = (self._axes[1],)
+        return a
+
+    def lora_axes(self):
+        return {"a": (self._axes[0], "lora"), "b": ("lora", self._axes[1]),
+                "alpha": None}
 
     def __call__(self, params, x, lora: Optional[Tree] = None, *,
                  mode: Optional[str] = None):
@@ -82,6 +111,7 @@ class Dense(Module):
           ``ops.modulated_matmul`` (``mode`` reaches it), so each
           request's modulated weight is built inside the kernel.
         """
+        x = flat_ready(x)
         y = torch.matmul(*_promoted(x, params["w"]))
         if lora is not None and "a" in lora:
             a = lora["a"]
@@ -141,16 +171,22 @@ class Dense(Module):
 
 
 class Embedding(Module):
-    def __init__(self, vocab: int, dim: int, *, dtype=torch.float32):
-        self.vocab, self.dim, self.dtype = vocab, dim, dtype
+    def __init__(self, vocab: int, dim: int, *, dtype=torch.float32,
+                 axes: Tuple[str, str] = ("vocab", "embed")):
+        self.vocab, self.dim, self.dtype, self._axes = vocab, dim, dtype, axes
 
     def init(self, generator, device=None, lead: Sequence[int] = ()):
         return {"table": _normal(generator, tuple(lead) + (self.vocab,
                                                            self.dim),
                                  device, 0.02, self.dtype)}
 
+    def axes(self):
+        return {"table": self._axes}
+
     def __call__(self, params, ids):
-        return params["table"][ids]
+        """The rows of ``ids``; ``F.embedding``, whose DTensor rule reads
+        a vocab-sharded table (indexing has none)."""
+        return torch.nn.functional.embedding(ids, params["table"])
 
     def attend(self, params, x):
         """Tied readout: logits = x @ table^T."""
@@ -164,6 +200,9 @@ class RMSNorm(Module):
     def init(self, generator=None, device=None, lead: Sequence[int] = ()):
         return {"scale": torch.ones(tuple(lead) + (self.dim,),
                                     dtype=self.dtype, device=device)}
+
+    def axes(self):
+        return {"scale": ("embed",)}
 
     def __call__(self, params, x):
         dt = x.dtype
@@ -185,6 +224,9 @@ class LayerNorm(Module):
         shape = tuple(lead) + (self.dim,)
         return {"scale": torch.ones(shape, dtype=self.dtype, device=device),
                 "bias": torch.zeros(shape, dtype=self.dtype, device=device)}
+
+    def axes(self):
+        return {"scale": ("embed",), "bias": ("embed",)}
 
     def __call__(self, params, x):
         dt = x.dtype

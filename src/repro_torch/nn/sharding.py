@@ -18,14 +18,18 @@ through :func:`gather`; both count their calls
 kernel launches, so that tests and ``chip_smoke.py`` can hold a round to
 its collective budget.
 
-``logical_to_sharding`` and ``constrain`` (the model-parameter half) are
-not ported yet.
+The model half is DTensor's: :func:`logical_to_sharding` turns a tree of
+logical axes into DTensor placements (one a mesh dim) leaf for leaf,
+:func:`distribute_tree` places a tree's tensors by them, and
+:func:`constrain` redistributes an activation under the active
+:class:`mesh_context`, JAX's ``with_sharding_constraint`` hint made a
+move.  Outside a mesh, or on a plain tensor, :func:`constrain` returns
+its input, so model code is written once.
 """
 
 from __future__ import annotations
 
 import math
-import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -60,7 +64,11 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
 )
 
 
-class _Ctx(threading.local):
+class _Ctx:
+    """The active (mesh, rules): process-wide, where the JAX package's
+    is a thread's, because autograd replays a rematerialised forward on
+    its own device thread, which must see the mesh of the step."""
+
     def __init__(self):
         self.mesh = None
         self.rules: Mapping[str, Any] = dict(DEFAULT_RULES)
@@ -70,7 +78,10 @@ _CTX = _Ctx()
 
 
 class mesh_context:
-    """Context manager installing (mesh, rules) for logical sharding."""
+    """Context manager installing (mesh, rules) for logical sharding.
+    Inside it a plain tensor that meets a DTensor in an op is taken as
+    replicated (``implicit_replication``), as JAX takes an array with no
+    sharding under a mesh."""
 
     def __init__(self, mesh, rules: Optional[Mapping[str, Any]] = None):
         self.mesh = mesh
@@ -78,13 +89,19 @@ class mesh_context:
         if rules:
             self.rules.update(rules)
         self._prev = None
+        self._implicit = None
 
     def __enter__(self):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
         self._prev = (_CTX.mesh, _CTX.rules)
         _CTX.mesh, _CTX.rules = self.mesh, self.rules
+        self._implicit = implicit_replication()
+        self._implicit.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._implicit.__exit__(*exc)
         _CTX.mesh, _CTX.rules = self._prev
         return False
 
@@ -158,6 +175,162 @@ def resolve_spec(logical: LogicalAxes, shape: Optional[Sequence[int]] = None,
     return tuple(spec)
 
 
+def spec_placements(spec: Sequence[Any], mesh, ndim: int):
+    """The DTensor placements (one a mesh dim) of a partition spec of an
+    ``ndim``-rank tensor: ``Shard(i)`` on every mesh dim that entry i
+    names, ``Replicate()`` on the rest.  A tensor dim split over several
+    mesh dims is split major→minor in mesh-dim order, as DTensor lays
+    it out; a spec naming them in another order has no DTensor twin and
+    raises.  A mesh dim of size 1 splits nothing and stays
+    ``Replicate()``: the same layout, and one DTensor's view rules take
+    where a size-1 ``Shard`` beside a split dim fails."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    sizes = [int(v) for v in mesh.shape]
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(tuple(spec)[:ndim]):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {axes} must follow the mesh's dim "
+                             f"order {tuple(names)}")
+        for j in idx:
+            if sizes[j] > 1:
+                out[j] = Shard(i)
+    return tuple(out)
+
+
+def _is_axes_leaf(x) -> bool:
+    return x is None or isinstance(x, tuple)
+
+
+def _map_axes(fn, axes_tree, *rest):
+    """``fn(axes, *rest_leaves)`` over a logical-axes tree (its leaves
+    are tuples or None) and trees of its structure."""
+    if _is_axes_leaf(axes_tree):
+        return fn(axes_tree, *rest)
+    return {k: _map_axes(fn, v, *(r[k] for r in rest))
+            for k, v in axes_tree.items()}
+
+
+def logical_to_sharding(axes_tree, shapes_tree=None, *, mesh=None,
+                        rules: Optional[Mapping[str, Any]] = None):
+    """The DTensor placements of every leaf of a logical-axes tree, as a
+    tree of its structure: ``resolve_spec``'s spec of each leaf (with
+    its shape from ``shapes_tree`` -- tensors, ``meta`` tensors or
+    shapes -- when given) made placements by :func:`spec_placements`.
+    Without ``shapes_tree`` a leaf's rank is its axes' length."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        raise ValueError("logical_to_sharding requires an active "
+                         "mesh_context or explicit mesh")
+
+    def one(axes, shape=None):
+        if shape is not None and hasattr(shape, "shape"):
+            shape = tuple(shape.shape)
+        ndim = len(shape) if shape is not None else len(axes or ())
+        return spec_placements(resolve_spec(axes, shape, mesh=mesh,
+                                            rules=rules), mesh, ndim)
+
+    if shapes_tree is None:
+        return _map_axes(one, axes_tree)
+    return _map_axes(one, axes_tree, shapes_tree)
+
+
+def distribute_tree(tree, shardings, mesh):
+    """Every tensor leaf of ``tree`` made a ``DTensor`` on ``mesh`` with
+    its placements from ``shardings`` (a tree of the same structure, as
+    :func:`logical_to_sharding` returns), by ``distribute_tensor``: each
+    rank keeps its own block of the leaf it holds, which must be the
+    same on every rank.  Non-tensor leaves pass through."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: distribute_tree(v, shardings[k], mesh)
+                for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return distribute_tensor(tree, mesh, list(shardings))
+
+
+def constrain(x, logical: LogicalAxes):
+    """``x`` redistributed to the placements of ``logical`` under the
+    active mesh (JAX's ``with_sharding_constraint``); ``x`` itself
+    outside a mesh or when ``x`` is not a ``DTensor``."""
+    mesh = _CTX.mesh
+    from torch.distributed.tensor import DTensor
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = resolve_spec(logical, tuple(x.shape), mesh=mesh)
+    placements = spec_placements(spec, mesh, x.dim())
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def split_last(x, n: int):
+    """x (..., n·k) reshaped to (..., n, k).  A DTensor whose last dim is
+    split over a mesh dim that does not divide ``n`` is made whole on
+    that mesh dim first: GSPMD pads such a split, DTensor refuses it."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        last = x.dim() - 1
+        sizes = [int(v) for v in x.device_mesh.shape]
+        pl = tuple(Replicate() if p.is_shard(last) and n % sizes[i] else p
+                   for i, p in enumerate(x.placements))
+        if pl != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(x.shape[:-1] + (n, x.shape[-1] // n))
+
+
+def flat_ready(x):
+    """``x`` with its middle dims (all but the first and the last) whole
+    on every rank, for an op that folds the leading dims into one (a
+    matmul of a (B, S, d) DTensor): DTensor folds dims only while no
+    dim after the first of them is split.  A plain tensor, or one whose
+    middle dims are whole, is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or x.dim() < 3:
+        return x
+    last = x.dim() - 1
+    pl = tuple(Replicate() if p.is_shard() and 0 < p.dim < last else p
+               for p in x.placements)
+    if pl == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
+def replicated(x, mesh):
+    """A DTensor replicated on ``mesh`` holding ``x``, the same on every
+    rank (no collective); a DTensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def to_block(x, mesh, placements, grad_placements=None):
+    """This rank's block of ``x`` (a plain ``x`` taken as replicated)
+    placed by ``placements``, its gradient declared as
+    ``grad_placements`` (the same by default): where the rank's local
+    gradient lies, e.g. ``Partial()`` over a mesh dim whose ranks each
+    hold part of a sum."""
+    pl = tuple(placements)
+    return replicated(x, mesh).redistribute(mesh, pl).to_local(
+        grad_placements=tuple(grad_placements or pl))
+
+
+def from_block(t, mesh, placements, shape):
+    """The DTensor of global ``shape`` whose blocks, placed by
+    ``placements``, are each rank's ``t``."""
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(tuple(shape), device="meta").stride()
+    return DTensor.from_local(t, mesh, tuple(placements), shape=tuple(shape),
+                              stride=stride)
+
+
 # -- taskvec axis (the sharded round engine) --------------------------------
 
 def taskvec_axes(mesh=None, *, rules: Optional[Mapping[str, Any]] = None
@@ -224,11 +397,9 @@ def taskvec_sharding(mesh, ndim: int, *,
     taskvec dims, ``Replicate()`` elsewhere), and this rank's shard
     index, major→minor over the taskvec axes — the contiguous d-slice
     ``[shard · d_pad / n, (shard + 1) · d_pad / n)`` it holds."""
-    from torch.distributed.tensor import Replicate, Shard
     axes = taskvec_axes(mesh, rules=rules)
-    placements = tuple(Shard(ndim - 1) if name in axes else Replicate()
-                       for name in mesh.mesh_dim_names)
-    return placements, _flat_index(mesh, axes)
+    spec = [None] * (ndim - 1) + [axes if axes else None]
+    return spec_placements(spec, mesh, ndim), _flat_index(mesh, axes)
 
 
 # -- counted collectives ----------------------------------------------------

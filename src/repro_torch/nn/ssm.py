@@ -30,6 +30,7 @@ import torch
 from repro_torch.kernels.mlstm_chunk import mlstm_chunkwise
 from repro_torch.kernels.ref import logsigmoid as _logsigmoid
 from repro_torch.nn.module import Dense, Module, RMSNorm, _normal
+from repro_torch.nn.sharding import constrain
 
 
 def _headwise_rmsnorm(x, scale, eps: float = 1e-6):
@@ -111,12 +112,16 @@ class MLSTMBlock(Module):
         self.chunk = chunk
         self.dtype = dtype
         self.norm = RMSNorm(d_model, dtype=dtype)
-        self.up = Dense(d_model, 2 * self.d_inner, dtype=dtype)
-        self.wq = Dense(self.d_inner, self.qk_dim, dtype=dtype)
-        self.wk = Dense(self.d_inner, self.qk_dim, dtype=dtype)
-        self.wif = Dense(self.d_inner, 2 * n_heads, dtype=dtype)
-        self.down = Dense(self.d_inner, d_model, dtype=dtype,
-                          scale=1.0 / math.sqrt(self.d_inner))
+        self.up = Dense(d_model, 2 * self.d_inner, axes=("embed", "mlp"),
+                        dtype=dtype)
+        self.wq = Dense(self.d_inner, self.qk_dim, axes=("mlp", "heads"),
+                        dtype=dtype)
+        self.wk = Dense(self.d_inner, self.qk_dim, axes=("mlp", "heads"),
+                        dtype=dtype)
+        self.wif = Dense(self.d_inner, 2 * n_heads, axes=("mlp", None),
+                         dtype=dtype)
+        self.down = Dense(self.d_inner, d_model, axes=("mlp", "embed"),
+                          dtype=dtype, scale=1.0 / math.sqrt(self.d_inner))
 
     def init(self, generator, device=None, lead: Sequence[int] = ()):
         lead = tuple(lead)
@@ -134,10 +139,25 @@ class MLSTMBlock(Module):
             "down": self.down.init(generator, device, lead),
         }
 
+    def axes(self):
+        return {"norm": self.norm.axes(), "up": self.up.axes(),
+                "conv": {"w": ("conv", "mlp")},
+                "wq": self.wq.axes(), "wk": self.wk.axes(),
+                "wif": self.wif.axes(), "hnorm": {"scale": (None, None)},
+                "down": self.down.axes()}
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         return {"up": self.up.lora_init(generator, rank, device, lead),
                 "down": self.down.lora_init(generator, rank, device, lead)}
+
+    def lora_axes(self):
+        return {"up": self.up.lora_axes(), "down": self.down.lora_axes()}
+
+    def cache_axes(self):
+        return {"C": ("batch", None, None, "state"),
+                "n": ("batch", None, "state"), "m": ("batch", None),
+                "conv": ("batch", None, "mlp")}
 
     def init_cache(self, batch: int, max_len: int = 0, dtype=None,
                    device=None, lead: Sequence[int] = ()):
@@ -159,6 +179,7 @@ class MLSTMBlock(Module):
         xn = self.norm(params["norm"], x)
         uz = self.up(params["up"], xn, lora.get("up"), mode=mode)
         u, z = torch.chunk(uz, 2, dim=-1)
+        u = constrain(u, ("batch", None, "mlp"))
         uc, conv_state = causal_conv1d(u, params["conv"]["w"],
                                        state=conv_state)
         uc = torch.nn.functional.silu(uc)
@@ -247,10 +268,13 @@ class SLSTMBlock(Module):
         self.d_ffn = int(d_model * ffn_factor)
         self.dtype = dtype
         self.norm = RMSNorm(d_model, dtype=dtype)
-        self.wx = Dense(d_model, 4 * d_model, dtype=dtype)
+        self.wx = Dense(d_model, 4 * d_model, axes=("embed", "mlp"),
+                        dtype=dtype)
         self.norm2 = RMSNorm(d_model, dtype=dtype)
-        self.ffn_up = Dense(d_model, 2 * self.d_ffn, dtype=dtype)
-        self.ffn_down = Dense(self.d_ffn, d_model, dtype=dtype)
+        self.ffn_up = Dense(d_model, 2 * self.d_ffn, axes=("embed", "mlp"),
+                            dtype=dtype)
+        self.ffn_down = Dense(self.d_ffn, d_model, axes=("mlp", "embed"),
+                              dtype=dtype)
 
     def init(self, generator, device=None, lead: Sequence[int] = ()):
         lead = tuple(lead)
@@ -268,11 +292,26 @@ class SLSTMBlock(Module):
             "ffn_down": self.ffn_down.init(generator, device, lead),
         }
 
+    def axes(self):
+        return {"norm": self.norm.axes(), "wx": self.wx.axes(),
+                "r": {"w": (None, None, "head_dim", None)},
+                "hnorm": {"scale": (None, None)},
+                "norm2": self.norm2.axes(), "ffn_up": self.ffn_up.axes(),
+                "ffn_down": self.ffn_down.axes()}
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         return {"wx": self.wx.lora_init(generator, rank, device, lead),
                 "ffn_down": self.ffn_down.lora_init(generator, rank, device,
                                                     lead)}
+
+    def lora_axes(self):
+        return {"wx": self.wx.lora_axes(),
+                "ffn_down": self.ffn_down.lora_axes()}
+
+    def cache_axes(self):
+        ax = ("batch", None, "head_dim")
+        return {"c": ax, "n": ax, "h": ax, "m": ax}
 
     def init_cache(self, batch: int, max_len: int = 0, dtype=None,
                    device=None, lead: Sequence[int] = ()):
@@ -305,6 +344,9 @@ class SLSTMBlock(Module):
         gx = self.wx(params["wx"], xn, lora.get("wx"), mode=mode)
         gx = gx.reshape(b, s, 4, self.n_heads, self.dh).float()
         gx = gx.permute(1, 0, 3, 2, 4)           # (S, B, H, 4, dh)
+        # the recurrence steps along S and splits the 4 gates: under a
+        # mesh both dims are whole on each rank
+        gx = constrain(gx, (None, "batch", None, None, None))
         r = params["r"]["w"]
         hs = []
         for t in range(s):
@@ -365,12 +407,14 @@ class Mamba(Module):
         self.conv_kernel = 4
         self.dt_rank = max(16, d_model // 16)
         self.dtype = dtype
-        self.in_proj = Dense(d_model, 2 * self.d_inner, dtype=dtype)
-        self.x_proj = Dense(self.d_inner, self.dt_rank + 2 * d_state,
-                            dtype=dtype)
-        self.dt_proj = Dense(self.dt_rank, self.d_inner, bias=True,
+        self.in_proj = Dense(d_model, 2 * self.d_inner, axes=("embed", "mlp"),
                              dtype=dtype)
-        self.out_proj = Dense(self.d_inner, d_model, dtype=dtype,
+        self.x_proj = Dense(self.d_inner, self.dt_rank + 2 * d_state,
+                            axes=("mlp", None), dtype=dtype)
+        self.dt_proj = Dense(self.dt_rank, self.d_inner, bias=True,
+                             axes=(None, "mlp"), dtype=dtype)
+        self.out_proj = Dense(self.d_inner, d_model, axes=("mlp", "embed"),
+                              dtype=dtype,
                               scale=1.0 / math.sqrt(self.d_inner))
 
     def init(self, generator, device=None, lead: Sequence[int] = ()):
@@ -391,12 +435,27 @@ class Mamba(Module):
             "out_proj": self.out_proj.init(generator, device, lead),
         }
 
+    def axes(self):
+        return {"in_proj": self.in_proj.axes(),
+                "conv": {"w": ("conv", "mlp")},
+                "x_proj": self.x_proj.axes(), "dt_proj": self.dt_proj.axes(),
+                "a_log": ("mlp", "state"), "d": ("mlp",),
+                "out_proj": self.out_proj.axes()}
+
     def lora_init(self, generator, rank: int, device=None,
                   lead: Sequence[int] = ()):
         return {"in_proj": self.in_proj.lora_init(generator, rank, device,
                                                   lead),
                 "out_proj": self.out_proj.lora_init(generator, rank, device,
                                                     lead)}
+
+    def lora_axes(self):
+        return {"in_proj": self.in_proj.lora_axes(),
+                "out_proj": self.out_proj.lora_axes()}
+
+    def cache_axes(self):
+        return {"ssm": ("batch", "mlp", "state"),
+                "conv": ("batch", None, "mlp")}
 
     def init_cache(self, batch: int, max_len: int = 0, dtype=None,
                    device=None, lead: Sequence[int] = ()):
@@ -415,6 +474,7 @@ class Mamba(Module):
         xz = self.in_proj(params["in_proj"], x, lora.get("in_proj"),
                           mode=mode)
         xi, z = torch.chunk(xz, 2, dim=-1)
+        xi = constrain(xi, ("batch", None, "mlp"))
         xc, conv_state = causal_conv1d(xi, params["conv"]["w"],
                                        state=conv_state)
         xc = _silu(xc)
@@ -455,7 +515,11 @@ class Mamba(Module):
         xc, z, dt, bmat, cmat, conv_state = self._inputs(
             params, x, lora, st["conv"], mode)
         a = -torch.exp(params["a_log"])                         # (Din, N)
-        h, ys = self._scan(a, xc, dt, bmat, cmat, st["ssm"])
+        # the scan steps along S: under a mesh S is whole on each rank
+        h, ys = self._scan(a, constrain(xc, ("batch", None, "mlp")),
+                           constrain(dt, ("batch", None, "mlp")),
+                           constrain(bmat, ("batch", None, None)),
+                           constrain(cmat, ("batch", None, None)), st["ssm"])
         y = ys.to(x.dtype) + xc * params["d"].to(x.dtype)
         y = y * _silu(z)
         out = self.out_proj(params["out_proj"], y, lora.get("out_proj"),
