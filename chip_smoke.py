@@ -45,9 +45,13 @@ Phases (any failure raises and the script exits nonzero):
              → ``RoundEngine.run_packed`` → ``downlinks``) with its launch
              counts, against the same round with the plain versions and
              against the packed round, bit for bit.
-5. app     — the quickstart (6 tasks in 3 groups, 9 clients,
-             ``MLPBackbone(32, hidden=64, lora_rank=8)``) through
-             ``FedSimulator`` for 3 rounds with MaTU and FedAvg.
+5. app     — the quickstart through ``examples/quickstart_torch.py::run``
+             (6 tasks in 3 groups, 9 clients, ``MLPBackbone(32,
+             hidden=64, lora_rank=8)``) for 3 rounds evaluated every
+             round: the individual baseline, then MaTU and FedAvg
+             through ``FedSimulator``, each run's launches exact (MaTU
+             kernel 1 twice a round, 2 and 3 once; FedAvg and the
+             baseline none).
 6. serve   — multi-tenant serving of qwen2-0.5b at full width (24 layers,
              d_model 896, vocab 151,936; random weights from a seed).
              Kernel checks: ``modulated_matmul`` at B = 8 on the three
@@ -125,6 +129,28 @@ Phases (any failure raises and the script exits nonzero):
              first), ``unify_with_modulators`` → ``ClientUpload`` → one
              ``MaTUServer.round`` (kernels 1–3 launched); step wall,
              tokens/s, round wall and peak memory.
+9b. examples — the two examples that run a zoo model, at full width
+             (:func:`examples_phase`, no profiling):
+             ``examples/fed_finetune_lm_torch.py`` ``--rounds 1
+             --local-steps 2`` on codeqwen1.5-7b as published (bf16, 32
+             layers, d_model 4,096, vocab 92,416; LoRA d 17,367,136
+             held), its round's launches exact (kernels 1–3 once), step
+             and round walls, peak memory, its checkpoint reloaded
+             bitwise the server's task vectors; then
+             ``examples/serve_decode_torch.py --quick`` on qwen2.5-3b in
+             fp32 (36 layers, d_model 2,048; LoRA d 12,238,956 held): the
+             round's launches, kernel 9 exactly 1,728 times a fused
+             generate (216 a forward, 8 forwards) and never on the dense
+             decoder, fused ≡ dense tokens on all three mixes, one routed
+             tree across mixes, req/s and peak memory.  After each
+             example, outside the count: its round re-run on its uploads
+             through kernels 1–3 and through their plain versions,
+             bitwise; for the serving example, kernel 9 on each of its
+             LoRA factor shapes (K up to 11,008) at S = 1 and the
+             prompt's 16 against its plain version, and each mix's fused
+             prefill logits against the dense-routed ones at the fp32
+             bar, with a changed task moving a request's logits past
+             it.  ``--only examples`` runs it alone.
 10. async  — async and pipelined MaTU rounds, on the baselines phase's
              setting (ViT-B/32 at full width, 8 clients × 2 of 8 tasks)
              and at the full-width round: (a) 2 rounds each of sync
@@ -347,9 +373,9 @@ mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
 for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
 whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
-baselines``, ``--only lmtrain``, ``--only async``, ``--only
-population``, ``--only shard`` and ``--only tp`` the vit, baselines,
-lmtrain, async, population, shard or tp phase; ``--only xlstm`` the xlstm
+baselines``, ``--only lmtrain``, ``--only examples``, ``--only async``,
+``--only population``, ``--only shard`` and ``--only tp`` the vit,
+baselines, lmtrain, examples, async, population, shard or tp phase; ``--only xlstm`` the xlstm
 phase (kernel 10's checks included); ``--only mix`` times Eq. 7's
 product as one GEMM and in ``ref._mix``'s blocks at the round's,
 whisper's and the vlm's widths, and the round phase under each
@@ -1341,56 +1367,120 @@ def devtime_phase(torch, dev):
     return out
 
 
-def app_phase(torch, dev):
-    import numpy as np
-    from repro_torch.data.dirichlet import dirichlet_split
-    from repro_torch.data.synthetic import make_constellation
-    from repro_torch.fed.simulator import FedConfig, FedSimulator
-    from repro_torch.fed.strategies import FedAvgStrategy, MaTUStrategy
-    from repro_torch.fed.testbed import MLPBackbone
+@contextlib.contextmanager
+def wrap_method(cls, method: str, after, before=lambda obj: None):
+    """Within the block, every call of ``cls.method`` runs as it is,
+    between ``state = before(obj)`` and ``after(obj, state)``."""
+    orig = getattr(cls, method)
+
+    def wrapped(self, *args, **kw):
+        state = before(self)
+        out = orig(self, *args, **kw)
+        after(self, state)
+        return out
+
+    setattr(cls, method, wrapped)
+    try:
+        yield
+    finally:
+        setattr(cls, method, orig)
+
+
+def counted_calls(cls, method: str, calls: list, key=lambda obj: None):
+    """Within the block, every call of ``cls.method`` appends (``key(obj)``,
+    the launch counts it added) to ``calls``.  The examples' entry points
+    run whole, and this reads which of their calls launched what."""
     from repro_torch.kernels import ops
 
-    n_tasks = 6
-    con = make_constellation(n_tasks=n_tasks, n_groups=3, feat_dim=32,
-                             n_classes=8, conflict_pairs=[(0, 1)], seed=0)
-    split = dirichlet_split(n_clients=9, n_tasks=n_tasks, n_classes=8,
-                            zeta_t=0.5, tasks_per_client=2, seed=0)
-    bb = MLPBackbone(32, hidden=64, lora_rank=8)
-    cfg = FedConfig(rounds=3, local_steps=25, lr=1e-2, eval_every=1, seed=0)
-    counts = {}
-    for name, cls in [("matu", MaTUStrategy), ("fedavg", FedAvgStrategy)]:
-        ops.reset_launch_counts()
-        strat = cls(n_tasks, bb.d, device=dev)
-        t0 = time.perf_counter()
-        hist = FedSimulator(cfg, con, split, bb, strat, device=dev).run()
+    def record(obj, before):
+        after = ops.launch_counts()
+        calls.append((key(obj), {k: after[k] - before[k] for k in after}))
+    return wrap_method(cls, method, record,
+                       before=lambda obj: ops.launch_counts())
+
+
+def peak_after(torch, cls, method: str, peaks: list):
+    """Within the block, every call of ``cls.method`` appends the peak
+    device memory (GiB) up to its end to ``peaks`` and resets the peak:
+    the peak read after the block is then that of what came after the
+    last such call."""
+    def mark(obj, _):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts[name] = ops.launch_counts()
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
+    return wrap_method(cls, method, mark)
+
+
+def examples_module(name: str):
+    """``examples/<name>.py`` of this checkout, imported (the examples are
+    scripts; their directory goes on the path, as running one puts it)."""
+    import importlib
+    ex = os.path.join(ROOT, "examples")
+    if ex not in sys.path:
+        sys.path.insert(0, ex)
+    return importlib.import_module(name)
+
+
+def nonzero_counts(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+# the quickstart's MaTU rounds: kernel 1 at both ends of the wire (the
+# clients' unify and the downlinks' re-unify), kernels 2 and 3 once
+APP_MATU_A_ROUND = {"fused_unify_packed": 2, "masked_agg_batched_packed": 1,
+                    "sign_sim_packed": 1}
+
+
+def app_phase(torch, dev):
+    """The quickstart through ``examples/quickstart_torch.py::run`` (6
+    tasks in 3 groups, 9 clients, ``MLPBackbone(32, hidden=64,
+    lora_rank=8)``) for 3 rounds, evaluated every round: the individual
+    baseline, then MaTU and FedAvg through ``FedSimulator``, each run's
+    launches held exact.  Returns each run's launch counts."""
+    from repro_torch.fed.simulator import FedConfig, FedSimulator
+    from repro_torch.kernels import ops
+    quickstart = examples_module("quickstart_torch")
+    cfg = FedConfig(rounds=3, local_steps=25, lr=1e-2, eval_every=1, seed=0)
+    ops.reset_launch_counts()
+    runs = []
+    t0 = time.perf_counter()
+    with counted_calls(FedSimulator, "run", runs,
+                       key=lambda sim: sim.strategy.name):
+        res = quickstart.run(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(runs)
+    total = ops.launch_counts()
+    want = {"matu": {k: cfg.rounds * n for k, n in APP_MATU_A_ROUND.items()},
+            "fedavg": {}}
+    ind = float(sum(res["individual"].values()) / len(res["individual"]))
+    log(f"app individual: mean acc {ind:.4f} (6 tasks, "
+        f"{10 * cfg.local_steps} steps each)")
+    for name in ("matu", "fedavg"):
+        hist, _strat = res[name]
         for r, acc in zip(hist.rounds, hist.mean_acc):
             log(f"app {name} round {r}: mean acc {acc:.4f}")
-        if not all(0.0 <= a <= 1.0 for a in hist.mean_acc):
-            raise AssertionError(f"app {name}: accuracy out of range")
-        log(f"app {name}: {wall:.2f} s for {cfg.rounds} rounds, uplink "
-            f"{hist.uplink_bits_per_round} bits, launches {counts[name]}")
-        if name == "matu":
-            if min(counts[name][k] for k in ops.PACKED_ROUND_KERNELS) \
-                    < cfg.rounds:
-                raise AssertionError(f"app matu: kernels not launched every "
-                                     f"round: {counts[name]}")
-            s = strat.server.last_similarity.cpu().numpy()
-            groups = [con.group_of(t) for t in range(n_tasks)]
-            pairs = [(a, b) for a in range(n_tasks)
-                     for b in range(a + 1, n_tasks)]
-            same = np.mean([s[a, b] for a, b in pairs
-                            if groups[a] == groups[b]])
-            cross = np.mean([s[a, b] for a, b in pairs
-                             if groups[a] != groups[b]])
-            log(f"app matu: within-group S {same:.4f}, cross-group S "
-                f"{cross:.4f}")
-            if not same > cross:
-                raise AssertionError("app matu: within-group S is not above "
-                                     "cross-group S")
-    return counts
+        if hist.rounds != list(range(1, cfg.rounds + 1)) or \
+                not all(0.0 <= a <= 1.0 for a in hist.mean_acc):
+            raise AssertionError(f"app {name}: rounds {hist.rounds} or an "
+                                 f"accuracy out of range {hist.mean_acc}")
+        log(f"app {name}: uplink {hist.uplink_bits_per_round} bits, "
+            f"launches {nonzero_counts(counts[name])}")
+        if nonzero_counts(counts[name]) != want[name]:
+            raise AssertionError(f"app {name}: launched "
+                                 f"{nonzero_counts(counts[name])}, expected "
+                                 f"{want[name]}")
+    if nonzero_counts(total) != want["matu"]:
+        raise AssertionError(f"app: the run launched {nonzero_counts(total)}"
+                             f" in all (the individual baseline none), "
+                             f"expected {want['matu']}")
+    log(f"app: {wall:.2f} s for the individual baseline and {cfg.rounds} "
+        f"rounds each of MaTU and FedAvg; within-group S "
+        f"{res['within']:.4f}, cross-group S {res['cross']:.4f}")
+    if not res["within"] > res["cross"]:
+        raise AssertionError("app matu: within-group S is not above "
+                             "cross-group S")
+    return {name: counts[name] for name in ("matu", "fedavg")}
 
 # -- vit phase: federated LoRA training of ViT-B/32 at full width -----------
 
@@ -4167,6 +4257,266 @@ def lmtrain_phase(torch, dev, cfg=None):
                 profile=dict(wall_ms=wall_p, busy_ms=busy_p), **checks)
 
 
+# -- examples phase: the federated-LM and serving examples at full width ----
+
+EX_LM_ARCH = "codeqwen1.5-7b"  # as published, bf16
+EX_LM_D = 17_367_136           # rank 16 on mixer/wq, mixer/wo, ffn/down + alphas
+EX_LM_ARGS = ["--rounds", "1", "--local-steps", "2"]
+EX_SERVE_ARCH = "qwen2.5-3b"   # at full width, in fp32 (the example's dtype)
+EX_SERVE_D = 12_238_956
+EX_SERVE_ARGS = ["--quick"]
+# one MaTU round at the server: the downlinks' re-unify (kernel 1), Eq. 3
+# + 4 (kernel 2) and Eq. 5 (kernel 3); the clients unify in plain torch
+EX_ROUND = {"fused_unify_packed": 1, "masked_agg_batched_packed": 1,
+            "sign_sim_packed": 1}
+EX_SERVE_NEW = 8               # the serving example's new tokens a request
+# qwen2.5-3b's LoRA factor shapes at rank 16: wq and wo a (2048, 16),
+# down's a (11008, 16), every b (16, 2048)
+EX_SERVE_LEAVES = [(2048, 16), (11008, 16), (16, 2048)]
+
+
+def example_round_check(torch, server, uploads, label):
+    """The example's round re-run on its uploads through kernels 1–3 and
+    through their plain versions (:func:`round_against_plain`): the
+    kernels at the model's d against the plain versions, bitwise."""
+    from repro_torch.core.engine import pack_uploads
+    packed = pack_uploads(uploads, server.cfg.n_tasks, device=server.device)
+    tvs = round_against_plain(torch, server, packed, label)
+    check_equal(torch, f"{label}round on the example's uploads, task vectors"
+                " against the example's own round", tvs,
+                server.last_task_vectors)
+    del packed, tvs
+
+
+def example_lm_part(torch, dev, card):
+    """``fed_finetune_lm_torch.main`` on codeqwen1.5-7b as published
+    (bf16, full width, depth uncut), launches counted from 0: the LoRA d,
+    each local step's wall, the round's wall and launches (exact), peak
+    memory; the round re-run on its uploads through the kernels and
+    through their plain versions, bitwise; the saved checkpoint
+    reloaded bitwise the server's task vectors.  Returns its numbers."""
+    from repro_torch.ckpt.checkpoint import load
+    from repro_torch.configs.base import load_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.builders import ArchModel
+    fed_lm = examples_module("fed_finetune_lm_torch")
+    cfg = load_arch(EX_LM_ARCH)
+    init_peak = []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.chdir(ROOT), \
+            peak_after(torch, ArchModel, "init", init_peak):
+        out = fed_lm.main(EX_LM_ARGS, cfg=cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after_init = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(init_peak + [after_init])
+    total = nonzero_counts(ops.launch_counts())
+    space, server = out["space"], out["server"]
+    if space.d != EX_LM_D:
+        raise AssertionError(f"examples {EX_LM_ARCH}: LoRA d {space.d} != "
+                             f"{EX_LM_D}")
+    # the clients unify in plain torch: every launch is the round's
+    if total != EX_ROUND or len(out["round_s"]) != 1:
+        raise AssertionError(f"examples {EX_LM_ARCH}: {len(out['round_s'])}"
+                             f" rounds launched {total}; expected one, "
+                             f"{EX_ROUND}")
+    losses = out["task_losses"][0]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"examples {EX_LM_ARCH}: losses {losses}")
+    tv = server.last_task_vectors
+    if tv.shape != (3, EX_LM_D) or not bool(torch.isfinite(tv).all()):
+        raise AssertionError(f"examples {EX_LM_ARCH}: bad task vectors")
+    example_round_check(torch, server, out["uploads"],
+                        f"examples {EX_LM_ARCH} ")
+    t1 = time.perf_counter()
+    back, meta = load(os.path.join(ROOT, fed_lm.CKPT),
+                      {"task_vectors": torch.empty_like(tv)})
+    load_s = time.perf_counter() - t1
+    if not torch.equal(back["task_vectors"], tv) or meta != {"rounds": 1}:
+        raise AssertionError(f"examples {EX_LM_ARCH}: the reloaded "
+                             f"checkpoint is not the server's task vectors")
+    steps = [1e3 * x for x in out["step_s"]]
+    log(f"examples {EX_LM_ARCH} ({cfg.dtype}, full width, {cfg.n_layers} "
+        f"layers): LoRA d = {space.d} (held), layout {space.fingerprint}; "
+        f"{len(steps)} local steps at B 4 x S 48, walls "
+        + ", ".join(f"{x:.1f}" for x in steps)
+        + f" ms (median {statistics.median(steps):.1f}); round "
+        f"{1e3 * out['round_s'][0]:.2f} ms, launches {total}, kernels = "
+        f"plain versions on its uploads (bitwise); losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; uplink {out['uplink_bits'][0]} bits; checkpoint reloaded "
+        f"bitwise in {load_s:.2f} s; main {wall:.2f} s, peak device memory "
+        f"{peak:.3f} GiB ({init_peak[0]:.3f} by the end of the random "
+        f"init, {after_init:.3f} after it) ({card})")
+    return dict(d=space.d, step_ms=steps, round_ms=1e3 * out["round_s"][0],
+                launches=total, wall_s=wall, peak_gib=peak,
+                init_peak_gib=init_peak[0], after_init_peak_gib=after_init,
+                uplink_bits=out["uplink_bits"][0], losses=losses)
+
+
+def example_serve_part(torch, dev, card):
+    """``serve_decode_torch.main(["--quick"])`` on qwen2.5-3b at full
+    width in fp32, launches counted from 0: the LoRA d, the round's
+    launches and every generate's (kernel 9 exactly 216 a forward on the
+    fused decoder, none on the dense one), fused ≡ dense tokens (the
+    example asserts it on the timed mix; here on every mix, after the
+    counted run), one routed tree across mixes on both decoders, req/s,
+    peak memory.  Then, outside the count: the round re-run on its
+    uploads through the kernels and through their plain versions,
+    bitwise; kernel 9 on each LoRA leaf shape at S = 1 and the prompt's
+    length against its plain version (:func:`serve_kernel_checks`);
+    each mix's fused prefill logits against the dense-routed ones at the
+    fp32 bar, and a changed task moving a request's logits past that
+    bar (the check sees the modulated term).  Returns its numbers."""
+    import dataclasses
+    from repro_torch.configs.base import load_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.builders import ArchModel
+    from repro_torch.serve import MultiTenantDecoder
+    serve = examples_module("serve_decode_torch")
+    cfg = dataclasses.replace(load_arch(EX_SERVE_ARCH), dtype=torch.float32)
+    per_gen = launches_per_forward(cfg) * EX_SERVE_NEW
+    gens, init_peak = [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_calls(MultiTenantDecoder, "generate", gens,
+                          key=lambda dec: "fused" if dec.fused else "dense"), \
+            peak_after(torch, ArchModel, "init", init_peak):
+        out = serve.main(EX_SERVE_ARGS, cfg=cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after_init = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(init_peak + [after_init])
+    total = nonzero_counts(ops.launch_counts())
+    d = out["store"].space.d
+    if d != EX_SERVE_D:
+        raise AssertionError(f"examples {EX_SERVE_ARCH}: LoRA d {d} != "
+                             f"{EX_SERVE_D}")
+    want_gen = {"dense": {}, "fused": {"modulated_matmul": per_gen}}
+    bad = [(k, nonzero_counts(c)) for k, c in gens
+           if nonzero_counts(c) != want_gen[k]]
+    n_fused = sum(k == "fused" for k, _ in gens)
+    # the generates launch kernel 9 alone: kernels 1–3 are the one round's
+    want_total = dict(EX_ROUND, modulated_matmul=n_fused * per_gen)
+    if bad or n_fused != 3 or total != want_total:
+        raise AssertionError(f"examples {EX_SERVE_ARCH}: generates off "
+                             f"{bad} ({n_fused} fused), the run {total}; "
+                             f"expected {per_gen} a fused generate, 3 "
+                             f"fused, {want_total}")
+    round_launches = {k: v for k, v in total.items() if k in EX_ROUND}
+    if out["one_route"] != {"dense": True, "fused": True}:
+        raise AssertionError(f"examples {EX_SERVE_ARCH}: routed trees "
+                             f"differ across mixes {out['one_route']}")
+    for mix, dense_tokens in zip(out["mixes"], out["mix_tokens"]):
+        fused_tokens = out["fused"].generate(out["prompts"], mix)
+        if not torch.equal(fused_tokens, dense_tokens):
+            raise AssertionError(f"examples {EX_SERVE_ARCH}: fused tokens "
+                                 f"differ from dense on mix {mix}")
+    label = f"examples {EX_SERVE_ARCH} "
+    example_round_check(torch, out["server"], out["uploads"], label)
+    leaves = sorted({tuple(leaf.shape[-2:])
+                     for leaf in out["store"].space.leaves
+                     if len(leaf.shape) >= 2})
+    if leaves != sorted(EX_SERVE_LEAVES):
+        raise AssertionError(f"{label}LoRA factor shapes {leaves} != "
+                             f"{EX_SERVE_LEAVES}")
+    mm_per = serve_kernel_checks(torch, dev, [
+        (kn, (1, out["prompts"].shape[1]), True) for kn in EX_SERVE_LEAVES])
+    mm_rel = max(v["rel"] for v in mm_per.values())
+    logit_err, mix_moves = example_logit_checks(torch, out, label)
+    rep = out["report"]
+    log(f"examples {EX_SERVE_ARCH} (fp32, full width, {cfg.n_layers} "
+        f"layers): LoRA d = {d} (held); round launches {round_launches}, "
+        f"kernels = plain versions on its uploads (bitwise); kernel 9 on "
+        f"{EX_SERVE_LEAVES} at S 1 and {out['prompts'].shape[1]}: "
+        f"|err|/(|x||w|) at most {mm_rel:.2e} (bar {MM_RTOL}); fused vs "
+        f"dense prefill logits max|err| {logit_err:.3e} on every mix, a "
+        f"changed task moves a request's logits by "
+        f"{min(mix_moves):.3e} to {max(mix_moves):.3e}; "
+        f"{len(gens)} generates (B {len(out['mixes'][0])}, prompt "
+        f"{out['prompts'].shape[1]}, {EX_SERVE_NEW} new), kernel 9 "
+        f"{per_gen} a fused generate, {n_fused * per_gen} in all, none "
+        f"dense; store {rep['tasks']} tasks in {rep['resident_bytes']} B vs "
+        f"{rep['checkpoint_bytes']} B ({rep['ratio']:.2f}x); dense "
+        f"{out['dense_rps']:.2f} req/s, fused {out['fused_rps']:.2f} req/s; "
+        f"fused = dense tokens on all {len(out['mixes'])} mixes; one routed "
+        f"tree across mixes on both; main {wall:.2f} s, peak device memory "
+        f"{peak:.3f} GiB ({init_peak[0]:.3f} by the end of the random "
+        f"init, {after_init:.3f} after it) ({card})")
+    return dict(d=d, launches=round_launches, per_fused_generate=per_gen,
+                modulated_matmul=n_fused * per_gen,
+                dense_rps=out["dense_rps"], fused_rps=out["fused_rps"],
+                report=rep, wall_s=wall, peak_gib=peak,
+                init_peak_gib=init_peak[0], after_init_peak_gib=after_init)
+
+
+def example_logit_checks(torch, out, label):
+    """The serving example's prompts prefilled through each mix's fused
+    and dense-routed trees: fused against dense within FP32_RTOL /
+    FP32_ATOL on every mix, and each request whose task differs between
+    the first mix and the all-zeros one must move its dense logits past
+    that bar, or the fused check could not see a wrong modulated term.
+    Returns (max |fused - dense|, each such request's max logit move)."""
+    from repro_torch.serve.router import route_batch
+    dense, store, prompts = out["dense"], out["store"], out["prompts"]
+    prefill = served_prefill(dense.model, dense.params, {"tokens": prompts},
+                             EX_SERVE_NEW)
+    logits, err = {}, 0.0
+    for i, mix in enumerate(out["mixes"]):
+        for fused in (True, False):
+            logits[i, fused] = prefill(route_batch(store, mix,
+                                                   fused=fused))[0]
+        torch.cuda.synchronize()
+        e = max_abs(torch, logits[i, True], logits[i, False])
+        err = max(err, e)
+        if not torch.allclose(logits[i, True], logits[i, False],
+                              rtol=FP32_RTOL, atol=FP32_ATOL):
+            raise AssertionError(f"{label}fused vs dense-routed prefill "
+                                 f"logits beyond rtol {FP32_RTOL}, atol "
+                                 f"{FP32_ATOL} on mix {mix} (max|err| {e})")
+    first, zeros = out["mixes"][0], out["mixes"][2]
+    moves = []
+    for r, (a, z) in enumerate(zip(first, zeros)):
+        if a == z:
+            continue
+        la, lz = logits[0, False][r], logits[2, False][r]
+        moves.append(max_abs(torch, la, lz))
+        if torch.allclose(la, lz, rtol=FP32_RTOL, atol=FP32_ATOL):
+            raise AssertionError(f"{label}request {r}'s logits under task "
+                                 f"{a} and task {z} agree within the fp32 "
+                                 f"bar: the check cannot see the modulated "
+                                 f"term")
+    if not moves:
+        raise AssertionError(f"{label}no request changes task across mixes")
+    return err, moves
+
+
+def examples_phase(torch, dev, card):
+    """The federated-LM example on codeqwen1.5-7b (bf16) and the serving
+    example on qwen2.5-3b (fp32), both at full width; no profiling.
+    Returns both parts' numbers and the launches of kernels 1–3 and 9
+    over the phase."""
+    import gc
+    t0 = time.perf_counter()
+    lm = example_lm_part(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = example_serve_part(torch, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: lm["launches"].get(k, 0) + serve["launches"].get(k, 0)
+                for k in EX_ROUND}
+    launches["modulated_matmul"] = serve["modulated_matmul"]
+    wall = time.perf_counter() - t0
+    log(f"examples phase: {wall:.1f} s ({card})")
+    return dict(lm=lm, serve=serve, launches=launches, wall_s=wall)
+
+
 # -- serve phase: multi-tenant qwen2-0.5b at full width -----------------------
 
 SERVE_ARCH = "qwen2-0.5b"
@@ -4184,7 +4534,10 @@ LAYER_MIX = {(896, 16): 2, (4864, 16): 1, (16, 896): 3}
 XLSTM_UNIT_MIX = {(2048, 16): 2, (4096, 16): 1, (2730, 16): 1,
                   (16, 8192): 2, (16, 2048): 2}
 # |kernel - plain| <= MM_RTOL * (|x| @ |w_eff|): both sum K fp32 products
-# in different orders (worst case 2 K 2^-24 = 5.8e-4 at K = 4864)
+# in different orders.  The worst case, 2 K 2^-24, is 5.8e-4 at K = 4864
+# and 1.3e-3 at K = 11,008 (qwen2.5-3b's ffn/down); rounding errors of
+# random sign grow as sqrt(K) 2^-24, 6.3e-6 at K = 11,008, so the bar
+# keeps a factor of ~16 over that at the largest K it meets.
 MM_RTOL = 1e-4
 # bf16 model, fused route through the kernels against the same route
 # through the plain versions: ||l_k - l_p|| / ||l_p|| of the prefill
@@ -5392,17 +5745,11 @@ def launches_per_forward(cfg) -> int:
     return 2 * len(cfg.lora_targets()) * cfg.n_layers
 
 
-def round_kernels_at(torch, dev, server, round_data):
-    """Kernels 1–3 at the serve round's d, against their plain versions
-    bitwise and timed by device function: the round re-run through the
-    kernels and through the plain versions (τ̂, α_num, S, task vectors
-    and downlink bits and λ equal); kernel 1 on the downlink's slots, kernel 2
-    on the round's dense inputs, kernel 3 on the task vectors' sign
-    planes.  Returns {kernel name: its numbers at this d}."""
-    from repro_torch.kernels import bitpack, fused_unify, masked_agg, ops
-    uni, words, lams, tasks, valid, sizes, ks = round_data
-    d = uni.shape[1]
-    packed = _pack(torch, dev, server, round_data)
+def round_against_plain(torch, server, packed, label=""):
+    """A packed round re-run through the kernels and through their plain
+    versions: τ̂, α_num, S, task vectors, downlink bits and λ equal.
+    Returns the kernels' task vectors."""
+    d = packed.d
     # the kernel round's outputs wait on the host while the plain round,
     # whose fp32 unify takes several (N, K, d) temporaries, runs
     fields = ("tau_hats", "alpha_num", "n_held", "similarity",
@@ -5415,16 +5762,30 @@ def round_kernels_at(torch, dev, server, round_data):
     want = {f: getattr(out_p, f).cpu() for f in fields}
     del out_p
     for f in fields[:5]:
-        check_equal(torch, f"round at d={d} {f}", got[f], want[f])
-    on_host = valid.cpu()
-    check_equal(torch, f"round at d={d} downlink words",
+        check_equal(torch, f"{label}round at d={d} {f}", got[f], want[f])
+    on_host = packed.slot_valid.cpu()
+    check_equal(torch, f"{label}round at d={d} downlink words",
                 got["down_masks"][on_host], want["down_masks"][on_host])
-    check_equal(torch, f"round at d={d} downlink lambda",
+    check_equal(torch, f"{label}round at d={d} downlink lambda",
                 got["down_lams"][on_host], want["down_lams"][on_host])
-    check_equal(torch, f"round at d={d} downlink bf16 bits",
+    check_equal(torch, f"{label}round at d={d} downlink bf16 bits",
                 bf16_bits(torch, got["down_unified"]),
                 bf16_bits(torch, want["down_unified"]))
-    del got, want
+    return tvs
+
+
+def round_kernels_at(torch, dev, server, round_data):
+    """Kernels 1–3 at the serve round's d, against their plain versions
+    bitwise and timed by device function: the round re-run through the
+    kernels and through the plain versions (τ̂, α_num, S, task vectors
+    and downlink bits and λ equal); kernel 1 on the downlink's slots, kernel 2
+    on the round's dense inputs, kernel 3 on the task vectors' sign
+    planes.  Returns {kernel name: its numbers at this d}."""
+    from repro_torch.kernels import bitpack, fused_unify, masked_agg, ops
+    uni, words, lams, tasks, valid, sizes, ks = round_data
+    d = uni.shape[1]
+    packed = _pack(torch, dev, server, round_data)
+    tvs = round_against_plain(torch, server, packed)
     out = {}
     n_tasks = server.cfg.n_tasks
     slots = tvs[torch.clamp(tasks.long(), max=n_tasks - 1)]
@@ -6247,7 +6608,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    setup(torch)
+    card = setup(torch)
     if sys.argv[1:] == ["--only", "round"]:
         # kernels 1-3 at the full-width round and the whole-round gates
         # alone: a quick loop for a round-kernel change; no summary, no
@@ -6398,13 +6759,21 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--only", "examples"]:
+        # the examples phase alone: the federated-LM and serving examples
+        # at full width; no summary, no "ok" line
+        log("== examples phase alone ==")
+        out = examples_phase(torch, dev, card)
+        log(f"total {time.perf_counter() - t_start:.1f} s ({card})")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}; takes none, "
               f"--only round, --only bool, --only devtime, --only mlstm, "
               f"--only granite, --only whisper, --only hymba, --only vlm, "
               f"--only deepseek, --only vit, --only baselines, --only "
-              f"lmtrain, --only async, --only population, --only shard, "
-              f"--only tp, --only xlstm or --only mix",
+              f"lmtrain, --only examples, --only async, --only population, "
+              f"--only shard, --only tp, --only xlstm or --only mix",
               file=sys.stderr)
         return 2
     def phase(name):
@@ -6427,6 +6796,8 @@ def main() -> int:
     base = baselines_phase(torch, dev, setting=setting)
     phase("lmtrain")
     lmtrain = lmtrain_phase(torch, dev)
+    phase("examples")
+    ex = examples_phase(torch, dev, card)
     phase("async")
     asy = async_phase(torch, dev, setting=setting)
     del setting
@@ -6499,7 +6870,10 @@ def main() -> int:
                                  f"{vlm['launches']['modulated_matmul']}"
                                  " in the vlm generate, "
                                  f"{deepseek['launches']['modulated_matmul']}"
-                                 " in the deepseek generate)",
+                                 " in the deepseek generate, "
+                                 f"{ex['launches']['modulated_matmul']} in "
+                                 "the examples phase's three fused "
+                                 "qwen2.5-3b fp32 generates)",
              "mlstm_chunkwise": "one full-width bf16 xlstm-1.3b generate "
                                 "(xlstm phase)"}
     for name, row in (list(rows.items()) + list(bool_rows.items())
@@ -6518,7 +6892,9 @@ def main() -> int:
                            f"{shard['launches'].get(name, 0)} in the shard "
                            f"phase's {SHARD_RANKS} ranks, "
                            f"{tp['launches'].get(name, 0)} in the tp "
-                           "phase's launcher fed run)"
+                           "phase's launcher fed run, "
+                           f"{ex['launches'].get(name, 0)} in the examples "
+                           "phase's codeqwen1.5-7b and qwen2.5-3b rounds)"
                            if name in rows else
                            "bool round (bool phase, 1 round; "
                            f"{asy['launches'][name]} more in the async "
@@ -6529,6 +6905,7 @@ def main() -> int:
                            f"phase's {SHARD_RANKS} ranks)"),
             shard_launches=shard["launches"].get(name, 0),
             tp_launches=tp["launches"].get(name, 0),
+            examples_launches=ex["launches"].get(name, 0),
             app_launches=app_counts["matu"][name], **row))
     def fmt(x):
         return "none" if x is None else f"{x:.4f}"
@@ -6539,7 +6916,7 @@ def main() -> int:
         f"bound_ms={fmt(k['bound_ms'])} plain_ms={fmt(k['plain_ms'])} "
         f"library_ms={fmt(k['library_ms'])} [{checks[k['name']]}]"
         for k in kernels))
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,8 +51,65 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def tree_size(tree: Tree) -> int:
+    """Total number of scalar entries across all leaves."""
+    return sum(leaf.numel() for leaf in tree_leaves(tree))
+
+
+def tree_flatten_vector(tree: Tree, dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """All leaves raveled into one 1-D vector of ``dtype``, in canonical
+    order (sorted dict keys, the JAX package's leaf order), so
+    :func:`tree_unflatten_vector` round-trips it exactly."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((0,), dtype=dtype)
+    return torch.cat([leaf.reshape(-1).to(dtype) for leaf in leaves])
+
+
+def tree_unflatten_vector(vector: torch.Tensor, like: Tree) -> Tree:
+    """Inverse of :func:`tree_flatten_vector`: ``like``'s structure, each
+    leaf cut from ``vector`` in canonical order and cast to that leaf's
+    dtype."""
+    out, offset = [], 0
+    for leaf in tree_leaves(like):
+        n = leaf.numel()
+        out.append(vector[offset:offset + n].reshape(leaf.shape)
+                   .to(leaf.dtype))
+        offset += n
+    return tree_like(like, out)
+
+
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_add(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(a: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_dot(a: Tree, b: Tree) -> torch.Tensor:
+    """Σ over leaves of each leaf's fp32 dot product, leaves added in
+    canonical order."""
+    parts = [torch.sum(x.float() * y.float())
+             for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return sum(parts, torch.zeros((), dtype=torch.float32))
+
+
+def tree_norm(a: Tree) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
+
+
+def tree_cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    return tree_map(lambda x: x.to(dtype), tree)
 
 
 def tree_like(tree: Tree, leaves) -> Tree:

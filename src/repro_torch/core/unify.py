@@ -69,3 +69,15 @@ def unify_masked(task_vectors: torch.Tensor, valid: torch.Tensor
     """Eq. 2 over the rows where ``valid`` (K,) holds: invalid rows are
     zeroed before the sign election, which equals dropping them."""
     return unify(task_vectors * valid.to(task_vectors.dtype)[:, None])
+
+
+def unify_with_modulators_masked(task_vectors: torch.Tensor,
+                                 valid: torch.Tensor):
+    """Padding-aware :func:`unify_with_modulators` for one slot-packed
+    client: (τ_n, masks, λs) from (K, d) and ``valid`` (K,) bool; an
+    invalid slot gets an all-False mask row and λ = 0."""
+    tau = unify_masked(task_vectors, valid)
+    masks = task_mask(task_vectors, tau[None, :]) & valid[:, None]
+    lams = task_scaler(task_vectors * valid.to(task_vectors.dtype)[:, None],
+                       masks, tau[None, :])
+    return tau, masks, lams

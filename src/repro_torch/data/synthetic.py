@@ -50,6 +50,14 @@ class Constellation:
     def group_of(self, t: int) -> int:
         return self.tasks[t].group
 
+    def oracle_similarity(self) -> np.ndarray:
+        """Ground-truth task relatedness: cosine similarity of the input
+        transforms the backbone must learn to undo (numpy, the JAX
+        package's computation)."""
+        flats = np.stack([t.r.reshape(-1) for t in self.tasks])
+        flats = flats / (np.linalg.norm(flats, axis=1, keepdims=True) + 1e-12)
+        return flats @ flats.T
+
 
 class _Linalg:
     """Where the constellation's QRs and products run: numpy on the host
