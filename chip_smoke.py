@@ -56,11 +56,15 @@ Phases (any failure raises and the script exits nonzero):
              d_model 896, vocab 151,936; random weights from a seed).
              Kernel checks: ``modulated_matmul`` at B = 8 on the three
              LoRA factor shapes (896, 16), (4864, 16), (16, 896) at S = 1,
-             16 and 128, and on xlstm-1.3b's five at S = 1 and 16 (S <= 16
-             takes the split-K decode route), τ in fp32 and bf16, against
-             its plain version, bitwise with x = I and with one-hot rows at
-             decode, bitwise run to run and B = 1 against B = 8 at S = 1,
-             timed with the device functions a call runs, and a misaligned
+             16 and 128, and on xlstm-1.3b's five at S = 1, 16 and 512
+             (S <= 16 takes the split-K decode route; above it a b-factor
+             the narrow-K kernel, an a-factor the narrow-N kernel), τ in
+             fp32 and bf16, against its plain version, bitwise with x = I
+             and with one-hot rows at decode and at prefill, bitwise run
+             to run and B = 1 against B = 8 at S = 1 and each prefill S,
+             timed with the device functions a call runs beside its plain
+             version, its bound and the product alone (``torch.bmm`` on
+             pre-built weights), and a misaligned
              leaf refused; then one MaTU round
              through ``MaTUServer.round`` at d = 3,588,168 (T = 30, N = 32,
              3–4 tasks each), ``serving_downlink`` → ``ModulatorStore``,
@@ -370,7 +374,10 @@ call) and the host µs a call of every wrapper and of the call path's
 pieces (it also runs from the root of an earlier checkout, to measure
 it); ``--only
 mlstm`` runs setup and kernel 10's checks and timings alone (a quick loop
-for a kernel-10 change); ``--only granite``, ``--only whisper``, ``--only
+for a kernel-10 change); ``--only mm`` kernel 9's checks and timings
+alone at every served model's factor shapes, S = 1 and the prompt S,
+with each model's prefill layer summed (a quick loop for a kernel-9
+change); ``--only granite``, ``--only whisper``, ``--only
 hymba``, ``--only vlm`` and ``--only deepseek`` run setup and the granite,
 whisper, hymba, vlm or deepseek phase alone; ``--only vit``, ``--only
 baselines``, ``--only lmtrain``, ``--only examples``, ``--only async``,
@@ -4550,16 +4557,26 @@ BF16_LOGIT_REL_L2 = 5e-2
 FP32_RTOL, FP32_ATOL = 5e-4, 1e-5
 
 
+# kernel 9's prefill routes (S > DECODE_MAX_S) by
+# ``modulated_matmul.prefill_route``: the device function each launches
+PREFILL_FUNCTIONS = {"narrow_k": "modulated_matmul_narrow_k_kernel",
+                     "narrow_n": "modulated_matmul_narrow_n_kernel",
+                     "tile": "modulated_matmul_kernel<"}
+
+
 def serve_kernel_checks(torch, dev, leaves=None):
     """Kernel 9 at B = SERVE_B on each qwen2 leaf shape at S = 1, the
     decode route's largest S and the prompt length, and on each xlstm
-    leaf shape at S = 1 and the decode route's largest S (or on
-    ``leaves``: [((k, n), sequence lengths, x = I check)]), τ in fp32
-    and bf16: against its plain version within MM_RTOL, bitwise with
-    x = I (qwen2 leaves) and with one-hot rows at decode; at S = 1
-    bitwise deterministic and batch-invariant; a misaligned leaf
-    refused; timed beside its plain version and bound, with the device
-    functions each call runs.  Returns {(k, n, s, tau): numbers}."""
+    leaf shape at S = 1, the decode route's largest S and xlstm's prompt
+    length (or on ``leaves``: [((k, n), sequence lengths, x = I
+    check)]), τ in fp32 and bf16: against its plain version within
+    MM_RTOL, bitwise with x = I (qwen2 leaves) and with one-hot rows at
+    decode and at prefill; at S = 1 and at each prefill S bitwise
+    deterministic and batch-invariant; a misaligned leaf refused; timed
+    beside its plain version, its bound and the product alone
+    (``torch.bmm`` on the pre-built weights, which the port never
+    calls), with the device functions each call runs.  Returns
+    {(k, n, s, tau): numbers}."""
     from repro_torch.kernels import bitpack, ops, ref
     from repro_torch.kernels import modulated_matmul as mm
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -4568,7 +4585,8 @@ def serve_kernel_checks(torch, dev, leaves=None):
     dmax = mm.DECODE_MAX_S
     if leaves is None:
         leaves = ([(kn, (1, dmax, SERVE_PROMPT), True) for kn in SERVE_LEAVES]
-                  + [(kn, (1, dmax), False) for kn in XLSTM_UNIT_MIX])
+                  + [(kn, (1, dmax, XLSTM_PROMPT), False)
+                     for kn in XLSTM_UNIT_MIX])
     for (k, n), seqs, check_eye in leaves:
         for tau_dt in (torch.float32, torch.bfloat16):
             base = torch.randn((k, n), generator=g, device=dev) / k ** 0.5
@@ -4598,6 +4616,26 @@ def serve_kernel_checks(torch, dev, leaves=None):
                 check_equal(torch, f"modulated_matmul one-hot rows "
                             f"{k0}:{k0 + s1} ({k}, {n}) {tau_dt}", got,
                             w_eff[:, k0:k0 + s1])
+            # one-hot rows at prefill: on a b-factor row s = e_(s mod K)
+            # at S 64; on an a-factor 20 rows at the start of K, across
+            # the narrow-N kernel's first 64-row stage boundary and at
+            # the end of K
+            if mm.prefill_route(k, n) == "narrow_k":
+                hot_rows = [torch.arange(64, device=dev) % k]
+            elif mm.prefill_route(k, n) == "narrow_n":
+                hot_rows = [torch.arange(k0, k0 + 20, device=dev)
+                            for k0 in sorted({0, 54, max(0, k - 20)})]
+            else:
+                hot_rows = []
+            for rows in hot_rows:
+                rows = rows[rows < k]
+                hot = torch.eye(k, device=dev)[rows].expand(
+                    b, len(rows), k).contiguous()
+                got = mm.modulated_matmul_cuda(hot, base, tau, words, lam)
+                torch.cuda.synchronize()
+                check_equal(torch, f"modulated_matmul one-hot prefill rows "
+                            f"from {int(rows[0])} ({k}, {n}) {tau_dt}", got,
+                            w_eff[:, rows])
             for s in seqs:
                 x = torch.randn((b, s, k), generator=g, device=dev)
                 got = mm.modulated_matmul_cuda(x, base, tau, words, lam)
@@ -4610,22 +4648,25 @@ def serve_kernel_checks(torch, dev, leaves=None):
                     raise AssertionError(
                         f"modulated_matmul ({k}, {n}) S={s} {tau_dt}: "
                         f"|err| / (|x| @ |w|) = {ratio} > {MM_RTOL}")
-                if s == 1:
+                if s == 1 or s > dmax:
                     again = mm.modulated_matmul_cuda(x, base, tau, words, lam)
                     alone = [mm.modulated_matmul_cuda(
                         x[i:i + 1].contiguous(), base, tau,
                         words[i:i + 1].contiguous(), lam[i:i + 1].contiguous())
                         for i in range(b)]
                     torch.cuda.synchronize()
-                    check_equal(torch, f"modulated_matmul ({k}, {n}) S=1 "
+                    check_equal(torch, f"modulated_matmul ({k}, {n}) S={s} "
                                 f"{tau_dt} run to run", again, got)
-                    check_equal(torch, f"modulated_matmul ({k}, {n}) S=1 "
+                    check_equal(torch, f"modulated_matmul ({k}, {n}) S={s} "
                                 f"{tau_dt} B=1 calls against B={b}",
                                 torch.cat(alone), got)
+                    del again, alone
                 ms = time_ms(torch, lambda: mm.modulated_matmul_cuda(
                     x, base, tau, words, lam))
                 plain_ms = time_ms(torch, lambda: mm.plain(
                     x, base, tau, words, lam))
+                product_ms = time_ms(torch, lambda: torch.bmm(x, w_eff))
+                same = torch.equal(got, torch.bmm(x, w_eff))
                 n_bytes = (x.numel() * 4 + k * n * 4 + k * n
                            * tau.element_size() + words.numel() * 4 + b * 4
                            + b * s * n * 4)
@@ -4635,7 +4676,7 @@ def serve_kernel_checks(torch, dev, leaves=None):
                                         lambda: mm.modulated_matmul_cuda(
                                             x, base, tau, words, lam))
                 route = ("modulated_matmul_splitk_kernel" if s <= dmax
-                         else "modulated_matmul_kernel<")
+                         else PREFILL_FUNCTIONS[mm.prefill_route(k, n)])
                 # late in a long run the profiler can drop some of a
                 # window's events: a window without the route's launch
                 # is taken again, and the check fails only if none has it
@@ -4654,11 +4695,13 @@ def serve_kernel_checks(torch, dev, leaves=None):
                                          f"{route} launch among {list(fns)}")
                 per[(k, n, s, str(tau_dt))] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    max_abs_err=err, rel=ratio, device_ms=dev_ms,
+                    product_ms=product_ms, max_abs_err=err, rel=ratio,
+                    product_bitwise=same, device_ms=dev_ms,
                     device_functions=fns)
                 log(f"modulated_matmul B={b} S={s} (K, N)=({k}, {n}) tau "
                     f"{str(tau_dt)[6:]}: {ms:.4f} ms a call (device "
-                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+                    f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, product "
+                    f"alone {product_ms:.4f} ms (bitwise: {same}), bound "
                     f"{b_ms:.5f} ms ({b_by}); |err|/(|x||w|) {ratio:.2e}, "
                     f"max|err| {err}; a call runs "
                     + ", ".join(f"{c:g} x {f[:60]}" for f, c in fns.items()))
@@ -4744,7 +4787,7 @@ def mm_row(per, s: int, mix=LAYER_MIX):
     of the per-shape times."""
     keys = [((k, n, s, "torch.bfloat16"), c) for (k, n), c in mix.items()]
     tot = {f: sum(per[key][f] * c for key, c in keys)
-           for f in ("ms", "plain_ms", "bound_ms", "device_ms")}
+           for f in ("ms", "plain_ms", "bound_ms", "device_ms", "product_ms")}
     by = {per[key]["bound_by"] for key, _ in keys}
     tot["bound_by"] = by.pop() if len(by) == 1 else "bytes"
     tot["max_abs_err"] = max(v["max_abs_err"] for v in per.values())
@@ -5294,6 +5337,7 @@ def serve_phase(torch, dev, cfg=None):
     dec = mm_row(per, 1)
     pre = mm_row(per, SERVE_PROMPT)
     unit = mm_row(per, 1, XLSTM_UNIT_MIX)
+    unit_pre = mm_row(per, XLSTM_PROMPT, XLSTM_UNIT_MIX)
     rows["modulated_matmul"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/modulated_matmul.cu",
         replaces="src/repro/kernels/modulated_matmul.py:55",
@@ -5307,21 +5351,31 @@ def serve_phase(torch, dev, cfg=None):
         xlstm_unit_ms=unit["ms"], xlstm_unit_device_ms=unit["device_ms"],
         xlstm_unit_plain_ms=unit["plain_ms"],
         xlstm_unit_bound_ms=unit["bound_ms"],
+        xlstm_prefill_unit_device_ms=unit_pre["device_ms"],
+        xlstm_prefill_unit_plain_ms=unit_pre["plain_ms"],
+        xlstm_prefill_unit_bound_ms=unit_pre["bound_ms"],
         per_shape={f"{k}x{n} S={s} tau={t[6:]}": v
                    for (k, n, s, t), v in per.items()},
         check=f"|err| <= {MM_RTOL} (|x| @ |w|) against the plain version; "
-        f"x = I and one-hot decode rows bitwise; S = 1 run to run and B = 1 "
-        f"against B = {SERVE_B} bitwise; misaligned refused (ms / plain / "
+        f"x = I and one-hot decode and prefill rows bitwise; S = 1 and each "
+        f"prefill S run to run and B = 1 against B = {SERVE_B} bitwise; "
+        f"misaligned refused (ms / plain / "
         f"bound: one decode "
         f"layer's six launches, S=1, bf16 tau)")
     log(f"modulated_matmul per decode layer (6 launches, S=1): {dec['ms']:.4f}"
         f" ms of calls (device {dec['device_ms']:.4f} ms), plain "
         f"{dec['plain_ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms; per "
         f"prefill layer (S={SERVE_PROMPT}): {pre['ms']:.4f} ms (device "
-        f"{pre['device_ms']:.4f} ms), plain {pre['plain_ms']:.4f} ms, bound "
+        f"{pre['device_ms']:.4f} ms), plain {pre['plain_ms']:.4f} ms, product "
+        f"alone {pre['product_ms']:.4f} ms, bound "
         f"{pre['bound_ms']:.5f} ms; per xlstm decode unit (8 launches, S=1): "
         f"{unit['ms']:.4f} ms (device {unit['device_ms']:.4f} ms), plain "
-        f"{unit['plain_ms']:.4f} ms, bound {unit['bound_ms']:.5f} ms")
+        f"{unit['plain_ms']:.4f} ms, bound {unit['bound_ms']:.5f} ms; per "
+        f"xlstm prefill unit (8 launches, S={XLSTM_PROMPT}): "
+        f"{unit_pre['ms']:.4f} ms (device {unit_pre['device_ms']:.4f} ms), "
+        f"plain {unit_pre['plain_ms']:.4f} ms, product alone "
+        f"{unit_pre['product_ms']:.4f} ms, bound "
+        f"{unit_pre['bound_ms']:.5f} ms")
     return rows, serve_counts
 
 
@@ -5885,7 +5939,8 @@ def granite_phase(torch, dev, cfg=None):
         f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
         f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={GRANITE_PROMPT}) "
         f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
-        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+        f"{mm_pre['plain_ms']:.4f} ms, product alone "
+        f"{mm_pre['product_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
     b, s, new = GRANITE_B, GRANITE_PROMPT, GRANITE_NEW
     model, g, params, lora0, space = build_served(
         torch, dev, cfg, SEED + 12,
@@ -5997,7 +6052,8 @@ def whisper_phase(torch, dev, cfg=None):
     log(f"modulated_matmul per whisper layer (bf16 tau): encoder (6 "
         f"launches, S={frames}) {mm_enc['ms']:.4f} ms of calls (device "
         f"{mm_enc['device_ms']:.4f} ms), plain {mm_enc['plain_ms']:.4f} ms, "
-        f"bound {mm_enc['bound_ms']:.5f} ms; decoder decode (10 launches, "
+        f"product alone {mm_enc['product_ms']:.4f} ms, bound "
+        f"{mm_enc['bound_ms']:.5f} ms; decoder decode (10 launches, "
         f"S=1) {mm_dec['ms']:.4f} ms (device {mm_dec['device_ms']:.4f} ms), "
         f"plain {mm_dec['plain_ms']:.4f} ms, bound {mm_dec['bound_ms']:.5f} "
         f"ms; decoder prefill (S={s}) {mm_dpre['ms']:.4f} ms (device "
@@ -6221,7 +6277,8 @@ def hymba_phase(torch, dev, cfg=None):
         f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
         f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={s}) "
         f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
-        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+        f"{mm_pre['plain_ms']:.4f} ms, product alone "
+        f"{mm_pre['product_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
     torch.cuda.empty_cache()
     model, g, params, lora0, space = build_served(
         torch, dev, cfg, SEED + 15,
@@ -6357,7 +6414,8 @@ def vlm_phase(torch, dev, cfg=None):
         f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
         f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={n}) "
         f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
-        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+        f"{mm_pre['plain_ms']:.4f} ms, product alone "
+        f"{mm_pre['product_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
     torch.cuda.empty_cache()
     model, g, params, lora0, space = build_served(
         torch, dev, cfg, SEED + 17, (VLM_D, VLM_FINGERPRINT) if full else None,
@@ -6513,7 +6571,8 @@ def deepseek_phase(torch, dev, cfg=None):
         f"{mm_dec['device_ms']:.4f} ms), plain {mm_dec['plain_ms']:.4f} ms, "
         f"bound {mm_dec['bound_ms']:.5f} ms; prefill (S={s}) "
         f"{mm_pre['ms']:.4f} ms (device {mm_pre['device_ms']:.4f} ms), plain "
-        f"{mm_pre['plain_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
+        f"{mm_pre['plain_ms']:.4f} ms, product alone "
+        f"{mm_pre['product_ms']:.4f} ms, bound {mm_pre['bound_ms']:.5f} ms")
     torch.cuda.empty_cache()
     model, g, params, lora0, space = build_served(
         torch, dev, cfg, SEED + 19,
@@ -6595,6 +6654,37 @@ def deepseek_phase(torch, dev, cfg=None):
                 modulated_matmul_layer={"decode": mm_dec, "prefill": mm_pre})
 
 
+def mm_prefill_layers(torch, dev):
+    """Kernel 9 alone at every served model's factor shapes, S = 1 and
+    the model's prompt S (``serve_kernel_checks``' checks), and each
+    model's prefill layer summed from them: a quick loop for a kernel-9
+    change.  Returns {model: that layer's numbers}."""
+    from repro_torch.configs.base import load_arch
+    frames = load_arch(WHISPER_ARCH).enc_frames
+    layers = {"qwen2": (LAYER_MIX, SERVE_PROMPT),
+              "xlstm": (XLSTM_UNIT_MIX, XLSTM_PROMPT),
+              "granite": (GRANITE_LAYER_MIX, GRANITE_PROMPT),
+              "whisper_encoder": (WHISPER_ENC_MIX, frames),
+              "hymba": (HYMBA_LAYER_MIX, HYMBA_PROMPT),
+              "vlm": (VLM_LAYER_MIX, VLM_GRID[0] * VLM_GRID[1] + VLM_PROMPT),
+              "deepseek": (DS_LAYER_MIX, DS_PROMPT)}
+    seqs = {}
+    for mix, s in layers.values():
+        for kn in mix:
+            seqs.setdefault(kn, {1}).add(s)
+    per = serve_kernel_checks(torch, dev, [(kn, tuple(sorted(ss)), True)
+                                           for kn, ss in sorted(seqs.items())])
+    out = {}
+    for name, (mix, s) in layers.items():
+        out[name] = row = mm_row(per, s, mix)
+        log(f"modulated_matmul per {name} prefill layer ({sum(mix.values())}"
+            f" launches, S={s}, bf16 tau): device {row['device_ms']:.4f} ms "
+            f"({row['ms']:.4f} ms of calls), plain {row['plain_ms']:.4f} ms, "
+            f"product alone {row['product_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6650,6 +6740,14 @@ def main() -> int:
         row = mlstm_kernel_checks(torch, dev, load_arch(XLSTM_ARCH))
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"mlstm_chunkwise": row}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--only", "mm"]:
+        # kernel 9's checks and timings alone at every served shape: a
+        # quick loop for a kernel-9 change; no summary, no "ok" line
+        log("== kernel 9 alone ==")
+        out = mm_prefill_layers(torch, dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(out, default=str), flush=True)
         return 0
     if sys.argv[1:] == ["--only", "xlstm"]:
         # the xlstm phase alone (kernel 10's checks, then serving

@@ -3,10 +3,13 @@
 mask kept bit-packed until the kernel builds its weight tile.
 
 CUDA twin of the JAX package's ``modulated_matmul_pallas``;
-``csrc/modulated_matmul.cu`` holds the kernels and their design note:
-one C call takes the tiled prefill kernel for ``S > DECODE_MAX_S`` and,
-at decode, the split-K kernel over the chunks of :func:`decode_chunks`
-followed by a fixed-order sum of the chunks' partials.  Its
+``csrc/modulated_matmul.cu`` holds the kernels and their design note.
+One C call takes one route: at decode (``S <= DECODE_MAX_S``) the
+split-K kernel over the chunks of :func:`decode_chunks`, followed by a
+fixed-order sum of the chunks' partials; at prefill, by
+:func:`prefill_route`, the narrow-K kernel (every LoRA "b" factor), the
+narrow-N kernel (every "a" factor) or the general tile, each output one
+FMA chain over K in ascending order.  Its
 plain version (:func:`repro_torch.kernels.ref.modulated_matmul_ref`,
 unpack then matmul) builds the same effective weights bit for bit; the
 product sums in another order, so the two agree to fp32 tolerance (and
@@ -57,6 +60,20 @@ def decode_workspace_shape(b: int, s: int, k: int, n: int
     if s > DECODE_MAX_S or chunks == 1:
         return None
     return (b, chunks, s, n)
+
+
+# The prefill routes (S > DECODE_MAX_S), chosen in the C call from the
+# leaf's shape: K up to NARROW takes the narrow-K kernel, else N up to
+# NARROW the narrow-N kernel, else the general tile.
+NARROW = 32
+
+
+def prefill_route(k: int, n: int) -> str:
+    """The prefill route of a (K, N) leaf: "narrow_k", "narrow_n" or
+    "tile"."""
+    if k <= NARROW:
+        return "narrow_k"
+    return "narrow_n" if n <= NARROW else "tile"
 
 
 def check_aligned(k: int, n: int) -> None:

@@ -2125,3 +2125,150 @@ def test_cuda_chunked_round_equals_monolithic(cuda, packed, chunk, stale):
     _same_chunked((out_m, downs_m), (out_c, downs_c))
     _same_chunked((ref_out, ref_downs), (out_c, downs_c))
     assert out_c.similarity.is_cuda and out_c.task_vectors.is_cuda
+
+
+# -- kernel 9's prefill routes (S > DECODE_MAX_S) at every served shape ------
+
+# granite-moe-3b-a800m's two LoRA factor shapes at rank 16
+GRANITE_LEAVES = [(1536, 16), (16, 1536)]
+XLSTM_LEAVES = [(2048, 16), (4096, 16), (2730, 16), (16, 2048), (16, 8192)]
+# every served factor shape with its model's prompt S: the narrow-K
+# kernel takes the b-factors (K = 16), the narrow-N kernel the a-factors
+PREFILL_LEAVES = sorted(
+    {(kn, 128) for kn in SERVE_LEAVES + GRANITE_LEAVES}
+    | {(kn, 512) for kn in XLSTM_LEAVES}
+    | {(kn, 1500) for kn in WHISPER_LEAVES}
+    | {(kn, 2040) for kn in HYMBA_LEAVES}
+    | {(kn, 1152) for kn in VLM_LEAVES}
+    | {(kn, 640) for kn in DEEPSEEK_LEAVES})
+PREFILL_KN = sorted({kn for kn, _ in PREFILL_LEAVES})
+
+
+def mm_args_on(seed, cuda, b, s, k, n, tau_dtype):
+    """:func:`mm_args` drawn on the card (the prompt-length x of the
+    largest leaves is hundreds of MB)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, s, k), generator=g, device=cuda)
+    base = torch.randn((k, n), generator=g, device=cuda) / k ** 0.5
+    tau = (0.05 * torch.randn((k, n), generator=g, device=cuda)).to(tau_dtype)
+    words = bitpack.pack_bits(
+        torch.rand((b, k * n), generator=g, device=cuda) < 0.7)
+    lam = torch.rand(b, generator=g, device=cuda) + 0.5
+    return x, base, tau, words, lam
+
+
+def assert_mm_close(args, got):
+    """Within MM_RTOL of the plain version, output by output."""
+    want = modulated_matmul.plain(*args)
+    w_eff = ref.modulated_weight_ref(*args[1:])
+    scale = torch.einsum("bsk,bkn->bsn", args[0].abs(), w_eff.abs())
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert ((got - want).abs() <= MM_RTOL * scale + 1e-30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("s", [17, 100, "prompt"])
+@pytest.mark.parametrize("kn,prompt", PREFILL_LEAVES)
+def test_cuda_modulated_matmul_prefill_matches_plain(cuda, kn, prompt, s, b,
+                                                     tau_dtype):
+    """Every served factor at S 17, a ragged 100 and its model's prompt
+    S, one launch a call."""
+    (k, n), s = kn, prompt if s == "prompt" else s
+    args = mm_args_on(k + n + s + b, cuda, b, s, k, n, tau_dtype)
+    before = modulated_matmul.KERNEL.launches
+    got = modulated_matmul.modulated_matmul_cuda(*args)
+    assert modulated_matmul.KERNEL.launches == before + 1
+    assert_mm_close(args, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("s", [17, 200])
+@pytest.mark.parametrize("k,n", [(1, 32), (6, 16), (17, 96), (16, 50),
+                                 (24, 100), (32, 40), (33, 32), (48, 2),
+                                 (64, 8), (100, 32), (40, 36), (64, 64)])
+def test_cuda_modulated_matmul_prefill_edge_shapes(cuda, k, n, s, b,
+                                                   tau_dtype):
+    """Each route at shapes no model serves: K not a multiple of 4, N
+    not a multiple of 4 or of the kernels' column tiles, N = 32 (the
+    narrow-N kernel's wide instance), both K and N past 32 (the general
+    tile)."""
+    args = mm_args_on(k * n + s + b, cuda, b, s, k, n, tau_dtype)
+    assert_mm_close(args, modulated_matmul.modulated_matmul_cuda(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(896, 16), (2730, 16), (16, 896)])
+def test_cuda_modulated_matmul_prefill_unaligned_x(cuda, k, n):
+    """x starting 4 bytes past a 16-byte boundary moves in 4-byte
+    copies, and gives the aligned call's outputs bit for bit."""
+    args = mm_args_on(k + n, cuda, 8, 100, k, n, torch.bfloat16)
+    flat = torch.empty(args[0].numel() + 1, device=cuda)
+    x = flat[1:].view(args[0].shape)
+    x.copy_(args[0])
+    assert x.data_ptr() % 16 == 4 and x.is_contiguous()
+    got = modulated_matmul.modulated_matmul_cuda(x, *args[1:])
+    want = modulated_matmul.modulated_matmul_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [17, 640])
+@pytest.mark.parametrize("k,n", PREFILL_KN)
+def test_cuda_modulated_matmul_prefill_deterministic_batch_invariant(
+        cuda, k, n, s, tau_dtype):
+    """Two calls on the same inputs are equal bit for bit, and request
+    b's rows of a B = 8 call equal a B = 1 call on request b alone."""
+    x, base, tau, words, lam = mm_args_on(k + s, cuda, 8, s, k, n, tau_dtype)
+    y1 = modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+    y2 = modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+    alone = [modulated_matmul.modulated_matmul_cuda(
+        x[i:i + 1].contiguous(), base, tau, words[i:i + 1].contiguous(),
+        lam[i:i + 1].contiguous()) for i in range(8)]
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    for i in range(8):
+        assert torch.equal(alone[i], y1[i:i + 1]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", PREFILL_KN)
+def test_cuda_modulated_matmul_prefill_one_hot_rows_bitwise(cuda, k, n,
+                                                           tau_dtype):
+    """One-hot rows at S > 16 return rows of the effective weight bit
+    for bit: on a b-factor row s = e_(s mod K) at S 64; on an a-factor
+    x = I[k0:k0+20] at the start of K, across the narrow-N kernel's
+    first 64-row stage boundary and at the end of K."""
+    _, base, tau, words, lam = mm_args_on(13, cuda, 8, 1, k, n, tau_dtype)
+    w_eff = ref.modulated_weight_ref(base, tau, words, lam)
+    eye = torch.eye(k, device=cuda)
+    if modulated_matmul.prefill_route(k, n) == "narrow_k":
+        rows = [torch.arange(64, device=cuda) % k]
+    else:
+        rows = [torch.arange(k0, k0 + 20, device=cuda)
+                for k0 in (0, 64 - 10, k - 20)]
+    for r in rows:
+        x = eye[r].expand(8, len(r), k).contiguous()
+        got = modulated_matmul.modulated_matmul_cuda(x, base, tau, words, lam)
+        torch.cuda.synchronize()
+        assert torch.equal(got, w_eff[:, r]), int(r[0])
+
+
+@pytest.mark.cuda
+def test_cuda_modulated_matmul_prefill_refusal_raises(cuda):
+    """No fallback: a prefill launch the kernel refuses (here the
+    general tile past its 65,535 S-tiles of 16 rows) raises and counts
+    no launch."""
+    s = 65535 * 16 + 1
+    args = mm_args_on(5, cuda, 1, s, 64, 64, torch.bfloat16)
+    before = modulated_matmul.KERNEL.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        modulated_matmul.modulated_matmul_cuda(*args)
+    assert modulated_matmul.KERNEL.launches == before
